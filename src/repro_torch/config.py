@@ -1,0 +1,84 @@
+"""Kernel policy and device resolution for the PyTorch/CUDA port.
+
+``KernelPolicy`` is the one value object that decides which kernels run.
+It has no environment reads: a caller builds one and passes it (to
+``build_shred``, ``QueryEngine``, the probe routes), and the default is
+``KernelPolicy()``.
+
+The port keeps two budgets of its own, both in int32 elements:
+
+  * ``arena_limit`` — the largest index arena ``pack_index`` packs. The
+    arena lives in device memory and is read through L2, so the only real
+    limit is that every offset into it fits int32.
+  * ``draw_limit`` — the largest arena the one-launch fused draw takes.
+    It defaults to the reference's own VMEM budget (2^21), so draws route
+    exactly as the reference routes them: the float32 fused draw loses
+    cell resolution as the arrival mass grows, and this budget keeps it
+    where the reference keeps it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["KernelPolicy", "DEFAULT_POLICY", "ARENA_LIMIT", "DRAW_LIMIT",
+           "resolve_device", "device_name"]
+
+# Every arena offset and every probe position must fit int32.
+ARENA_LIMIT = (1 << 31) - 1
+# The reference's fused-draw budget (its DEFAULT_VMEM_LIMIT).
+DRAW_LIMIT = 1 << 21
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """How the port selects its kernels.
+
+    enabled      master switch: False routes every wrapper through its
+                 library fallback (``torch.searchsorted``) and the per-node
+                 GET, and disables the fused draw.
+    prefer       take the kernel routes on CPU tensors too, where the
+                 wrappers run their plain versions (tests pin the routes
+                 with it). On CUDA tensors the kernel routes are taken
+                 whenever ``enabled``.
+    arena_limit  int32 elements: the largest arena ``pack_index`` packs.
+    draw_limit   int32 elements: the largest arena the fused draw takes.
+    fused_draw   allow the one-launch fused draw in ``kernels='auto'``.
+    """
+
+    enabled: bool = True
+    prefer: bool = False
+    arena_limit: int = ARENA_LIMIT
+    draw_limit: int = DRAW_LIMIT
+    fused_draw: bool = True
+
+    def preferred(self, device) -> bool:
+        """Should hot paths take the kernel routes for tensors on
+        ``device``? Always on CUDA (when enabled); on the CPU only when
+        ``prefer`` pins it."""
+        kind = torch.device(device).type
+        return self.enabled and (self.prefer or kind == "cuda")
+
+
+DEFAULT_POLICY = KernelPolicy()
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Raises when CUDA is asked for (or
+    defaulted to) and absent: entry points never fall back to the CPU;
+    only an explicit ``device='cpu'`` runs there."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain versions")
+    return dev
+
+
+def device_name(device=None) -> str:
+    """The device's name: the card's product name, or 'cpu'."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return "cpu"

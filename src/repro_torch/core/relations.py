@@ -1,0 +1,72 @@
+"""Column-store relations (struct-of-arrays) on torch tensors.
+
+A relation is a mapping ``attribute -> 1-D tensor``, all of equal length,
+all on one device. Tuples are addressed positionally (offset i), like the
+paper's ``R[i](ybar)`` notation. Dangling tuples are kept with weight zero
+by the index build rather than compacted, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+__all__ = ["Relation", "dense_keys"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Relation:
+    """An immutable column-store relation.
+
+    columns: mapping attribute name -> tensor of shape (n,).
+    """
+
+    columns: Dict[str, torch.Tensor]
+
+    @property
+    def num_rows(self) -> int:
+        if not self.columns:
+            return 0
+        return next(iter(self.columns.values())).shape[0]
+
+    def column(self, name: str) -> torch.Tensor:
+        return self.columns[name]
+
+    def project(self, attrs: Sequence[str]) -> "Relation":
+        return Relation({a: self.columns[a] for a in attrs})
+
+    def validate(self) -> None:
+        lens = {v.shape[0] for v in self.columns.values()}
+        if len(lens) > 1:
+            raise ValueError(
+                f"ragged columns: { {a: tuple(v.shape) for a, v in self.columns.items()} }")
+
+
+def dense_keys(left: Sequence[torch.Tensor], right: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map multi-column join keys of two relations to one dense int64 id.
+
+    The same attribute tuple receives the same id on both sides. The ids
+    are the reference's: the dense rank of each distinct tuple in lexsort
+    order, LAST column primary. Torch has no ``lexsort``, so stable
+    argsorts are chained from the first column to the last — the last
+    sort decides first, exactly like lexsort's key order.
+    """
+    assert len(left) == len(right) and left
+    m = left[0].shape[0]
+    cols = [torch.cat([l.to(torch.int64), r.to(torch.int64)])
+            for l, r in zip(left, right)]
+    order = torch.arange(cols[0].shape[0], device=cols[0].device)
+    for c in cols:
+        order = order[torch.argsort(c[order], stable=True)]
+    sorted_cols = [c[order] for c in cols]
+    diff = torch.zeros(sorted_cols[0].shape, dtype=torch.bool,
+                       device=order.device)
+    for c in sorted_cols:
+        head = torch.ones((1,), dtype=torch.bool, device=order.device)
+        diff = diff | torch.cat([head, c[1:] != c[:-1]])[:c.shape[0]]
+    gid_sorted = torch.cumsum(diff.to(torch.int64), 0) - 1
+    gid = torch.empty_like(gid_sorted)
+    gid[order] = gid_sorted
+    return gid[:m], gid[m:]
