@@ -3,10 +3,11 @@
 
 Drives the port's main path through its entry points at JOB scale: the
 index build, the full join through the ``tree_probe`` kernel, Poisson
-sampling through the per-node route (``bsearch_probe`` + ``tree_probe``)
-and through the one-launch ``fused_draw`` kernel. It builds every kernel
-from ``src/repro_torch/kernels/csrc/``, holds each against its plain
-PyTorch version on the card, checks the join against an independent numpy
+sampling through the per-node route (``bsearch_probe`` + ``tree_probe``),
+through the one-launch ``fused_draw`` kernel, and through the paged draw
+(``fused_sample`` + ``tree_probe_paged``). It builds every kernel from
+``src/repro_torch/kernels/csrc/``, holds each against its plain PyTorch
+version on the card, checks the join against an independent numpy
 expansion and the samples against the join and their expected size, and
 times each kernel beside its bound.
 
@@ -20,6 +21,11 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        budget, so ``sample`` takes the per-node route;
   B  job-imdb-serving  32,000 titles, the same ratios — arena within the
                        budget, so ``sample`` takes the fused draw.
+  C  job-imdb-paged    60,000 titles, the same ratios — arena over the
+                       fused draw's budget but every page within it, so
+                       ``sample`` takes the paged draw (as the reference
+                       routes it); the full IMDB arena is over the paged
+                       rung's own ceiling.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and exits non-zero without one. The last line is
@@ -30,6 +36,7 @@ power limit as ``nvidia-smi`` reports them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -217,7 +224,9 @@ def run(args, device, kernel_policy=None) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core import Atom, Database, JoinQuery, estimate, sampling
+    from repro_torch.config import KernelPolicy
+    from repro_torch.core import (Atom, Database, JoinQuery, PagedArena,
+                                  estimate, sampling)
     from repro_torch.engine import QueryEngine
     from repro_torch.kernels import bsearch_probe as bp_mod
     from repro_torch.kernels import build, fused_draw as fd_mod
@@ -227,7 +236,10 @@ def run(args, device, kernel_policy=None) -> dict:
     on_card = device.type == "cuda"
     kernels = {"tree_probe": tp_mod.tree_probe,
                "bsearch_probe": bp_mod.bsearch_probe,
-               "fused_draw": fd_mod.fused_draw}
+               "fused_draw": fd_mod.fused_draw,
+               "fused_sample": fd_mod.fused_sample,
+               "tree_probe_paged": tp_mod.tree_probe_paged,
+               "tree_probe_paged_dma": tp_mod.tree_probe_paged_dma}
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -248,7 +260,8 @@ def run(args, device, kernel_policy=None) -> dict:
                    Atom.of("Comp", "t", "comp")), prob_var="p")
     configs = {}
     for label, n_t, seed in (("A", args.title_rows, args.seed),
-                             ("B", args.serving_title_rows, args.seed + 1)):
+                             ("B", args.serving_title_rows, args.seed + 1),
+                             ("C", args.paged_title_rows, args.seed + 2)):
         t0 = time.perf_counter()
         tables = make_tables(seed, n_t)
         engine = QueryEngine(Database.from_columns(tables, device=device),
@@ -266,8 +279,10 @@ def run(args, device, kernel_policy=None) -> dict:
         configs[label] = (tables, engine, plan)
     tabA, engA, planA = configs["A"]
     tabB, engB, planB = configs["B"]
+    tabC, engC, planC = configs["C"]
     assert planA.route == "pernode" and planA.rep_default == "usr_fused"
     assert planB.route == "fused" and planB.rep_default == "usr_fused"
+    assert planC.route == "paged" and planC.rep_default == "usr_fused"
 
     # -- 3. kernels against their plain versions, at the main path's shapes
     errs = {}
@@ -310,6 +325,48 @@ def run(args, device, kernel_policy=None) -> dict:
         assert not bool(got[3]), kwx["method"]
         errs["fused_draw"] = max(errs["fused_draw"], *(
             max_abs_err(g, w) for g, w in zip(got, want)))
+    # The paged rung's kernels at C's shapes. fused_sample: EXPRACE, the
+    # extreme-p mix and flat PTBERN (n = the join, within draw_limit).
+    packC = planC.shred.packed
+    pvC = PagedArena.from_packed(packC)
+    nC, capC, acapC = planC.join_size, planC.default_capacity(), \
+        planC.arrival_capacity()
+    keyC = threefry.key(args.seed + 2)
+    p_mixC = torch.as_tensor(rng.choice(
+        [0.0, 0.02, 0.3, 0.5, 0.7, 0.98, 1.0], planC.w.numel())).to(device)
+    mixedC = sampling.fused_draw_params(planC.w, p_mixC, planC.prefE)
+    errs["fused_sample"] = 0.0
+    for params, kwx in (
+            (planC.draw_params, dict(method="exprace", cap=capC,
+                                     acap=acapC)),
+            (mixedC, dict(method="exprace",
+                          cap=engC.policy.sample_capacity(planC.w, p_mixC),
+                          acap=engC.policy.arrival_capacity(planC.w,
+                                                            p_mixC))),
+            (planC.draw_params, dict(method="ptbern_flat", cap=capC,
+                                     n=nC))):
+        got = fd_mod.fused_sample(keyC, params, **kwx)
+        want = fd_mod.fused_sample_plain(keyC, params, **kwx)
+        assert not bool(got[2]), kwx
+        errs["fused_sample"] = max(errs["fused_sample"], *(
+            max_abs_err(g, w) for g, w in zip(got, want)))
+        # The same positions, count and overflow as the fused draw's.
+        for run_draw in (fd_mod.fused_draw, fd_mod.fused_draw_plain):
+            full = run_draw(packC.arena, keyC, params, layout=packC.layout,
+                            **kwx)
+            for g, f in zip(got, full[1:]):
+                assert torch.equal(g, f), (kwx, run_draw.__name__)
+    log(f"[check] fused_sample at C: positions, count and overflow equal "
+        f"fused_draw's (kernel and plain) for EXPRACE, the extreme-p mix "
+        f"and flat PTBERN")
+    # tree_probe_paged, both forms, over every position of C.
+    posC = torch.arange(nC, dtype=torch.int32, device=device)
+    want = tp_mod.tree_probe_plain(packC.arena, posC, packC.layout)
+    errs["tree_probe_paged"] = max_abs_err(
+        tp_mod.tree_probe_paged(pvC, posC), want)
+    errs["tree_probe_paged_dma"] = max_abs_err(
+        tp_mod.tree_probe_paged(pvC, posC, dma=True), want)
+    del want
     u_dev = threefry.uniforms(keyB, acapB, 0, device)
     u_plain = threefry.uniforms_plain(keyB, acapB, 0, device)
     errs["threefry"] = max_abs_err(u_dev, u_plain)
@@ -369,8 +426,63 @@ def run(args, device, kernel_policy=None) -> dict:
     assert abs(zB) < Z_LIMIT
     check_join(fullB, tabB, "B")
     assert (engB.stats.shred_builds, engB.stats.plan_misses) == (1, 1), engB.stats
+
+    # -- 5b. config C: the main path, paged draw ----------------------------
+    for fn in kernels.values():
+        fn.launches = 0
+    fullC = engC.full_join(q)
+    counts = [check_sample(engC.sample(q, threefry.key(3000 + s)), fullC, "C")
+              for s in range(args.draws)]
+    launchesC = {k: fn.launches for k, fn in kernels.items()}
+    log(f"[C] launches {launchesC}")
+    if on_card:
+        assert launchesC["fused_sample"] == args.draws
+        assert launchesC["tree_probe_paged"] == (
+            args.draws * (1 + len(packC.layout.edges)))
+        assert launchesC["fused_draw"] == 0 and launchesC["tree_probe"] > 0
+    meanC = planC.expected_k()
+    sdC = float(estimate.sample_std(planC.w, planC.p))
+    zC = (float(np.mean(counts)) - meanC) / (sdC / math.sqrt(len(counts)))
+    log(f"[C] {len(counts)} draws: mean count {np.mean(counts):.1f} vs "
+        f"E[k] {meanC:.1f}, z {zC:+.2f}")
+    assert abs(zC) < Z_LIMIT
+    check_join(fullC, tabC, "C")
+    assert (engC.stats.shred_builds, engC.stats.plan_misses) == (1, 1), engC.stats
+
+    # -- 5c. config C under the reference's single budget (the draw budget,
+    # 2^21, for the arena too): the index pages at build and the GET takes
+    # the paged rung, as in the reference. Its draws are held against C's.
+    keysR = [threefry.key(3000 + s) for s in range(2)]
+    wantR = [engC.sample(q, key) for key in keysR]
+    for fn in kernels.values():
+        fn.launches = 0
+    pol = kernel_policy or KernelPolicy()
+    engR = QueryEngine(engC.db, device=device,
+                       kernel_policy=dataclasses.replace(
+                           pol, arena_limit=pol.draw_limit))
+    planR = engR.compile(q)
+    assert planR.shred.packed is None and planR.shred.paged is not None
+    assert planR.route == "paged" and planR.rep_default == "usr_paged"
+    fullR = engR.full_join(q)
+    for key, b in zip(keysR, wantR):
+        a = engR.sample(q, key)
+        assert torch.equal(a.positions, b.positions)
+        for v in a.columns:
+            assert torch.equal(a.columns[v], b.columns[v]), v
+    launchesR = {k: fn.launches for k, fn in kernels.items()}
+    for v, col in fullC.items():
+        assert torch.equal(fullR[v], col), v
+    log(f"[C, arena_limit={pol.draw_limit}] paged index (pages "
+        f"{[e - s for s, e in planR.shred.paged.layout.page_bounds()]}), "
+        f"GET {planR.rep_default}, draw {planR.route}: full join and "
+        f"{len(keysR)} draws equal C's; launches {launchesR}")
+    if on_card:
+        assert launchesR["tree_probe"] == 0 and launchesR["fused_draw"] == 0
+        assert launchesR["fused_sample"] == len(keysR)
+        assert launchesR["tree_probe_paged"] == (1 + len(keysR)) * (
+            1 + len(packC.layout.edges))
     for k in kernels:
-        launches[k] = launchesA[k] + launchesB[k]
+        launches[k] = launchesA[k] + launchesB[k] + launchesC[k] + launchesR[k]
 
     # -- 6. times --------------------------------------------------------------
     steps = bp_mod.steps_for
@@ -407,12 +519,56 @@ def run(args, device, kernel_policy=None) -> dict:
     b_ms, b_by = bound(draw_bytes, draw_ops)
     rows.append(("fused_draw", "src/repro/kernels/fused_draw.py:212",
                  ms, plain_ms, b_ms, b_by, None))
+    # fused_sample at C's main-path shapes: the draw without the walk.
+    kwC = dict(method="exprace", cap=capC, acap=acapC)
+    ms = timed(lambda: fd_mod.fused_sample(keyC, planC.draw_params, **kwC),
+               reps, device)
+    plain_ms = timed(lambda: fd_mod.fused_sample_plain(
+        keyC, planC.draw_params, **kwC), 1, device)
+    RC = planC.w.numel()
+    s_acap, s_R = steps(acapC + 1), steps(RC + 2)
+    b_ms, b_by = bound(4 * (7 * (RC + 1) + capC + 2),
+                       acapC * (150 + 6 * 2 * s_R + 40)
+                       + (RC + 1) * 6 * s_acap
+                       + capC * (6 * (s_R + 2 * s_acap) + 30))
+    rows.append(("fused_sample", "src/repro/kernels/fused_draw.py:261",
+                 ms, plain_ms, b_ms, b_by, None))
+    # tree_probe_paged, both forms, at the paged draw's shape: one draw's
+    # positions, sentinels clamped as draw_paged clamps them.
+    posS = torch.clamp(fd_mod.fused_sample(keyC, planC.draw_params, **kwC)[0],
+                       max=nC - 1)
+    lay = packC.layout
+    b_ms, b_by = bound(4 * (lay.size + capC * (1 + lay.num_slots)),
+                       capC * walk_ops(lay, steps))
+    for name, dma, replaces in (
+            ("tree_probe_paged", None, "src/repro/kernels/tree_probe.py:195"),
+            ("tree_probe_paged_dma", True,
+             "src/repro/kernels/tree_probe.py:274")):
+        ms = timed(lambda: tp_mod.tree_probe_paged(pvC, posS, dma=dma), reps,
+                   device)
+        plain_ms = timed(lambda: tp_mod.tree_probe_paged_plain(
+            pvC, posS, dma=bool(dma)), 1, device)
+        rows.append((name, replaces, ms, plain_ms, b_ms, b_by, None))
+    # Both forms and the monolithic walk over the whole join of C (the
+    # paged GET's shape), side by side.
+    get_ms = {
+        "per-page": timed(lambda: tp_mod.tree_probe_paged(pvC, posC), reps,
+                          device),
+        "one-launch": timed(lambda: tp_mod.tree_probe_paged(pvC, posC,
+                                                            dma=True),
+                            reps, device),
+        "tree_probe": timed(lambda: tp_mod.tree_probe(packC.arena, posC, lay),
+                            reps, device)}
+    log(f"[time] walks of all {nC} positions of C (ms): {get_ms}")
 
+    sources = {"fused_sample": "fused_draw.cu",
+               "tree_probe_paged_dma": "tree_probe_paged.cu"}
     table = []
     for name, replaces, ms, plain_ms, b_ms, b_by, lib_ms in rows:
         table.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": "src/repro_torch/kernels/csrc/"
+                      + sources.get(name, f"{name}.cu"),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
@@ -424,6 +580,7 @@ def run(args, device, kernel_policy=None) -> dict:
         "full_join_A_ms": wall_ms(lambda: engA.full_join(q), device),
         "sample_A_ms": wall_ms(lambda: engA.sample(q, threefry.key(7)), device),
         "sample_B_ms": wall_ms(lambda: engB.sample(q, threefry.key(7)), device),
+        "sample_C_ms": wall_ms(lambda: engC.sample(q, threefry.key(7)), device),
     }
     for k, v in e2e.items():
         log(f"[time] warm {k}: {v:.3f}")
@@ -438,10 +595,14 @@ def run(args, device, kernel_policy=None) -> dict:
             "sample_B": profile_window(
                 lambda: engB.sample(q, threefry.key(7)), "sample(B)",
                 e2e["sample_B_ms"]),
+            "sample_C": profile_window(
+                lambda: engC.sample(q, threefry.key(7)), "sample(C)",
+                e2e["sample_C_ms"]),
         }
     if on_card:
         e2e["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(device))
         log(f"[memory] peak device memory {e2e['peak_device_bytes'] / 2**30:.2f} GiB")
+    e2e["walks_C_ms"] = get_ms
     return {"kernels": table, "end_to_end": e2e,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
@@ -458,8 +619,11 @@ def main(argv=None) -> int:
                     help="Title rows of config A (job-imdb)")
     ap.add_argument("--serving-title-rows", type=int, default=32_000,
                     help="Title rows of config B (job-imdb-serving)")
+    ap.add_argument("--paged-title-rows", type=int, default=60_000,
+                    help="Title rows of config C (job-imdb-paged)")
     ap.add_argument("--keys", type=int, default=3, help="draws of config A")
-    ap.add_argument("--draws", type=int, default=32, help="draws of config B")
+    ap.add_argument("--draws", type=int, default=32,
+                    help="draws of configs B and C")
     ap.add_argument("--reps", type=int, default=5, help="timed kernel calls")
     ap.add_argument("--profile", action="store_true",
                     help="also break the warm calls down by device kernel")

@@ -5,16 +5,26 @@ It has no environment reads: a caller builds one and passes it (to
 ``build_shred``, ``QueryEngine``, the probe routes), and the default is
 ``KernelPolicy()``.
 
-The port keeps two budgets of its own, both in int32 elements:
+The port keeps three budgets of its own, all in int32 elements:
 
-  * ``arena_limit`` — the largest index arena ``pack_index`` packs. The
-    arena lives in device memory and is read through L2, so the only real
-    limit is that every offset into it fits int32.
-  * ``draw_limit`` — the largest arena the one-launch fused draw takes.
-    It defaults to the reference's own VMEM budget (2^21), so draws route
-    exactly as the reference routes them: the float32 fused draw loses
-    cell resolution as the arrival mass grows, and this budget keeps it
-    where the reference keeps it.
+  * ``arena_limit`` — the largest index arena ``pack_index`` packs as one
+    buffer, and the largest page the paged GET takes. The arena lives in
+    device memory and is read through L2, so the only real limit is that
+    every offset into it fits int32.
+  * ``draw_limit`` — the largest arena the one-launch fused draw takes,
+    and the largest page the paged draw takes. It defaults to the
+    reference's own VMEM budget (2^21), so draws route exactly as the
+    reference routes them: the float32 draw loses cell resolution as the
+    arrival mass grows, and this budget keeps it where the reference
+    keeps it.
+  * ``paged_limit`` — the largest arena the paged rung takes (the
+    reference's ``PAGED_PACK_LIMIT``, 2^25).
+
+The ladders, as in the reference: an arena within ``arena_limit`` packs
+as one buffer; over it, ``pack_index`` pages it when every page fits
+``arena_limit`` and the whole fits ``paged_limit``. The draw is ``fused``
+when the packed arena fits ``draw_limit``, else ``paged`` when every page
+fits ``draw_limit`` and the whole fits ``paged_limit``, else ``pernode``.
 """
 from __future__ import annotations
 
@@ -23,12 +33,14 @@ import dataclasses
 import torch
 
 __all__ = ["KernelPolicy", "DEFAULT_POLICY", "ARENA_LIMIT", "DRAW_LIMIT",
-           "resolve_device", "device_name"]
+           "PAGED_LIMIT", "resolve_device", "device_name"]
 
 # Every arena offset and every probe position must fit int32.
 ARENA_LIMIT = (1 << 31) - 1
 # The reference's fused-draw budget (its DEFAULT_VMEM_LIMIT).
 DRAW_LIMIT = 1 << 21
+# The reference's ceiling on a paged arena (its PAGED_PACK_LIMIT).
+PAGED_LIMIT = 1 << 25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,15 +54,20 @@ class KernelPolicy:
                  wrappers run their plain versions (tests pin the routes
                  with it). On CUDA tensors the kernel routes are taken
                  whenever ``enabled``.
-    arena_limit  int32 elements: the largest arena ``pack_index`` packs.
-    draw_limit   int32 elements: the largest arena the fused draw takes.
-    fused_draw   allow the one-launch fused draw in ``kernels='auto'``.
+    arena_limit  int32 elements: the largest arena ``pack_index`` packs,
+                 and the largest page of the paged GET.
+    draw_limit   int32 elements: the largest arena the fused draw takes,
+                 and the largest page of the paged draw.
+    paged_limit  int32 elements: the largest arena the paged rung takes.
+    fused_draw   allow the kernel draws (fused, then paged) in
+                 ``kernels='auto'``.
     """
 
     enabled: bool = True
     prefer: bool = False
     arena_limit: int = ARENA_LIMIT
     draw_limit: int = DRAW_LIMIT
+    paged_limit: int = PAGED_LIMIT
     fused_draw: bool = True
 
     def preferred(self, device) -> bool:

@@ -17,10 +17,12 @@ The arena: every probe table (``root_prefE``, then per tree edge in
 pre-order ``child_start``, ``child_w``, the child's ``cumw_excl`` and
 ``perm``) narrowed to int32 and packed into one flat device buffer, which
 the GET and draw kernels read through L2. It is packed iff every value
-fits int32 and the arena is within ``KernelPolicy.arena_limit``.
+fits int32 and the arena is within ``KernelPolicy.arena_limit``; over it,
+it is paged (``PagedArena``: one page for the root prefix, one per tree
+edge) iff every page fits ``arena_limit`` and the whole ``paged_limit``.
 
-Not ported yet (ROADMAP queue A): the CSR link columns' GET, the paged
-arena and incremental reshredding.
+Not ported yet (ROADMAP queue A): the CSR link columns' GET and
+incremental reshredding.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from .jointree import JoinQuery, JoinTreeNode, gyo_join_tree, reroot_for
 from .relations import Relation, dense_keys
 
 __all__ = ["ShredNode", "Shred", "build_shred", "build_plan", "PackedShred",
-           "ArenaLayout", "ArenaEdge", "pack_index", "shred_from_arrays"]
+           "PagedArena", "ArenaLayout", "ArenaEdge", "pack_index",
+           "shred_from_arrays"]
 
 I64 = torch.int64
 I32 = torch.int32
@@ -117,13 +120,72 @@ class ArenaLayout:
     def num_slots(self) -> int:
         return len(self.names)
 
+    def page_bounds(self) -> Tuple[Tuple[int, int], ...]:
+        """Per-page ``(start, end)`` element ranges of the paged split:
+        page 0 is the root prefix, page ``i + 1`` is edge ``i``'s four
+        columns (laid out consecutively), so the pages are contiguous
+        slices that concatenate back to the whole arena."""
+        return ((0, self.root_len),) + tuple(
+            (e.cs_off, e.perm_off + e.n_child) for e in self.edges)
+
+    @property
+    def max_page(self) -> int:
+        """The largest page in int32 elements (what the paged rung gates
+        against its page budget)."""
+        return max(end - start for start, end in self.page_bounds())
+
 
 @dataclasses.dataclass
 class PackedShred:
-    """The int32 index arena plus its layout."""
+    """The int32 index arena plus its layout (and, once asked for, its
+    paged view: ``PagedArena.from_packed``)."""
 
     arena: torch.Tensor  # (size,) int32
     layout: ArenaLayout
+    _paged: Optional["PagedArena"] = dataclasses.field(default=None,
+                                                       repr=False)
+
+
+@dataclasses.dataclass
+class PagedArena:
+    """The same int32 index as ``PackedShred``, addressed page by page.
+
+    ``buffer`` is the whole arena in one contiguous tensor and ``pages``
+    are views of it (``layout.page_bounds()``): paging copies nothing, and
+    the plain draw reads the buffer itself. ``stacked()`` is the
+    one-launch walk's operand, built on first use and kept."""
+
+    buffer: torch.Tensor  # (size,) int32
+    layout: ArenaLayout
+    _stacked: Optional[Tuple[torch.Tensor, int]] = dataclasses.field(
+        default=None, repr=False)
+
+    @property
+    def pages(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(self.buffer[s:e] for s, e in self.layout.page_bounds())
+
+    @classmethod
+    def from_packed(cls, packed: PackedShred) -> "PagedArena":
+        """The paged view of a monolithic arena (a call-time policy with a
+        smaller budget pages an already-packed index without a rebuild),
+        made once per arena and kept with it."""
+        if packed._paged is None:
+            packed._paged = cls(packed.arena, packed.layout)
+        return packed._paged
+
+    def stacked(self) -> Tuple[torch.Tensor, int]:
+        """``(pages, P)``: the pages stacked into one ``(npages, P)``
+        int32 tensor, each zero-padded to ``P``, the largest page rounded
+        up to 128 elements."""
+        if self._stacked is None:
+            P = -(-self.layout.max_page // 128) * 128
+            bounds = self.layout.page_bounds()
+            out = torch.zeros((len(bounds), P), dtype=I32,
+                              device=self.buffer.device)
+            for i, (s, e) in enumerate(bounds):
+                out[i, :e - s] = self.buffer[s:e]
+            self._stacked = (out, P)
+        return self._stacked
 
 
 def _arena_pieces(root: ShredNode, root_prefE: torch.Tensor):
@@ -164,18 +226,28 @@ def _arena_pieces(root: ShredNode, root_prefE: torch.Tensor):
 
 def pack_index(root: ShredNode, root_prefE: torch.Tensor,
                policy: KernelPolicy = DEFAULT_POLICY
-               ) -> Optional[PackedShred]:
-    """Pack the shred's probe tables into one int32 device arena, or
-    return ``None`` (narrowing refused, or the arena is over the policy's
-    ``arena_limit``) — then the per-node int64 path stands."""
+               ) -> Tuple[Optional[PackedShred], Optional[PagedArena]]:
+    """Pack the shred's probe tables into int32 device memory. Returns
+    ``(packed, paged)``, at most one of them not ``None``:
+
+      * the arena fits ``arena_limit``            -> ``PackedShred``;
+      * over it, but every page fits ``arena_limit`` and the whole fits
+        ``paged_limit``                           -> ``PagedArena``;
+      * narrowing refused, or too large to page   -> ``(None, None)``:
+        the per-node int64 path stands.
+    """
     got = _arena_pieces(root, root_prefE)
     if got is None:
-        return None
+        return None, None
     pieces, layout = got
-    if layout.size > policy.arena_limit:
-        return None
+    whole = layout.size <= policy.arena_limit
+    if not whole and (layout.size > policy.paged_limit
+                      or layout.max_page > policy.arena_limit):
+        return None, None
     arena = torch.cat([p.to(I32) for p in pieces])
-    return PackedShred(arena, layout)
+    if whole:
+        return PackedShred(arena, layout), None
+    return None, PagedArena(arena, layout)
 
 
 @dataclasses.dataclass
@@ -183,13 +255,15 @@ class Shred:
     """The full shredded random-access index: root node + root prefix.
 
     root_prefE: (n_root + 1,) int64 exclusive prefix of root weights;
-    root_prefE[-1] == |Q(db)|. ``packed`` is the int32 arena, or ``None``.
+    root_prefE[-1] == |Q(db)|. ``packed`` is the int32 arena and
+    ``paged`` its paged form; ``pack_index`` sets at most one of them.
     """
 
     root: ShredNode
     root_prefE: torch.Tensor
     rep: str  # 'usr' | 'both'
     packed: Optional[PackedShred] = None
+    paged: Optional[PagedArena] = None
 
     @property
     def join_size(self) -> torch.Tensor:
@@ -340,8 +414,9 @@ def build_shred(db: Database, query: JoinQuery, rep: str = "usr",
     root = _build_node(plan, db, rep, frozenset())
     zero = torch.zeros((1,), dtype=I64, device=db.device)
     prefE = torch.cat([zero, torch.cumsum(root.weight, 0)])
-    packed = pack_index(root, prefE, policy)
-    return Shred(root=root, root_prefE=prefE, rep=rep, packed=packed)
+    packed, paged = pack_index(root, prefE, policy)
+    return Shred(root=root, root_prefE=prefE, rep=rep, packed=packed,
+                 paged=paged)
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +449,10 @@ def _node_from_arrays(nd: dict, device) -> ShredNode:
 def shred_from_arrays(tree: dict, device=None) -> Shred:
     """Build a ``Shred`` from a nested dict of numpy arrays.
 
-    ``tree`` holds ``rep``, ``root_prefE``, ``root`` (a node dict) and
-    ``arena``/``layout`` (``None`` when no arena was packed). A node dict
+    ``tree`` holds ``rep``, ``root_prefE``, ``root`` (a node dict),
+    ``arena`` (the packed arena) or ``pages`` (a paged arena's pages, in
+    order), and ``layout``; a missing or ``None`` entry means that form
+    was not built. A node dict
     holds ``name``, ``variables``, ``owned``, ``data`` (column -> array),
     ``weight``, ``perm``, ``cumw_excl``, ``nxt`` (``None`` on the root),
     the per-child lists ``child_start``, ``child_w``, ``child_len``,
@@ -386,17 +463,22 @@ def shred_from_arrays(tree: dict, device=None) -> Shred:
     from repro_torch.config import resolve_device
 
     dev = resolve_device(device)
-    packed = None
-    if tree.get("arena") is not None:
+    packed = paged = None
+    if tree.get("layout") is not None:
         lay = tree["layout"]
         layout = ArenaLayout(tuple(lay["names"]), int(lay["n_root"]),
                              int(lay["root_len"]),
                              tuple(ArenaEdge(*map(int, e))
                                    for e in lay["edges"]),
                              int(lay["size"]))
-        arena = torch.from_numpy(np.array(tree["arena"], np.int32)).to(dev)
-        packed = PackedShred(arena, layout)
+        if tree.get("arena") is not None:
+            arena = torch.from_numpy(np.array(tree["arena"], np.int32))
+            packed = PackedShred(arena.to(dev), layout)
+        elif tree.get("pages") is not None:
+            flat = np.concatenate([np.asarray(p, np.int32)
+                                   for p in tree["pages"]])
+            paged = PagedArena(torch.from_numpy(flat).to(dev), layout)
     return Shred(root=_node_from_arrays(tree["root"], dev),
                  root_prefE=torch.from_numpy(
                      np.array(tree["root_prefE"])).to(dev),
-                 rep=tree["rep"], packed=packed)
+                 rep=tree["rep"], packed=packed, paged=paged)

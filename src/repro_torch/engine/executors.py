@@ -31,6 +31,11 @@ def _sample(shred: Shred, w, p, prefE, key, cap: int, rep: str, method: str,
             shred, dparams, key, method=method, cap=cap, acap=acap, n=n,
             reference=(route == "reference"))
         cols = probe.gather_columns(shred, node_rows)
+    elif route == "paged":
+        # The sampling launch, then the walk page by page.
+        node_rows, ps = probe.draw_paged(shred, dparams, key, method=method,
+                                         cap=cap, acap=acap, n=n)
+        cols = probe.gather_columns(shred, node_rows)
     else:
         if method == "exprace":
             ps = sampling.exprace_positions(key, w, p, prefE, cap,

@@ -76,13 +76,13 @@ class CompiledPlan:
 
     def _resolve_narrow(self, shred: Shred, auto_narrow: bool) -> bool:
         """Apply the spec's narrowing override to the auto verdict. Forcing
-        ``narrow=True`` needs a packed (int32-safe) index."""
+        ``narrow=True`` needs an int32 index, packed or paged."""
         if self.spec.narrow is None:
             return auto_narrow
-        if self.spec.narrow and shred.packed is None:
+        if self.spec.narrow and shred.packed is None and shred.paged is None:
             raise ValueError(
-                "DrawSpec(narrow=True) requires a packed int32 index "
-                "(join < 2^31, no empty node); this shred has none")
+                "DrawSpec(narrow=True) requires an int32 index, packed or "
+                "paged (join < 2^31, no empty node); this shred has none")
         return self.spec.narrow
 
     def _bind_shred(self, shred: Shred) -> None:
@@ -125,12 +125,13 @@ class CompiledPlan:
 
     @property
     def route(self) -> str:
-        """The bound draw route: 'fused', 'reference' or 'pernode'."""
+        """The bound draw route: 'fused', 'paged', 'reference' or
+        'pernode'."""
         return self._route
 
     @property
     def draw_params(self) -> Optional[dict]:
-        """The fused draw's bound operand vectors (None on 'pernode')."""
+        """The kernel draws' bound operand vectors (None on 'pernode')."""
         return self._dparams
 
     def expected_k(self) -> float:
@@ -163,8 +164,8 @@ class CompiledPlan:
             return executors.empty_sample(self.shred, cap)
         acap = acap or (self.arrival_capacity()
                         if self.method == "exprace" else 0)
-        # An explicit per-call rep pins the per-node route: the fused route
-        # has no rep (its kernel walks the arena).
+        # An explicit per-call rep pins the per-node route: the fused and
+        # paged routes have no rep (their kernels walk the arena).
         route = "pernode" if rep else self._route
         return self._run(self.shred, self.w, self.p, self.prefE, key,
                          cap=cap, rep=rep or self.rep_default,

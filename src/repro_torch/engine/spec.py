@@ -39,11 +39,13 @@ class DrawSpec:
              packed an int32 arena and kernels are preferred), True = force
              on (requires a packed index), False = force off.
     kernels  draw route: ``auto`` = the one-launch fused draw iff capable
-             and the ``KernelPolicy`` prefers it, else the per-node route;
-             ``fused`` = require the fused kernel (raises at bind if
-             unavailable); ``reference`` = the fused pipeline as plain
-             torch ops; ``pernode`` = always the float64 per-node route;
-             ``paged`` is not ported (raises ``NotImplementedError``).
+             and the ``KernelPolicy`` prefers it, else the paged draw
+             under the same gates, else the per-node route; ``fused`` =
+             require the fused kernel (raises at bind if unavailable);
+             ``paged`` = require the paged draw (raises unless the index
+             is in the paged regime); ``reference`` = the fused pipeline
+             as plain torch ops; ``pernode`` = always the float64
+             per-node route.
     """
 
     rep: Optional[str] = None

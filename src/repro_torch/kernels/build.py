@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bsearch_probe", "tree_probe", "fused_draw")
+SOURCES = ("bsearch_probe", "tree_probe", "tree_probe_paged", "fused_draw")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}

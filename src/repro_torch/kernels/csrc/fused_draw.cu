@@ -4,7 +4,12 @@
 //
 // Replaces fused_draw of src/repro/kernels/fused_draw.py (its _kernel,
 // draw_core, _exprace_core, _ptbern_core and _count_le), which runs as
-// grid=(1,). This is the same shape: ONE block of 1024 threads. Stages are
+// grid=(1,), and fused_sample of the same file (its _sample_kernel: the
+// draw without the walk, the paged draw's front end). Both are one kernel
+// body here, fused_draw_kernel<WALK>: fused_sample is the instance that
+// writes each position and skips the walk, so the two give bit-equal
+// positions under one key. This is the reference's shape: ONE block of
+// 1024 threads. Stages are
 // separated by __syncthreads(); their scratch vectors (length acap, n or
 // R + 1) live in device memory, allocated by the Python wrapper. The
 // running sums (the float arrival times, the int counts, one int cummax)
@@ -23,11 +28,17 @@
 // totals are scanned Hillis-Steele (distance 1, 2, 4, ...); an element is
 // carry + (exclusive thread prefix + local prefix). Built with -fmad=false
 // and explicit round-to-nearest operations, so the kernel and the plain
-// version agree bit for bit on the card.
+// version agree bit for bit on the card. That order is not monotone: at a
+// thread or chunk boundary an element's sum is rounded along another path
+// than its predecessor's, and after a tiny gap it can land an ulp below it.
+// Arrivals must ascend (a dip places two arrivals' cells out of order and
+// breaks the ascending positions), so a running max follows the sum; max
+// is exact, so it needs no fixed order.
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "threefry.cuh"
 #include "tree_walk.cuh"
@@ -38,6 +49,9 @@
 
 struct AddF {
   __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
+};
+struct MaxF {
+  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 struct AddI {
   __device__ int operator()(int a, int b) const { return a + b; }
@@ -105,13 +119,15 @@ __device__ void fd_block_scan(T* data, int n, T ident, Op op, T* sh,
 #define FD_EXPRACE 0
 #define FD_PTBERN 1
 
-// Output lane tt: its position, then the walk of that position.
+// Output lane tt: its position, then (WALK) the walk of that position.
+template <bool WALK>
 __device__ __forceinline__ void fd_emit(const int* __restrict__ arena,
                                         const RtLayout& L, int tt, int cap,
                                         int p_out, int n32,
                                         int* __restrict__ rows,
                                         int* __restrict__ positions) {
   positions[tt] = p_out;
+  if (!WALK) return;
   int rws[RT_MAX_SLOTS];
   rt_tree_walk(arena, L, min(p_out, n32 - 1), rws);
   for (int s = 0; s <= L.num_edges; ++s) rows[(long long)s * cap + tt] = rws[s];
@@ -119,6 +135,7 @@ __device__ __forceinline__ void fd_emit(const int* __restrict__ arena,
 
 // Flat PTBERN over n = prefE32[R] lanes: one trial per flat position, a
 // running count C, and lane tt = the first flat position with C == tt + 1.
+template <bool WALK>
 __device__ void fd_ptbern(const int* __restrict__ arena, const RtLayout& L,
                           uint32_t k0, uint32_t k1,
                           const int* __restrict__ prefE32,
@@ -140,7 +157,8 @@ __device__ void fd_ptbern(const int* __restrict__ arena, const RtLayout& L,
   const int count = min(total, cap);
   for (int tt = t; tt < cap; tt += FD_THREADS) {
     const int pos = min(fd_count_le(C, n, tt), n - 1);
-    fd_emit(arena, L, tt, cap, tt < count ? pos : n32, n32, rows, positions);
+    fd_emit<WALK>(arena, L, tt, cap, tt < count ? pos : n32, n32, rows,
+                  positions);
   }
   if (t == 0) {
     scalars[0] = count;
@@ -148,6 +166,7 @@ __device__ void fd_ptbern(const int* __restrict__ arena, const RtLayout& L,
   }
 }
 
+template <bool WALK>
 __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
     const int* __restrict__ arena, const __grid_constant__ RtLayout L,
     uint32_t k0, uint32_t k1, int method, const float* __restrict__ massE,
@@ -164,8 +183,8 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
   __shared__ int carry_i;
   if (method == FD_PTBERN) {
     // acap is the lane count here: the join size n.
-    fd_ptbern(arena, L, k0, k1, prefE32, p32, R, acap, cap, rows, positions,
-              scalars, gid, shi, &carry_i);
+    fd_ptbern<WALK>(arena, L, k0, k1, prefE32, p32, R, acap, cap, rows,
+                    positions, scalars, gid, shi, &carry_i);
     return;
   }
   const int t = threadIdx.x;
@@ -178,6 +197,7 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
   for (int i = t; i < acap; i += FD_THREADS)
     v[i] = -log1pf(-rt_uniform_at(s0, s1, (uint32_t)i));
   fd_block_scan(v, acap, 0.0f, AddF(), shf, &carry_f);
+  fd_block_scan(v, acap, -CUDART_INF_F, MaxF(), shf, &carry_f);
 
   // Cell placement: inverse CDF into the mass prefix.
   for (int i = t; i < acap; i += FD_THREADS) {
@@ -241,7 +261,8 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
     const int comp_pos = l + min(max(c, 0), wm1 - l + 1);
     const int local_out = sign[rO] < 0 ? comp_pos : direct_local;
     const int pos = prefE32[rO] + min(max(local_out, 0), wm1);
-    fd_emit(arena, L, tt, cap, tt < count ? pos : n32, n32, rows, positions);
+    fd_emit<WALK>(arena, L, tt, cap, tt < count ? pos : n32, n32, rows,
+                  positions);
   }
   if (t == 0) {
     scalars[0] = count;
@@ -259,9 +280,25 @@ extern "C" int fused_draw_launch(
     float* v, int* gid, int* seg, int* U, int* S, int* gc, int* outE,
     int* hitsE, void* stream) {
   const RtLayout L = rt_layout_from_table(table);
-  fused_draw_kernel<<<1, FD_THREADS, 0, (cudaStream_t)stream>>>(
+  fused_draw_kernel<true><<<1, FD_THREADS, 0, (cudaStream_t)stream>>>(
       arena, L, k0, k1, method, massE, lam, sign, w32, prefE32, cwE, offE,
       p32, R, lanes, cap, rows, positions, scalars, v, gid, seg, U, S, gc,
+      outE, hitsE);
+  return (int)cudaGetLastError();
+}
+
+// The draw without the walk: positions, count and overflow only. The
+// kernel reads no arena and no layout.
+extern "C" int fused_sample_launch(
+    unsigned k0, unsigned k1, int method, const float* massE,
+    const float* lam, const int* sign, const int* w32, const int* prefE32,
+    const int* cwE, const int* offE, const float* p32, int R, int lanes,
+    int cap, int* positions, int* scalars, float* v, int* gid, int* seg,
+    int* U, int* S, int* gc, int* outE, int* hitsE, void* stream) {
+  RtLayout L = {};
+  fused_draw_kernel<false><<<1, FD_THREADS, 0, (cudaStream_t)stream>>>(
+      nullptr, L, k0, k1, method, massE, lam, sign, w32, prefE32, cwE, offE,
+      p32, R, lanes, cap, nullptr, positions, scalars, v, gid, seg, U, S, gc,
       outE, hitsE);
   return (int)cudaGetLastError();
 }

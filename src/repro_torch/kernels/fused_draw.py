@@ -2,7 +2,11 @@
 
 ``fused_draw`` launches ``csrc/fused_draw.cu`` (one block) for CUDA
 tensors; for CPU tensors it runs ``fused_draw_plain``: ``draw_core`` (the
-sort-free EXPRACE) plus ``tree_walk``. ``launches`` counts kernel launches.
+sort-free EXPRACE) plus ``tree_walk``. ``fused_sample`` is the same
+launch without the walk (the paged draw's front end; its plain version
+is ``draw_core``): one kernel body serves both, so their positions are
+bit-equal under one key. Each wrapper's ``launches`` counts its kernel
+launches.
 
 EXPRACE, sort-free: iid Exp(1) gaps are prefix-summed, so the running sum
 is a unit-rate Poisson process on [0, Lam) and arrivals come out already
@@ -15,7 +19,7 @@ The float32 arrival sum is the one order-sensitive step. ``_scan_f32``
 spells out the kernel's order (chunks of ``THREADS * ITEMS``; a thread's
 items in sequence; thread totals Hillis-Steele; carry + (exclusive thread
 prefix + local prefix)), so the kernel and the plain version agree bit for
-bit on the card. Against the reference (whose cumsum XLA orders its own
+bit on the card. A running max follows the sum (see ``arrivals``). Against the reference (whose cumsum XLA orders its own
 way) an arrival may land in the neighbouring cell when it lies within a
 few float32 ulp of a cell boundary.
 
@@ -33,7 +37,8 @@ from . import threefry
 from .tree_probe import layout_table, tree_walk
 
 __all__ = ["PARAM_ORDER", "THREADS", "ITEMS", "draw_core", "arrivals",
-           "fused_draw_plain", "fused_draw"]
+           "fused_draw_plain", "fused_draw", "fused_sample_plain",
+           "fused_sample"]
 
 I32 = torch.int32
 F32 = torch.float32
@@ -100,9 +105,13 @@ def _cummax_i32(x: torch.Tensor) -> torch.Tensor:
 
 def arrivals(key, acap: int, device) -> torch.Tensor:
     """The float32 arrival times: the kernel-ordered running sum of
-    ``-log1p(-u)`` over ``acap`` Threefry uniforms of stream 0."""
+    ``-log1p(-u)`` over ``acap`` Threefry uniforms of stream 0, then its
+    running max. The sum's block order can round an element an ulp below
+    its predecessor after a tiny gap (at a thread or chunk boundary); the
+    max keeps the arrivals ascending, as the draw needs, and is exact in
+    any order."""
     u = threefry.uniforms_plain(key, acap, stream=0, device=device)
-    return _scan_f32(-torch.log1p(-u))
+    return torch.cummax(_scan_f32(-torch.log1p(-u)), 0).values
 
 
 def _exprace_core(key, params, acap: int, cap: int):
@@ -214,6 +223,64 @@ def fused_draw_plain(arena, key, params, *, layout, method: str, cap: int,
 _METHODS = {"exprace": 0, "ptbern_flat": 1}  # FD_EXPRACE / FD_PTBERN
 
 
+def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
+            acap: int, n: int):
+    """Launch ``fused_draw_launch`` (with ``arena``) or
+    ``fused_sample_launch`` (``arena`` None) on the params' device.
+    Returns ``(rows or None, positions, scalars)``; raises if the kernel
+    cannot be built or launched."""
+    dev = params["prefE32"].device
+    if dev.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {dev}")
+    if method not in _METHODS:
+        raise ValueError(f"unknown fused draw method {method!r}")
+    lanes = acap if method == "exprace" else n
+    if lanes < 1 or cap < 1:
+        raise ValueError(f"{method}: lanes={lanes} and cap={cap} must be "
+                         "positive")
+    ops = [params[k].contiguous() for k in PARAM_ORDER]
+    for name, t in zip(PARAM_ORDER, ops):
+        want = F32 if name in ("massE", "lam", "p32") else I32
+        if t.dtype != want or t.device != dev:
+            raise TypeError(f"param {name}: {t.dtype} on {t.device}")
+    from . import build
+
+    fn = getattr(build.library("fused_draw"), f"{entry}_launch")
+    walk = arena is not None
+    head = [ctypes.c_void_p, ctypes.c_void_p] if walk else []
+    fn.argtypes = (head + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * (12 if walk else 11))
+    fn.restype = ctypes.c_int
+    R = ops[3].shape[0]
+    k0, k1 = threefry.key_words(key)
+    rows = None
+    args = []
+    if walk:
+        if arena.device != dev:
+            raise ValueError(f"arena on {arena.device}, params on {dev}")
+        table = layout_table(layout)
+        rows = torch.empty((layout.num_slots, cap), dtype=I32, device=dev)
+        args = [arena.contiguous().data_ptr(),
+                (ctypes.c_int * len(table))(*table)]
+    positions = torch.empty((cap,), dtype=I32, device=dev)
+    scalars = torch.empty((2,), dtype=I32, device=dev)
+    v = torch.empty((lanes,), dtype=F32, device=dev)
+    scratch = torch.empty((5, lanes), dtype=I32, device=dev)
+    edges = torch.empty((2, R + 1), dtype=I32, device=dev)
+    args += [k0, k1, _METHODS[method], *[t.data_ptr() for t in ops], R,
+             lanes, cap]
+    if walk:
+        args.append(rows.data_ptr())
+    args += [positions.data_ptr(), scalars.data_ptr(), v.data_ptr(),
+             *[scratch[i].data_ptr() for i in range(5)],
+             edges[0].data_ptr(), edges[1].data_ptr()]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        build.check(fn(*args, stream), entry)
+    return rows, positions, scalars
+
+
 def fused_draw(arena, key, params, *, layout, method: str, cap: int,
                acap: int = 0, n: int = 0):
     """The one-launch draw. arena: (layout.size,) int32; key: two uint32
@@ -221,52 +288,37 @@ def fused_draw(arena, key, params, *, layout, method: str, cap: int,
     arrival scratch of EXPRACE, ``n`` the join size (flat PTBERN's lanes).
     Returns ``(rows (num_slots, cap) i32, positions (cap,) i32, count ()
     i32, overflow () bool)``, rows in ``layout.names`` slot order."""
-    dev = arena.device
-    if dev.type == "cpu":
+    if arena.device.type == "cpu":
         return fused_draw_plain(arena, key, params, layout=layout,
                                 method=method, cap=cap, acap=acap, n=n)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_draw: unsupported device {dev}")
-    if method not in _METHODS:
-        raise ValueError(f"unknown fused draw method {method!r}")
-    lanes = acap if method == "exprace" else n
-    if lanes < 1 or cap < 1:
-        raise ValueError(f"{method}: lanes={lanes} and cap={cap} must be "
-                         "positive")
-    from . import build
-
-    fn = build.library("fused_draw").fused_draw_launch
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-                    ctypes.c_uint32, ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 12)
-    fn.restype = ctypes.c_int
-    ops = [params[k].contiguous() for k in PARAM_ORDER]
-    for name, t in zip(PARAM_ORDER, ops):
-        want = F32 if name in ("massE", "lam", "p32") else I32
-        if t.dtype != want or t.device != dev:
-            raise TypeError(f"param {name}: {t.dtype} on {t.device}")
-    R = ops[3].shape[0]
-    k0, k1 = threefry.key_words(key)
-    table = layout_table(layout)
-    ctable = (ctypes.c_int * len(table))(*table)
-    rows = torch.empty((layout.num_slots, cap), dtype=I32, device=dev)
-    positions = torch.empty((cap,), dtype=I32, device=dev)
-    scalars = torch.empty((2,), dtype=I32, device=dev)
-    v = torch.empty((lanes,), dtype=F32, device=dev)
-    scratch = torch.empty((5, lanes), dtype=I32, device=dev)
-    edges = torch.empty((2, R + 1), dtype=I32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        build.check(fn(arena.contiguous().data_ptr(), ctable, k0, k1,
-                       _METHODS[method], *[t.data_ptr() for t in ops], R,
-                       lanes, cap,
-                       rows.data_ptr(), positions.data_ptr(),
-                       scalars.data_ptr(), v.data_ptr(),
-                       *[scratch[i].data_ptr() for i in range(5)],
-                       edges[0].data_ptr(), edges[1].data_ptr(), stream),
-                    "fused_draw")
+    rows, positions, scalars = _launch("fused_draw", arena, key, params,
+                                       layout, method, cap, acap, n)
     fused_draw.launches += 1
     return rows, positions, scalars[0], scalars[1].to(torch.bool)
 
 
 fused_draw.launches = 0
+
+
+def fused_sample_plain(key, params, *, method: str, cap: int, acap: int = 0,
+                       n: int = 0):
+    """``fused_sample``'s plain version: ``draw_core`` itself."""
+    return draw_core(key, params, method=method, cap=cap, acap=acap, n=n)
+
+
+def fused_sample(key, params, *, method: str, cap: int, acap: int = 0,
+                 n: int = 0):
+    """The draw without the walk, in one launch: key -> ``(positions
+    (cap,) i32, count () i32, overflow () bool)`` with the same
+    conventions as ``draw_core``, on the params' device. It reads only the
+    root-level parameter vectors, never the arena."""
+    if params["prefE32"].device.type == "cpu":
+        return fused_sample_plain(key, params, method=method, cap=cap,
+                                  acap=acap, n=n)
+    _, positions, scalars = _launch("fused_sample", None, key, params, None,
+                                    method, cap, acap, n)
+    fused_sample.launches += 1
+    return positions, scalars[0], scalars[1].to(torch.bool)
+
+
+fused_sample.launches = 0

@@ -7,6 +7,13 @@ plain version shares. ``launches`` counts kernel launches.
 
 The kernel is built once for any layout: the layout travels as a small
 int32 table (``layout_table``), at most ``MAX_SLOTS`` tree nodes.
+
+``tree_probe_paged`` is the same walk over a paged arena (``PagedArena``:
+the root prefix, then one page per tree edge), from ``csrc/
+tree_probe_paged.cu``: one launch per page (``dma`` false, the default),
+or one launch over the stacked pages (``dma=True``, counted on
+``tree_probe_paged_dma``). Its plain version, ``tree_probe_paged_plain``,
+runs the same page steps as torch ops for CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import torch
 from .bsearch_probe import steps_for
 
 __all__ = ["MAX_SLOTS", "layout_table", "tree_walk", "tree_probe_plain",
-           "tree_probe"]
+           "tree_probe", "tree_probe_paged_plain", "tree_probe_paged",
+           "tree_probe_paged_dma"]
 
 MAX_SLOTS = 16  # RT_MAX_SLOTS in csrc/tree_walk.cuh
 
@@ -107,3 +115,139 @@ def tree_probe(arena: torch.Tensor, q: torch.Tensor, layout) -> torch.Tensor:
 
 
 tree_probe.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Paged walk: the edges of tree_walk, each against its own page, offsets
+# rebased by the page start.
+# ---------------------------------------------------------------------------
+
+def _root_page_step(page: torch.Tensor, pos: torch.Tensor, layout):
+    """Root locate against page 0 (the root prefix: no rebase)."""
+    j = torch.clamp(_descend(page, 0, layout.root_len, pos),
+                    max=layout.n_root - 1)
+    return j, pos - page[j]
+
+
+def _edge_page_step(page: torch.Tensor, e, prow, plocal):
+    """One edge of ``tree_walk`` against its page: ``(child row, child
+    local, the parent's local after the peel)``."""
+    base = e.cs_off
+    w_safe = torch.clamp(page[(e.cw_off - base) + prow], min=1)
+    idx = torch.remainder(plocal, w_safe)
+    pnew = torch.div(plocal, w_safe, rounding_mode="floor")
+    ce = e.ce_off - base
+    target = page[ce + page[prow]] + idx
+    jj = torch.clamp(_descend(page, ce, e.n_child + 1, target),
+                     max=e.n_child - 1)
+    return page[(e.perm_off - base) + jj], target - page[ce + jj], pnew
+
+
+def tree_probe_paged_plain(paged, q: torch.Tensor, dma: bool = False):
+    """The paged walk as torch ops, over ``paged.pages`` one by one, or
+    (``dma``) over the rows of ``paged.stacked()``; both equal
+    ``tree_probe_plain`` on the whole arena."""
+    layout = paged.layout
+    pages = list(paged.stacked()[0]) if dma else paged.pages
+    j, local = _root_page_step(pages[0], q, layout)
+    rows, locs = {0: j}, {0: local}
+    for k, e in enumerate(layout.edges):
+        rows[e.slot], locs[e.slot], locs[e.parent] = _edge_page_step(
+            pages[k + 1], e, rows[e.parent], locs[e.parent])
+    return torch.stack([rows[s] for s in range(layout.num_slots)])
+
+
+def _check_paged(paged, q: torch.Tensor) -> None:
+    if q.dtype != torch.int32 or paged.buffer.dtype != torch.int32:
+        raise TypeError(f"tree_probe_paged takes int32, got "
+                        f"{paged.buffer.dtype}/{q.dtype}")
+    if paged.buffer.shape != (paged.layout.size,):
+        raise ValueError(f"arena {tuple(paged.buffer.shape)} vs layout size "
+                         f"{paged.layout.size}")
+    if paged.buffer.device != q.device:
+        raise ValueError(f"pages on {paged.buffer.device}, q on {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tree_probe_paged: unsupported device {q.device}")
+
+
+def tree_probe_paged(paged, q: torch.Tensor, dma=None) -> torch.Tensor:
+    """paged: a ``PagedArena``; q: int32 probe positions in [0, join
+    size), any shape. Returns (num_slots,) + q.shape int32, equal to
+    ``tree_probe`` on the whole arena. ``dma=None`` is the per-page form
+    (one launch per page, ``launches`` counts each); ``dma=True`` the
+    one-launch form over the stacked pages."""
+    _check_paged(paged, q)
+    if q.device.type == "cpu":
+        return tree_probe_paged_plain(paged, q, dma=bool(dma))
+    if dma:
+        return tree_probe_paged_dma(paged, q)
+    from . import build
+
+    lib = build.library("tree_probe_paged")
+    root, edge = lib.tpp_root_launch, lib.tpp_edge_launch
+    root.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
+                                                ctypes.c_void_p])
+    edge.argtypes = ([ctypes.c_void_p] * 5
+                     + [ctypes.c_longlong, ctypes.c_void_p])
+    root.restype = edge.restype = ctypes.c_int
+    layout = paged.layout
+    qc = q.contiguous()
+    n = qc.numel()
+    pages = paged.pages  # views of one contiguous buffer: no copies
+    table = layout_table(layout)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        jl = torch.empty((2,) + tuple(q.shape), dtype=torch.int32,
+                         device=q.device)
+        build.check(root(pages[0].data_ptr(), layout.root_len, layout.n_root,
+                         table[2], qc.data_ptr(), jl.data_ptr(), n, stream),
+                    "tree_probe_paged")
+        tree_probe_paged.launches += 1
+        rows, locs = {0: jl[0]}, {0: jl[1]}
+        for k, e in enumerate(layout.edges):
+            fields = table[4 + 8 * k: 12 + 8 * k]
+            out = torch.empty((3,) + tuple(q.shape), dtype=torch.int32,
+                              device=q.device)
+            build.check(edge(pages[k + 1].data_ptr(),
+                             (ctypes.c_int * 8)(*fields),
+                             rows[e.parent].data_ptr(),
+                             locs[e.parent].data_ptr(), out.data_ptr(), n,
+                             stream), "tree_probe_paged")
+            tree_probe_paged.launches += 1
+            rows[e.slot], locs[e.slot], locs[e.parent] = out[0], out[1], out[2]
+    return torch.stack([rows[s] for s in range(layout.num_slots)])
+
+
+tree_probe_paged.launches = 0
+
+
+def tree_probe_paged_dma(paged, q: torch.Tensor) -> torch.Tensor:
+    """The one-launch paged walk over ``paged.stacked()`` (built once per
+    ``PagedArena``), on the card; ``tree_probe_paged(..., dma=True)``."""
+    _check_paged(paged, q)
+    if q.device.type == "cpu":
+        return tree_probe_paged_plain(paged, q, dma=True)
+    from . import build
+
+    fn = build.library("tree_probe_paged").tpp_stacked_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
+        ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    layout = paged.layout
+    stacked, P = paged.stacked()
+    table = layout_table(layout)
+    qc = q.contiguous()
+    out = torch.empty((layout.num_slots,) + tuple(q.shape), dtype=torch.int32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.check(fn(stacked.data_ptr(), P,
+                       (ctypes.c_int * len(table))(*table), qc.data_ptr(),
+                       out.data_ptr(), qc.numel(), stream),
+                    "tree_probe_paged_dma")
+    tree_probe_paged_dma.launches += 1
+    return out
+
+
+tree_probe_paged_dma.launches = 0

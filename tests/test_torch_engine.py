@@ -146,15 +146,16 @@ def test_pernode_route_distribution_and_rows(policy, kernels, method):
     assert abs(z) < 4.5, (np.mean(counts), exp, z)
 
 
-@pytest.mark.parametrize("limit", ["fits", "tiny"])
+@pytest.mark.parametrize("limit", ["fits", "pages", "tiny"])
 @pytest.mark.parametrize("prefer", [False, True])
 def test_routes_match_reference_under_matching_budgets(limit, prefer):
-    """The paged rung is not ported, so the budgets are chosen where the
-    reference does not page: the arena fits, or not even a page fits."""
+    """Budgets where the arena fits, where only its pages fit (the paged
+    rung), and where not even a page fits."""
     tables, q = star_chain(1)
     rdb = Database.from_columns(tables)
-    size = build_shred(rdb, q).packed.layout.size
-    budget = size if limit == "fits" else 16
+    layout = build_shred(rdb, q).packed.layout
+    budget = {"fits": layout.size, "pages": layout.max_page,
+              "tiny": 16}[limit]
     rpol = r_config.KernelPolicy(prefer=prefer, vmem_limit=budget)
     tpol = KernelPolicy(prefer=prefer, arena_limit=budget, draw_limit=budget)
     _, tq = both_queries([(a.relation, a.variables, a.alias) for a in q.atoms],
@@ -163,14 +164,16 @@ def test_routes_match_reference_under_matching_budgets(limit, prefer):
                            policy=tpol)
     with r_config.override(rpol):
         rshred = build_shred(rdb, q)
-        assert rshred.paged is None
+        assert (rshred.paged is None) == (limit != "pages")
+        assert (tshred.paged is None) == (limit != "pages")
         want_rep = probe.select_rep(rshred, "usr")
         rpar = sampling.fused_draw_params(rshred.root.weight,
                                           rshred.root.data.column("p"),
                                           rshred.root_prefE)
         want_draw = {k: probe.select_draw(rshred, rpar, method="exprace",
                                           kernels=k)
-                     for k in ("auto", "pernode")}
+                     for k in ("auto", "pernode")
+                     + (("paged",) if limit == "pages" else ())}
     tpar = t_sampling.fused_draw_params(tshred.root.weight,
                                         tshred.root.data.column("p"),
                                         tshred.root_prefE)
@@ -178,7 +181,7 @@ def test_routes_match_reference_under_matching_budgets(limit, prefer):
     for k, want in want_draw.items():
         assert t_probe.select_draw(tshred, tpar, method="exprace", kernels=k,
                                    policy=tpol) == want
-    if limit == "tiny":
+    if limit != "fits":
         with pytest.raises(ValueError):
             t_probe.select_draw(tshred, tpar, method="exprace",
                                 kernels="fused", policy=tpol)
@@ -254,14 +257,26 @@ def test_ptbern_fused_route_matches_reference_exactly():
 
 
 def test_paged_and_unported_routes_raise():
+    """The paged rung runs (where the index pages); CSR still raises."""
     tables, q = star_chain(0)
     _, port, tq = engines(tables, q, PREFER)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.compile(tq, kernels="paged")
     shred = port.compile(tq).shred
-    for rep in ("usr_paged", "csr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_probe.get_rows(shred, torch.arange(4), rep=rep)
+    size = shred.packed.layout.size
+    paged = TQueryEngine(port.db, device="cpu", kernel_policy=KernelPolicy(
+        prefer=True, arena_limit=size - 1, draw_limit=size - 1))
+    plan = paged.compile(tq, kernels="paged")
+    assert (plan.route, plan.rep_default) == ("paged", "usr_paged")
+    smp = paged.sample(tq, t_threefry.key(3), kernels="paged")
+    want = port.sample(tq, t_threefry.key(3))
+    assert torch.equal(smp.positions, want.positions)
+    for v, col in want.columns.items():
+        assert torch.equal(smp.columns[v], col)
+    pos = torch.arange(int(shred.join_size))
+    for name, rows in t_probe.get_rows(shred, pos, rep="usr").items():
+        assert torch.equal(t_probe.get_rows(shred, pos, rep="usr_paged")[name],
+                           rows)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_probe.get_rows(shred, torch.arange(4), rep="csr")
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -281,6 +296,11 @@ def test_import_loads_no_jax():
             "import repro_torch.engine, repro_torch.core, repro_torch.config\n"
             "import repro_torch.kernels.build, repro_torch.kernels.fused_draw\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.tree_probe\n"
+            "import repro_torch.kernels.bsearch_probe\n"
+            "import repro_torch.kernels.threefry, repro_torch.core.probe\n"
+            "from repro_torch.kernels.fused_draw import fused_sample\n"
+            "from repro_torch.kernels.tree_probe import tree_probe_paged\n"
+            "from repro_torch.core.shred import PagedArena\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"

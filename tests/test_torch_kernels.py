@@ -7,6 +7,7 @@ the JAX reference's kernels in Pallas interpret mode, on the same inputs.
   * ``fused_draw_params``: int arrays exact; float32 arrays at most 1 ulp
     (both packages sum the float64 mass prefix in their own order before
     the cast, and their float64 ``log1p`` may differ in the last bit).
+  * The arrivals ascend (a running max follows the kernel-ordered sum).
   * ``draw_core``: positions, count, overflow and rows equal, except where
     an arrival lands in a neighbouring cell because the reference arrival
     lies within 4 float32 ulp of a cell boundary (XLA orders the float32
@@ -278,6 +279,19 @@ def test_scan_order_helpers():
         got = t_fd._scan_f32(f).numpy().astype(np.float64)
         want = np.cumsum(f.numpy().astype(np.float64))
         assert np.abs(got - want).max() <= 1e-5 * max(want[-1], 1.0)
+
+
+def test_arrivals_ascend():
+    """The kernel-ordered float32 sum can dip an ulp at a thread boundary
+    (key 3008 at 171,776 arrivals does); the arrivals' running max keeps
+    them ascending, which the draw's ascending positions rest on."""
+    key = t_threefry.key(3008)
+    u = t_threefry.uniforms_plain(key, 171_776, stream=0)
+    raw = t_fd._scan_f32(-torch.log1p(-u))
+    assert bool((raw[1:] < raw[:-1]).any())
+    v = t_fd.arrivals(key, 171_776, "cpu")
+    assert bool((v[1:] >= v[:-1]).all())
+    assert float((v - raw).abs().max()) <= 4 * float(np.spacing(np.float32(v[-1])))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -4,7 +4,8 @@ The same numpy columns go into ``repro`` and ``repro_torch`` (on the CPU);
 every node array, the packed int32 arena and its layout must be equal,
 dtypes included, over the query shapes of tests/test_shred_probe.py.
 ``ref_arrays`` (reused by the other ``test_torch_*`` files) carries a
-reference index across as plain numpy arrays for ``shred_from_arrays``.
+reference index, packed or paged, across as plain numpy arrays for
+``shred_from_arrays``.
 """
 import dataclasses
 
@@ -46,12 +47,17 @@ def ref_arrays(shred):
             "children": [node(c) for c in nd.children],
         }
 
-    packed = shred.packed
+    packed, paged = shred.packed, getattr(shred, "paged", None)
     out = {"rep": shred.rep, "root_prefE": _np(shred.root_prefE),
-           "root": node(shred.root), "arena": None, "layout": None}
+           "root": node(shred.root), "arena": None, "pages": None,
+           "layout": None}
     if packed is not None:
-        lay = packed.layout
         out["arena"] = _np(packed.arena)
+    if paged is not None:
+        out["pages"] = [_np(p) for p in paged.pages]
+    form = packed if packed is not None else paged
+    if form is not None:
+        lay = form.layout
         out["layout"] = {"names": tuple(lay.names), "n_root": lay.n_root,
                          "root_len": lay.root_len, "size": lay.size,
                          "edges": [dataclasses.astuple(e) for e in lay.edges]}
