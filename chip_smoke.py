@@ -5,11 +5,14 @@ Drives the port's main path through its entry points at JOB scale: the
 index build, the full join through the ``tree_probe`` kernel, Poisson
 sampling through the per-node route (``bsearch_probe`` + ``tree_probe``),
 through the one-launch ``fused_draw`` kernel, and through the paged draw
-(``fused_sample`` + ``tree_probe_paged``). It builds every kernel from
-``src/repro_torch/kernels/csrc/``, holds each against its plain PyTorch
-version on the card, checks the join against an independent numpy
-expansion and the samples against the join and their expected size, and
-times each kernel beside its bound.
+(``fused_sample`` + ``tree_probe_paged``); then (phase D) the kernel-ops
+entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
+``geo_positions_fused``, ``decode_attention`` and ``prefill_attention``
+(the ``scan``, ``flash_decode`` and ``flash_prefill`` kernels). It builds
+every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
+its plain PyTorch version on the card, checks the join against an
+independent numpy expansion and the samples against the join and their
+expected size, and times each kernel beside its bound.
 
 Data (numpy, from ``--seed``): the schema and probabilities of
 ``benchmarks/workloads.py`` ``job_like`` (Title(t, kind, p) |><|
@@ -26,6 +29,17 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        ``sample`` takes the paged draw (as the reference
                        routes it); the full IMDB arena is over the paged
                        rung's own ceiling.
+  D  ops               prefix sums over Cast's 36,244,344 weights (int32,
+                       inclusive and exclusive; float32); GEO positions at
+                       p = 0.05 over A's join from device Threefry uniforms
+                       (8 keys); decode attention at llama3-405b widths
+                       (H 128, KV 8, D 128, bf16; decode_32k's S = 32,768,
+                       B cut from 128 to 16) under a padding mask, at
+                       gemma3-1b widths under its window-512 mask, and in
+                       float32; prefill attention at llama3-405b widths
+                       (train_4k's S = 4,096, causal and full), smollm-135m
+                       widths (S = 1,000, ragged, float32) and gemma3-1b
+                       widths (D = 256, S = 2,048).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and exits non-zero without one. The last line is
@@ -48,6 +62,7 @@ from pathlib import Path
 IMDB_TITLE, IMDB_CAST, IMDB_COMP = 2_528_312, 36_244_344, 2_609_129
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 Z_LIMIT = 6.0
 
 
@@ -170,9 +185,9 @@ def profile_window(fn, label: str, wall_ms_unprofiled: float) -> dict:
             "top": [(name, t / 1e3, count) for name, t, count in kernels[:8]]}
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -217,6 +232,299 @@ def walk_ops(layout, steps_for) -> int:
     return ops
 
 
+# Widths of the attention checks (src/repro/configs/): heads, KV heads,
+# head dim.
+LLAMA3_405B = (128, 8, 128)
+GEMMA3_1B = (4, 1, 256)
+SMOLLM_135M = (9, 3, 64)
+GEMMA3_WINDOW = 512
+GEO_P = 0.05
+# Attention tolerances (rtol, atol), kernel against plain: float32 at the
+# reference's own test tolerances; bf16 output at one bf16 ulp (at most
+# 2^-7 of the value) plus a float32 margin, well below the outputs' size.
+F32_DECODE_TOL = (2e-5, 2e-5)
+F32_PREFILL_TOL = (2e-4, 2e-4)
+BF16_TOL = (1e-2, 1e-3)
+GEO_KEYS = 8
+
+
+def close(got, want, tol) -> float:
+    """max |got - want| in float32; asserts |got - want| <= atol + rtol
+    |want| everywhere (``assert_allclose``), with ``tol = (rtol, atol)``."""
+    import torch
+
+    rtol, atol = tol
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    assert bool(torch.isfinite(g).all())
+    worst = float(err.max())
+    assert bool((err <= atol + rtol * w.abs()).all()), worst
+    return worst
+
+
+def near_integer_quotient(u, p: float, lanes) -> list:
+    """For GEO lanes whose steps differ: is the float64 quotient
+    log(u) / log1p(-p) within 2 float32 ulp of an integer?"""
+    import numpy as np
+
+    uu = np.maximum(u[lanes].double().cpu().numpy(), np.float32(1e-12))
+    pc = np.float64(np.clip(np.float32(p), np.float32(1e-12),
+                            np.float32(1.0 - 1e-7)))
+    quo = np.log(uu) / np.log1p(-pc)
+    ulp = np.spacing(quo.astype(np.float32)).astype(np.float64)
+    return list(np.abs(quo - np.round(quo)) <= 2 * ulp)
+
+
+def library_timed(fn, reps: int, device, label: str):
+    """``timed`` for a library yardstick: ``None`` (and a log line) if the
+    library call is refused, so a yardstick never stops the check."""
+    import torch
+
+    try:
+        return timed(fn, reps, device)
+    except (RuntimeError, TypeError, ValueError) as exc:
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        log(f"[time] {label}: library call refused ({str(exc)[:120]}); "
+            "library_ms null")
+        return None
+
+
+def run_ops(args, device, kernels, n_join: int):
+    """Phase D: the kernel-ops entry point (``repro_torch.kernels.ops``) at
+    the sizes of the configurations the repo has, each kernel held against
+    its plain version on the same inputs and timed. Returns the kernel
+    rows, the errors and the launches of the phase's main-path run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import geo_gaps as geo_mod
+    from repro_torch.kernels import ops, threefry
+    from repro_torch.kernels import prefix_sum as ps_mod
+
+    # float32 matrix products of the plain versions in full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + 3)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    def padding_bias(B, S, window=None):
+        """0 on each row's valid keys (lengths in [S/2, S]; the last
+        ``window`` of them when windowed), -1e30 elsewhere."""
+        lens = torch.randint(S // 2, S + 1, (B, 1), generator=gen,
+                             device=device)
+        pos = torch.arange(S, device=device)[None, :]
+        keep = pos < lens
+        if window is not None:
+            keep &= pos >= lens - window
+        return torch.where(keep, 0.0, -1e30).to(f32)
+
+    # -- inputs (set-up) ------------------------------------------------------
+    n = args.scan_n
+    w_i32 = torch.randint(0, 59, (n,), generator=gen, device=device,
+                          dtype=torch.int32)          # sum < 2^31
+    w_f32 = (torch.randint(0, 4, (n,), generator=gen, device=device)
+             == 0).to(f32)                            # sum < 2^24
+    w_rand = torch.rand((n,), generator=gen, device=device)
+    geo_mean = n_join * GEO_P
+    geo_sd = math.sqrt(geo_mean * (1 - GEO_P))
+    lanes = math.ceil((geo_mean + Z_LIMIT * geo_sd) / 128) * 128
+    B, S = args.decode_batch, args.decode_seq
+    (Hl, KVl, Dl), (Hg, KVg, Dg), (Hs, KVs, Ds) = LLAMA3_405B, GEMMA3_1B, \
+        SMOLLM_135M
+    Sf = min(S, 4096)
+    dec_cases = {
+        f"llama3-405b bf16 B={B} S={S}": (
+            randn((B, Hl, Dl), bf16), randn((B, KVl, S, Dl), bf16),
+            randn((B, KVl, S, Dl), bf16), padding_bias(B, S), BF16_TOL),
+        f"gemma3-1b bf16 B=8 S={S} window {GEMMA3_WINDOW}": (
+            randn((8, Hg, Dg), bf16), randn((8, KVg, S, Dg), bf16),
+            randn((8, KVg, S, Dg), bf16),
+            padding_bias(8, S, GEMMA3_WINDOW), BF16_TOL),
+        f"float32 B=2 H=8 KV=2 D=128 S={Sf}": (
+            randn((2, 8, 128), f32), randn((2, 2, Sf, 128), f32),
+            randn((2, 2, Sf, 128), f32), padding_bias(2, Sf), F32_DECODE_TOL),
+    }
+    Sp = args.prefill_seq
+    ql, kl, vl = (randn((1, Hl, Sp, Dl), bf16), randn((1, KVl, Sp, Dl), bf16),
+                  randn((1, KVl, Sp, Dl), bf16))
+    qs, ks, vs = (randn((2, Hs, 1000, Ds), f32), randn((2, KVs, 1000, Ds), f32),
+                  randn((2, KVs, 1000, Ds), f32))
+    Sg = Sp // 2
+    qg, kg, vg = (randn((1, Hg, Sg, Dg), bf16), randn((1, KVg, Sg, Dg), bf16),
+                  randn((1, KVg, Sg, Dg), bf16))
+    pre_cases = {
+        f"llama3-405b bf16 S={Sp} causal": (ql, kl, vl, True, BF16_TOL),
+        f"llama3-405b bf16 S={Sp} full": (ql, kl, vl, False, BF16_TOL),
+        "smollm-135m float32 B=2 S=1000 causal": (qs, ks, vs, True,
+                                                  F32_PREFILL_TOL),
+        "smollm-135m float32 B=2 S=1000 full": (qs, ks, vs, False,
+                                                F32_PREFILL_TOL),
+        f"gemma3-1b bf16 S={Sg} causal": (qg, kg, vg, True, BF16_TOL),
+    }
+    keys = [threefry.key(4000 + s) for s in range(GEO_KEYS)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+    # -- the main path: the ops wrappers ---------------------------------------
+    for fn in kernels.values():
+        fn.launches = 0
+    ps = {"int32": ops.prefix_sum(w_i32),
+          "int32 exclusive": ops.prefix_sum(w_i32, exclusive=True),
+          "float32 integer-valued": ops.prefix_sum(w_f32),
+          "float32 random": ops.prefix_sum(w_rand)}
+    geo = []
+    for key in keys:
+        u = threefry.uniforms(key, lanes, 0, device)
+        geo.append((u, ops.geo_positions_fused(u, GEO_P)))
+    dec = {name: ops.decode_attention(q, k, v, bias)
+           for name, (q, k, v, bias, _) in dec_cases.items()}
+    pre = {name: ops.prefill_attention(q, k, v, causal=causal)
+           for name, (q, k, v, causal, _) in pre_cases.items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    log(f"[D] launches {launches}")
+    if device.type == "cuda":
+        assert launches["prefix_sum"] == len(ps)
+        assert launches["geo_gaps"] == launches["threefry_uniforms"] == GEO_KEYS
+        assert launches["flash_decode"] == len(dec_cases)
+        assert launches["flash_prefill"] == len(pre_cases)
+        assert all(launches[k] == 0 for k in kernels if k not in (
+            "prefix_sum", "geo_gaps", "threefry_uniforms", "flash_decode",
+            "flash_prefill"))
+
+    # -- each kernel against its plain version ---------------------------------
+    errs = {}
+    want_i32 = ps_mod.prefix_sum_plain(w_i32)
+    assert torch.equal(want_i32.long(), torch.cumsum(w_i32.long(), 0))
+    want_f32 = ps_mod.prefix_sum_plain(w_f32)
+    assert torch.equal(want_f32.double(), torch.cumsum(w_f32.double(), 0))
+    want_rand = ps_mod.prefix_sum_plain(w_rand)
+    want_ex = torch.cat([want_i32.new_zeros(1), want_i32[:-1]])
+    errs["prefix_sum"] = max(
+        max_abs_err(ps["int32"], want_i32),
+        max_abs_err(ps["int32 exclusive"], want_ex),
+        max_abs_err(ps["float32 integer-valued"], want_f32),
+        max_abs_err(ps["float32 random"], want_rand))
+    drift = max_abs_err(ps["float32 random"], torch.cumsum(w_rand.double(), 0))
+    log(f"[check] prefix_sum: n {n}, int32 (sum {int(want_i32[-1])}) and "
+        f"exclusive, float32 integer-valued (sum {int(want_f32[-1])}) and "
+        f"random: kernel vs plain max_abs_err {errs['prefix_sum']} (random "
+        f"float32 against a float64 cumsum: {drift:.4g})")
+    assert errs["prefix_sum"] == 0.0
+
+    errs["geo_gaps"] = errs["threefry_uniforms"] = 0.0
+    off_lanes, near, zs = 0, 0, []
+    for key, (u, pos) in zip(keys, geo):
+        errs["threefry_uniforms"] = max(errs["threefry_uniforms"], max_abs_err(
+            u, threefry.uniforms_plain(key, lanes, 0, device)))
+        want = geo_mod.geo_gaps_plain(u, GEO_P)
+        errs["geo_gaps"] = max(errs["geo_gaps"], max_abs_err(pos, want))
+        steps = torch.diff(pos.long(), prepend=pos.new_full((1,), -1).long())
+        bad = torch.nonzero(steps != geo_mod.geo_steps_plain(u, GEO_P).long())
+        if bad.numel():
+            off_lanes += bad.numel()
+            near += sum(near_integer_quotient(u, GEO_P, bad.reshape(-1)))
+        assert bool((pos[1:] > pos[:-1]).all()) and int(pos[-1]) >= n_join
+        zs.append((int((pos < n_join).sum()) - geo_mean) / geo_sd)
+    log(f"[check] geo_gaps: p {GEO_P} over n {n_join}, {lanes} lanes, "
+        f"{GEO_KEYS} keys: kernel vs plain max_abs_err {errs['geo_gaps']}; "
+        f"lanes whose step differs {off_lanes} (of them with a quotient "
+        f"within 2 float32 ulp of an integer: {near}); threefry uniforms "
+        f"max_abs_err {errs['threefry_uniforms']}; valid counts z vs n p = "
+        f"{geo_mean:.1f}: " + ", ".join(f"{z:+.2f}" for z in zs))
+    assert off_lanes == 0 and errs["threefry_uniforms"] == 0.0
+    assert all(abs(z) < Z_LIMIT for z in zs)
+
+    errs["flash_decode"] = 0.0
+    for name, (q, k, v, bias, tol) in dec_cases.items():
+        err = close(dec[name], dec_mod.flash_decode_plain(q, k, v, bias), tol)
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        log(f"[check] flash_decode {name}: kernel vs plain max_abs_err "
+            f"{err:.3g} (rtol, atol {tol})")
+    errs["flash_prefill"] = 0.0
+    for name, (q, k, v, causal, tol) in pre_cases.items():
+        err = close(pre[name], pre_mod.flash_prefill_plain(q, k, v, causal),
+                    tol)
+        errs["flash_prefill"] = max(errs["flash_prefill"], err)
+        log(f"[check] flash_prefill {name}: kernel vs plain max_abs_err "
+            f"{err:.3g} (rtol, atol {tol})")
+    del dec, pre
+
+    # -- times ------------------------------------------------------------------
+    reps = args.reps
+    rows = []
+    ms = timed(lambda: ops.prefix_sum(w_i32), reps, device)
+    plain_ms = timed(lambda: ps_mod.prefix_sum_plain(w_i32), 1, device)
+    lib_ms = library_timed(lambda: torch.cumsum(w_i32, 0, dtype=torch.int32),
+                           reps, device, "prefix_sum")
+    rows.append(("prefix_sum", "src/repro/kernels/prefix_sum.py:42", "scan.cu",
+                 ms, plain_ms, *bound(8 * n, n), lib_ms))
+    u0 = geo[0][0]
+    ms = timed(lambda: ops.geo_positions_fused(u0, GEO_P), reps, device)
+    plain_ms = timed(lambda: geo_mod.geo_gaps_plain(u0, GEO_P), 1, device)
+    # ~40 operations a lane: two logarithms, a divide, floor, clamp, a scan add
+    rows.append(("geo_gaps", "src/repro/kernels/geo_gaps.py:49", "scan.cu",
+                 ms, plain_ms, *bound(8 * lanes, 40 * lanes), None))
+    ms = timed(lambda: threefry.uniforms(keys[0], lanes, 0, device), reps,
+               device)
+    plain_ms = timed(lambda: threefry.uniforms_plain(keys[0], lanes, 0,
+                                                     device), 1, device)
+    # 250 integer operations a lane: the fold and one 20-round block
+    rows.append(("threefry_uniforms", "src/repro/kernels/threefry.py:78",
+                 "fused_draw.cu", ms, plain_ms,
+                 *bound(4 * lanes, 250 * lanes), None))
+    q, k, v, bias, _ = next(iter(dec_cases.values()))
+    ms = timed(lambda: ops.decode_attention(q, k, v, bias), reps, device)
+    plain_ms = timed(lambda: dec_mod.flash_decode_plain(q, k, v, bias), 1,
+                     device)
+    mask = (bias == 0)[:, None, None, :]
+    lib_ms = library_timed(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), reps, device,
+        "flash_decode")
+    nbytes = 2 * (k.numel() + v.numel() + 2 * q.numel()) + 4 * bias.numel()
+    rows.append(("flash_decode", "src/repro/kernels/flash_decode.py:62",
+                 "flash_decode.cu", ms, plain_ms,
+                 *bound(nbytes, 4 * q.numel() * k.shape[2], BF16_TC_OPS_PER_S),
+                 lib_ms))
+    ms = timed(lambda: ops.prefill_attention(ql, kl, vl, causal=True), reps,
+               device)
+    plain_ms = timed(lambda: pre_mod.flash_prefill_plain(ql, kl, vl, True), 1,
+                     device)
+    lib_ms = library_timed(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, is_causal=True, enable_gqa=True), reps, device,
+        "flash_prefill")
+    nbytes = 2 * (2 * ql.numel() + kl.numel() + vl.numel())
+    rows.append(("flash_prefill", "src/repro/kernels/flash_prefill.py:71",
+                 "flash_prefill.cu", ms, plain_ms,
+                 *bound(nbytes, 2 * ql.numel() * Sp, BF16_TC_OPS_PER_S),
+                 lib_ms))
+    sizes = {"scan_n": n, "geo_join": n_join, "geo_lanes": lanes,
+             "decode": list(dec_cases), "prefill": list(pre_cases)}
+    if device.type == "cuda" and args.profile:
+        # device time against the wrapper's: the host side of a call
+        # (ctypes, allocations) shows where the kernels are short
+        for label, fn in (
+                ("prefix_sum", lambda: ops.prefix_sum(w_i32)),
+                ("geo_positions_fused", lambda: ops.geo_positions_fused(
+                    u0, GEO_P)),
+                ("decode_attention", lambda: ops.decode_attention(
+                    q, k, v, bias)),
+                ("prefill_attention", lambda: ops.prefill_attention(
+                    ql, kl, vl, causal=True))):
+            sizes[f"profile_{label}"] = profile_window(
+                fn, label, wall_ms(fn, device))
+    return rows, errs, launches, sizes
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -230,6 +538,10 @@ def run(args, device, kernel_policy=None) -> dict:
     from repro_torch.engine import QueryEngine
     from repro_torch.kernels import bsearch_probe as bp_mod
     from repro_torch.kernels import build, fused_draw as fd_mod
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import geo_gaps as geo_mod
+    from repro_torch.kernels import prefix_sum as ps_mod
     from repro_torch.kernels import threefry
     from repro_torch.kernels import tree_probe as tp_mod
 
@@ -239,7 +551,12 @@ def run(args, device, kernel_policy=None) -> dict:
                "fused_draw": fd_mod.fused_draw,
                "fused_sample": fd_mod.fused_sample,
                "tree_probe_paged": tp_mod.tree_probe_paged,
-               "tree_probe_paged_dma": tp_mod.tree_probe_paged_dma}
+               "tree_probe_paged_dma": tp_mod.tree_probe_paged_dma,
+               "prefix_sum": ps_mod.prefix_sum_tiles,
+               "geo_gaps": geo_mod.geo_gaps_tiles,
+               "threefry_uniforms": threefry.uniforms,
+               "flash_decode": dec_mod.flash_decode,
+               "flash_prefill": pre_mod.flash_prefill}
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -369,7 +686,7 @@ def run(args, device, kernel_policy=None) -> dict:
     del want
     u_dev = threefry.uniforms(keyB, acapB, 0, device)
     u_plain = threefry.uniforms_plain(keyB, acapB, 0, device)
-    errs["threefry"] = max_abs_err(u_dev, u_plain)
+    errs["threefry_uniforms"] = max_abs_err(u_dev, u_plain)
     for name, err in errs.items():
         log(f"[check] {name}: kernel vs plain max_abs_err {err}")
         assert err == 0.0, name
@@ -481,8 +798,6 @@ def run(args, device, kernel_policy=None) -> dict:
         assert launchesR["fused_sample"] == len(keysR)
         assert launchesR["tree_probe_paged"] == (1 + len(keysR)) * (
             1 + len(packC.layout.edges))
-    for k in kernels:
-        launches[k] = launchesA[k] + launchesB[k] + launchesC[k] + launchesR[k]
 
     # -- 6. times --------------------------------------------------------------
     steps = bp_mod.steps_for
@@ -561,21 +876,6 @@ def run(args, device, kernel_policy=None) -> dict:
                             reps, device)}
     log(f"[time] walks of all {nC} positions of C (ms): {get_ms}")
 
-    sources = {"fused_sample": "fused_draw.cu",
-               "tree_probe_paged_dma": "tree_probe_paged.cu"}
-    table = []
-    for name, replaces, ms, plain_ms, b_ms, b_by, lib_ms in rows:
-        table.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/"
-                      + sources.get(name, f"{name}.cu"),
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        log(f"[time] {name}: {ms:.4f} ms (plain {plain_ms:.3f}, bound "
-            f"{b_ms:.4f} by {b_by}"
-            + (f", library {lib_ms:.4f}" if lib_ms is not None else "") + ")")
-
     e2e = {
         "full_join_A_ms": wall_ms(lambda: engA.full_join(q), device),
         "sample_A_ms": wall_ms(lambda: engA.sample(q, threefry.key(7)), device),
@@ -600,10 +900,43 @@ def run(args, device, kernel_policy=None) -> dict:
                 e2e["sample_C_ms"]),
         }
     if on_card:
-        e2e["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(device))
-        log(f"[memory] peak device memory {e2e['peak_device_bytes'] / 2**30:.2f} GiB")
+        e2e["peak_device_bytes_A_to_C"] = int(
+            torch.cuda.max_memory_allocated(device))
     e2e["walks_C_ms"] = get_ms
-    return {"kernels": table, "end_to_end": e2e,
+
+    # -- 7. phase D: the kernel-ops entry point, after A-C's timings so that
+    # its multi-GiB attention inputs do not change the conditions of theirs
+    rowsD, errsD, launchesD, sizesD = run_ops(args, device, kernels,
+                                              planA.join_size)
+    errs["threefry_uniforms"] = max(errs["threefry_uniforms"],
+                                    errsD.pop("threefry_uniforms"))
+    errs.update(errsD)
+    for k in kernels:
+        launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
+                       + launchesR[k] + launchesD[k])
+
+    # -- 8. the kernels' rows ---------------------------------------------------
+    sources = {"fused_sample": "fused_draw.cu",
+               "tree_probe_paged_dma": "tree_probe_paged.cu"}
+    rows = [r[:2] + (sources.get(r[0], f"{r[0]}.cu"),) + r[2:] for r in rows]
+    table = []
+    for name, replaces, source, ms, plain_ms, b_ms, b_by, lib_ms in rows + rowsD:
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        log(f"[time] {name}: {ms:.4f} ms (plain {plain_ms:.3f}, bound "
+            f"{b_ms:.4f} by {b_by}"
+            + (f", library {lib_ms:.4f}" if lib_ms is not None else "") + ")")
+
+    if on_card:
+        e2e["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(device))
+        log(f"[memory] peak device memory {e2e['peak_device_bytes'] / 2**30:.2f} "
+            f"GiB ({e2e['peak_device_bytes_A_to_C'] / 2**30:.2f} GiB through "
+            f"A-C)")
+    return {"kernels": table, "end_to_end": e2e, "ops_sizes": sizesD,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),
@@ -624,6 +957,14 @@ def main(argv=None) -> int:
     ap.add_argument("--keys", type=int, default=3, help="draws of config A")
     ap.add_argument("--draws", type=int, default=32,
                     help="draws of configs B and C")
+    ap.add_argument("--scan-n", type=int, default=IMDB_CAST,
+                    help="elements of phase D's prefix sums (Cast's rows)")
+    ap.add_argument("--decode-batch", type=int, default=16,
+                    help="batch of phase D's llama3-405b decode")
+    ap.add_argument("--decode-seq", type=int, default=32_768,
+                    help="KV cache length of phase D's decode")
+    ap.add_argument("--prefill-seq", type=int, default=4096,
+                    help="sequence of phase D's llama3-405b prefill")
     ap.add_argument("--reps", type=int, default=5, help="timed kernel calls")
     ap.add_argument("--profile", action="store_true",
                     help="also break the warm calls down by device kernel")

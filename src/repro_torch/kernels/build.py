@@ -21,11 +21,12 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check",
-           "ptxas_report"]
+           "ptxas_report", "vector_operand"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bsearch_probe", "tree_probe", "tree_probe_paged", "fused_draw")
+SOURCES = ("bsearch_probe", "tree_probe", "tree_probe_paged", "fused_draw",
+           "scan", "flash_decode", "flash_prefill")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -108,3 +109,10 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error (``cudaGetLastError``)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def vector_operand(t):
+    """``t`` contiguous with a 16-byte-aligned start, as kernels that load
+    16-byte vectors need (a contiguous view may start mid-allocation)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,0 +1,67 @@
+"""Fused GEO positions: uniforms -> geometric gaps -> ascending positions.
+
+    step = min(floor(log(max(u, 1e-12)) / log1p(-clip(p))), 2e9) + 1
+    pos  = running sum of step - 1                         (int32)
+
+``geo_gaps_tiles`` launches ``csrc/scan.cu``'s ``geo_gaps_launch`` for
+CUDA tensors (the prefix-sum kernel with the step as its prologue and
+``- 1`` as its epilogue) and runs ``geo_gaps_plain`` for CPU tensors;
+``launches`` counts its calls that launch the kernel.
+
+The step keeps the reference's divide (not a reciprocal multiply):
+``floor`` turns a last-ulp difference into an off-by-one position. ``p``
+is clipped in float32 as the reference clips it, and ``log1p(-p)`` is
+taken on the device in both versions. Positions wrap as int32 sums wrap.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .prefix_sum import scan_launch, wrap_i32
+
+__all__ = ["clip_p", "geo_steps_plain", "geo_gaps_plain", "geo_gaps_tiles"]
+
+_STEP_MAX = 2_000_000_000.0  # the gap's clamp before the int32 cast
+
+
+def clip_p(p) -> float:
+    """``p`` clipped to [1e-12, 1 - 1e-7] in float32, as the reference."""
+    return float(np.clip(np.float32(p), np.float32(1e-12),
+                         np.float32(1.0 - 1e-7)))
+
+
+def geo_steps_plain(u: torch.Tensor, p) -> torch.Tensor:
+    """int32 steps (gap + 1) of float32 uniforms ``u``."""
+    pc = torch.tensor(clip_p(p), dtype=torch.float32, device=u.device)
+    gaps = torch.floor(torch.log(torch.clamp(u, min=1e-12)) / torch.log1p(-pc))
+    return torch.clamp(gaps, max=_STEP_MAX).to(torch.int32) + 1
+
+
+def geo_gaps_plain(u: torch.Tensor, p) -> torch.Tensor:
+    """int32 positions of ``u``'s shape (flat row-major running sums)."""
+    steps = geo_steps_plain(u.to(torch.float32), p).reshape(-1)
+    pos = wrap_i32(torch.cumsum(steps.to(torch.int64), 0) - 1)
+    return pos.reshape(u.shape)
+
+
+def geo_gaps_tiles(u: torch.Tensor, p) -> torch.Tensor:
+    """u: float32 uniforms in (0, 1), any shape (the reference takes
+    ``(R, 128)`` tiles); p: a probability. Returns int32 positions of
+    u's shape, ascending in flat order."""
+    if u.dtype != torch.float32:
+        raise TypeError(f"geo_gaps_tiles takes float32 uniforms, got {u.dtype}")
+    if u.device.type == "cpu":
+        return geo_gaps_plain(u, p)
+    if u.device.type != "cuda":
+        raise ValueError(f"geo_gaps_tiles: unsupported device {u.device}")
+    uc = u.contiguous()
+    out = torch.empty(uc.shape, dtype=torch.int32, device=u.device)
+    if uc.numel() == 0:
+        return out
+    scan_launch("geo_gaps", uc, out, clip_p(p))
+    geo_gaps_tiles.launches += 1
+    return out
+
+
+geo_gaps_tiles.launches = 0

@@ -1,19 +1,42 @@
-"""Layout plumbing and policy dispatch around the kernels.
+"""Layout plumbing and policy dispatch around the kernels: the port's
+public kernel API, with the reference's signatures (``kernels/ops.py``).
 
-``searchsorted_prefix`` routes int32 searches through the bsearch kernel
-(the table lives in device memory, so there is no size budget) and every
-other dtype, or a disabled policy, through ``torch.searchsorted``.
+Each wrapper takes ``policy=``: a disabled policy routes it through its
+library or plain version (``torch.searchsorted``, ``torch.cumsum``, the
+``ref`` oracles). With an enabled policy a CUDA tensor launches the
+kernel or raises, and a CPU tensor runs the kernel's plain version.
+
+The port's kernels mask their own ragged edges, so nothing is padded:
+``prefix_sum`` and ``geo_positions_fused`` pass flat vectors, and the
+attention kernels leave keys past S out. That keeps the reference's
+answers wherever its padding is right, and is right where the
+reference's is not: its ``prefill_attention`` pads K and V with zeros to
+the block lcm and, non-causal, lets the padded keys into the softmax.
+
+The kernels choose their own tiles (named constants in ``csrc/``, with
+their reasons). ``block_s``, ``block_q`` and ``block_k`` keep the
+reference's signatures and are checked, but have no effect: nothing maps
+them onto tiles yet, so tuning against them changes nothing.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 
+from . import ref
 from .bsearch_probe import bsearch_probe
+from .flash_decode import flash_decode
+from .flash_prefill import flash_prefill
+from .geo_gaps import geo_gaps_tiles
+from .prefix_sum import prefix_sum_tiles
 
-__all__ = ["to_tiles", "searchsorted_prefix"]
+__all__ = ["to_tiles", "searchsorted_prefix", "prefix_sum",
+           "geo_positions_fused", "decode_attention", "prefill_attention",
+           "ref"]
 
 
 def to_tiles(x: torch.Tensor, fill=0) -> torch.Tensor:
@@ -33,3 +56,59 @@ def searchsorted_prefix(pref: torch.Tensor, q: torch.Tensor,
             or not policy.enabled):
         return torch.clamp(torch.searchsorted(pref, q, right=True) - 1, min=0)
     return bsearch_probe(pref, q)
+
+
+def prefix_sum(x: torch.Tensor, exclusive: bool = False, *,
+               policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """Prefix sum of a 1-D vector (the index's pref column). int32 and
+    float32 take the scan kernel; int64 (joins past 2^31) takes
+    ``torch.cumsum``, as the reference routes it."""
+    if x.dtype == torch.int64 or not policy.enabled:
+        s = torch.cumsum(x, 0, dtype=x.dtype)
+    else:
+        s = prefix_sum_tiles(x)
+    if exclusive:
+        s = torch.cat([s.new_zeros(1), s[:-1]])
+    return s
+
+
+def geo_positions_fused(u: torch.Tensor, p, *,
+                        policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """Fused uniform -> geometric -> positions transform (ascending int32)."""
+    u = u.to(torch.float32)
+    if not policy.enabled:
+        return ref.geo_gaps_ref(u, p)
+    return geo_gaps_tiles(u, p)
+
+
+def _check_block(name: str, value: Optional[int]) -> None:
+    if value is not None and (not isinstance(value, int) or value < 1):
+        raise ValueError(f"{name} must be a positive int or None, got {value!r}")
+
+
+def decode_attention(q, k, v, bias=None, *, block_s: Optional[int] = None,
+                     policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """Online-softmax decode attention: q (B, H, D), k/v (B, KV_H, S, D),
+    bias (B, S) additive float32 (zeros when None). ``block_s`` is
+    checked and has no effect (the kernel's tiles are fixed)."""
+    _check_block("block_s", block_s)
+    if bias is None:
+        bias = torch.zeros((q.shape[0], k.shape[2]), dtype=torch.float32,
+                           device=q.device)
+    if not policy.enabled:
+        return ref.flash_decode_ref(q, k, v, bias)
+    return flash_decode(q, k, v, bias)
+
+
+def prefill_attention(q, k, v, *, causal: bool = True,
+                      block_q: Optional[int] = None,
+                      block_k: Optional[int] = None,
+                      policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """Causal (or full) flash attention over full sequences: q (B, H, S,
+    D), k/v (B, KV, S, D). ``block_q`` and ``block_k`` are checked and have
+    no effect (the kernel's tiles are fixed)."""
+    _check_block("block_q", block_q)
+    _check_block("block_k", block_k)
+    if not policy.enabled:
+        return ref.flash_prefill_ref(q, k, v, causal=causal)
+    return flash_prefill(q, k, v, causal)

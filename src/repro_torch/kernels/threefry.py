@@ -23,6 +23,8 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.config import resolve_device
+
 __all__ = ["key", "key_words", "threefry2x32", "fold", "bits_to_uniform",
            "uniforms_plain", "uniforms"]
 
@@ -87,10 +89,11 @@ def uniforms_plain(k, n: int, stream: int = 0, device="cpu") -> torch.Tensor:
     return bits_to_uniform(x0)
 
 
-def uniforms(k, n: int, stream: int = 0, device="cpu") -> torch.Tensor:
-    """The same uniforms from the device cipher on a CUDA ``device``; the
-    plain version on the CPU."""
-    dev = torch.device(device)
+def uniforms(k, n: int, stream: int = 0, device=None) -> torch.Tensor:
+    """The same uniforms from the device cipher on a CUDA ``device`` (by
+    default the card: ``None`` raises where there is none); the plain
+    version when ``device='cpu'`` is asked for."""
+    dev = resolve_device(device)
     if dev.type == "cpu":
         return uniforms_plain(k, n, stream, dev)
     if dev.type != "cuda":

@@ -301,6 +301,9 @@ def test_import_loads_no_jax():
             "from repro_torch.kernels.fused_draw import fused_sample\n"
             "from repro_torch.kernels.tree_probe import tree_probe_paged\n"
             "from repro_torch.core.shred import PagedArena\n"
+            "import repro_torch.kernels.prefix_sum, repro_torch.kernels.geo_gaps\n"
+            "import repro_torch.kernels.flash_decode\n"
+            "import repro_torch.kernels.flash_prefill, repro_torch.kernels.ref\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"

@@ -91,7 +91,8 @@ def test_threefry_bits_and_uniforms_exact():
         np.testing.assert_array_equal(np.asarray(w1, np.int64), g1.numpy())
         for stream in (0, 1):
             want = np.asarray(r_threefry.uniforms(kd, 1000, stream))
-            got = t_threefry.uniforms(t_threefry.key(seed), 1000, stream)
+            got = t_threefry.uniforms(t_threefry.key(seed), 1000, stream,
+                                      device="cpu")
             assert got.dtype == torch.float32
             np.testing.assert_array_equal(want, got.numpy())
 
