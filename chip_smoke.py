@@ -8,7 +8,8 @@ through the one-launch ``fused_draw`` kernel, and through the paged draw
 (``fused_sample`` + ``tree_probe_paged``); then (phase D) the kernel-ops
 entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 ``geo_positions_fused``, ``decode_attention`` and ``prefill_attention``
-(the ``scan``, ``flash_decode`` and ``flash_prefill`` kernels). It builds
+(the ``scan``, ``flash_decode``, ``flash_prefill`` and
+``flash_prefill_tc`` kernels). It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card, checks the join against an
 independent numpy expansion and the samples against the join and their
@@ -37,9 +38,12 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        B cut from 128 to 16) under a padding mask, at
                        gemma3-1b widths under its window-512 mask, and in
                        float32; prefill attention at llama3-405b widths
-                       (train_4k's S = 4,096, causal and full), smollm-135m
-                       widths (S = 1,000, ragged, float32) and gemma3-1b
-                       widths (D = 256, S = 2,048).
+                       (train_4k's S = 4,096, causal and full; prefill_32k's
+                       S = 32,768, causal, three heads checked), smollm-135m
+                       widths (S = 1,000, ragged, float32 and bf16) and
+                       gemma3-1b widths (D = 256, S = 2,048). bf16 attention
+                       runs the tensor-core kernels, float32 the CUDA-core
+                       ones (timed too).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and exits non-zero without one. The last line is
@@ -183,6 +187,19 @@ def profile_window(fn, label: str, wall_ms_unprofiled: float) -> dict:
         log(f"[profile] {label}:   {t / 1e3:8.3f} ms  x{count:<3d} {name[:80]}")
     return {"busy_ms": busy_ms, "idle_share": idle,
             "top": [(name, t / 1e3, count) for name, t, count in kernels[:8]]}
+
+
+def sass_count(build, name: str, op: str) -> str:
+    """How many ``op`` instructions ``cuobjdump -sass`` finds in the built
+    library of ``csrc/<name>.cu`` (a note if there is no cuobjdump)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return f"no cuobjdump; {op} not counted"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300).stdout
+    return f"{sass.count(op)} {op} instructions (cuobjdump -sass)"
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = SCALAR_OPS_PER_S):
@@ -357,6 +374,12 @@ def run_ops(args, device, kernels, n_join: int):
                   randn((1, KVl, Sp, Dl), bf16))
     qs, ks, vs = (randn((2, Hs, 1000, Ds), f32), randn((2, KVs, 1000, Ds), f32),
                   randn((2, KVs, 1000, Ds), f32))
+    qsb, ksb, vsb = (t.to(bf16) for t in (qs, ks, vs))
+    # prefill_32k: llama3-405b widths, B 1, causal; checked on three heads
+    S32 = args.prefill_long_seq
+    q32, k32, v32 = (randn((1, Hl, S32, Dl), bf16),
+                     randn((1, KVl, S32, Dl), bf16),
+                     randn((1, KVl, S32, Dl), bf16))
     Sg = Sp // 2
     qg, kg, vg = (randn((1, Hg, Sg, Dg), bf16), randn((1, KVg, Sg, Dg), bf16),
                   randn((1, KVg, Sg, Dg), bf16))
@@ -365,6 +388,8 @@ def run_ops(args, device, kernels, n_join: int):
         f"llama3-405b bf16 S={Sp} full": (ql, kl, vl, False, BF16_TOL),
         "smollm-135m float32 B=2 S=1000 causal": (qs, ks, vs, True,
                                                   F32_PREFILL_TOL),
+        "smollm-135m bf16 B=2 S=1000 causal": (qsb, ksb, vsb, True,
+                                               BF16_TOL),
         "smollm-135m float32 B=2 S=1000 full": (qs, ks, vs, False,
                                                 F32_PREFILL_TOL),
         f"gemma3-1b bf16 S={Sg} causal": (qg, kg, vg, True, BF16_TOL),
@@ -388,6 +413,7 @@ def run_ops(args, device, kernels, n_join: int):
            for name, (q, k, v, bias, _) in dec_cases.items()}
     pre = {name: ops.prefill_attention(q, k, v, causal=causal)
            for name, (q, k, v, causal, _) in pre_cases.items()}
+    pre32 = ops.prefill_attention(q32, k32, v32, causal=True)
     if device.type == "cuda":
         torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
@@ -396,7 +422,7 @@ def run_ops(args, device, kernels, n_join: int):
         assert launches["prefix_sum"] == len(ps)
         assert launches["geo_gaps"] == launches["threefry_uniforms"] == GEO_KEYS
         assert launches["flash_decode"] == len(dec_cases)
-        assert launches["flash_prefill"] == len(pre_cases)
+        assert launches["flash_prefill"] == len(pre_cases) + 1
         assert all(launches[k] == 0 for k in kernels if k not in (
             "prefix_sum", "geo_gaps", "threefry_uniforms", "flash_decode",
             "flash_prefill"))
@@ -457,7 +483,18 @@ def run_ops(args, device, kernels, n_join: int):
         errs["flash_prefill"] = max(errs["flash_prefill"], err)
         log(f"[check] flash_prefill {name}: kernel vs plain max_abs_err "
             f"{err:.3g} (rtol, atol {tol})")
-    del dec, pre
+    # prefill_32k: a dense check is (S, S) scores a head, so three query
+    # heads, each against the plain version on its slice and its KV head
+    G32 = Hl // KVl
+    for h in (0, Hl // 2 - 1, Hl - 1):
+        j = h // G32
+        err = close(pre32[:, h:h + 1], pre_mod.flash_prefill_plain(
+            q32[:, h:h + 1], k32[:, j:j + 1], v32[:, j:j + 1], True), BF16_TOL)
+        errs["flash_prefill"] = max(errs["flash_prefill"], err)
+        log(f"[check] flash_prefill llama3-405b bf16 S={S32} causal, head "
+            f"{h} (KV head {j}): kernel vs plain max_abs_err {err:.3g} "
+            f"(rtol, atol {BF16_TOL})")
+    del dec, pre, pre32
 
     # -- times ------------------------------------------------------------------
     reps = args.reps
@@ -504,11 +541,36 @@ def run_ops(args, device, kernels, n_join: int):
         "flash_prefill")
     nbytes = 2 * (2 * ql.numel() + kl.numel() + vl.numel())
     rows.append(("flash_prefill", "src/repro/kernels/flash_prefill.py:71",
-                 "flash_prefill.cu", ms, plain_ms,
+                 "flash_prefill_tc.cu", ms, plain_ms,
                  *bound(nbytes, 2 * ql.numel() * Sp, BF16_TC_OPS_PER_S),
                  lib_ms))
+    # prefill_32k, causal: the kernel, SDPA and the bound (fewer reps)
+    reps32 = max(1, reps // 2)
+    ms32 = timed(lambda: ops.prefill_attention(q32, k32, v32, causal=True),
+                 reps32, device)
+    lib32 = library_timed(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True, enable_gqa=True), reps32, device,
+        "flash_prefill 32k")
+    b32 = bound(2 * (2 * q32.numel() + k32.numel() + v32.numel()),
+                2 * q32.numel() * S32, BF16_TC_OPS_PER_S)
+    log(f"[time] flash_prefill llama3-405b bf16 S={S32} causal (tensor "
+        f"cores): {ms32:.4f} ms (bound {b32[0]:.4f} by {b32[1]}"
+        + (f", library {lib32:.4f}" if lib32 is not None else "") + ")")
+    # the float32 instances, on the CUDA cores
+    qf, kf, vf, bf, _ = list(dec_cases.values())[2]
+    f32_dec_ms = timed(lambda: ops.decode_attention(qf, kf, vf, bf), reps,
+                       device)
+    f32_pre_ms = timed(lambda: ops.prefill_attention(qs, ks, vs, causal=True),
+                       reps, device)
+    log(f"[time] flash_decode float32 (CUDA cores) B=2 H=8 KV=2 D=128 "
+        f"S={Sf}: {f32_dec_ms:.4f} ms; flash_prefill float32 (CUDA cores) "
+        f"smollm-135m B=2 S=1000 causal: {f32_pre_ms:.4f} ms")
     sizes = {"scan_n": n, "geo_join": n_join, "geo_lanes": lanes,
-             "decode": list(dec_cases), "prefill": list(pre_cases)}
+             "decode": list(dec_cases), "prefill": list(pre_cases),
+             "prefill_32k": {"S": S32, "ms": ms32, "library_ms": lib32,
+                             "bound_ms": b32[0], "bound_by": b32[1]},
+             "float32_ms": {"flash_decode": f32_dec_ms,
+                            "flash_prefill": f32_pre_ms}}
     if device.type == "cuda" and args.profile:
         # device time against the wrapper's: the host side of a call
         # (ctypes, allocations) shows where the kernels are short
@@ -571,6 +633,9 @@ def run(args, device, kernel_policy=None) -> dict:
             for line in text.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
+        # the bf16 attention kernels' tensor-core instructions in the SASS
+        for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
+            log(f"[build] {name}: {sass_count(build, name, op)}")
 
     q = JoinQuery((Atom.of("Title", "t", "kind", "p"),
                    Atom.of("Cast", "t", "person"),
@@ -965,6 +1030,8 @@ def main(argv=None) -> int:
                     help="KV cache length of phase D's decode")
     ap.add_argument("--prefill-seq", type=int, default=4096,
                     help="sequence of phase D's llama3-405b prefill")
+    ap.add_argument("--prefill-long-seq", type=int, default=32_768,
+                    help="sequence of phase D's prefill_32k case")
     ap.add_argument("--reps", type=int, default=5, help="timed kernel calls")
     ap.add_argument("--profile", action="store_true",
                     help="also break the warm calls down by device kernel")

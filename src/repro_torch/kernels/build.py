@@ -7,6 +7,10 @@ name carries a digest of every source in ``csrc/``, so an edited source
 is never served by a stale build. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together.
 
+No source links ``libcuda``: ``flash_prefill_tc.cu`` fetches
+``cuTensorMapEncodeTiled`` at run time through the runtime's entry-point
+query, so every build takes the same flags.
+
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
@@ -20,13 +24,13 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "check",
-           "ptxas_report", "vector_operand"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "library_path",
+           "check", "ptxas_report", "vector_operand"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bsearch_probe", "tree_probe", "tree_probe_paged", "fused_draw",
-           "scan", "flash_decode", "flash_prefill")
+           "scan", "flash_decode", "flash_prefill", "flash_prefill_tc")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -92,6 +96,11 @@ def ptxas_report(name: str) -> str:
     """The last build's ``-Xptxas -v`` report for ``name`` ('' if none)."""
     p = BUILD_DIR / f"{name}.ptxas.txt"
     return p.read_text() if p.exists() else ""
+
+
+def library_path(name: str) -> Path:
+    """Where the current build of ``csrc/<name>.cu`` lives (or will)."""
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,4 +1,4 @@
-// Device helpers shared by the attention kernels (flash_decode.cu,
+// Device helpers of the CUDA-core attention kernels (flash_decode.cu,
 // flash_prefill.cu): element conversion, float4 arithmetic and the tile
 // loader.
 #pragma once
@@ -6,9 +6,6 @@
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 // float -> the output type (bf16 rounds to nearest even)
 __device__ __forceinline__ float from_f(float x, float*) { return x; }
 __device__ __forceinline__ __nv_bfloat16 from_f(float x, __nv_bfloat16*) {

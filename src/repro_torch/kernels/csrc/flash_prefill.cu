@@ -1,14 +1,14 @@
 // Causal or full flash attention over whole sequences, with GQA.
 //
-// Replaces flash_prefill of src/repro/kernels/flash_prefill.py: for each
-// (b, h) and query row i, softmax(q_i . K^T / sqrt(D), masked to keys j <= i
-// when causal) . V over KV head h / G (G = H / KV), float32 arithmetic, out
-// in q's dtype.
+// Replaces flash_prefill of src/repro/kernels/flash_prefill.py for float32
+// operands: for each (b, h) and query row i, softmax(q_i . K^T / sqrt(D),
+// masked to keys j <= i when causal) . V over KV head h / G (G = H / KV),
+// float32 arithmetic. bf16 operands take flash_prefill_tc.cu.
 //
 // Bound on the card: operations, 4 * B * H * S^2 * D (half of it when
-// causal) against the tensor cores' bf16 rate. This kernel runs on the CUDA
-// cores in float32, as the reference computes P . V in float32: it is a
-// right first version, far from that bound; wgmma tiles are later work.
+// causal). This kernel runs on the CUDA cores in float32 (67 TFLOP/s), as
+// the reference computes both products in float32: the tensor cores' TF32
+// keeps ~3 decimal digits, too few for the float32 tolerances.
 // What the design does:
 //   * one block of FP_THREADS per (query tile of FP_BQ rows, head, batch
 //     row); K and V stream through shared memory in tiles of BK keys with an
@@ -206,31 +206,22 @@ static int fp_launch(const T* q, const T* k, const T* v, T* out, int B, int H,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int fp_dispatch(const void* q, const void* k, const void* v, void* out,
-                       int B, int H, int KV, int S, int D, int causal,
-                       float scale, void* stream) {
-  const T *qt = (const T*)q, *kt = (const T*)k, *vt = (const T*)v;
-  T* ot = (T*)out;
-  switch (D) {
-    case 64:
-      return fp_launch<T, 64>(qt, kt, vt, ot, B, H, KV, S, causal, scale, stream);
-    case 128:
-      return fp_launch<T, 128>(qt, kt, vt, ot, B, H, KV, S, causal, scale, stream);
-    case 256:
-      return fp_launch<T, 256>(qt, kt, vt, ot, B, H, KV, S, causal, scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// dtype: 0 float32, 1 bfloat16; D in {64, 128, 256}; H % KV == 0; S >= 1.
-extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
-                                    const void* v, void* out, int B, int H,
+// float32 q (B, H, S, D), k / v (B, KV, S, D); D in {64, 128, 256};
+// H % KV == 0; S >= 1.
+extern "C" int flash_prefill_launch(const float* q, const float* k,
+                                    const float* v, float* out, int B, int H,
                                     int KV, int S, int D, int causal,
                                     float scale, void* stream) {
-  if (dtype == 0)
-    return fp_dispatch<float>(q, k, v, out, B, H, KV, S, D, causal, scale,
-                              stream);
-  return fp_dispatch<__nv_bfloat16>(q, k, v, out, B, H, KV, S, D, causal, scale,
-                                    stream);
+  switch (D) {
+    case 64:
+      return fp_launch<float, 64>(q, k, v, out, B, H, KV, S, causal, scale,
+                                  stream);
+    case 128:
+      return fp_launch<float, 128>(q, k, v, out, B, H, KV, S, causal, scale,
+                                   stream);
+    case 256:
+      return fp_launch<float, 256>(q, k, v, out, B, H, KV, S, causal, scale,
+                                   stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -3,12 +3,21 @@
 out in q's dtype. q ``(B, H, S, D)``, k/v ``(B, KV, S, D)``; query head h
 reads KV head ``h // (H / KV)``.
 
-``flash_prefill`` launches ``csrc/flash_prefill.cu`` for CUDA tensors
-(one block per query tile of 64 rows, head and batch row; K and V tiles
-stream through shared memory under an online softmax) and runs
-``flash_prefill_plain`` for CPU tensors; ``launches`` counts its calls
-that launch the kernel. The kernel takes any S: keys past the end are
-left out, causal or not, so no padding is needed.
+``flash_prefill`` launches a kernel for CUDA tensors and runs
+``flash_prefill_plain`` for CPU tensors; ``launches`` counts its calls that
+launch a kernel. Each dtype has its own kernel, and neither stands in for
+the other:
+
+  * bf16: ``csrc/flash_prefill_tc.cu``, on the tensor cores (``wgmma``):
+    one block of a TMA producer and two consumer warpgroups per 128 query
+    rows, head and batch row; K and V stream through a two-stage ring;
+  * float32: ``csrc/flash_prefill.cu``, on the CUDA cores: one block per 64
+    query rows, head and batch row. The reference computes in float32, and
+    the tensor cores' TF32 keeps too few digits for its tolerances.
+
+Both run an online softmax over key tiles, so no S x S score matrix
+exists, and take any S: keys past the end are left out, causal or not, so
+no padding is needed.
 
 The plain version is the dense oracle. It walks batch rows and KV heads,
 so its float32 scores are one group's ``(G, S, S)`` at a time.
@@ -21,8 +30,10 @@ import torch
 
 __all__ = ["HEAD_DIMS", "flash_prefill_plain", "flash_prefill"]
 
-HEAD_DIMS = (64, 128, 256)  # the kernel's instances (flash_prefill.cu)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)  # the kernels' instances
+# library and entry of each dtype's kernel
+_ENTRIES = {torch.bfloat16: ("flash_prefill_tc", "flash_prefill_tc_launch"),
+            torch.float32: ("flash_prefill", "flash_prefill_launch")}
 _MASK = -1e30  # the reference's causal mask value
 
 
@@ -69,28 +80,35 @@ def flash_prefill(q, k, v, causal: bool = True) -> torch.Tensor:
         return flash_prefill_plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_prefill: the kernel takes float32 or "
+    if q.dtype not in _ENTRIES:
+        raise TypeError(f"flash_prefill: the kernels take float32 or "
                         f"bfloat16, got {q.dtype}")
     if D not in HEAD_DIMS or S < 1:
-        raise ValueError(f"flash_prefill: the kernel takes D in {HEAD_DIMS} "
+        raise ValueError(f"flash_prefill: the kernels take D in {HEAD_DIMS} "
                          f"and S >= 1; got D={D}, S={S}")
+    out = _launch(q, k, v, causal)
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    """Launch q.dtype's kernel on q's stream, or raise."""
     from . import build
 
-    fn = build.library("flash_prefill").flash_prefill_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    B, H, S, D = q.shape
+    name, entry = _ENTRIES[q.dtype]
+    fn = getattr(build.library(name), entry)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     q, k, v = (build.vector_operand(t) for t in (q, k, v))
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                       v.data_ptr(), out.data_ptr(), B, H, KV, S, D,
-                       int(bool(causal)), 1.0 / D ** 0.5, stream),
-                    "flash_prefill")
-    flash_prefill.launches += 1
+        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), B, H, k.shape[1], S, D,
+                       int(bool(causal)), 1.0 / D ** 0.5, stream), entry)
     return out
-
-
-flash_prefill.launches = 0

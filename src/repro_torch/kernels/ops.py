@@ -13,6 +13,11 @@ answers wherever its padding is right, and is right where the
 reference's is not: its ``prefill_attention`` pads K and V with zeros to
 the block lcm and, non-causal, lets the padded keys into the softmax.
 
+Attention routes by dtype, one kernel each and no fallback between them:
+bf16 runs the tensor-core kernels (``wgmma`` prefill, ``mma.sync``
+decode), float32 the CUDA-core ones, as the reference computes in float32
+and TF32 would not keep its tolerances.
+
 The kernels choose their own tiles (named constants in ``csrc/``, with
 their reasons). ``block_s``, ``block_q`` and ``block_k`` keep the
 reference's signatures and are checked, but have no effect: nothing maps
@@ -89,8 +94,9 @@ def _check_block(name: str, value: Optional[int]) -> None:
 def decode_attention(q, k, v, bias=None, *, block_s: Optional[int] = None,
                      policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """Online-softmax decode attention: q (B, H, D), k/v (B, KV_H, S, D),
-    bias (B, S) additive float32 (zeros when None). ``block_s`` is
-    checked and has no effect (the kernel's tiles are fixed)."""
+    bias (B, S) additive float32 (zeros when None). bf16 takes the
+    tensor-core kernel, float32 the CUDA-core one. ``block_s`` is checked
+    and has no effect (the kernels' tiles and splits are their own)."""
     _check_block("block_s", block_s)
     if bias is None:
         bias = torch.zeros((q.shape[0], k.shape[2]), dtype=torch.float32,
@@ -105,8 +111,9 @@ def prefill_attention(q, k, v, *, causal: bool = True,
                       block_k: Optional[int] = None,
                       policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """Causal (or full) flash attention over full sequences: q (B, H, S,
-    D), k/v (B, KV, S, D). ``block_q`` and ``block_k`` are checked and have
-    no effect (the kernel's tiles are fixed)."""
+    D), k/v (B, KV, S, D). bf16 takes the tensor-core kernel, float32 the
+    CUDA-core one. ``block_q`` and ``block_k`` are checked and have no
+    effect (the kernels' tiles are fixed)."""
     _check_block("block_q", block_q)
     _check_block("block_k", block_k)
     if not policy.enabled:
