@@ -202,6 +202,22 @@ def sass_count(build, name: str, op: str) -> str:
     return f"{sass.count(op)} {op} instructions (cuobjdump -sass)"
 
 
+def ptxas_lines(text: str):
+    """(entry function, line) for each register and spill line of an
+    ``-Xptxas -v`` report, the entry named by the line that opened it."""
+    import re
+
+    entry, out = "?", []
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line or "spill" in line:
+            out.append((entry[:72], line.replace("ptxas info    :", "").strip()))
+    return out
+
+
 def bound(nbytes: float, nops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
@@ -239,6 +255,54 @@ def check_sample(smp, full, label: str) -> int:
     for v, col in full.items():
         assert torch.equal(smp.columns[v][:c], col[pos]), (label, v)
     return c
+
+
+def check_draws(label, fd_mod, ps_mod, pack, variants, keys, samples,
+                errs) -> None:
+    """Every draw of a phase's main path, again through both draw kernels
+    and the plain version, under each key: for the configuration's own
+    parameters and each other variant, ``fused_draw`` equals
+    ``fused_draw_plain`` (rows, positions, count, overflow) and
+    ``fused_sample`` equals both in positions, count and overflow; the
+    main-path sample under that key is the kernel's draw. Raises the
+    kernels' errors in ``errs``; logs the keys whose float32 arrival sum
+    dipped (the running max takes the dip out)."""
+    import torch
+
+    from repro_torch.kernels import threefry
+
+    dips = []
+    for key, smp in zip(keys, samples):
+        for name, params, kw in variants:
+            full = fd_mod.fused_draw(pack.arena, key, params,
+                                     layout=pack.layout, **kw)
+            want = fd_mod.fused_draw_plain(pack.arena, key, params,
+                                           layout=pack.layout, **kw)
+            pos = fd_mod.fused_sample(key, params, **kw)
+            assert not bool(want[3]), (label, name)
+            errs["fused_draw"] = max(errs["fused_draw"], *(
+                max_abs_err(g, w) for g, w in zip(full, want)))
+            errs["fused_sample"] = max(errs["fused_sample"], *(
+                max_abs_err(g, w) for g, w in zip(pos, want[1:])))
+            for g, f in zip(pos, full[1:]):
+                assert torch.equal(g, f), (label, name)
+            if name != "main":
+                continue
+            assert torch.equal(smp.positions, full[1].long()), label
+            assert int(smp.count) == int(full[2]), label
+            assert bool(smp.overflow) == bool(full[3]), label
+            u = threefry.uniforms_plain(key, kw["acap"], 0,
+                                        pack.arena.device)
+            raw = ps_mod.scan_order_f32(-torch.log1p(-u), fd_mod.THREADS,
+                                        fd_mod.ITEMS)
+            if bool((raw[1:] < raw[:-1]).any()):
+                dips.append(int(key[1]))  # the key's seed
+    log(f"[check] {label}: {len(keys)} keys x {len(variants)} draws "
+        f"({', '.join(v[0] for v in variants)}): fused_draw vs plain "
+        f"max_abs_err {errs['fused_draw']}, fused_sample vs plain "
+        f"{errs['fused_sample']}, fused_sample equals fused_draw and the "
+        f"main-path sample; keys whose raw arrival sum dips: {dips}")
+    assert errs["fused_draw"] == 0.0 and errs["fused_sample"] == 0.0
 
 
 def walk_ops(layout, steps_for) -> int:
@@ -446,6 +510,30 @@ def run_ops(args, device, kernels, n_join: int):
         f"random: kernel vs plain max_abs_err {errs['prefix_sum']} (random "
         f"float32 against a float64 cumsum: {drift:.4g})")
     assert errs["prefix_sum"] == 0.0
+    # The int32 look-back at its edges: one element, a tile less one, a
+    # tile, a tile and one, 33 tiles and 7 (the look-back crosses windows),
+    # Cast's rows; full-range values, so the sums wrap.
+    T = ps_mod.LOOK_BACK_TILE
+    edges = sorted({1, T - 1, T, T + 1, 33 * T + 7, n})
+    edge_err = 0.0
+    for m in edges:
+        xm = torch.randint(-2**31, 2**31, (m,), generator=gen, device=device,
+                           dtype=torch.int32)
+        edge_err = max(edge_err, max_abs_err(ps_mod.prefix_sum_tiles(xm),
+                                             ps_mod.prefix_sum_plain(xm)))
+        del xm
+    # 50 calls back to back at Cast's rows, each against the first, with no
+    # host sync between them: a look-back ordering fault (or a status word
+    # left over in reused scratch) shows as a rare wrong sum.
+    first = ps_mod.prefix_sum_tiles(w_i32)
+    wrong = torch.zeros((), dtype=torch.int64, device=device)
+    for _ in range(50):
+        wrong += (ps_mod.prefix_sum_tiles(w_i32) != first).sum()
+    log(f"[check] prefix_sum int32 look-back at n {edges} (full-range "
+        f"values): kernel vs plain max_abs_err {edge_err}; 50 calls back to "
+        f"back at n {n}: {int(wrong)} elements differ from the first call")
+    assert edge_err == 0.0 and int(wrong) == 0 and torch.equal(first, want_i32)
+    del first
 
     errs["geo_gaps"] = errs["threefry_uniforms"] = 0.0
     off_lanes, near, zs = 0, 0, []
@@ -562,15 +650,25 @@ def run_ops(args, device, kernels, n_join: int):
                        device)
     f32_pre_ms = timed(lambda: ops.prefill_attention(qs, ks, vs, causal=True),
                        reps, device)
+    maskf = (bf == 0)[:, None, None, :]
+    f32_dec_lib = library_timed(lambda: F.scaled_dot_product_attention(
+        qf[:, :, None], kf, vf, attn_mask=maskf, enable_gqa=True), reps,
+        device, "flash_decode float32")
+    f32_pre_lib = library_timed(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), reps, device,
+        "flash_prefill float32")
     log(f"[time] flash_decode float32 (CUDA cores) B=2 H=8 KV=2 D=128 "
-        f"S={Sf}: {f32_dec_ms:.4f} ms; flash_prefill float32 (CUDA cores) "
-        f"smollm-135m B=2 S=1000 causal: {f32_pre_ms:.4f} ms")
+        f"S={Sf}: {f32_dec_ms:.4f} ms (library {f32_dec_lib}); "
+        f"flash_prefill float32 (CUDA cores) smollm-135m B=2 S=1000 causal: "
+        f"{f32_pre_ms:.4f} ms (library {f32_pre_lib})")
     sizes = {"scan_n": n, "geo_join": n_join, "geo_lanes": lanes,
              "decode": list(dec_cases), "prefill": list(pre_cases),
              "prefill_32k": {"S": S32, "ms": ms32, "library_ms": lib32,
                              "bound_ms": b32[0], "bound_by": b32[1]},
              "float32_ms": {"flash_decode": f32_dec_ms,
-                            "flash_prefill": f32_pre_ms}}
+                            "flash_prefill": f32_pre_ms,
+                            "flash_decode_library": f32_dec_lib,
+                            "flash_prefill_library": f32_pre_lib}}
     if device.type == "cuda" and args.profile:
         # device time against the wrapper's: the host side of a call
         # (ctypes, allocations) shows where the kernels are short
@@ -630,9 +728,8 @@ def run(args, device, kernel_policy=None) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
         for name in build.SOURCES:
             text = reports.get(name) or build.ptxas_report(name)
-            for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+            for entry, line in ptxas_lines(text):
+                log(f"[build] {name}: {entry}: {line}")
         # the bf16 attention kernels' tensor-core instructions in the SASS
         for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
             log(f"[build] {name}: {sass_count(build, name, op)}")
@@ -687,60 +784,48 @@ def run(args, device, kernel_policy=None) -> dict:
     capB, acapB = planB.default_capacity(), planB.arrival_capacity()
     keyB = threefry.key(args.seed)
     kw = dict(layout=packB.layout, method="exprace", cap=capB, acap=acapB)
-    got = fd_mod.fused_draw(packB.arena, keyB, planB.draw_params, **kw)
-    want = fd_mod.fused_draw_plain(packB.arena, keyB, planB.draw_params, **kw)
-    errs["fused_draw"] = max(max_abs_err(g, w) for g, w in zip(got, want))
-    # Off the main path, the same kernel: probabilities at both extremes
-    # (the complement inversion, p = 0 and p = 1) and flat PTBERN.
+    # Each draw of B and C is held against the plain version after its
+    # phase's main-path run, with the configuration's parameters and, off
+    # the main path, the same kernel on probabilities at both extremes (the
+    # complement inversion, p = 0 and p = 1) and flat PTBERN (n = the join,
+    # within draw_limit).
     rng = np.random.default_rng(args.seed)
-    p_mix = torch.as_tensor(rng.choice(
-        [0.0, 0.02, 0.3, 0.5, 0.7, 0.98, 1.0], planB.w.numel())).to(device)
-    mixed = sampling.fused_draw_params(planB.w, p_mix, planB.prefE)
-    kw_mix = dict(layout=packB.layout, method="exprace",
-                  cap=engB.policy.sample_capacity(planB.w, p_mix),
-                  acap=engB.policy.arrival_capacity(planB.w, p_mix))
-    kw_pt = dict(layout=packB.layout, method="ptbern_flat", cap=capB,
-                 n=planB.join_size)
-    for params, kwx in ((mixed, kw_mix), (planB.draw_params, kw_pt)):
-        got = fd_mod.fused_draw(packB.arena, keyB, params, **kwx)
-        want = fd_mod.fused_draw_plain(packB.arena, keyB, params, **kwx)
-        assert not bool(got[3]), kwx["method"]
-        errs["fused_draw"] = max(errs["fused_draw"], *(
-            max_abs_err(g, w) for g, w in zip(got, want)))
-    # The paged rung's kernels at C's shapes. fused_sample: EXPRACE, the
-    # extreme-p mix and flat PTBERN (n = the join, within draw_limit).
+
+    def variants(plan, eng):
+        p_mix = torch.as_tensor(rng.choice(
+            [0.0, 0.02, 0.3, 0.5, 0.7, 0.98, 1.0], plan.w.numel())).to(device)
+        cap = plan.default_capacity()
+        return (("main", plan.draw_params,
+                 dict(method="exprace", cap=cap,
+                      acap=plan.arrival_capacity())),
+                ("extreme-p mix",
+                 sampling.fused_draw_params(plan.w, p_mix, plan.prefE),
+                 dict(method="exprace",
+                      cap=eng.policy.sample_capacity(plan.w, p_mix),
+                      acap=eng.policy.arrival_capacity(plan.w, p_mix))),
+                ("flat PTBERN", plan.draw_params,
+                 dict(method="ptbern_flat", cap=cap, n=plan.join_size)))
+
+    variantsB = variants(planB, engB)
+    grids = {}
+    if on_card:
+        for label, walk, plan in (("B", True, planB), ("C", False, planC)):
+            per_sm, sms, blocks = fd_mod.grid(
+                walk, plan.arrival_capacity(), plan.default_capacity(),
+                plan.w.numel())
+            grids[label] = {"blocks_per_sm": per_sm, "sms": sms,
+                            "blocks": blocks}
+            log(f"[build] {'fused_draw' if walk else 'fused_sample'} "
+                f"cooperative grid at {label}: occupancy {per_sm} blocks of "
+                f"{fd_mod.THREADS} threads a multiprocessor x {sms} = "
+                f"{per_sm * sms}; {blocks} blocks launched (acap "
+                f"{plan.arrival_capacity()}, cap {plan.default_capacity()})")
     packC = planC.shred.packed
     pvC = PagedArena.from_packed(packC)
     nC, capC, acapC = planC.join_size, planC.default_capacity(), \
         planC.arrival_capacity()
     keyC = threefry.key(args.seed + 2)
-    p_mixC = torch.as_tensor(rng.choice(
-        [0.0, 0.02, 0.3, 0.5, 0.7, 0.98, 1.0], planC.w.numel())).to(device)
-    mixedC = sampling.fused_draw_params(planC.w, p_mixC, planC.prefE)
-    errs["fused_sample"] = 0.0
-    for params, kwx in (
-            (planC.draw_params, dict(method="exprace", cap=capC,
-                                     acap=acapC)),
-            (mixedC, dict(method="exprace",
-                          cap=engC.policy.sample_capacity(planC.w, p_mixC),
-                          acap=engC.policy.arrival_capacity(planC.w,
-                                                            p_mixC))),
-            (planC.draw_params, dict(method="ptbern_flat", cap=capC,
-                                     n=nC))):
-        got = fd_mod.fused_sample(keyC, params, **kwx)
-        want = fd_mod.fused_sample_plain(keyC, params, **kwx)
-        assert not bool(got[2]), kwx
-        errs["fused_sample"] = max(errs["fused_sample"], *(
-            max_abs_err(g, w) for g, w in zip(got, want)))
-        # The same positions, count and overflow as the fused draw's.
-        for run_draw in (fd_mod.fused_draw, fd_mod.fused_draw_plain):
-            full = run_draw(packC.arena, keyC, params, layout=packC.layout,
-                            **kwx)
-            for g, f in zip(got, full[1:]):
-                assert torch.equal(g, f), (kwx, run_draw.__name__)
-    log(f"[check] fused_sample at C: positions, count and overflow equal "
-        f"fused_draw's (kernel and plain) for EXPRACE, the extreme-p mix "
-        f"and flat PTBERN")
+    variantsC = variants(planC, engC)
     # tree_probe_paged, both forms, over every position of C.
     posC = torch.arange(nC, dtype=torch.int32, device=device)
     want = tp_mod.tree_probe_plain(packC.arena, posC, packC.layout)
@@ -793,8 +878,9 @@ def run(args, device, kernel_policy=None) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     fullB = engB.full_join(q)
-    counts = [check_sample(engB.sample(q, threefry.key(2000 + s)), fullB, "B")
-              for s in range(args.draws)]
+    keysB = [threefry.key(2000 + s) for s in range(args.draws)]
+    smpsB = [engB.sample(q, key) for key in keysB]
+    counts = [check_sample(smp, fullB, "B") for smp in smpsB]
     launchesB = {k: fn.launches for k, fn in kernels.items()}
     log(f"[B] launches {launchesB}")
     if on_card:
@@ -806,6 +892,9 @@ def run(args, device, kernel_policy=None) -> dict:
     log(f"[B] {len(counts)} draws: mean count {np.mean(counts):.1f} vs "
         f"E[k] {meanB:.1f}, z {zB:+.2f}")
     assert abs(zB) < Z_LIMIT
+    errs["fused_draw"] = errs["fused_sample"] = 0.0
+    check_draws("B", fd_mod, ps_mod, packB, variantsB, keysB, smpsB, errs)
+    del smpsB
     check_join(fullB, tabB, "B")
     assert (engB.stats.shred_builds, engB.stats.plan_misses) == (1, 1), engB.stats
 
@@ -813,8 +902,9 @@ def run(args, device, kernel_policy=None) -> dict:
     for fn in kernels.values():
         fn.launches = 0
     fullC = engC.full_join(q)
-    counts = [check_sample(engC.sample(q, threefry.key(3000 + s)), fullC, "C")
-              for s in range(args.draws)]
+    keysC = [threefry.key(3000 + s) for s in range(args.draws)]
+    smpsC = [engC.sample(q, key) for key in keysC]
+    counts = [check_sample(smp, fullC, "C") for smp in smpsC]
     launchesC = {k: fn.launches for k, fn in kernels.items()}
     log(f"[C] launches {launchesC}")
     if on_card:
@@ -828,6 +918,8 @@ def run(args, device, kernel_policy=None) -> dict:
     log(f"[C] {len(counts)} draws: mean count {np.mean(counts):.1f} vs "
         f"E[k] {meanC:.1f}, z {zC:+.2f}")
     assert abs(zC) < Z_LIMIT
+    check_draws("C", fd_mod, ps_mod, packC, variantsC, keysC, smpsC, errs)
+    del smpsC
     check_join(fullC, tabC, "C")
     assert (engC.stats.shred_builds, engC.stats.plan_misses) == (1, 1), engC.stats
 
@@ -964,6 +1056,19 @@ def run(args, device, kernel_policy=None) -> dict:
                 lambda: engC.sample(q, threefry.key(7)), "sample(C)",
                 e2e["sample_C_ms"]),
         }
+        # The draw kernel's own phases (its global clock after each grid
+        # barrier), the mean of 10 launches after one.
+        for label, arena, key, params, kwx in (
+                ("fused_draw at B", packB.arena, keyB, planB.draw_params, kw),
+                ("fused_sample at C", None, keyC, planC.draw_params,
+                 dict(kwC, layout=None))):
+            runs = [fd_mod.phase_ms(arena, key, params, **kwx)
+                    for _ in range(11)][1:]
+            mean = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
+            e2e["profile"][f"phases {label}"] = mean
+            log(f"[profile] {label} phases (ms, mean of {len(runs)}): "
+                f"total {sum(mean.values()):.4f}; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in mean.items()))
     if on_card:
         e2e["peak_device_bytes_A_to_C"] = int(
             torch.cuda.max_memory_allocated(device))
@@ -1002,6 +1107,7 @@ def run(args, device, kernel_policy=None) -> dict:
             f"GiB ({e2e['peak_device_bytes_A_to_C'] / 2**30:.2f} GiB through "
             f"A-C)")
     return {"kernels": table, "end_to_end": e2e, "ops_sizes": sizesD,
+            "draw_grids": grids,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),

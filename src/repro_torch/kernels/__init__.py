@@ -5,10 +5,13 @@ for CUDA tensors and runs the plain version for CPU tensors.
     bsearch_probe     bulk binary search into prefix vectors
     tree_probe        the fused USR-GET walk over the packed arena, and its
                       paged forms (tree_probe_paged)
-    fused_draw        key -> Poisson positions and rows in one launch, and
-                      fused_sample (the same without the walk)
-    prefix_sum        reduce-then-scan prefix sums (int32 and float32)
-    geo_gaps          fused GEO positions (the scan with a step prologue)
+    fused_draw        key -> Poisson positions and rows in one cooperative
+                      launch over the card, and fused_sample (the same
+                      without the walk)
+    prefix_sum        prefix sums: int32 by a single-pass look-back,
+                      float32 by a fixed-order reduce-then-scan
+    geo_gaps          fused GEO positions (the look-back with a step
+                      prologue)
     flash_decode      split-S decode attention with GQA and a bias
     flash_prefill     causal or full flash attention with GQA
 

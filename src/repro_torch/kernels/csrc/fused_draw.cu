@@ -8,62 +8,156 @@
 // draw without the walk, the paged draw's front end). Both are one kernel
 // body here, fused_draw_kernel<WALK>: fused_sample is the instance that
 // writes each position and skips the walk, so the two give bit-equal
-// positions under one key. This is the reference's shape: ONE block of
-// 1024 threads. Stages are
-// separated by __syncthreads(); their scratch vectors (length acap, n or
-// R + 1) live in device memory, allocated by the Python wrapper. The
-// running sums (the float arrival times, the int counts, one int cummax)
-// are block scans over chunks of FD_THREADS * FD_ITEMS elements that carry
-// the running total from chunk to chunk.
+// positions under one key.
 //
-// Bound on the card: one SM does all the work, so the draw is bound by that
-// SM's load latency and its serial chunk loop, not by device bandwidth;
-// every output lane runs several binary searches and a full tree walk. This
-// first version accepts that (the reference's budget keeps acap and cap to
-// a few hundred thousand lanes); spreading it over all SMs is later work.
+// The kernel runs on the whole card in one cooperative launch
+// (cudaLaunchCooperativeKernel): the grid is the occupancy limit
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count), cut to the
+// blocks the draw's lanes can use. Every stage of the draw is a grid-wide
+// phase; blocks loop over fixed tiles of FD_TILE lanes, and phases are
+// separated by fd_grid_sync, a barrier on one counter in the scratch
+// (cooperative groups' own barrier, written out so that the one set of
+// build flags needs no -rdc). EXPRACE runs eight barriers:
+//   1. Exp(1) gaps from the Threefry uniforms, each tile scanned in the
+//      float32 order of scan.cuh: tile-local prefixes, tile totals, and
+//      the largest prefix of each tile;
+//   2. one block: the tile carries (the chunked scan of the totals), and
+//      the running max of the tiles before each tile;
+//   3. arrivals = running max of (carry + prefix), and cell placement;
+//   4. dedupe, segment of each unique arrival, tile scans of the unsigned
+//      and signed counts U and S (gid[i - 1] crosses a tile edge: phase 3
+//      ended with a barrier);
+//   5. U and S plus the sum of the tile totals before them;
+//   6. per-root output and hit prefixes (outE, hitsE) over R + 1 lanes;
+//   7. the complement's carry-forward values, tile running max;
+//   8. that max plus the max of the tiles before;
+//   9. output slots, then (WALK) the walk of each output lane.
+// Flat PTBERN is two barriers: a tile count scan, the carries, compaction.
+// Scratch is one allocation of fused_draw_scratch_words int32 words; the
+// barrier counter in it is zeroed by one 4-byte memset before the launch.
+// If the cooperative launch is refused, the launch function returns the
+// error; nothing falls back to a smaller grid.
+//
+// Bound on the card: the draw reads a few parameter vectors and writes cap
+// lanes, so its bytes and operations bound is microseconds; what it takes
+// is latency: eight barriers, and per output lane several dependent binary
+// searches and (WALK) a tree walk.
 //
 // The float32 arrival sum is the only order-sensitive step. Its order is
-// fixed here and repeated by the plain version (fused_draw.py _scan_f32):
-// within a chunk thread t adds its FD_ITEMS elements in sequence; thread
-// totals are scanned Hillis-Steele (distance 1, 2, 4, ...); an element is
-// carry + (exclusive thread prefix + local prefix). Built with -fmad=false
-// and explicit round-to-nearest operations, so the kernel and the plain
-// version agree bit for bit on the card. That order is not monotone: at a
-// thread or chunk boundary an element's sum is rounded along another path
-// than its predecessor's, and after a tiny gap it can land an ulp below it.
-// Arrivals must ascend (a dip places two arrivals' cells out of order and
-// breaks the ascending positions), so a running max follows the sum; max
-// is exact, so it needs no fixed order.
+// scan.cuh's at FD_THREADS x FD_ITEMS, which the plain version repeats
+// (prefix_sum.py scan_order_f32, called by fused_draw.py arrivals); it does
+// not depend on the grid. Built with -fmad=false and explicit
+// round-to-nearest operations, so the kernel and the plain version agree
+// bit for bit on the card. That order is not monotone: at a thread or tile
+// boundary an element's sum is rounded along another path than its
+// predecessor's, and after a tiny gap it can land an ulp below it. Arrivals
+// must ascend (a dip places two arrivals' cells out of order), so a running
+// max follows the sum; max and the integer scans are exact in any order.
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "scan.cuh"
 #include "threefry.cuh"
 #include "tree_walk.cuh"
 
-#define FD_THREADS 1024
-#define FD_ITEMS 8
-#define FD_CHUNK (FD_THREADS * FD_ITEMS)
+#define FD_THREADS 256
+#define FD_ITEMS 4
+#define FD_TILE (FD_THREADS * FD_ITEMS)
+#define FD_EXPRACE 0
+#define FD_PTBERN 1
 
-struct AddF {
-  __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
+static inline __host__ __device__ int fd_tiles(int lanes) {
+  return (lanes + FD_TILE - 1) / FD_TILE;
+}
+
+// Device-memory scratch, carved from one int32 allocation.
+struct FdScratch {
+  float* v;     // arrivals (lanes)
+  int* gid;     // cells (lanes); flat PTBERN's running count
+  int* seg;     // root segment of each unique arrival (lanes)
+  int* U;       // running count of unique arrivals (lanes)
+  int* S;       // running signed count (lanes)
+  int* gc;      // complement carry-forward values (lanes)
+  int* outE;    // per-root output prefix (R + 1)
+  int* hitsE;   // per-root hit prefix (R + 1)
+  float* tot;   // per tile: float32 total,
+  float* carry; //   carry,
+  float* pmax;  //   largest local prefix,
+  float* cmax;  //   running max of the tiles before it;
+  int* totU;    //   U total (flat PTBERN: count total),
+  int* totS;    //   S total,
+  int* gmax;    //   gc max
+  unsigned* bar;  // grid barrier counter, zero at launch
 };
-struct MaxF {
-  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
-};
-struct AddI {
-  __device__ int operator()(int a, int b) const { return a + b; }
-};
-struct MaxI {
-  __device__ int operator()(int a, int b) const { return max(a, b); }
+
+static FdScratch fd_carve(int* w, int lanes, int R) {
+  const int nt = fd_tiles(lanes);
+  FdScratch s;
+  s.v = reinterpret_cast<float*>(w);
+  w += lanes;
+  s.gid = w;
+  w += lanes;
+  s.seg = w;
+  w += lanes;
+  s.U = w;
+  w += lanes;
+  s.S = w;
+  w += lanes;
+  s.gc = w;
+  w += lanes;
+  s.outE = w;
+  w += R + 1;
+  s.hitsE = w;
+  w += R + 1;
+  s.tot = reinterpret_cast<float*>(w);
+  w += nt;
+  s.carry = reinterpret_cast<float*>(w);
+  w += nt;
+  s.pmax = reinterpret_cast<float*>(w);
+  w += nt;
+  s.cmax = reinterpret_cast<float*>(w);
+  w += nt;
+  s.totU = w;
+  w += nt;
+  s.totS = w;
+  w += nt;
+  s.gmax = w;
+  w += nt;
+  s.bar = reinterpret_cast<unsigned*>(w);
+  return s;
+}
+
+extern "C" long long fused_draw_scratch_words(int lanes, int R) {
+  return 6LL * lanes + 2LL * (R + 1) + 7LL * fd_tiles(lanes) + 1;
+}
+
+struct FdArgs {
+  const int* arena;
+  const float* massE;
+  const float* lam;
+  const int* sign;
+  const int* w32;
+  const int* prefE32;
+  const int* cwE;
+  const int* offE;
+  const float* p32;
+  int* rows;
+  int* positions;
+  int* scalars;
+  unsigned long long* stamps;  // phase clock (fd_stamp), or null
+  FdScratch s;
+  uint32_t k0, k1;
+  int method, R, lanes, cap;
 };
 
 // #elements of the ascending vec[0, L) that are <= q (branchless descent).
+// No __restrict__: several searched vectors are written by earlier phases of
+// the same launch, so their loads must not take the non-coherent path.
 template <typename T>
-__device__ __forceinline__ int fd_count_le(const T* __restrict__ vec, int L,
-                                           T q) {
+__device__ __forceinline__ int fd_count_le(const T* vec, int L, T q) {
   const int steps = max(1, 32 - __clz(L));
   int p = 0;
   for (int k = steps - 1; k >= 0; --k) {
@@ -74,217 +168,482 @@ __device__ __forceinline__ int fd_count_le(const T* __restrict__ vec, int L,
   return p;
 }
 
-// In-place inclusive scan of data[0, n) by the whole block (order above).
-template <typename T, typename Op>
-__device__ void fd_block_scan(T* data, int n, T ident, Op op, T* sh,
-                              T* carry_sh) {
-  const int t = threadIdx.x;
+// Root segment of flat position g.
+__device__ __forceinline__ int fd_seg(const int* prefE32, int R, int g) {
+  return min(max(fd_count_le(prefE32, R + 1, g) - 1, 0), R - 1);
+}
+
+// Every block of the grid waits here for every other (the cooperative
+// launch keeps them all resident). Block 0 adds 2^31 - (blocks - 1), the
+// others 1: the counter's top bit flips when the last block arrives, and
+// its low bits return to 0 for the next barrier.
+__device__ __forceinline__ void fd_grid_sync(unsigned* bar) {
   __syncthreads();
-  if (t == 0) *carry_sh = ident;
+  if (threadIdx.x == 0) {
+    const unsigned nb = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    __threadfence();
+    const unsigned old = atomicAdd(bar, nb);
+    unsigned cur;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(cur)
+                   : "l"(bar)
+                   : "memory");
+    } while (((old ^ cur) & 0x80000000u) == 0);
+    __threadfence();
+  }
   __syncthreads();
-  for (int base = 0; base < n; base += FD_CHUNK) {
-    const int i0 = base + t * FD_ITEMS;
-    T loc[FD_ITEMS];
-    T acc = ident;
+}
+
+// With a stamps vector (a measurement, off the draw path): block 0 records
+// the global clock (ns) at the start and after each barrier, and every
+// block raises the last entry to the time it finished.
+__device__ __forceinline__ unsigned long long fd_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void fd_stamp(unsigned long long* stamps, int k) {
+  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    stamps[k] = fd_clock();
+}
+__device__ __forceinline__ void fd_stamp_end(unsigned long long* stamps,
+                                             int k) {
+  __syncthreads();
+  if (stamps != nullptr && threadIdx.x == 0) atomicMax(stamps + k, fd_clock());
+}
+
+// op over one value a thread, to every thread (op exact in any order).
+template <typename T, class Op>
+__device__ __forceinline__ T fd_block_reduce(T v, Op op, T* sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-    for (int e = 0; e < FD_ITEMS; ++e) {
-      const int i = i0 + e;
-      const T x = i < n ? data[i] : ident;
-      acc = e == 0 ? x : op(acc, x);
-      loc[e] = acc;
-    }
-    sh[t] = acc;
-    __syncthreads();
-    for (int d = 1; d < FD_THREADS; d <<= 1) {
-      const T other = t >= d ? sh[t - d] : ident;
-      __syncthreads();
-      if (t >= d) sh[t] = op(sh[t], other);
-      __syncthreads();
-    }
-    const T excl = t > 0 ? sh[t - 1] : ident;
-    const T carry = *carry_sh;
+  for (int o = 16; o > 0; o /= 2) v = op(v, __shfl_xor_sync(SC_FULL, v, o));
+  __syncthreads();
+  if (lane == 0) sh[warp] = v;
+  __syncthreads();
+  T r = sh[0];
 #pragma unroll
-    for (int e = 0; e < FD_ITEMS; ++e) {
-      const int i = i0 + e;
-      const T pre = t > 0 ? op(excl, loc[e]) : loc[e];
-      if (i < n) data[i] = base > 0 ? op(carry, pre) : pre;
-    }
-    __syncthreads();
-    if (t == 0) *carry_sh = base > 0 ? op(carry, sh[FD_THREADS - 1])
-                                     : sh[FD_THREADS - 1];
-    __syncthreads();
+  for (int w = 1; w < FD_THREADS / 32; ++w) r = op(r, sh[w]);
+  __syncthreads();
+  return r;
+}
+
+// op over x[0, t): what the tiles before tile t carry into it.
+template <typename T, class Op>
+__device__ __forceinline__ T fd_before(const T* x, int t, T ident, Op op,
+                                       T* sh) {
+  T v = ident;
+  for (int k = threadIdx.x; k < t; k += FD_THREADS) v = op(v, x[k]);
+  return fd_block_reduce(v, op, sh);
+}
+
+// This thread's items of tile `base` back to x.
+template <typename T>
+__device__ __forceinline__ void fd_put(T* x, long long base, int lanes,
+                                       const T (&pre)[FD_ITEMS]) {
+#pragma unroll
+  for (int i = 0; i < FD_ITEMS; ++i) {
+    const long long idx = base + threadIdx.x * FD_ITEMS + i;
+    if (idx < lanes) x[idx] = pre[i];
   }
 }
 
-#define FD_EXPRACE 0
-#define FD_PTBERN 1
+// Tile loads of the phases.
+struct LoadGap {  // Exp(1) gap of stream 0's uniform
+  static constexpr bool kVec = false;
+  uint32_t s0, s1;
+  __device__ float operator()(long long i) const {
+    return -log1pf(-rt_uniform_at(s0, s1, (uint32_t)i));
+  }
+};
+struct LoadShifted {  // the running sum: the tile's carry + local prefix
+  static constexpr bool kVec = false;
+  const float* v;
+  float carry;
+  __device__ float operator()(long long i) const {
+    return __fadd_rn(carry, v[i]);
+  }
+};
+struct LoadTileMax {  // the largest running sum of tile t
+  static constexpr bool kVec = false;
+  const float* carry;
+  const float* pmax;
+  __device__ float operator()(long long t) const {
+    return __fadd_rn(carry[t], pmax[t]);
+  }
+};
+struct LoadGc {  // the complement's carry-forward value of a unique arrival
+  static constexpr bool kVec = false;
+  const FdArgs* a;
+  int n32;
+  __device__ int operator()(long long i) const {
+    const FdScratch& s = a->s;
+    const int g = s.gid[i];
+    const int prev = i > 0 ? s.gid[i - 1] : -1;
+    if (g >= n32 || g == prev) return -(1 << 30);
+    const int sg = s.seg[i];
+    const int lrank = (s.U[i] - 1) - s.hitsE[sg];
+    return (g - a->prefE32[sg]) - lrank + a->offE[sg];
+  }
+};
+struct LoadTrial {  // flat PTBERN: stream 1's trial of flat position i
+  static constexpr bool kVec = false;
+  uint32_t s0, s1;
+  const int* prefE32;
+  const float* p32;
+  int R;
+  __device__ int operator()(long long i) const {
+    const int r = fd_seg(prefE32, R, (int)i);
+    return rt_uniform_at(s0, s1, (uint32_t)i) < p32[r] ? 1 : 0;
+  }
+};
 
 // Output lane tt: its position, then (WALK) the walk of that position.
 template <bool WALK>
-__device__ __forceinline__ void fd_emit(const int* __restrict__ arena,
-                                        const RtLayout& L, int tt, int cap,
-                                        int p_out, int n32,
-                                        int* __restrict__ rows,
-                                        int* __restrict__ positions) {
-  positions[tt] = p_out;
+__device__ __forceinline__ void fd_emit(const FdArgs& a, const RtLayout& L,
+                                        int tt, int p_out, int n32) {
+  a.positions[tt] = p_out;
   if (!WALK) return;
   int rws[RT_MAX_SLOTS];
-  rt_tree_walk(arena, L, min(p_out, n32 - 1), rws);
-  for (int s = 0; s <= L.num_edges; ++s) rows[(long long)s * cap + tt] = rws[s];
+  rt_tree_walk(a.arena, L, min(p_out, n32 - 1), rws);
+  for (int s = 0; s <= L.num_edges; ++s)
+    a.rows[(long long)s * a.cap + tt] = rws[s];
 }
 
 // Flat PTBERN over n = prefE32[R] lanes: one trial per flat position, a
 // running count C, and lane tt = the first flat position with C == tt + 1.
 template <bool WALK>
-__device__ void fd_ptbern(const int* __restrict__ arena, const RtLayout& L,
-                          uint32_t k0, uint32_t k1,
-                          const int* __restrict__ prefE32,
-                          const float* __restrict__ p32, int R, int n,
-                          int cap, int* __restrict__ rows,
-                          int* __restrict__ positions,
-                          int* __restrict__ scalars, int* C, int* sh,
-                          int* carry) {
-  const int t = threadIdx.x;
-  const int n32 = prefE32[R];
+__device__ void fd_ptbern(const FdArgs& a, const RtLayout& L, int* smi,
+                          int* shi) {
+  const FdScratch& s = a.s;
+  const int tid = threadIdx.x, n = a.lanes, nt = fd_tiles(n);
+  const int n32 = a.prefE32[a.R];
   uint32_t s0, s1;
-  rt_fold(k0, k1, 1u, s0, s1);
-  for (int i = t; i < n; i += FD_THREADS) {
-    const int r = min(max(fd_count_le(prefE32, R + 1, i) - 1, 0), R - 1);
-    C[i] = rt_uniform_at(s0, s1, (uint32_t)i) < p32[r] ? 1 : 0;
+  rt_fold(a.k0, a.k1, 1u, s0, s1);
+  int* C = s.gid;
+  fd_stamp(a.stamps, 0);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const long long base = (long long)t * FD_TILE;
+    int pre[FD_ITEMS];
+    const int total = sc_tile<FD_THREADS, FD_ITEMS>(
+        LoadTrial{s0, s1, a.prefE32, a.p32, a.R}, base, n, 0, AddI(), smi,
+        shi, pre);
+    fd_put(C, base, n, pre);
+    if (tid == 0) s.totU[t] = total;
   }
-  fd_block_scan(C, n, 0, AddI(), sh, carry);
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 1);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const int carry = fd_before(s.totU, t, 0, AddI(), shi);
+    for (int k = 0; k < FD_ITEMS; ++k) {
+      const long long i = (long long)t * FD_TILE + k * FD_THREADS + tid;
+      if (i < n) C[i] += carry;
+    }
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 2);
   const int total = C[n - 1];
-  const int count = min(total, cap);
-  for (int tt = t; tt < cap; tt += FD_THREADS) {
+  const int count = min(total, a.cap);
+  for (int tt = blockIdx.x * FD_THREADS + tid; tt < a.cap;
+       tt += gridDim.x * FD_THREADS) {
     const int pos = min(fd_count_le(C, n, tt), n - 1);
-    fd_emit<WALK>(arena, L, tt, cap, tt < count ? pos : n32, n32, rows,
-                  positions);
+    fd_emit<WALK>(a, L, tt, tt < count ? pos : n32, n32);
   }
-  if (t == 0) {
-    scalars[0] = count;
-    scalars[1] = total > cap ? 1 : 0;
+  if (blockIdx.x == 0 && tid == 0) {
+    a.scalars[0] = count;
+    a.scalars[1] = total > a.cap ? 1 : 0;
   }
+  fd_stamp_end(a.stamps, 3);
 }
 
 template <bool WALK>
 __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
-    const int* __restrict__ arena, const __grid_constant__ RtLayout L,
-    uint32_t k0, uint32_t k1, int method, const float* __restrict__ massE,
-    const float* __restrict__ lam, const int* __restrict__ sign,
-    const int* __restrict__ w32, const int* __restrict__ prefE32,
-    const int* __restrict__ cwE, const int* __restrict__ offE,
-    const float* __restrict__ p32, int R, int acap, int cap,
-    int* __restrict__ rows, int* __restrict__ positions,
-    int* __restrict__ scalars, float* v, int* gid, int* seg, int* U, int* S,
-    int* gc, int* outE, int* hitsE) {
-  __shared__ float shf[FD_THREADS];
-  __shared__ int shi[FD_THREADS];
-  __shared__ float carry_f;
-  __shared__ int carry_i;
-  if (method == FD_PTBERN) {
-    // acap is the lane count here: the join size n.
-    fd_ptbern<WALK>(arena, L, k0, k1, prefE32, p32, R, acap, cap, rows,
-                    positions, scalars, gid, shi, &carry_i);
+    const __grid_constant__ FdArgs a, const __grid_constant__ RtLayout L) {
+  __shared__ uint32_t smw[SC_PAD(FD_TILE)];
+  __shared__ uint32_t shw[FD_THREADS];
+  float* smf = reinterpret_cast<float*>(smw);
+  float* shf = reinterpret_cast<float*>(shw);
+  int* smi = reinterpret_cast<int*>(smw);
+  int* shi = reinterpret_cast<int*>(shw);
+  if (a.method == FD_PTBERN) {
+    // lanes is the join size n here.
+    fd_ptbern<WALK>(a, L, smi, shi);
     return;
   }
-  const int t = threadIdx.x;
-  const int n32 = prefE32[R];
-  const float Lam = massE[R];
+  const FdScratch& s = a.s;
+  const int tid = threadIdx.x, acap = a.lanes, R = a.R, nt = fd_tiles(acap);
+  const int gthread = blockIdx.x * FD_THREADS + tid;
+  const int gstride = gridDim.x * FD_THREADS;
+  const int n32 = a.prefE32[R];
+  const float Lam = a.massE[R];
 
-  // Arrivals: Exp(1) gaps, summed — a unit-rate Poisson process on [0, Lam).
+  // 1. Arrivals: Exp(1) gaps, summed — a unit-rate Poisson process on
+  // [0, Lam). Tile-local prefixes first.
   uint32_t s0, s1;
-  rt_fold(k0, k1, 0u, s0, s1);
-  for (int i = t; i < acap; i += FD_THREADS)
-    v[i] = -log1pf(-rt_uniform_at(s0, s1, (uint32_t)i));
-  fd_block_scan(v, acap, 0.0f, AddF(), shf, &carry_f);
-  fd_block_scan(v, acap, -CUDART_INF_F, MaxF(), shf, &carry_f);
-
-  // Cell placement: inverse CDF into the mass prefix.
-  for (int i = t; i < acap; i += FD_THREADS) {
-    const float vi = v[i];
-    const int r = min(max(fd_count_le(massE, R + 1, vi) - 1, 0), R - 1);
-    const float x = __fdiv_rn(__fsub_rn(vi, massE[r]), fmaxf(lam[r], 1e-12f));
-    int cell = (int)floorf(x);
-    cell = min(max(cell, 0), max(w32[r] - 1, 0));
-    gid[i] = vi < Lam ? prefE32[r] + cell : n32;
-  }
-  __syncthreads();
-
-  // Dedupe (>= 1 arrival in a cell is one success or failure), segment of
-  // each lane in the root prefix, unsigned and signed running counts.
-  for (int i = t; i < acap; i += FD_THREADS) {
-    const int g = gid[i];
-    const int prev = i > 0 ? gid[i - 1] : -1;
-    const int uq = (g < n32 && g != prev) ? 1 : 0;
-    const int sg = min(max(fd_count_le(prefE32, R + 1, g) - 1, 0), R - 1);
-    seg[i] = sg;
-    U[i] = uq;
-    S[i] = uq ? sign[sg] : 0;
-  }
-  fd_block_scan(U, acap, 0, AddI(), shi, &carry_i);
-  fd_block_scan(S, acap, 0, AddI(), shi, &carry_i);
-
-  // Per-root output prefix (outE) and hit prefix (hitsE) via boundary counts.
-  for (int j = t; j <= R; j += FD_THREADS) {
-    const int B = fd_count_le(gid, acap, prefE32[j] - 1);
-    outE[j] = cwE[j] + (B > 0 ? S[B - 1] : 0);
-    hitsE[j] = B > 0 ? U[B - 1] : 0;
-  }
-  __syncthreads();
-
-  // Complement support: carry-forward g-values, kept ascending by cummax.
-  for (int i = t; i < acap; i += FD_THREADS) {
-    const int g = gid[i];
-    const int prev = i > 0 ? gid[i - 1] : -1;
-    int val = -(1 << 30);
-    if (g < n32 && g != prev) {
-      const int sg = seg[i];
-      const int lrank = (U[i] - 1) - hitsE[sg];
-      val = (g - prefE32[sg]) - lrank + offE[sg];
+  rt_fold(a.k0, a.k1, 0u, s0, s1);
+  fd_stamp(a.stamps, 0);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const long long base = (long long)t * FD_TILE;
+    float pre[FD_ITEMS];
+    const float total = sc_tile<FD_THREADS, FD_ITEMS>(
+        LoadGap{s0, s1}, base, acap, 0.0f, AddF(), smf, shf, pre);
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < FD_ITEMS; ++i)
+      if (base + tid * FD_ITEMS + i < acap) m = fmaxf(m, pre[i]);
+    m = fd_block_reduce(m, MaxF(), shf);
+    fd_put(s.v, base, acap, pre);
+    if (tid == 0) {
+      s.tot[t] = total;
+      s.pmax[t] = m;
     }
-    gc[i] = val;
   }
-  fd_block_scan(gc, acap, INT_MIN, MaxI(), shi, &carry_i);
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 1);
 
-  // Output slots (gather-only compaction), then the walk of each position.
-  const int K = outE[R];
-  const int count = min(K, cap);
-  for (int tt = t; tt < cap; tt += FD_THREADS) {
-    const int rO = min(max(fd_count_le(outE, R + 1, tt) - 1, 0), R - 1);
-    const int l = tt - outE[rO];
-    const int wm1 = max(w32[rO] - 1, 0);
-    const int hO = hitsE[rO];
-    const int i_star = min(fd_count_le(U, acap, hO + l), acap - 1);
-    const int direct_local = gid[i_star] - prefE32[rO];
-    const int Lq = fd_count_le(gc, acap, l + offE[rO]);
-    const int c = (Lq > 0 ? U[Lq - 1] : 0) - hO;
+  // 2. One block: the tile carries, then the running max before each tile
+  // (round-to-nearest is monotone, so carry + the largest local prefix is
+  // the tile's largest running sum).
+  if (blockIdx.x == 0) {
+    sc_carries<FD_THREADS, FD_ITEMS>(LoadPtr<float>{s.tot}, nt, 0.0f, AddF(),
+                                     s.carry, smf, shf);
+    __syncthreads();
+    sc_carries<FD_THREADS, FD_ITEMS>(LoadTileMax{s.carry, s.pmax}, nt,
+                                     -CUDART_INF_F, MaxF(), s.cmax, smf, shf);
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 2);
+
+  // 3. Arrivals = running max of the running sum; cell placement: inverse
+  // CDF into the mass prefix.
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const long long base = (long long)t * FD_TILE;
+    const float cm = s.cmax[t];
+    float pre[FD_ITEMS];
+    sc_tile<FD_THREADS, FD_ITEMS>(LoadShifted{s.v, s.carry[t]}, base, acap,
+                                  -CUDART_INF_F, MaxF(), smf, shf, pre);
+#pragma unroll
+    for (int i = 0; i < FD_ITEMS; ++i) {
+      const long long idx = base + tid * FD_ITEMS + i;
+      if (idx >= acap) continue;
+      const float vi = fmaxf(cm, pre[i]);
+      const int r = min(max(fd_count_le(a.massE, R + 1, vi) - 1, 0), R - 1);
+      const float x =
+          __fdiv_rn(__fsub_rn(vi, a.massE[r]), fmaxf(a.lam[r], 1e-12f));
+      int cell = (int)floorf(x);
+      cell = min(max(cell, 0), max(a.w32[r] - 1, 0));
+      s.v[idx] = vi;
+      s.gid[idx] = vi < Lam ? a.prefE32[r] + cell : n32;
+    }
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 3);
+
+  // 4. Dedupe (>= 1 arrival in a cell is one success or failure), segment
+  // of each unique arrival in the root prefix, tile scans of the unsigned
+  // and signed counts.
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const long long base = (long long)t * FD_TILE;
+#pragma unroll
+    for (int k = 0; k < FD_ITEMS; ++k) {
+      const long long i = base + k * FD_THREADS + tid;
+      if (i >= acap) continue;
+      const int g = s.gid[i];
+      const int prev = i > 0 ? s.gid[i - 1] : -1;
+      const bool uq = g < n32 && g != prev;
+      const int sg = uq ? fd_seg(a.prefE32, R, g) : 0;
+      s.seg[i] = sg;
+      s.U[i] = uq ? 1 : 0;
+      s.S[i] = uq ? a.sign[sg] : 0;
+    }
+    __syncthreads();
+    int pre[FD_ITEMS];
+    const int tu = sc_tile<FD_THREADS, FD_ITEMS>(LoadPtr<int>{s.U}, base, acap,
+                                                 0, AddI(), smi, shi, pre);
+    fd_put(s.U, base, acap, pre);
+    const int ts = sc_tile<FD_THREADS, FD_ITEMS>(LoadPtr<int>{s.S}, base, acap,
+                                                 0, AddI(), smi, shi, pre);
+    fd_put(s.S, base, acap, pre);
+    if (tid == 0) {
+      s.totU[t] = tu;
+      s.totS[t] = ts;
+    }
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 4);
+
+  // 5. The counts of the tiles before each tile.
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const int cu = fd_before(s.totU, t, 0, AddI(), shi);
+    const int cs = fd_before(s.totS, t, 0, AddI(), shi);
+#pragma unroll
+    for (int k = 0; k < FD_ITEMS; ++k) {
+      const long long i = (long long)t * FD_TILE + k * FD_THREADS + tid;
+      if (i < acap) {
+        s.U[i] += cu;
+        s.S[i] += cs;
+      }
+    }
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 5);
+
+  // 6. Per-root output prefix (outE) and hit prefix (hitsE) via boundary
+  // counts.
+  for (int j = gthread; j <= R; j += gstride) {
+    const int B = fd_count_le(s.gid, acap, a.prefE32[j] - 1);
+    s.outE[j] = a.cwE[j] + (B > 0 ? s.S[B - 1] : 0);
+    s.hitsE[j] = B > 0 ? s.U[B - 1] : 0;
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 6);
+
+  // 7-8. Complement support: carry-forward g-values, kept ascending by a
+  // running max (tile by tile, then the tiles before).
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const long long base = (long long)t * FD_TILE;
+    int pre[FD_ITEMS];
+    const int gm = sc_tile<FD_THREADS, FD_ITEMS>(LoadGc{&a, n32}, base, acap,
+                                                 INT_MIN, MaxI(), smi, shi,
+                                                 pre);
+    fd_put(s.gc, base, acap, pre);
+    if (tid == 0) s.gmax[t] = gm;
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 7);
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const int m = fd_before(s.gmax, t, INT_MIN, MaxI(), shi);
+#pragma unroll
+    for (int k = 0; k < FD_ITEMS; ++k) {
+      const long long i = (long long)t * FD_TILE + k * FD_THREADS + tid;
+      if (i < acap) s.gc[i] = max(s.gc[i], m);
+    }
+  }
+  fd_grid_sync(s.bar);
+  fd_stamp(a.stamps, 8);
+
+  // 9. Output slots (gather-only compaction), then the walk of each
+  // position.
+  const int K = s.outE[R];
+  const int count = min(K, a.cap);
+  for (int tt = gthread; tt < a.cap; tt += gstride) {
+    const int rO = min(max(fd_count_le(s.outE, R + 1, tt) - 1, 0), R - 1);
+    const int l = tt - s.outE[rO];
+    const int wm1 = max(a.w32[rO] - 1, 0);
+    const int hO = s.hitsE[rO];
+    const int i_star = min(fd_count_le(s.U, acap, hO + l), acap - 1);
+    const int direct_local = s.gid[i_star] - a.prefE32[rO];
+    const int Lq = fd_count_le(s.gc, acap, l + a.offE[rO]);
+    const int c = (Lq > 0 ? s.U[Lq - 1] : 0) - hO;
     const int comp_pos = l + min(max(c, 0), wm1 - l + 1);
-    const int local_out = sign[rO] < 0 ? comp_pos : direct_local;
-    const int pos = prefE32[rO] + min(max(local_out, 0), wm1);
-    fd_emit<WALK>(arena, L, tt, cap, tt < count ? pos : n32, n32, rows,
-                  positions);
+    const int local_out = a.sign[rO] < 0 ? comp_pos : direct_local;
+    const int pos = a.prefE32[rO] + min(max(local_out, 0), wm1);
+    fd_emit<WALK>(a, L, tt, tt < count ? pos : n32, n32);
   }
-  if (t == 0) {
-    scalars[0] = count;
-    scalars[1] = (v[acap - 1] < Lam || K > cap) ? 1 : 0;
+  if (blockIdx.x == 0 && tid == 0) {
+    a.scalars[0] = count;
+    a.scalars[1] = (s.v[acap - 1] < Lam || K > a.cap) ? 1 : 0;
   }
+  fd_stamp_end(a.stamps, 9);
 }
 
-// `lanes` is acap for EXPRACE and the join size n for flat PTBERN; every
-// scratch vector holds `lanes` elements (outE, hitsE: R + 1).
+// The grid of one launch: the occupancy limit (blocks a multiprocessor
+// holds x multiprocessors, asked once per instance), cut to the blocks the
+// lanes can use (the tiles, the output lanes, the R + 1 root lanes).
+template <bool WALK>
+static cudaError_t fd_grid(int lanes, int cap, int R, int grid[3]) {
+  static int per_sm = 0, sms = 0;
+  if (per_sm == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, fused_draw_kernel<WALK>, FD_THREADS, 0);
+    if (e != cudaSuccess) {
+      per_sm = 0;
+      return e;
+    }
+    if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
+  }
+  const int wide = max(cap, R + 1);
+  const int need = max(fd_tiles(lanes), (wide + FD_THREADS - 1) / FD_THREADS);
+  grid[0] = per_sm;
+  grid[1] = sms;
+  grid[2] = min(per_sm * sms, max(need, 1));
+  return cudaSuccess;
+}
+
+template <bool WALK>
+static int fd_launch(const FdArgs& a, const RtLayout& L, void* stream) {
+  int grid[3];
+  cudaError_t e = fd_grid<WALK>(a.lanes, a.cap, a.R, grid);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  e = cudaMemsetAsync(a.s.bar, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return (int)e;
+  void* params[] = {const_cast<FdArgs*>(&a), const_cast<RtLayout*>(&L)};
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_draw_kernel<WALK>), dim3(grid[2]),
+      dim3(FD_THREADS), params, 0, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Blocks a multiprocessor holds, multiprocessors, and the grid of a launch
+// at these sizes (walk: the fused_draw instance, else fused_sample's).
+extern "C" int fused_draw_grid(int walk, int lanes, int cap, int R,
+                               int* out) {
+  return (int)(walk ? fd_grid<true>(lanes, cap, R, out)
+                    : fd_grid<false>(lanes, cap, R, out));
+}
+
+static FdArgs fd_args(const int* arena, unsigned k0, unsigned k1, int method,
+                      const float* massE, const float* lam, const int* sign,
+                      const int* w32, const int* prefE32, const int* cwE,
+                      const int* offE, const float* p32, int R, int lanes,
+                      int cap, int* rows, int* positions, int* scalars,
+                      int* scratch, unsigned long long* stamps) {
+  FdArgs a;
+  a.arena = arena;
+  a.massE = massE;
+  a.lam = lam;
+  a.sign = sign;
+  a.w32 = w32;
+  a.prefE32 = prefE32;
+  a.cwE = cwE;
+  a.offE = offE;
+  a.p32 = p32;
+  a.rows = rows;
+  a.positions = positions;
+  a.scalars = scalars;
+  a.stamps = stamps;
+  a.s = fd_carve(scratch, lanes, R);
+  a.k0 = k0;
+  a.k1 = k1;
+  a.method = method;
+  a.R = R;
+  a.lanes = lanes;
+  a.cap = cap;
+  return a;
+}
+
+// `lanes` is acap for EXPRACE and the join size n for flat PTBERN; scratch
+// holds fused_draw_scratch_words(lanes, R) int32 words. stamps: null, or
+// 10 zeroed words (EXPRACE; 4 for flat PTBERN) for the phase clock.
 extern "C" int fused_draw_launch(
     const int* arena, const int* table, unsigned k0, unsigned k1, int method,
     const float* massE, const float* lam, const int* sign, const int* w32,
     const int* prefE32, const int* cwE, const int* offE, const float* p32,
     int R, int lanes, int cap, int* rows, int* positions, int* scalars,
-    float* v, int* gid, int* seg, int* U, int* S, int* gc, int* outE,
-    int* hitsE, void* stream) {
+    int* scratch, unsigned long long* stamps, void* stream) {
   const RtLayout L = rt_layout_from_table(table);
-  fused_draw_kernel<true><<<1, FD_THREADS, 0, (cudaStream_t)stream>>>(
-      arena, L, k0, k1, method, massE, lam, sign, w32, prefE32, cwE, offE,
-      p32, R, lanes, cap, rows, positions, scalars, v, gid, seg, U, S, gc,
-      outE, hitsE);
-  return (int)cudaGetLastError();
+  const FdArgs a = fd_args(arena, k0, k1, method, massE, lam, sign, w32,
+                           prefE32, cwE, offE, p32, R, lanes, cap, rows,
+                           positions, scalars, scratch, stamps);
+  return fd_launch<true>(a, L, stream);
 }
 
 // The draw without the walk: positions, count and overflow only. The
@@ -293,14 +652,13 @@ extern "C" int fused_sample_launch(
     unsigned k0, unsigned k1, int method, const float* massE,
     const float* lam, const int* sign, const int* w32, const int* prefE32,
     const int* cwE, const int* offE, const float* p32, int R, int lanes,
-    int cap, int* positions, int* scalars, float* v, int* gid, int* seg,
-    int* U, int* S, int* gc, int* outE, int* hitsE, void* stream) {
+    int cap, int* positions, int* scalars, int* scratch,
+    unsigned long long* stamps, void* stream) {
   RtLayout L = {};
-  fused_draw_kernel<false><<<1, FD_THREADS, 0, (cudaStream_t)stream>>>(
-      nullptr, L, k0, k1, method, massE, lam, sign, w32, prefE32, cwE, offE,
-      p32, R, lanes, cap, nullptr, positions, scalars, v, gid, seg, U, S, gc,
-      outE, hitsE);
-  return (int)cudaGetLastError();
+  const FdArgs a = fd_args(nullptr, k0, k1, method, massE, lam, sign, w32,
+                           prefE32, cwE, offE, p32, R, lanes, cap, nullptr,
+                           positions, scalars, scratch, stamps);
+  return fd_launch<false>(a, L, stream);
 }
 
 // The Threefry uniforms of one stream, on their own: lets a check hold the

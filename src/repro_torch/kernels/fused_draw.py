@@ -1,12 +1,12 @@
 """One launch from a Threefry key to compacted sample rows.
 
-``fused_draw`` launches ``csrc/fused_draw.cu`` (one block) for CUDA
-tensors; for CPU tensors it runs ``fused_draw_plain``: ``draw_core`` (the
-sort-free EXPRACE) plus ``tree_walk``. ``fused_sample`` is the same
-launch without the walk (the paged draw's front end; its plain version
-is ``draw_core``): one kernel body serves both, so their positions are
-bit-equal under one key. Each wrapper's ``launches`` counts its kernel
-launches.
+``fused_draw`` launches ``csrc/fused_draw.cu`` (one cooperative launch
+over the whole card) for CUDA tensors; for CPU tensors it runs
+``fused_draw_plain``: ``draw_core`` (the sort-free EXPRACE) plus
+``tree_walk``. ``fused_sample`` is the same launch without the walk (the
+paged draw's front end; its plain version is ``draw_core``): one kernel
+body serves both, so their positions are bit-equal under one key. Each
+wrapper's ``launches`` counts its kernel launches.
 
 EXPRACE, sort-free: iid Exp(1) gaps are prefix-summed, so the running sum
 is a unit-rate Poisson process on [0, Lam) and arrivals come out already
@@ -15,13 +15,15 @@ l-th-missing-value complement inversion (p > 1/2) are branchless binary
 searches (``_count_le``) over sorted vectors. The stages mirror the
 reference's ``_exprace_core`` step for step.
 
-The float32 arrival sum is the one order-sensitive step. ``_scan_f32``
-spells out the kernel's order (chunks of ``THREADS * ITEMS``; a thread's
-items in sequence; thread totals Hillis-Steele; carry + (exclusive thread
-prefix + local prefix)), so the kernel and the plain version agree bit for
-bit on the card. A running max follows the sum (see ``arrivals``). Against the reference (whose cumsum XLA orders its own
-way) an arrival may land in the neighbouring cell when it lies within a
-few float32 ulp of a cell boundary.
+The float32 arrival sum is the one order-sensitive step. Its order is
+``prefix_sum.scan_order_f32`` at tiles of ``THREADS * ITEMS`` (a thread's
+items in sequence; thread totals Hillis-Steele; tile carries the same
+scan over the tile totals), fixed constants that do not depend on the
+kernel's grid, so the kernel and the plain version agree bit for bit on
+the card. A running max follows the sum (see ``arrivals``); the integer
+running counts are exact in any order. Against the reference (whose
+cumsum XLA orders its own way) an arrival may land in the neighbouring
+cell when it lies within a few float32 ulp of a cell boundary.
 
 Flat PTBERN (``method='ptbern_flat'``): one Threefry trial of stream 1
 per flat position, a running count, and a binary-search compaction — all
@@ -34,11 +36,12 @@ import ctypes
 import torch
 
 from . import threefry
+from .prefix_sum import scan_order_f32
 from .tree_probe import layout_table, tree_walk
 
 __all__ = ["PARAM_ORDER", "THREADS", "ITEMS", "draw_core", "arrivals",
            "fused_draw_plain", "fused_draw", "fused_sample_plain",
-           "fused_sample"]
+           "fused_sample", "grid", "PHASES", "phase_ms"]
 
 I32 = torch.int32
 F32 = torch.float32
@@ -46,8 +49,8 @@ _TINY = 1e-12
 # Operand order of the plan-bound parameter vectors
 # (sampling.fused_draw_params).
 PARAM_ORDER = ("massE", "lam", "sign", "w32", "prefE32", "cwE", "offE", "p32")
-THREADS = 1024  # FD_THREADS in csrc/fused_draw.cu
-ITEMS = 8       # FD_ITEMS
+THREADS = 256  # FD_THREADS in csrc/fused_draw.cu
+ITEMS = 4      # FD_ITEMS: tiles of 1,024 lanes
 
 
 def _count_le(vec: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -62,56 +65,16 @@ def _count_le(vec: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def _scan(x: torch.Tensor, ident, op) -> torch.Tensor:
-    """Inclusive scan in the kernel's block order (module docstring)."""
-    n = x.shape[0]
-    chunk = THREADS * ITEMS
-    nch = max(1, -(-n // chunk))
-    pad = torch.full((nch * chunk - n,), ident, dtype=x.dtype, device=x.device)
-    xs = torch.cat([x, pad]).reshape(nch, THREADS, ITEMS)
-    loc = [xs[:, :, 0]]
-    for e in range(1, ITEMS):
-        loc.append(op(loc[-1], xs[:, :, e]))
-    loc = torch.stack(loc, dim=2)
-    incl = loc[:, :, ITEMS - 1]
-    d = 1
-    while d < THREADS:
-        incl = torch.cat([incl[:, :d], op(incl[:, d:], incl[:, :-d])], dim=1)
-        d *= 2
-    first = torch.zeros((nch, THREADS, 1), dtype=torch.bool, device=x.device)
-    first[:, 0] = True
-    excl = torch.cat([torch.full((nch, 1), ident, dtype=x.dtype,
-                                 device=x.device), incl[:, :-1]], dim=1)
-    pre = torch.where(first, loc, op(excl[:, :, None], loc))
-    out = [pre[0]]
-    carry = incl[0, THREADS - 1]
-    for c in range(1, nch):
-        out.append(op(carry, pre[c]))
-        carry = op(carry, incl[c, THREADS - 1])
-    return torch.stack(out).reshape(-1)[:n]
-
-
-def _scan_f32(x: torch.Tensor) -> torch.Tensor:
-    return _scan(x, 0.0, torch.add)
-
-
-def _scan_i32(x: torch.Tensor) -> torch.Tensor:
-    return _scan(x, 0, torch.add)
-
-
-def _cummax_i32(x: torch.Tensor) -> torch.Tensor:
-    return _scan(x, -(1 << 31), torch.maximum)
-
-
 def arrivals(key, acap: int, device) -> torch.Tensor:
-    """The float32 arrival times: the kernel-ordered running sum of
-    ``-log1p(-u)`` over ``acap`` Threefry uniforms of stream 0, then its
-    running max. The sum's block order can round an element an ulp below
-    its predecessor after a tiny gap (at a thread or chunk boundary); the
+    """The float32 arrival times: the running sum of ``-log1p(-u)`` over
+    ``acap`` Threefry uniforms of stream 0 in the kernel's order, then its
+    running max. The sum's tile order can round an element an ulp below
+    its predecessor after a tiny gap (at a thread or tile boundary); the
     max keeps the arrivals ascending, as the draw needs, and is exact in
     any order."""
     u = threefry.uniforms_plain(key, acap, stream=0, device=device)
-    return torch.cummax(_scan_f32(-torch.log1p(-u)), 0).values
+    gaps = -torch.log1p(-u)
+    return torch.cummax(scan_order_f32(gaps, THREADS, ITEMS), 0).values
 
 
 def _exprace_core(key, params, acap: int, cap: int):
@@ -142,8 +105,8 @@ def _exprace_core(key, params, acap: int, cap: int):
     prev = torch.cat([torch.full((1,), -1, dtype=I32, device=dev), gid[:-1]])
     uniq = (gid < n32) & (gid != prev)
     seg = torch.clamp(_count_le(prefE32, gid) - 1, 0, R - 1)
-    U = _scan_i32(uniq.to(I32))
-    S = _scan_i32(torch.where(uniq, sign[seg], 0).to(I32))
+    U = torch.cumsum(uniq.to(I32), 0, dtype=I32)
+    S = torch.cumsum(torch.where(uniq, sign[seg], 0).to(I32), 0, dtype=I32)
 
     # --- per-root output prefix, via boundary counts -----------------------
     B = _count_le(gid, prefE32 - 1)
@@ -158,7 +121,7 @@ def _exprace_core(key, params, acap: int, cap: int):
     local = gid - prefE32[seg]
     lrank = (U - 1) - hitsE[seg]
     gval = local - lrank + offE[seg]
-    gc = _cummax_i32(torch.where(uniq, gval, -(1 << 30)).to(I32))
+    gc = torch.cummax(torch.where(uniq, gval, -(1 << 30)).to(I32), 0).values
 
     # --- emit output slots (gather-only compaction) ------------------------
     t = torch.arange(cap, dtype=I32, device=dev)
@@ -190,7 +153,7 @@ def _ptbern_core(key, params, n: int, cap: int):
     u = threefry.uniforms_plain(key, n, stream=1, device=dev)
     flat = torch.arange(n, dtype=I32, device=dev)
     r = torch.clamp(_count_le(prefE32, flat) - 1, 0, R - 1)
-    C = _scan_i32((u < p32[r]).to(I32))
+    C = torch.cumsum((u < p32[r]).to(I32), 0, dtype=I32)
     total = C[n - 1]
     t = torch.arange(cap, dtype=I32, device=dev)
     pos = torch.clamp(_count_le(C, t), max=n - 1)  # first lane with C == t+1
@@ -221,14 +184,51 @@ def fused_draw_plain(arena, key, params, *, layout, method: str, cap: int,
 
 
 _METHODS = {"exprace": 0, "ptbern_flat": 1}  # FD_EXPRACE / FD_PTBERN
+_ENTRIES = {}
+
+
+def _entry(name: str):
+    """``csrc/fused_draw.cu``'s ``<name>`` with its argument types, set
+    once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from . import build
+
+        fn = getattr(build.library("fused_draw"), name)
+        vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+        draw = ([u32, u32, i32] + [vp] * 8 + [i32] * 3)
+        fn.argtypes = {
+            "fused_draw_launch": [vp, vp] + draw + [vp] * 6,
+            "fused_sample_launch": draw + [vp] * 5,
+            "fused_draw_scratch_words": [i32, i32],
+            "fused_draw_grid": [i32] * 4 + [vp],
+        }[name]
+        fn.restype = (ctypes.c_longlong if name == "fused_draw_scratch_words"
+                      else ctypes.c_int)
+        _ENTRIES[name] = fn
+    return fn
+
+
+def grid(walk: bool, lanes: int, cap: int, R: int):
+    """``(blocks a multiprocessor holds, multiprocessors, blocks of the
+    launch)`` of the cooperative draw at these sizes on the current card
+    (``walk``: the ``fused_draw`` instance, else ``fused_sample``'s)."""
+    from . import build
+
+    out = (ctypes.c_int * 3)()
+    build.check(_entry("fused_draw_grid")(int(walk), lanes, cap, R, out),
+                "fused_draw_grid")
+    return tuple(out)
 
 
 def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
-            acap: int, n: int):
+            acap: int, n: int, stamps=None):
     """Launch ``fused_draw_launch`` (with ``arena``) or
-    ``fused_sample_launch`` (``arena`` None) on the params' device.
+    ``fused_sample_launch`` (``arena`` None) on the params' device: one
+    cooperative launch over the card, its scratch one allocation.
+    ``stamps`` (zeroed int64, or None) takes the kernel's phase clock.
     Returns ``(rows or None, positions, scalars)``; raises if the kernel
-    cannot be built or launched."""
+    cannot be built or launched (a refused cooperative launch included)."""
     dev = params["prefE32"].device
     if dev.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {dev}")
@@ -245,18 +245,12 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
             raise TypeError(f"param {name}: {t.dtype} on {t.device}")
     from . import build
 
-    fn = getattr(build.library("fused_draw"), f"{entry}_launch")
-    walk = arena is not None
-    head = [ctypes.c_void_p, ctypes.c_void_p] if walk else []
-    fn.argtypes = (head + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
-                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * (12 if walk else 11))
-    fn.restype = ctypes.c_int
+    fn = _entry(f"{entry}_launch")
     R = ops[3].shape[0]
     k0, k1 = threefry.key_words(key)
     rows = None
     args = []
-    if walk:
+    if arena is not None:
         if arena.device != dev:
             raise ValueError(f"arena on {arena.device}, params on {dev}")
         table = layout_table(layout)
@@ -265,20 +259,46 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
                 (ctypes.c_int * len(table))(*table)]
     positions = torch.empty((cap,), dtype=I32, device=dev)
     scalars = torch.empty((2,), dtype=I32, device=dev)
-    v = torch.empty((lanes,), dtype=F32, device=dev)
-    scratch = torch.empty((5, lanes), dtype=I32, device=dev)
-    edges = torch.empty((2, R + 1), dtype=I32, device=dev)
+    scratch = torch.empty((_entry("fused_draw_scratch_words")(lanes, R),),
+                          dtype=I32, device=dev)
     args += [k0, k1, _METHODS[method], *[t.data_ptr() for t in ops], R,
              lanes, cap]
-    if walk:
+    if rows is not None:
         args.append(rows.data_ptr())
-    args += [positions.data_ptr(), scalars.data_ptr(), v.data_ptr(),
-             *[scratch[i].data_ptr() for i in range(5)],
-             edges[0].data_ptr(), edges[1].data_ptr()]
+    args += [positions.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
+             None if stamps is None else stamps.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(fn(*args, stream), entry)
     return rows, positions, scalars
+
+
+# The kernel's phases, in order (csrc/fused_draw.cu), for phase_ms.
+PHASES = {
+    "exprace": ("gaps and tile sums", "tile carries (one block)",
+                "arrivals and cells", "dedupe and tile counts",
+                "count carries", "root prefixes", "complement tile max",
+                "complement carries", "output slots and walk"),
+    "ptbern_flat": ("trials and tile counts", "count carries",
+                    "output slots and walk"),
+}
+
+
+def phase_ms(arena, key, params, *, layout=None, method: str, cap: int,
+             acap: int = 0, n: int = 0) -> dict:
+    """Milliseconds of each phase of one launch on the card, by the global
+    clock: block 0 reads it at the start and after each grid barrier, and
+    the last phase ends when the last block does. ``arena`` None times the
+    ``fused_sample`` instance. A measurement: it is not counted in
+    ``launches``."""
+    dev = params["prefE32"].device
+    stamps = torch.zeros((len(PHASES[method]) + 1,), dtype=torch.int64,
+                         device=dev)
+    _launch("fused_sample" if arena is None else "fused_draw", arena, key,
+            params, layout, method, cap, acap, n, stamps=stamps)
+    t = stamps.cpu().tolist()
+    return {name: (b - a) / 1e6
+            for name, a, b in zip(PHASES[method], t, t[1:])}
 
 
 def fused_draw(arena, key, params, *, layout, method: str, cap: int,

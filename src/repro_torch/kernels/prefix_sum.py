@@ -3,17 +3,22 @@
 ``prefix_sum_tiles`` launches ``csrc/scan.cu`` for CUDA tensors and runs
 ``prefix_sum_plain`` for CPU tensors; ``launches`` counts its calls that
 launch the kernel. The reference's kernel carries its total through a
-sequential grid; the CUDA kernel is a reduce-then-scan in three launches
+sequential grid. On the card, int32 takes a single-pass decoupled
+look-back scan (one memset of the tiles' status words, one kernel that
+reads the input once); float32 takes a reduce-then-scan in three launches
 (tile totals, one block scanning them into carries, the tiles scanned
-again with their carries), described in the source.
+again with their carries), so that its order is fixed. Both are described
+in the source.
 
 The kernel masks its own ragged edge, so it takes any shape (the
 reference's ``(R, 128)`` tiles or a flat vector) with no padding.
 
 int32 sums wrap as XLA's int32 cumsum wraps (the kernel adds in uint32;
 the plain version sums in int64 and wraps to 32 bits, which any order
-gives alike). float32 is order-sensitive: ``_scan_f32`` spells out the
-kernel's order, so the two agree bit for bit on the card.
+gives alike). float32 is order-sensitive: ``scan_order_f32`` spells out
+the kernel's order for any tile shape, so the two agree bit for bit on the
+card; the fused draw's arrival sum (``fused_draw.arrivals``) runs the same
+order at its own tile shape.
 """
 from __future__ import annotations
 
@@ -22,12 +27,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-__all__ = ["THREADS", "ITEMS", "TILE", "prefix_sum_plain",
-           "prefix_sum_tiles", "wrap_i32", "scan_launch"]
+__all__ = ["THREADS", "ITEMS", "TILE", "LOOK_BACK_TILE", "prefix_sum_plain",
+           "prefix_sum_tiles", "scan_order_f32", "wrap_i32", "scan_launch"]
 
-THREADS = 256           # SC_THREADS in csrc/scan.cu
+THREADS = 256           # SC_THREADS in csrc/scan.cu: the float32 order
 ITEMS = 16              # SC_ITEMS
-TILE = THREADS * ITEMS  # SC_TILE: elements per block
+TILE = THREADS * ITEMS  # SC_TILE: elements per block of the float32 passes
+LOOK_BACK_TILE = 8192   # LB_TILE: elements per block of the int32 scan
 
 
 def wrap_i32(s: torch.Tensor) -> torch.Tensor:
@@ -35,29 +41,35 @@ def wrap_i32(s: torch.Tensor) -> torch.Tensor:
     return ((s + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
 
 
-def _tiles(x: torch.Tensor):
-    """One block's order over each tile of ``x`` (1-D float32): the
-    tile-local inclusive prefixes ``(ntiles, TILE)`` and the tile totals."""
-    nt = max(1, -(-x.shape[0] // TILE))
-    xs = F.pad(x, (0, nt * TILE - x.shape[0])).reshape(nt, THREADS, ITEMS)
+def _tiles(x: torch.Tensor, threads: int, items: int):
+    """One block's order over each tile of ``x`` (1-D float32) of
+    ``threads * items`` elements: the tile-local inclusive prefixes
+    ``(ntiles, tile)`` and the tile totals."""
+    tile = threads * items
+    nt = max(1, -(-x.shape[0] // tile))
+    xs = F.pad(x, (0, nt * tile - x.shape[0])).reshape(nt, threads, items)
     loc = [xs[:, :, 0]]
-    for i in range(1, ITEMS):
+    for i in range(1, items):
         loc.append(loc[-1] + xs[:, :, i])
     loc = torch.stack(loc, dim=2)
-    incl = loc[:, :, ITEMS - 1]
+    incl = loc[:, :, items - 1]
     d = 1
-    while d < THREADS:
+    while d < threads:
         incl = torch.cat([incl[:, :d], incl[:, d:] + incl[:, :-d]], dim=1)
         d *= 2
     pre = torch.cat([loc[:, :1], incl[:, :-1, None] + loc[:, 1:]], dim=1)
-    return pre.reshape(nt, TILE), incl[:, THREADS - 1]
+    return pre.reshape(nt, tile), incl[:, threads - 1]
 
 
-def _scan_f32(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's three passes on a 1-D float32 vector, in its order."""
+def scan_order_f32(x: torch.Tensor, threads: int, items: int) -> torch.Tensor:
+    """Inclusive float32 sum of the 1-D ``x`` in ``csrc/scan.cuh``'s order
+    at tiles of ``threads * items``: each tile scanned by ``_tiles``; the
+    tile totals scanned the same way in chunks of one tile, the carry
+    chained from chunk to chunk; an element is its tile's carry + its
+    tile-local prefix."""
     n = x.shape[0]
-    pre, tot = _tiles(x)
-    pre2, tot2 = _tiles(tot)
+    pre, tot = _tiles(x, threads, items)
+    pre2, tot2 = _tiles(tot, threads, items)
     carry = torch.zeros((), dtype=x.dtype, device=x.device)
     incl = []
     for c in range(pre2.shape[0]):
@@ -74,29 +86,53 @@ def prefix_sum_plain(x: torch.Tensor) -> torch.Tensor:
         return x.clone()
     if x.dtype == torch.int32:
         return wrap_i32(torch.cumsum(flat.to(torch.int64), 0)).reshape(x.shape)
-    return _scan_f32(flat).reshape(x.shape)
+    return scan_order_f32(flat, THREADS, ITEMS).reshape(x.shape)
+
+
+_ENTRIES = {}
+
+
+def _entry(name: str):
+    """``csrc/scan.cu``'s ``<name>_launch`` with its argument types, set
+    once: (input, [scalars], output, n, scratch..., stream)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from . import build
+
+        fn = getattr(build.library("scan"), f"{name}_launch")
+        vp = ctypes.c_void_p
+        scalars = [ctypes.c_float] if name == "geo_gaps" else []
+        scratch = [vp, vp] if name == "scan_f32" else [vp]
+        fn.argtypes = ([vp] + scalars + [vp, ctypes.c_longlong] + scratch
+                       + [vp])
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
 
 
 def scan_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
                 *scalars) -> None:
     """Launch one entry of ``csrc/scan.cu`` over the flat ``x`` into
-    ``out``, with the tile-total and carry scratch it needs. ``scalars``
-    go between ``x`` and ``out`` (GEO's clipped p)."""
+    ``out``, with the scratch it needs: the look-back's status words (and
+    ticket) for ``scan_i32`` and ``geo_gaps``, the tile totals and carries
+    for ``scan_f32``. ``scalars`` go between ``x`` and ``out`` (GEO's
+    clipped p)."""
     from . import build
 
-    fn = getattr(build.library("scan"), f"{entry}_launch")
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_float] * len(scalars)
-                   + [ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
+    fn = _entry(entry)
     n = x.numel()
-    nt = max(1, -(-n // TILE))
-    scratch = torch.empty((2, nt), dtype=out.dtype, device=x.device)
+    if entry == "scan_f32":
+        nt = max(1, -(-n // TILE))
+        scratch = torch.empty((2, nt), dtype=torch.float32, device=x.device)
+        ptrs = [scratch[0].data_ptr(), scratch[1].data_ptr()]
+    else:
+        words = -(-n // LOOK_BACK_TILE) + 1
+        scratch = torch.empty((words,), dtype=torch.int64, device=x.device)
+        ptrs = [scratch.data_ptr()]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        build.check(fn(x.data_ptr(), *scalars, out.data_ptr(), n,
-                       scratch[0].data_ptr(), scratch[1].data_ptr(), stream),
-                    entry)
+        build.check(fn(x.data_ptr(), *scalars, out.data_ptr(), n, *ptrs,
+                       stream), entry)
 
 
 def prefix_sum_tiles(x: torch.Tensor) -> torch.Tensor:

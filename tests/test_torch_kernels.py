@@ -35,6 +35,7 @@ from repro_torch.core import sampling as t_sampling
 from repro_torch.core import shred_from_arrays
 from repro_torch.kernels import fused_draw as t_fd
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import prefix_sum as t_ps
 from repro_torch.kernels import threefry as t_threefry
 from repro_torch.kernels.bsearch_probe import bsearch_probe as t_bsearch
 from repro_torch.kernels.tree_probe import tree_probe as t_tree_probe
@@ -269,29 +270,33 @@ def test_draw_core_matches_reference(dist):
 
 
 def test_scan_order_helpers():
+    """The one float32 order function at both users' tile shapes (the fused
+    draw's arrivals, the float32 prefix sum) stays within float32 rounding
+    of a float64 sum, over one tile, a ragged edge and many tiles."""
     rng = np.random.default_rng(0)
-    for n in (1, 5, 8192, 8193, 20000):
-        x = torch.from_numpy(rng.integers(-5, 6, n).astype(np.int32))
-        np.testing.assert_array_equal(t_fd._scan_i32(x).numpy(),
-                                      np.cumsum(x.numpy()))
-        np.testing.assert_array_equal(t_fd._cummax_i32(x).numpy(),
-                                      np.maximum.accumulate(x.numpy()))
+    for n in (1, 5, 1024, 1025, 4096, 4097, 8193, 20000):
         f = torch.from_numpy(rng.random(n).astype(np.float32))
-        got = t_fd._scan_f32(f).numpy().astype(np.float64)
         want = np.cumsum(f.numpy().astype(np.float64))
-        assert np.abs(got - want).max() <= 1e-5 * max(want[-1], 1.0)
+        for threads, items in ((t_fd.THREADS, t_fd.ITEMS),
+                               (t_ps.THREADS, t_ps.ITEMS)):
+            got = t_ps.scan_order_f32(f, threads, items).numpy()
+            assert got.dtype == np.float32 and got.shape == (n,)
+            err = np.abs(got.astype(np.float64) - want).max()
+            assert err <= 1e-5 * max(want[-1], 1.0), (n, threads, items)
 
 
 def test_arrivals_ascend():
-    """The kernel-ordered float32 sum can dip an ulp at a thread boundary
-    (key 3008 at 171,776 arrivals does); the arrivals' running max keeps
-    them ascending, which the draw's ascending positions rest on."""
-    key = t_threefry.key(3008)
+    """The kernel-ordered float32 sum can dip an ulp at a thread or tile
+    boundary (key 3020 at 171,776 arrivals does, at lane 1,868); the
+    arrivals' running max keeps them ascending, which the draw's ascending
+    positions rest on."""
+    key = t_threefry.key(3020)
     u = t_threefry.uniforms_plain(key, 171_776, stream=0)
-    raw = t_fd._scan_f32(-torch.log1p(-u))
+    raw = t_ps.scan_order_f32(-torch.log1p(-u), t_fd.THREADS, t_fd.ITEMS)
     assert bool((raw[1:] < raw[:-1]).any())
     v = t_fd.arrivals(key, 171_776, "cpu")
     assert bool((v[1:] >= v[:-1]).all())
+    assert torch.equal(v, torch.cummax(raw, 0).values)
     assert float((v - raw).abs().max()) <= 4 * float(np.spacing(np.float32(v[-1])))
 
 
