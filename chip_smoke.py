@@ -2,16 +2,19 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
 Drives the port's main path through its entry points at JOB scale: the
-index build, the full join through the ``tree_probe`` kernel, Poisson
-sampling through the per-node route (``bsearch_probe`` + ``tree_probe``),
-through the one-launch ``fused_draw`` kernel, and through the paged draw
-(``fused_sample`` + ``tree_probe_paged``); then (phase D) the kernel-ops
+index build, the full join through the GET kernel (``tree_probe``, from
+``csrc/tree_get.cu``), Poisson sampling through the per-node route
+(``bsearch_probe`` + ``tree_probe``), through the one-launch ``fused_draw``
+kernel, and through the paged draw (``fused_sample`` + ``tree_probe_paged``,
+one launch of the GET kernel over the pages); then (phase D) the kernel-ops
 entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 ``geo_positions_fused``, ``decode_attention`` and ``prefill_attention``
 (the ``scan``, ``flash_decode``, ``flash_prefill`` and
 ``flash_prefill_tc`` kernels). It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
-its plain PyTorch version on the card, checks the join against an
+its plain PyTorch version on the card (the GET kernel on A's sorted,
+shuffled and sampled positions, one probe and a ragged last tile; the
+paged GET's three forms at C), checks the join against an
 independent numpy expansion and the samples against the join and their
 expected size, and times each kernel beside its bound.
 
@@ -712,6 +715,7 @@ def run(args, device, kernel_policy=None) -> dict:
                "fused_sample": fd_mod.fused_sample,
                "tree_probe_paged": tp_mod.tree_probe_paged,
                "tree_probe_paged_dma": tp_mod.tree_probe_paged_dma,
+               "tree_probe_paged_pages": tp_mod.tree_probe_paged_pages,
                "prefix_sum": ps_mod.prefix_sum_tiles,
                "geo_gaps": geo_mod.geo_gaps_tiles,
                "threefry_uniforms": threefry.uniforms,
@@ -730,6 +734,11 @@ def run(args, device, kernel_policy=None) -> dict:
             text = reports.get(name) or build.ptxas_report(name)
             for entry, line in ptxas_lines(text):
                 log(f"[build] {name}: {entry}: {line}")
+        frames = [line for _, line in ptxas_lines(
+            reports.get("tree_get") or build.ptxas_report("tree_get"))
+            if "stack frame" in line]
+        log(f"[build] tree_get: {len(frames)} instances; stack frames and "
+            f"spills: {sorted(set(frames))}")
         # the bf16 attention kernels' tensor-core instructions in the SASS
         for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
             log(f"[build] {name}: {sass_count(build, name, op)}")
@@ -766,15 +775,48 @@ def run(args, device, kernel_policy=None) -> dict:
     # -- 3. kernels against their plain versions, at the main path's shapes
     errs = {}
     packA = planA.shred.packed
+    layA = packA.layout
     nA = planA.join_size
-    posA = torch.arange(nA, dtype=torch.int32, device=device)
-    got = tp_mod.tree_probe(packA.arena, posA, packA.layout)
-    want = tp_mod.tree_probe_plain(packA.arena, posA, packA.layout)
-    errs["tree_probe"] = max_abs_err(got, want)
-    del got, want
-    prefA = planA.prefE.to(torch.int32)
+    log(f"[A] arena {layA.size} int32: root prefix {layA.root_len}, "
+        + ", ".join(f"edge {layA.names[e.parent]} -> {layA.names[e.slot]} "
+                    f"cumw_excl {e.n_child + 1}" for e in layA.edges)
+        + f"; pages {[e - s for s, e in layA.page_bounds()]}")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
+    posA = torch.arange(nA, dtype=torch.int32, device=device)
+    smpA = engA.sample(q, threefry.key(999))
+    tileA = tp_mod.THREADS * tp_mod.items_for(layA.num_slots)
+    probesA = {
+        "all positions": posA,
+        "shuffled": posA[torch.randperm(nA, generator=gen, device=device)],
+        "per-node sample": smpA.positions[:int(smpA.count)].to(torch.int32),
+        "n = 1": posA[nA // 2:nA // 2 + 1],
+        "ragged last tile": posA[:3 * tileA + 37]}
+    del smpA
+    if on_card:
+        cfgA = tp_mod.tree_get_config(layA)
+        log(f"[build] tree_get at A: {cfgA}; "
+            f"{min(cfgA['blocks_per_sm'] * cfgA['sms'], -(-nA // tileA))} "
+            f"blocks for A's join ({-(-nA // tileA)} tiles of {tileA})")
+    errs["tree_probe"] = 0.0
+    staged_A = {}
+    for name, pos in probesA.items():
+        got = tp_mod.tree_probe(packA.arena, pos, layA)
+        want = tp_mod.tree_probe_plain(packA.arena, pos, layA)
+        err = max_abs_err(got, want)
+        stats = {}
+        model = torch.stack(tp_mod.tree_walk_tiled(packA.arena, pos, layA,
+                                                   stats=stats))
+        assert torch.equal(model, want), name
+        staged_A[name] = stats
+        errs["tree_probe"] = max(errs["tree_probe"], err)
+        log(f"[check] tree_probe (tree_get.cu) on A, {name} ({pos.numel()} "
+            f"probes): kernel vs plain max_abs_err {err}; the plain model "
+            f"of its tiles equal; of {stats['tiles']} tiles, staged by "
+            "level: " + ", ".join(f"{k} {v}" for k, v in stats.items()
+                                  if k != "tiles"))
+        del got, want, model
+    prefA = planA.prefE.to(torch.int32)
     qA = torch.sort(torch.randint(0, nA + 1, (planA.arrival_capacity(),),
                                   generator=gen, device=device,
                                   dtype=torch.int32)).values
@@ -826,14 +868,28 @@ def run(args, device, kernel_policy=None) -> dict:
         planC.arrival_capacity()
     keyC = threefry.key(args.seed + 2)
     variantsC = variants(planC, engC)
-    # tree_probe_paged, both forms, over every position of C.
+    # The paged GET's three forms (one launch over the buffer, one over
+    # the stacked pages, one launch per page) over every position of C and
+    # one draw's positions, sentinels clamped as draw_paged clamps them.
+    kwC = dict(method="exprace", cap=capC, acap=acapC)
     posC = torch.arange(nC, dtype=torch.int32, device=device)
-    want = tp_mod.tree_probe_plain(packC.arena, posC, packC.layout)
-    errs["tree_probe_paged"] = max_abs_err(
-        tp_mod.tree_probe_paged(pvC, posC), want)
-    errs["tree_probe_paged_dma"] = max_abs_err(
-        tp_mod.tree_probe_paged(pvC, posC, dma=True), want)
-    del want
+    posS = torch.clamp(fd_mod.fused_sample(keyC, planC.draw_params, **kwC)[0],
+                       max=nC - 1)
+    paged_forms = (("tree_probe_paged", None), ("tree_probe_paged_dma", True),
+                   ("tree_probe_paged_pages", False))
+
+    def check_paged(pv, label):
+        for name, pos in (("all positions", posC),
+                          ("one draw's positions", posS)):
+            want = tp_mod.tree_probe_plain(pv.buffer, pos, pv.layout)
+            for kname, dma in paged_forms:
+                err = max_abs_err(tp_mod.tree_probe_paged(pv, pos, dma=dma),
+                                  want)
+                errs[kname] = max(errs.get(kname, 0.0), err)
+                log(f"[check] {kname} (dma={dma}) at {label}, {name} "
+                    f"({pos.numel()} probes): vs plain max_abs_err {err}")
+
+    check_paged(pvC, "C")
     u_dev = threefry.uniforms(keyB, acapB, 0, device)
     u_plain = threefry.uniforms_plain(keyB, acapB, 0, device)
     errs["threefry_uniforms"] = max_abs_err(u_dev, u_plain)
@@ -865,8 +921,8 @@ def run(args, device, kernel_policy=None) -> dict:
     launchesA = {k: fn.launches for k, fn in kernels.items()}
     log(f"[A] launches {launchesA}")
     if on_card:
-        assert launchesA["tree_probe"] > 0 and launchesA["bsearch_probe"] > 0
-        assert launchesA["fused_draw"] == 0
+        assert launchesA["tree_probe"] == 1 + args.keys  # one a call
+        assert launchesA["bsearch_probe"] > 0 and launchesA["fused_draw"] == 0
     log(f"[A] sample counts z vs E[k]={mean:.1f} sd={sd:.1f}: "
         + ", ".join(f"{z:+.2f}" for z in zs))
     assert all(abs(z) < Z_LIMIT for z in zs)
@@ -885,7 +941,7 @@ def run(args, device, kernel_policy=None) -> dict:
     log(f"[B] launches {launchesB}")
     if on_card:
         assert launchesB["fused_draw"] == args.draws
-        assert launchesB["tree_probe"] > 0
+        assert launchesB["tree_probe"] == 1
     meanB = planB.expected_k()
     sdB = float(estimate.sample_std(planB.w, planB.p))
     zB = (float(np.mean(counts)) - meanB) / (sdB / math.sqrt(len(counts)))
@@ -909,9 +965,10 @@ def run(args, device, kernel_policy=None) -> dict:
     log(f"[C] launches {launchesC}")
     if on_card:
         assert launchesC["fused_sample"] == args.draws
-        assert launchesC["tree_probe_paged"] == (
-            args.draws * (1 + len(packC.layout.edges)))
-        assert launchesC["fused_draw"] == 0 and launchesC["tree_probe"] > 0
+        assert launchesC["tree_probe_paged"] == args.draws  # one a draw
+        assert launchesC["tree_probe_paged_dma"] == 0
+        assert launchesC["tree_probe_paged_pages"] == 0
+        assert launchesC["fused_draw"] == 0 and launchesC["tree_probe"] == 1
     meanC = planC.expected_k()
     sdC = float(estimate.sample_std(planC.w, planC.p))
     zC = (float(np.mean(counts)) - meanC) / (sdC / math.sqrt(len(counts)))
@@ -953,8 +1010,13 @@ def run(args, device, kernel_policy=None) -> dict:
     if on_card:
         assert launchesR["tree_probe"] == 0 and launchesR["fused_draw"] == 0
         assert launchesR["fused_sample"] == len(keysR)
-        assert launchesR["tree_probe_paged"] == (1 + len(keysR)) * (
-            1 + len(packC.layout.edges))
+        assert launchesR["tree_probe_paged"] == 1 + len(keysR)
+        assert launchesR["tree_probe_paged_dma"] == 0
+        assert launchesR["tree_probe_paged_pages"] == 0
+    # the three forms again over the index paged at build
+    check_paged(planR.shred.paged, "C, arena_limit=draw_limit")
+    for kname, _ in paged_forms:
+        assert errs[kname] == 0.0, kname
 
     # -- 6. times --------------------------------------------------------------
     steps = bp_mod.steps_for
@@ -992,7 +1054,6 @@ def run(args, device, kernel_policy=None) -> dict:
     rows.append(("fused_draw", "src/repro/kernels/fused_draw.py:212",
                  ms, plain_ms, b_ms, b_by, None))
     # fused_sample at C's main-path shapes: the draw without the walk.
-    kwC = dict(method="exprace", cap=capC, acap=acapC)
     ms = timed(lambda: fd_mod.fused_sample(keyC, planC.draw_params, **kwC),
                reps, device)
     plain_ms = timed(lambda: fd_mod.fused_sample_plain(
@@ -1005,33 +1066,50 @@ def run(args, device, kernel_policy=None) -> dict:
                        + capC * (6 * (s_R + 2 * s_acap) + 30))
     rows.append(("fused_sample", "src/repro/kernels/fused_draw.py:261",
                  ms, plain_ms, b_ms, b_by, None))
-    # tree_probe_paged, both forms, at the paged draw's shape: one draw's
-    # positions, sentinels clamped as draw_paged clamps them.
-    posS = torch.clamp(fd_mod.fused_sample(keyC, planC.draw_params, **kwC)[0],
-                       max=nC - 1)
+    # The paged GET's three forms at the paged draw's shape: one draw's
+    # positions. The plain version of the default is the walk of the
+    # buffer; of the others, their page steps.
     lay = packC.layout
     b_ms, b_by = bound(4 * (lay.size + capC * (1 + lay.num_slots)),
                        capC * walk_ops(lay, steps))
-    for name, dma, replaces in (
-            ("tree_probe_paged", None, "src/repro/kernels/tree_probe.py:195"),
-            ("tree_probe_paged_dma", True,
-             "src/repro/kernels/tree_probe.py:274")):
+    for (name, dma), replaces in zip(paged_forms, (
+            "src/repro/kernels/tree_probe.py:195",
+            "src/repro/kernels/tree_probe.py:274",
+            "src/repro/kernels/tree_probe.py:195")):
         ms = timed(lambda: tp_mod.tree_probe_paged(pvC, posS, dma=dma), reps,
                    device)
-        plain_ms = timed(lambda: tp_mod.tree_probe_paged_plain(
-            pvC, posS, dma=bool(dma)), 1, device)
+        plain_ms = timed(
+            (lambda: tp_mod.tree_probe_plain(pvC.buffer, posS, lay))
+            if dma is None else (lambda: tp_mod.tree_probe_paged_plain(
+                pvC, posS, dma=dma)), 1, device)
         rows.append((name, replaces, ms, plain_ms, b_ms, b_by, None))
-    # Both forms and the monolithic walk over the whole join of C (the
-    # paged GET's shape), side by side.
+    # The paged GET's forms and the walk of the whole arena over the whole
+    # join of C (the paged GET's shape), side by side.
     get_ms = {
-        "per-page": timed(lambda: tp_mod.tree_probe_paged(pvC, posC), reps,
-                          device),
-        "one-launch": timed(lambda: tp_mod.tree_probe_paged(pvC, posC,
-                                                            dma=True),
-                            reps, device),
+        "per-page": timed(lambda: tp_mod.tree_probe_paged(pvC, posC,
+                                                          dma=False),
+                          reps, device),
+        "one-launch buffer": timed(lambda: tp_mod.tree_probe_paged(pvC, posC),
+                                   reps, device),
+        "one-launch stacked": timed(lambda: tp_mod.tree_probe_paged(
+            pvC, posC, dma=True), reps, device),
         "tree_probe": timed(lambda: tp_mod.tree_probe(packC.arena, posC, lay),
                             reps, device)}
     log(f"[time] walks of all {nC} positions of C (ms): {get_ms}")
+    yardstick = {}
+    if on_card and args.profile:
+        # A yardstick for the reads no tile can stage: the last edge's
+        # child_start and child_w at A's full join, indexed by its parent's
+        # rows (in random order), as two library gathers.
+        e = layA.edges[-1]
+        prow = tp_mod.tree_probe(packA.arena, posA, layA)[e.parent]
+        gather_ms = timed(lambda: (packA.arena[e.cs_off + prow],
+                                   packA.arena[e.cw_off + prow]), reps, device)
+        yardstick["A last edge parent-row gathers"] = gather_ms
+        log(f"[profile] A's edge {layA.names[e.parent]} -> "
+            f"{layA.names[e.slot]}: child_start and child_w gathered at "
+            f"{nA} parent rows by torch indexing: {gather_ms:.4f} ms")
+        del prow
 
     e2e = {
         "full_join_A_ms": wall_ms(lambda: engA.full_join(q), device),
@@ -1073,6 +1151,8 @@ def run(args, device, kernel_policy=None) -> dict:
         e2e["peak_device_bytes_A_to_C"] = int(
             torch.cuda.max_memory_allocated(device))
     e2e["walks_C_ms"] = get_ms
+    e2e["tree_get_staged_A"] = staged_A
+    e2e["tree_get_yardstick"] = yardstick
 
     # -- 7. phase D: the kernel-ops entry point, after A-C's timings so that
     # its multi-GiB attention inputs do not change the conditions of theirs
@@ -1086,8 +1166,10 @@ def run(args, device, kernel_policy=None) -> dict:
                        + launchesR[k] + launchesD[k])
 
     # -- 8. the kernels' rows ---------------------------------------------------
-    sources = {"fused_sample": "fused_draw.cu",
-               "tree_probe_paged_dma": "tree_probe_paged.cu"}
+    sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",
+               "tree_probe_paged": "tree_get.cu",
+               "tree_probe_paged_dma": "tree_get.cu",
+               "tree_probe_paged_pages": "tree_probe_paged.cu"}
     rows = [r[:2] + (sources.get(r[0], f"{r[0]}.cu"),) + r[2:] for r in rows]
     table = []
     for name, replaces, source, ms, plain_ms, b_ms, b_by, lib_ms in rows + rowsD:

@@ -17,8 +17,9 @@ in one launch of the ``fused_draw`` kernel, routed by ``select_draw``.
 The paged rung, for an int32 index over a budget whose every page fits
 it: the GET (rep 'usr_paged') walks the pages with ``tree_probe_paged``;
 the draw (``draw_paged``, ``kernels='paged'``) samples positions with
-``fused_sample`` and walks them with ``tree_probe_paged``. The GET's
-budget is ``KernelPolicy.arena_limit``, the draw's ``draw_limit``.
+``fused_sample`` and walks them with ``tree_probe_paged``, one launch of
+the GET kernel over the pages' buffer on the card. The GET's budget is
+``KernelPolicy.arena_limit``, the draw's ``draw_limit``.
 
 Not ported yet (ROADMAP queue A): CSR GET.
 """
@@ -188,8 +189,8 @@ def usr_get_rows_fused(shred: Shred, pos: torch.Tensor,
 
 def usr_get_rows_paged(shred: Shred, pos: torch.Tensor
                        ) -> Dict[str, torch.Tensor]:
-    """The paged GET: the walk of ``usr_get_rows_fused``, page by page
-    (``tree_probe_paged``); the same rows as ``usr_get_rows``. Callers
+    """The paged GET: the walk of ``usr_get_rows_fused`` over the paged
+    index (``tree_probe_paged``); the same rows as ``usr_get_rows``. Callers
     reach it through ``select_rep``/``get_rows`` (rep 'usr_paged'), which
     checked ``paged_available``; positions narrow to int32 as in the
     fused GET."""
@@ -313,7 +314,7 @@ def draw_paged(shred: Shred, dparams, key, *, method: str, cap: int,
                acap: int = 0, n: int = 0):
     """The paged draw: positions from one ``fused_sample`` launch (the
     same sampling as the fused draw, so the same positions under one
-    key), then their walk page by page (``tree_probe_paged``). Same
+    key), then their walk over the paged index (``tree_probe_paged``). Same
     return contract as ``draw_fused``."""
     pv = paged_view(shred)
     pos, cnt, ovf = fused_sample(key, dparams, method=method, cap=cap,

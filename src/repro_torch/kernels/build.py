@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "library_path",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bsearch_probe", "tree_probe", "tree_probe_paged", "fused_draw",
+SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
            "scan", "flash_decode", "flash_prefill", "flash_prefill_tc")
 ARCH = "arch=compute_90a,code=sm_90a"
 

@@ -1,30 +1,26 @@
-// Paged USR GET: the walk of tree_walk.cuh, one page of the index at a time.
+// Paged USR GET, per-page form: the walk of tree_walk.cuh, one page of the
+// index at a time.
 //
-// Replaces tree_probe_paged of src/repro/kernels/tree_probe.py: its
-// per-page form _paged_launches (the root-page pallas_call and the
-// edge-page pallas_call, over _root_page_step and _edge_page_step) and its
-// one-launch form _paged_dma (_dma_paged_kernel). A page is one contiguous
-// slice of the arena: page 0 the root prefix, page k + 1 edge k's
-// child_start, child_w, cumw_excl and perm columns. In-page offsets are the
-// layout's offsets minus the page start (child_start leads its page, so its
-// rebased offset is 0).
+// Replaces _paged_launches of src/repro/kernels/tree_probe.py (the
+// root-page pallas_call and the edge-page pallas_call, over
+// _root_page_step and _edge_page_step), as the explicit per-page form
+// (tree_probe_paged(..., dma=False)). The paged GET's default on CUDA and
+// its dma=True form are one launch of tree_get.cu. A page is one
+// contiguous slice of the arena: page 0 the root prefix, page k + 1 edge
+// k's child_start, child_w, cumw_excl and perm columns. In-page offsets are
+// the layout's offsets minus the page start (child_start leads its page, so
+// its rebased offset is 0).
 //
-//  * Per-page form: one launch per page. tpp_root_kernel locates each
-//    probe in page 0 and writes (row, local); tpp_edge_kernel takes the
-//    parent's (row, local) and writes (child row, child local, the parent's
-//    local after the mixed-radix peel). The caller threads that third
-//    output into the parent's next child, as tree_walk updates its locals
-//    in place. Each launch reads one page, so that page alone is what the
-//    launch keeps hot in L2 (a page of the paged regime is at most a few
-//    MB; the whole paged arena may be over the 50 MB L2).
-//  * One-launch form: tpp_stacked_kernel walks every page of the stacked
-//    (npages, P) buffer, one thread per probe, locals in registers.
+// One launch per page. tpp_root_kernel locates each probe in page 0 and
+// writes (row, local); tpp_edge_kernel takes the parent's (row, local) and
+// writes (child row, child local, the parent's local after the mixed-radix
+// peel). The caller threads that third output into the parent's next
+// child, as tree_walk updates its locals in place. Each launch reads one
+// page, so that page alone is what the launch keeps hot in L2.
 //
-// Bound on the card: like tree_probe, by the latency of the dependent loads
-// of each lane's descents (bytes are a small multiple of one read of the
-// pages). The per-page form adds a write and a read of 3 int32 per lane
-// per edge and one launch per page. Staging pages in shared memory is
-// later work.
+// Bound on the card: by the latency of the dependent loads of each lane's
+// descents (bytes are a small multiple of one read of the pages), plus a
+// write and a read of 3 int32 per lane per edge and one launch per page.
 #include <cuda_runtime.h>
 
 #include "tree_walk.cuh"
@@ -94,28 +90,6 @@ __global__ void tpp_edge_kernel(const int* __restrict__ page,
   }
 }
 
-__global__ void tpp_stacked_kernel(const int* __restrict__ pages,
-                                   long long P,
-                                   const __grid_constant__ RtLayout L,
-                                   const int* __restrict__ q,
-                                   int* __restrict__ out, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const int slots = L.num_edges + 1;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    int rows[RT_MAX_SLOTS], locs[RT_MAX_SLOTS];
-    tpp_root_step(pages, L.root_len, L.n_root, L.root_steps, q[i], rows[0],
-                  locs[0]);
-    for (int k = 0; k < L.num_edges; ++k) {
-      const int* e = L.e[k];
-      const int par = e[E_PARENT];
-      tpp_edge_step(pages + (k + 1) * P, e, rows[par], locs[par],
-                    rows[e[E_SLOT]], locs[e[E_SLOT]], locs[par]);
-    }
-    for (int s = 0; s < slots; ++s) out[(long long)s * n + i] = rows[s];
-  }
-}
-
 static inline int tpp_blocks(long long n, int threads) {
   long long blocks = (n + threads - 1) / threads;
   if (blocks > 132LL * 64) blocks = 132LL * 64;
@@ -140,15 +114,5 @@ extern "C" int tpp_edge_launch(const int* page, const int* edge,
   if (n == 0) return (int)cudaGetLastError();
   tpp_edge_kernel<<<tpp_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
       page, E, prow, ploc, out, n);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int tpp_stacked_launch(const int* pages, long long P,
-                                  const int* table, const int* q, int* out,
-                                  long long n, void* stream) {
-  const RtLayout L = rt_layout_from_table(table);
-  if (n == 0) return (int)cudaGetLastError();
-  tpp_stacked_kernel<<<tpp_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
-      pages, P, L, q, out, n);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// The USR walk over the packed int32 arena, as device code shared by the
-// GET kernel (tree_probe.cu) and the fused draw (fused_draw.cu).
+// The USR walk over the packed int32 arena, one thread a probe: the device
+// code of the fused draw's walk (fused_draw.cu) and of the per-page GET
+// (tree_probe_paged.cu). The GET over the whole arena is tree_get.cu.
 //
 // Replaces tree_walk and _descend of src/repro/kernels/tree_probe.py. One
 // thread walks one probe position: root locate in root_prefE, then per tree

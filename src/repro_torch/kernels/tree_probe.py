@@ -1,49 +1,97 @@
 """Fused USR-GET over the packed int32 index arena.
 
 ``tree_probe`` resolves int32 probe positions to the row of every tree
-node in one launch of ``csrc/tree_probe.cu`` for CUDA tensors; for CPU
+node in one launch of ``csrc/tree_get.cu`` for CUDA tensors; for CPU
 tensors it runs ``tree_walk``, the plain version, which the fused draw's
 plain version shares. ``launches`` counts kernel launches.
 
-The kernel is built once for any layout: the layout travels as a small
-int32 table (``layout_table``), at most ``MAX_SLOTS`` tree nodes.
+The kernel walks the tree by tiles of probes (the design is in
+``csrc/tree_get.cuh``): per searched vector the tile's bracket, staged in
+shared memory when it is at most ``SPAN`` wide, else a per-lane descent
+whose first ``LEVELS`` steps read a pivot table. ``tree_walk_tiled``
+spells that logic out as torch ops, so that the CPU tests reach it. The
+kernel is built once for any layout: the layout travels as a small int32
+table (``layout_table``), at most ``MAX_SLOTS`` tree nodes, with a base per
+searched vector, so that the same kernel walks the whole arena, a paged
+arena's buffer and its stacked pages.
 
-``tree_probe_paged`` is the same walk over a paged arena (``PagedArena``:
-the root prefix, then one page per tree edge), from ``csrc/
-tree_probe_paged.cu``: one launch per page (``dma`` false, the default),
-or one launch over the stacked pages (``dma=True``, counted on
-``tree_probe_paged_dma``). Its plain version, ``tree_probe_paged_plain``,
-runs the same page steps as torch ops for CPU tensors.
+``tree_probe_paged`` is the same GET over a paged arena (``PagedArena``:
+the root prefix, then one page per tree edge). On CUDA its default
+(``dma=None``) is one launch of ``tree_get.cu`` over the pages' buffer,
+with the layout's own offsets; ``dma=True`` is one launch over the stacked
+pages (``tree_probe_paged_dma``); ``dma=False`` the per-page form of
+``csrc/tree_probe_paged.cu``, one launch per page
+(``tree_probe_paged_pages``). ``tree_probe_paged.launches`` counts every
+launch of the paged GET, whatever its form. Its plain versions run the
+same steps as torch ops for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List
+import functools
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from .bsearch_probe import steps_for
 
-__all__ = ["MAX_SLOTS", "layout_table", "tree_walk", "tree_probe_plain",
-           "tree_probe", "tree_probe_paged_plain", "tree_probe_paged",
-           "tree_probe_paged_dma"]
+__all__ = ["MAX_SLOTS", "THREADS", "SPAN", "LEVELS", "layout_table",
+           "stacked_bases", "items_for", "tree_walk", "tree_walk_tiled",
+           "tree_probe_plain", "tree_probe", "tree_get", "tree_get_config",
+           "tree_probe_paged_plain", "tree_probe_paged",
+           "tree_probe_paged_dma", "tree_probe_paged_pages"]
 
+# The kernels' constants (``tests/test_torch_tree_get.py`` holds them to
+# the sources' ``#define`` lines).
 MAX_SLOTS = 16  # RT_MAX_SLOTS in csrc/tree_walk.cuh
+THREADS = 256   # TG_THREADS: threads of a block of tree_get.cu
+SPAN = 2048     # TG_SPAN: the widest bracket a tile stages in shared memory
+LEVELS = 10     # TG_LEVELS: descent steps a pivot table holds (2^LEVELS values)
+HEAD, EDGE_FIELDS = 4, 8  # words of the table's head and of each edge
 
 
-def layout_table(layout) -> List[int]:
-    """The kernels' layout table: [root_len, n_root, root_steps,
-    num_edges] then per edge [parent, slot, cs_off, cw_off, ce_off,
-    perm_off, n_child, steps over cumw_excl]."""
+def layout_table(layout, bases: Optional[Sequence[int]] = None) -> List[int]:
+    """The kernels' table: [root_len, n_root, root_steps, num_edges], per
+    edge [parent, slot, cs_off, cw_off, ce_off, perm_off, n_child, steps
+    over cumw_excl], then one base per searched vector, which only
+    ``tree_get.cu`` reads: vector s (0 the root prefix, k + 1 edge k's
+    columns) is read at ``bases[s]`` plus the layout's offsets; ``None`` is
+    all zeros (the arena, or a paged arena's buffer)."""
     if layout.num_slots > MAX_SLOTS:
         raise ValueError(f"{layout.num_slots} tree nodes; the kernels take "
                          f"at most {MAX_SLOTS}")
+    bases = tuple(bases) if bases is not None else (0,) * layout.num_slots
+    if len(bases) != layout.num_slots:
+        raise ValueError(f"{len(bases)} bases for {layout.num_slots} vectors")
     table = [layout.root_len, layout.n_root, steps_for(layout.root_len),
              len(layout.edges)]
     for e in layout.edges:
         table += [e.parent, e.slot, e.cs_off, e.cw_off, e.ce_off, e.perm_off,
                   e.n_child, steps_for(e.n_child + 1)]
-    return table
+    return table + list(bases)
+
+
+def _check_preorder(layout) -> None:
+    """``tree_get.cu`` keeps edge k's child in slot k + 1, the arena's
+    pre-order packing: a layout that breaks it is refused."""
+    for k, e in enumerate(layout.edges):
+        if e.slot != k + 1:
+            raise ValueError(f"edge {k} has child slot {e.slot}; the GET "
+                             f"kernel needs slot {k + 1}")
+
+
+def stacked_bases(layout, P: int) -> tuple:
+    """The bases that address ``PagedArena.stacked()`` (pages of ``P``
+    words) with the layout's offsets: page 0 is the root prefix at 0;
+    edge k's page starts at (k + 1) P, its columns at their offsets less
+    its first, ``cs_off``."""
+    return (0,) + tuple((k + 1) * P - e.cs_off
+                        for k, e in enumerate(layout.edges))
+
+
+def items_for(num_slots: int) -> int:
+    """Probes a thread of ``tree_get.cu`` walks (its instance by slots)."""
+    return 4 if num_slots <= 4 else 2 if num_slots <= 8 else 1
 
 
 def _descend(arena: torch.Tensor, off: int, length: int, q: torch.Tensor):
@@ -82,6 +130,244 @@ def tree_probe_plain(arena: torch.Tensor, q: torch.Tensor, layout):
     return torch.stack(tree_walk(arena, q, layout))
 
 
+# ---------------------------------------------------------------------------
+# The tile logic of csrc/tree_get.cuh as torch ops, all tiles at once: a
+# tile is a row of ``qt`` (tiles, tile), values int64.
+# ---------------------------------------------------------------------------
+
+def _pivot_descend(piv, length: int, steps: int, sh: int, q):
+    """``tg_pivot_descend``: the descent's steps above 2^sh, read from the
+    pivot table; the answer then lies in [p, p + 2^sh - 1]."""
+    p = torch.zeros_like(q)
+    for k in range(steps - 1, sh - 1, -1):
+        cand = p + (1 << k)
+        p = torch.where((cand < length) & (piv[cand >> sh] <= q), cand, p)
+    return p
+
+
+def _warp_search(a, off: int, lo, hi, q):
+    """``tg_warp_search`` for each tile: max j in [lo, hi] with a[off + j]
+    <= q (lo if none); lanes 1..31 test evenly spaced points a round."""
+    lanes = torch.arange(1, 32, device=q.device)
+    while bool((hi > lo).any()):
+        stride = (hi - lo) // 32 + 1
+        pos = lo[:, None] + lanes * stride[:, None]
+        le = (pos <= hi[:, None]) & (
+            a[off + torch.minimum(pos, hi[:, None])] <= q[:, None])
+        c = le.sum(1)
+        hi = torch.minimum(hi, lo + (c + 1) * stride - 1)
+        lo = lo + c * stride
+    return lo
+
+
+def _search(a, off: int, perm_off: Optional[int], length: int, cap: int, qt,
+            span: int, levels: int):
+    """``tg_search``: per probe j = min(max j' with a[off + j'] <= q, cap),
+    a[off + j] and a[perm_off + j]; and which tiles staged their bracket."""
+    steps = steps_for(length)
+    sh = max(steps - levels, 0)
+    m = torch.arange(1 << (steps - sh), device=qt.device)
+    piv = a[off + torch.clamp(m << sh, max=length - 1)].long()
+    qmin, qmax = qt.min(1).values, qt.max(1).values
+    dlo = _pivot_descend(piv, length, steps, sh, qmin)
+    dhi = _pivot_descend(piv, length, steps, sh, qmax)
+    w = 1 << sh
+    fits = dhi - dlo - w + 2 <= span  # else the bracket surely exceeds span
+    if sh > 0 and bool(fits.any()):
+        lo, hi = dlo[fits], dhi[fits]
+        dlo[fits] = _warp_search(a, off, lo,
+                                 torch.clamp(lo + w - 1, max=length - 1),
+                                 qmin[fits])
+        dhi[fits] = _warp_search(a, off, hi,
+                                 torch.clamp(hi + w - 1, max=length - 1),
+                                 qmax[fits])
+    lo = torch.clamp(dlo, max=cap)
+    width = dhi - lo + 1
+    staged = fits & (width <= span)
+    j, aj = torch.empty_like(qt), torch.empty_like(qt)
+    pj = torch.empty_like(qt) if perm_off is not None else None
+    if bool(staged.any()):
+        # the staged slice a[off + lo .. off + dhi], searched in place
+        st = staged
+        los, qs, wd = lo[st, None], qt[st], width[st, None]
+        idx = los + torch.arange(span, device=qt.device)
+        sl = a[off + torch.clamp(idx, max=length - 1)].long()
+        p = torch.zeros_like(qs)
+        for k in range(steps_for(span) - 1, -1, -1):
+            cand = p + (1 << k)
+            val = torch.gather(sl, 1, torch.clamp(cand, max=span - 1))
+            p = torch.where((cand < wd) & (val <= qs), cand, p)
+        r = torch.clamp(los + p, max=cap) - los
+        j[st] = los + r
+        aj[st] = torch.gather(sl, 1, r)
+        if pj is not None:
+            psl = a[perm_off + torch.clamp(idx, max=cap)].long()
+            pj[st] = torch.gather(psl, 1, r)
+    fb = ~staged
+    if bool(fb.any()):
+        qf = qt[fb]
+        p = _pivot_descend(piv, length, steps, sh, qf)
+        for k in range(sh - 1, -1, -1):
+            cand = p + (1 << k)
+            val = a[off + torch.clamp(cand, max=length - 1)]
+            p = torch.where((cand < length) & (val <= qf), cand, p)
+        jf = torch.clamp(p, max=cap)
+        j[fb], aj[fb] = jf, a[off + jf].long()
+        if pj is not None:
+            pj[fb] = a[perm_off + jf].long()
+    return j, aj, pj, staged
+
+
+def _gather2(a, x_off: int, y_off: int, idx, span: int):
+    """``tg_gather2``: a[x_off + idx] and a[y_off + idx], from staged
+    slices for tiles whose index range fits ``span``."""
+    lo, hi = idx.min(1).values, idx.max(1).values
+    staged = hi - lo + 1 <= span
+    xv, yv = a[x_off + idx].long(), a[y_off + idx].long()
+    if bool(staged.any()):
+        st = staged
+        cols = torch.minimum(lo[st, None] + torch.arange(
+            span, device=idx.device), hi[st, None])
+        r = idx[st] - lo[st, None]
+        xv[st] = torch.gather(a[x_off + cols].long(), 1, r)
+        yv[st] = torch.gather(a[y_off + cols].long(), 1, r)
+    return xv, yv, staged
+
+
+def tree_walk_tiled(operand: torch.Tensor, q: torch.Tensor, layout, *,
+                    tile: Optional[int] = None, span: int = SPAN,
+                    levels: int = LEVELS,
+                    bases: Optional[Sequence[int]] = None,
+                    stats: Optional[Dict[str, int]] = None):
+    """``tree_get.cu``'s walk as torch ops, tile by tile: the rows of each
+    slot, equal to ``tree_walk`` on the arena. ``operand`` is read with
+    ``layout_table(layout, bases)``'s addressing (the arena, a paged
+    arena's buffer, or its stacked pages with ``stacked_bases``). ``tile``,
+    ``span`` and ``levels`` are the kernel's unless given (the tests shrink
+    them); a ragged last tile walks its last probe in the missing lanes.
+    ``stats``, when given, takes the tiles and, per level, how many staged
+    their bracket."""
+    _check_preorder(layout)
+    if not 0 <= levels <= 30 or span < 1:
+        raise ValueError(f"levels {levels} (0..30) and span {span} (>= 1)")
+    bases = tuple(layout_table(layout, bases)[-layout.num_slots:])
+    tile = tile or THREADS * items_for(layout.num_slots)
+    flat = q.reshape(-1).long()
+    n = flat.numel()
+    if n == 0:
+        return [q.new_empty(q.shape) for _ in range(layout.num_slots)]
+    nt = -(-n // tile)
+    qt = torch.cat([flat, flat[-1:].expand(nt * tile - n)]).reshape(nt, tile)
+    a = operand
+    j, aj, _, staged = _search(a, bases[0], None, layout.root_len,
+                               layout.n_root - 1, qt, span, levels)
+    counts = {"tiles": nt, "root": int(staged.sum())}
+    rows, locs = {0: j}, {0: qt - aj}
+    for k, e in enumerate(layout.edges):
+        b = bases[k + 1]
+        w, start, st_g = _gather2(a, b + e.cw_off, b + e.cs_off,
+                                  rows[e.parent], span)
+        ws = torch.clamp(w, min=1)
+        lp = locs[e.parent]
+        lnew = torch.div(lp, ws, rounding_mode="trunc")
+        locs[e.parent] = lnew
+        tgt = a[b + e.ce_off + start].long() + (lp - lnew * ws)
+        jj, cej, pj, st_s = _search(a, b + e.ce_off, b + e.perm_off,
+                                    e.n_child + 1, e.n_child - 1, tgt, span,
+                                    levels)
+        rows[k + 1], locs[k + 1] = pj, tgt - cej
+        counts[f"edge {k} gather"] = int(st_g.sum())
+        counts[f"edge {k} search"] = int(st_s.sum())
+    if stats is not None:
+        stats.update(counts)
+    return [rows[s].reshape(-1)[:n].reshape(q.shape).to(torch.int32)
+            for s in range(layout.num_slots)]
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch.
+# ---------------------------------------------------------------------------
+
+_ENTRIES = {}
+
+
+def _entry(lib: str, name: str, argtypes):
+    """``csrc/<lib>.cu``'s ``name`` with its argument types, set once."""
+    fn = _ENTRIES.get((lib, name))
+    if fn is None:
+        from . import build
+
+        fn = getattr(build.library(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(lib, name)] = fn
+    return fn
+
+
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+
+
+@functools.lru_cache(maxsize=64)
+def _ctable(layout, bases):
+    """The table as a ctypes array, built once per layout and bases."""
+    _check_preorder(layout)
+    table = layout_table(layout, bases)
+    return (ctypes.c_int * len(table))(*table)
+
+
+@functools.lru_cache(maxsize=64)
+def _config(layout, device: int) -> tuple:
+    """``tree_get_config`` on the current card, once per layout."""
+    from . import build
+
+    fn = _entry("tree_get", "tree_get_config", [_VP, _VP])
+    cfg = (ctypes.c_int * 4)()
+    build.check(fn(_ctable(layout, None), cfg), "tree_get_config")
+    return tuple(cfg)
+
+
+def tree_get_config(layout, *, device=None) -> dict:
+    """The launch shape of ``tree_get`` on the card (the current one
+    unless ``device``): probes a thread, blocks an SM, SMs, shared memory
+    bytes; a launch takes min(blocks an SM x SMs, tiles) blocks."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    with torch.cuda.device(device):
+        cfg = _config(layout, device.index)
+    return dict(zip(("items", "blocks_per_sm", "sms", "smem_bytes"), cfg))
+
+
+def tree_get(operand: torch.Tensor, q: torch.Tensor, layout,
+             bases: Optional[tuple] = None) -> torch.Tensor:
+    """One launch of ``csrc/tree_get.cu`` over ``operand`` (CUDA, int32,
+    read with ``layout_table(layout, bases)``'s addressing); counts
+    nothing: the GET's wrappers count their calls. Returns (num_slots,) +
+    q.shape int32."""
+    if operand.device.type != "cuda" or q.device != operand.device:
+        raise ValueError(f"tree_get runs on the card: operand on "
+                         f"{operand.device}, q on {q.device}")
+    if operand.dtype != torch.int32 or q.dtype != torch.int32:
+        raise TypeError(f"tree_get takes int32, got {operand.dtype}/{q.dtype}")
+    if not operand.is_contiguous():
+        raise ValueError("tree_get: the operand must be contiguous")
+    from . import build
+
+    fn = _entry("tree_get", "tree_get_launch",
+                [_VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP])
+    ctable = _ctable(layout, bases)
+    qc = q.contiguous()
+    n = qc.numel()
+    out = torch.empty((layout.num_slots,) + tuple(q.shape), dtype=torch.int32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        items, per_sm, sms, _ = _config(layout, torch.cuda.current_device())
+        blocks = min(per_sm * sms, -(-n // (THREADS * items)))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.check(fn(operand.data_ptr(), ctable, qc.data_ptr(),
+                       out.data_ptr(), n, blocks, stream), "tree_get")
+    return out
+
+
 def tree_probe(arena: torch.Tensor, q: torch.Tensor, layout) -> torch.Tensor:
     """arena: (layout.size,) int32; q: int32 probe positions in
     [0, join size), any shape. Returns (num_slots,) + q.shape int32."""
@@ -95,21 +381,7 @@ def tree_probe(arena: torch.Tensor, q: torch.Tensor, layout) -> torch.Tensor:
         return tree_probe_plain(arena, q, layout)
     if q.device.type != "cuda":
         raise ValueError(f"tree_probe: unsupported device {q.device}")
-    from . import build
-
-    fn = build.library("tree_probe").tree_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    table = layout_table(layout)
-    ctable = (ctypes.c_int * len(table))(*table)
-    qc = q.contiguous()
-    out = torch.empty((layout.num_slots,) + tuple(q.shape), dtype=torch.int32,
-                      device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(fn(arena.contiguous().data_ptr(), ctable, qc.data_ptr(),
-                       out.data_ptr(), qc.numel(), stream), "tree_probe")
+    out = tree_get(arena.contiguous(), q, layout)
     tree_probe.launches += 1
     return out
 
@@ -173,50 +445,18 @@ def _check_paged(paged, q: torch.Tensor) -> None:
 def tree_probe_paged(paged, q: torch.Tensor, dma=None) -> torch.Tensor:
     """paged: a ``PagedArena``; q: int32 probe positions in [0, join
     size), any shape. Returns (num_slots,) + q.shape int32, equal to
-    ``tree_probe`` on the whole arena. ``dma=None`` is the per-page form
-    (one launch per page, ``launches`` counts each); ``dma=True`` the
-    one-launch form over the stacked pages."""
+    ``tree_probe`` on the whole arena. ``dma=None`` is one launch over the
+    pages' buffer; ``dma=True`` one launch over the stacked pages;
+    ``dma=False`` one launch per page. ``launches`` counts every launch."""
     _check_paged(paged, q)
+    if dma is not None:
+        run = tree_probe_paged_dma if dma else tree_probe_paged_pages
+        return run(paged, q)
     if q.device.type == "cpu":
-        return tree_probe_paged_plain(paged, q, dma=bool(dma))
-    if dma:
-        return tree_probe_paged_dma(paged, q)
-    from . import build
-
-    lib = build.library("tree_probe_paged")
-    root, edge = lib.tpp_root_launch, lib.tpp_edge_launch
-    root.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
-                                                ctypes.c_void_p])
-    edge.argtypes = ([ctypes.c_void_p] * 5
-                     + [ctypes.c_longlong, ctypes.c_void_p])
-    root.restype = edge.restype = ctypes.c_int
-    layout = paged.layout
-    qc = q.contiguous()
-    n = qc.numel()
-    pages = paged.pages  # views of one contiguous buffer: no copies
-    table = layout_table(layout)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        jl = torch.empty((2,) + tuple(q.shape), dtype=torch.int32,
-                         device=q.device)
-        build.check(root(pages[0].data_ptr(), layout.root_len, layout.n_root,
-                         table[2], qc.data_ptr(), jl.data_ptr(), n, stream),
-                    "tree_probe_paged")
-        tree_probe_paged.launches += 1
-        rows, locs = {0: jl[0]}, {0: jl[1]}
-        for k, e in enumerate(layout.edges):
-            fields = table[4 + 8 * k: 12 + 8 * k]
-            out = torch.empty((3,) + tuple(q.shape), dtype=torch.int32,
-                              device=q.device)
-            build.check(edge(pages[k + 1].data_ptr(),
-                             (ctypes.c_int * 8)(*fields),
-                             rows[e.parent].data_ptr(),
-                             locs[e.parent].data_ptr(), out.data_ptr(), n,
-                             stream), "tree_probe_paged")
-            tree_probe_paged.launches += 1
-            rows[e.slot], locs[e.slot], locs[e.parent] = out[0], out[1], out[2]
-    return torch.stack([rows[s] for s in range(layout.num_slots)])
+        return tree_probe_plain(paged.buffer, q, paged.layout)
+    out = tree_get(paged.buffer, q, paged.layout)
+    tree_probe_paged.launches += 1
+    return out
 
 
 tree_probe_paged.launches = 0
@@ -224,30 +464,72 @@ tree_probe_paged.launches = 0
 
 def tree_probe_paged_dma(paged, q: torch.Tensor) -> torch.Tensor:
     """The one-launch paged walk over ``paged.stacked()`` (built once per
-    ``PagedArena``), on the card; ``tree_probe_paged(..., dma=True)``."""
+    ``PagedArena``), ``tree_probe_paged(..., dma=True)``: ``tree_get.cu``
+    with the stacked pages' bases."""
     _check_paged(paged, q)
     if q.device.type == "cpu":
         return tree_probe_paged_plain(paged, q, dma=True)
-    from . import build
-
-    fn = build.library("tree_probe_paged").tpp_stacked_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [
-        ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    layout = paged.layout
     stacked, P = paged.stacked()
-    table = layout_table(layout)
-    qc = q.contiguous()
-    out = torch.empty((layout.num_slots,) + tuple(q.shape), dtype=torch.int32,
-                      device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(fn(stacked.data_ptr(), P,
-                       (ctypes.c_int * len(table))(*table), qc.data_ptr(),
-                       out.data_ptr(), qc.numel(), stream),
-                    "tree_probe_paged_dma")
+    if stacked.numel() >= 2**31:
+        raise ValueError(f"stacked pages of {stacked.numel()} words exceed "
+                         "int32 offsets")
+    out = tree_get(stacked, q, paged.layout, stacked_bases(paged.layout, P))
     tree_probe_paged_dma.launches += 1
+    tree_probe_paged.launches += 1
     return out
 
 
 tree_probe_paged_dma.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _edge_fields(layout):
+    """Each edge's ``layout_table`` fields as a ctypes array, per layout."""
+    table = layout_table(layout)
+    return tuple((ctypes.c_int * EDGE_FIELDS)(
+        *table[HEAD + EDGE_FIELDS * k: HEAD + EDGE_FIELDS * (k + 1)])
+        for k in range(len(layout.edges)))
+
+
+def tree_probe_paged_pages(paged, q: torch.Tensor) -> torch.Tensor:
+    """The per-page walk, ``tree_probe_paged(..., dma=False)``: one launch
+    of ``csrc/tree_probe_paged.cu`` per page, each counted here and on
+    ``tree_probe_paged``."""
+    _check_paged(paged, q)
+    if q.device.type == "cpu":
+        return tree_probe_paged_plain(paged, q)
+    from . import build
+
+    root = _entry("tree_probe_paged", "tpp_root_launch",
+                  [_VP] + [ctypes.c_int] * 3 + [_VP, _VP, _LL, _VP])
+    edge = _entry("tree_probe_paged", "tpp_edge_launch",
+                  [_VP] * 5 + [_LL, _VP])
+    layout = paged.layout
+    qc = q.contiguous()
+    n = qc.numel()
+    pages = paged.pages  # views of one contiguous buffer: no copies
+    fields = _edge_fields(layout)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        jl = torch.empty((2,) + tuple(q.shape), dtype=torch.int32,
+                         device=q.device)
+        build.check(root(pages[0].data_ptr(), layout.root_len, layout.n_root,
+                         steps_for(layout.root_len), qc.data_ptr(),
+                         jl.data_ptr(), n, stream), "tree_probe_paged")
+        tree_probe_paged_pages.launches += 1
+        tree_probe_paged.launches += 1
+        rows, locs = {0: jl[0]}, {0: jl[1]}
+        for k, e in enumerate(layout.edges):
+            out = torch.empty((3,) + tuple(q.shape), dtype=torch.int32,
+                              device=q.device)
+            build.check(edge(pages[k + 1].data_ptr(), fields[k],
+                             rows[e.parent].data_ptr(),
+                             locs[e.parent].data_ptr(), out.data_ptr(), n,
+                             stream), "tree_probe_paged")
+            tree_probe_paged_pages.launches += 1
+            tree_probe_paged.launches += 1
+            rows[e.slot], locs[e.slot], locs[e.parent] = out[0], out[1], out[2]
+    return torch.stack([rows[s] for s in range(layout.num_slots)])
+
+
+tree_probe_paged_pages.launches = 0
