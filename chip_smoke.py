@@ -14,9 +14,15 @@ entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
-paged GET's three forms at C), checks the join against an
-independent numpy expansion and the samples against the join and their
-expected size, and times each kernel beside its bound.
+bsearch kernel on A's sorted and shuffled queries, the searches of one
+per-node draw, one query, a ragged tile, equal queries and queries past
+the prefix, its staged tiles against its plain model's; the paged GET's
+three forms at C; the int32 and GEO look-back at each tile size, across
+its switch of tile, 100 calls of both in turn on one scratch and on a
+second stream), checks the join against an independent numpy expansion
+and the samples against the join and their expected size, and times each
+kernel beside its bound: its wrapper by CUDA events, then, after every
+timing, its device time by ``torch.profiler``.
 
 Data (numpy, from ``--seed``): the schema and probabilities of
 ``benchmarks/workloads.py`` ``job_like`` (Title(t, kind, p) |><|
@@ -164,23 +170,38 @@ def wall_ms(fn, device) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def profile_window(fn, label: str, wall_ms_unprofiled: float) -> dict:
-    """Device time by kernel over one warm call of ``fn`` (torch.profiler;
-    device-side events only), and the device's idle share of the call's
-    unprofiled wall time."""
+def device_events(fn, reps: int) -> list:
+    """The device-side events (kernels, memsets, copies) of ``reps`` warm
+    calls of ``fn`` under ``torch.profiler``, summed by name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
+def device_ms(fn, reps: int = 20):
+    """Device milliseconds of one warm call of ``fn`` and the device
+    operations it runs, the mean of ``reps`` calls."""
+    events = device_events(fn, reps)
+    busy_us = sum(e.self_device_time_total for e in events)
+    return busy_us / 1e3 / reps, sum(e.count for e in events) / reps
+
+
+def profile_window(fn, label: str, wall_ms_unprofiled: float) -> dict:
+    """Device time by kernel over one warm call of ``fn``, and the device's
+    idle share of the call's unprofiled wall time."""
     kernels = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
-                      and e.self_device_time_total > 0),
+                      for e in device_events(fn, 1)),
                      key=lambda k: -k[1])
     busy_ms = sum(t for _, t, _ in kernels) / 1e3
     idle = 1 - busy_ms / wall_ms_unprofiled
@@ -513,18 +534,37 @@ def run_ops(args, device, kernels, n_join: int):
         f"random: kernel vs plain max_abs_err {errs['prefix_sum']} (random "
         f"float32 against a float64 cumsum: {drift:.4g})")
     assert errs["prefix_sum"] == 0.0
-    # The int32 look-back at its edges: one element, a tile less one, a
-    # tile, a tile and one, 33 tiles and 7 (the look-back crosses windows),
-    # Cast's rows; full-range values, so the sums wrap.
-    T = ps_mod.LOOK_BACK_TILE
-    edges = sorted({1, T - 1, T, T + 1, 33 * T + 7, n})
+    # The int32 and GEO look-back at its edges: one element, each tile
+    # size less one, itself and one more, 33 tiles and 7 (the look-back
+    # crosses windows), the first n that takes the large tile (one wave of
+    # it on this card) and the one before, Cast's rows; full-range values,
+    # so the int32 sums wrap.
+    T, Ts = ps_mod.LOOK_BACK_TILE, ps_mod.LOOK_BACK_SMALL_TILE
+    edges = {1, Ts - 1, Ts, Ts + 1, T - 1, T, T + 1, 33 * T + 7, n}
+    switch = None
+    if device.type == "cuda":
+        lo, hi = 1, 1 << 31
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if ps_mod.look_back_tile(mid) == T:
+                hi = mid
+            else:
+                lo = mid + 1
+        switch = lo
+        edges |= {switch - 1, switch}
+    edges = sorted(edges)
     edge_err = 0.0
     for m in edges:
         xm = torch.randint(-2**31, 2**31, (m,), generator=gen, device=device,
                            dtype=torch.int32)
+        um = torch.rand((m,), generator=gen, device=device)
         edge_err = max(edge_err, max_abs_err(ps_mod.prefix_sum_tiles(xm),
-                                             ps_mod.prefix_sum_plain(xm)))
-        del xm
+                                             ps_mod.prefix_sum_plain(xm)),
+                       max_abs_err(geo_mod.geo_gaps_tiles(um, GEO_P),
+                                   geo_mod.geo_gaps_plain(um, GEO_P)))
+        del xm, um
+    log(f"[check] look-back tiles: {Ts} below {switch} elements (one wave "
+        f"of {T}-element tiles), {T} from there on")
     # 50 calls back to back at Cast's rows, each against the first, with no
     # host sync between them: a look-back ordering fault (or a status word
     # left over in reused scratch) shows as a rare wrong sum.
@@ -532,11 +572,41 @@ def run_ops(args, device, kernels, n_join: int):
     wrong = torch.zeros((), dtype=torch.int64, device=device)
     for _ in range(50):
         wrong += (ps_mod.prefix_sum_tiles(w_i32) != first).sum()
-    log(f"[check] prefix_sum int32 look-back at n {edges} (full-range "
-        f"values): kernel vs plain max_abs_err {edge_err}; 50 calls back to "
-        f"back at n {n}: {int(wrong)} elements differ from the first call")
+    log(f"[check] prefix_sum int32 (full-range values) and geo_gaps "
+        f"look-back at n {edges}: kernel vs plain max_abs_err {edge_err}; "
+        f"50 calls back to back at n {n}: {int(wrong)} elements differ from "
+        f"the first call")
     assert edge_err == 0.0 and int(wrong) == 0 and torch.equal(first, want_i32)
-    del first
+    # The two entries in turn, 100 calls back to back on the one scratch
+    # of this stream (no reset between them), each against its first
+    # call; then both on a second stream, which takes a scratch of its own.
+    u0 = geo[0][0]
+    first_geo = geo_mod.geo_gaps_tiles(u0, GEO_P)
+    wrong_ps = torch.zeros((), dtype=torch.int64, device=device)
+    wrong_geo = torch.zeros((), dtype=torch.int64, device=device)
+    for i in range(100):
+        if i % 2:
+            wrong_geo += (geo_mod.geo_gaps_tiles(u0, GEO_P) != first_geo).sum()
+        else:
+            wrong_ps += (ps_mod.prefix_sum_tiles(w_i32) != first).sum()
+    assert int(wrong_ps) == 0 and int(wrong_geo) == 0
+    assert torch.equal(first_geo, geo_mod.geo_gaps_plain(u0, GEO_P))
+    side_note = "no second stream off the card"
+    if device.type == "cuda":
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            side_ps = ps_mod.prefix_sum_tiles(w_i32)
+            side_geo = geo_mod.geo_gaps_tiles(u0, GEO_P)
+        torch.cuda.current_stream(device).wait_stream(side)
+        assert torch.equal(side_ps, first) and torch.equal(side_geo, first_geo)
+        side_note = (f"a second stream equal too ({len(ps_mod._SCRATCH)} "
+                     "scratches, one a stream)")
+        del side_ps, side_geo
+    log(f"[check] prefix_sum and geo_gaps in turn, 100 calls back to back "
+        f"on one scratch: {int(wrong_ps)} / {int(wrong_geo)} elements differ "
+        f"from the first calls; {side_note}")
+    del first, first_geo
 
     errs["geo_gaps"] = errs["threefry_uniforms"] = 0.0
     off_lanes, near, zs = 0, 0, []
@@ -588,22 +658,26 @@ def run_ops(args, device, kernels, n_join: int):
     del dec, pre, pre32
 
     # -- times ------------------------------------------------------------------
+    # (the scans at least 50 calls, as in run())
     reps = args.reps
+    reps_short = max(reps, 50)
     rows = []
-    ms = timed(lambda: ops.prefix_sum(w_i32), reps, device)
+    call = {"prefix_sum": lambda: ops.prefix_sum(w_i32),
+            "geo_gaps": lambda: ops.geo_positions_fused(u0, GEO_P),
+            "threefry_uniforms": lambda: threefry.uniforms(keys[0], lanes, 0,
+                                                           device)}
+    ms = timed(call["prefix_sum"], reps_short, device)
     plain_ms = timed(lambda: ps_mod.prefix_sum_plain(w_i32), 1, device)
     lib_ms = library_timed(lambda: torch.cumsum(w_i32, 0, dtype=torch.int32),
-                           reps, device, "prefix_sum")
+                           reps_short, device, "prefix_sum")
     rows.append(("prefix_sum", "src/repro/kernels/prefix_sum.py:42", "scan.cu",
                  ms, plain_ms, *bound(8 * n, n), lib_ms))
-    u0 = geo[0][0]
-    ms = timed(lambda: ops.geo_positions_fused(u0, GEO_P), reps, device)
+    ms = timed(call["geo_gaps"], reps_short, device)
     plain_ms = timed(lambda: geo_mod.geo_gaps_plain(u0, GEO_P), 1, device)
     # ~40 operations a lane: two logarithms, a divide, floor, clamp, a scan add
     rows.append(("geo_gaps", "src/repro/kernels/geo_gaps.py:49", "scan.cu",
                  ms, plain_ms, *bound(8 * lanes, 40 * lanes), None))
-    ms = timed(lambda: threefry.uniforms(keys[0], lanes, 0, device), reps,
-               device)
+    ms = timed(call["threefry_uniforms"], reps, device)
     plain_ms = timed(lambda: threefry.uniforms_plain(keys[0], lanes, 0,
                                                      device), 1, device)
     # 250 integer operations a lane: the fold and one 20-round block
@@ -611,7 +685,8 @@ def run_ops(args, device, kernels, n_join: int):
                  "fused_draw.cu", ms, plain_ms,
                  *bound(4 * lanes, 250 * lanes), None))
     q, k, v, bias, _ = next(iter(dec_cases.values()))
-    ms = timed(lambda: ops.decode_attention(q, k, v, bias), reps, device)
+    call["flash_decode"] = lambda: ops.decode_attention(q, k, v, bias)
+    ms = timed(call["flash_decode"], reps, device)
     plain_ms = timed(lambda: dec_mod.flash_decode_plain(q, k, v, bias), 1,
                      device)
     mask = (bias == 0)[:, None, None, :]
@@ -623,8 +698,9 @@ def run_ops(args, device, kernels, n_join: int):
                  "flash_decode.cu", ms, plain_ms,
                  *bound(nbytes, 4 * q.numel() * k.shape[2], BF16_TC_OPS_PER_S),
                  lib_ms))
-    ms = timed(lambda: ops.prefill_attention(ql, kl, vl, causal=True), reps,
-               device)
+    call["flash_prefill"] = lambda: ops.prefill_attention(ql, kl, vl,
+                                                          causal=True)
+    ms = timed(call["flash_prefill"], reps, device)
     plain_ms = timed(lambda: pre_mod.flash_prefill_plain(ql, kl, vl, True), 1,
                      device)
     lib_ms = library_timed(lambda: F.scaled_dot_product_attention(
@@ -672,6 +748,9 @@ def run_ops(args, device, kernels, n_join: int):
                             "flash_prefill": f32_pre_ms,
                             "flash_decode_library": f32_dec_lib,
                             "flash_prefill_library": f32_pre_lib}}
+    # device time of each row's call, after every timing of the phase
+    sizes["device_ms"] = {name: device_ms(fn) for name, fn in call.items()} \
+        if device.type == "cuda" else {}
     if device.type == "cuda" and args.profile:
         # device time against the wrapper's: the host side of a call
         # (ctypes, allocations) shows where the kernels are short
@@ -704,6 +783,7 @@ def run(args, device, kernel_policy=None) -> dict:
     from repro_torch.kernels import flash_decode as dec_mod
     from repro_torch.kernels import flash_prefill as pre_mod
     from repro_torch.kernels import geo_gaps as geo_mod
+    from repro_torch.kernels import ops as ops_mod
     from repro_torch.kernels import prefix_sum as ps_mod
     from repro_torch.kernels import threefry
     from repro_torch.kernels import tree_probe as tp_mod
@@ -816,12 +896,65 @@ def run(args, device, kernel_policy=None) -> dict:
             "level: " + ", ".join(f"{k} {v}" for k, v in stats.items()
                                   if k != "tiles"))
         del got, want, model
-    prefA = planA.prefE.to(torch.int32)
+    # bsearch_probe over A's root prefix as the main path passes it (the
+    # arena's int32 view): sorted and shuffled queries, the queries of one
+    # per-node draw through the per-node GET (EXPRACE's seg and rO
+    # searches, then the GET's root locate), one query, a ragged last tile,
+    # all-equal queries and queries past pref[-1]. Bit for bit against the
+    # plain version, and the tiles that staged or fell back against the
+    # plain model's (bsearch_probe_tiled) on the same input.
+    prefA = planA.shred.root_pref32
     qA = torch.sort(torch.randint(0, nA + 1, (planA.arrival_capacity(),),
                                   generator=gen, device=device,
                                   dtype=torch.int32)).values
-    errs["bsearch_probe"] = max_abs_err(bp_mod.bsearch_probe(prefA, qA),
-                                        bp_mod.bsearch_probe_plain(prefA, qA))
+    qA_shuffled = qA[torch.randperm(qA.numel(), generator=gen, device=device)]
+    drawn = []
+
+    def record(pref, qq):
+        drawn.append((pref, qq.clone()))
+        return bp_mod.bsearch_probe(pref, qq)
+
+    ops_mod.bsearch_probe = record
+    try:
+        planA.sample(threefry.key(999), rep="usr")
+    finally:
+        ops_mod.bsearch_probe = bp_mod.bsearch_probe
+    assert len(drawn) == 3, len(drawn)
+    topA = int(prefA[-1])
+    tile_bs = bp_mod.THREADS * bp_mod.ITEMS
+    probes_bs = {"sorted": (prefA, qA), "shuffled": (prefA, qA_shuffled)}
+    probes_bs.update((f"per-node draw, {k}", pq) for k, pq in zip(
+        ("seg", "rO", "root locate"), drawn))
+    probes_bs.update({
+        "n = 1": (prefA, qA[qA.numel() // 2:qA.numel() // 2 + 1]),
+        "ragged last tile": (prefA, qA[:3 * tile_bs + 37]),
+        "all equal": (prefA, torch.full((5000,), topA // 3,
+                                        dtype=torch.int32, device=device)),
+        "past pref[-1]": (prefA, torch.arange(topA - 5, topA + 5000,
+                                              dtype=torch.int32,
+                                              device=device))})
+    del drawn
+    if on_card:
+        log(f"[build] bsearch_probe: {bp_mod.bsearch_probe_config()}")
+    errs["bsearch_probe"] = 0.0
+    tiles_bs = {}
+    for name, (pref, qq) in probes_bs.items():
+        stats, model_stats = {}, {}
+        got = bp_mod.bsearch_probe(pref, qq, stats=stats)
+        want = bp_mod.bsearch_probe_plain(pref, qq)
+        model = bp_mod.bsearch_probe_tiled(pref, qq, stats=model_stats)
+        err = max_abs_err(got, want)
+        assert torch.equal(model, want), name
+        assert stats == model_stats, (name, stats, model_stats)
+        errs["bsearch_probe"] = max(errs["bsearch_probe"], err)
+        tiles_bs[name] = stats
+        log(f"[check] bsearch_probe on A, {name} ({qq.numel()} queries into "
+            f"{pref.numel()} words): kernel vs plain max_abs_err {err}; "
+            f"tiles staged / fell back: kernel {stats['staged']} / "
+            f"{stats['fallback']}, plain model {model_stats['staged']} / "
+            f"{model_stats['fallback']} of {stats['tiles']}")
+        del got, want, model
+    del probes_bs
     packB = planB.shred.packed
     capB, acapB = planB.default_capacity(), planB.arrival_capacity()
     keyB = threefry.key(args.seed)
@@ -1019,27 +1152,40 @@ def run(args, device, kernel_policy=None) -> dict:
         assert errs[kname] == 0.0, kname
 
     # -- 6. times --------------------------------------------------------------
+    # Each kernel's wrapper by CUDA events (``reps`` warm calls; at least
+    # 50 for the kernels of the last redesign, whose calls are short); the
+    # device time of each (``call``) is taken after every timing of the
+    # run, so that no profiler session precedes a timing.
     steps = bp_mod.steps_for
     reps = args.reps
+    reps_short = max(reps, 50)
     rows = []
-    ms = timed(lambda: tp_mod.tree_probe(packA.arena, posA, packA.layout),
-               reps, device)
+    call = {}
+    call["tree_probe"] = lambda: tp_mod.tree_probe(packA.arena, posA,
+                                                   packA.layout)
+    ms = timed(call["tree_probe"], reps, device)
     plain_ms = timed(lambda: tp_mod.tree_probe_plain(packA.arena, posA,
                                                      packA.layout), 1, device)
     b_ms, b_by = bound(4 * (packA.layout.size + nA * (1 + packA.layout.num_slots)),
                        nA * walk_ops(packA.layout, steps))
     rows.append(("tree_probe", "src/repro/kernels/tree_probe.py:111",
                  ms, plain_ms, b_ms, b_by, None))
-    ms = timed(lambda: bp_mod.bsearch_probe(prefA, qA), reps, device)
+    call["bsearch_probe"] = lambda: bp_mod.bsearch_probe(prefA, qA)
+    ms = timed(call["bsearch_probe"], reps_short, device)
     plain_ms = timed(lambda: bp_mod.bsearch_probe_plain(prefA, qA), 1, device)
     lib_ms = timed(lambda: torch.searchsorted(prefA, qA, right=True) - 1,
-                   reps, device)
+                   reps_short, device)
     b_ms, b_by = bound(4 * (prefA.numel() + 2 * qA.numel()),
                        qA.numel() * 6 * steps(prefA.numel()))
     rows.append(("bsearch_probe", "src/repro/kernels/bsearch_probe.py:43",
                  ms, plain_ms, b_ms, b_by, lib_ms))
-    ms = timed(lambda: fd_mod.fused_draw(packB.arena, keyB, planB.draw_params,
-                                         **kw), reps, device)
+    shuffled_ms = timed(lambda: bp_mod.bsearch_probe(prefA, qA_shuffled),
+                        reps_short, device)
+    log(f"[time] bsearch_probe on A's {qA.numel()} queries shuffled: "
+        f"{shuffled_ms:.4f} ms (sorted {ms:.4f})")
+    call["fused_draw"] = lambda: fd_mod.fused_draw(
+        packB.arena, keyB, planB.draw_params, **kw)
+    ms = timed(call["fused_draw"], reps, device)
     plain_ms = timed(lambda: fd_mod.fused_draw_plain(
         packB.arena, keyB, planB.draw_params, **kw), 1, device)
     RB = planB.w.numel()
@@ -1054,8 +1200,9 @@ def run(args, device, kernel_policy=None) -> dict:
     rows.append(("fused_draw", "src/repro/kernels/fused_draw.py:212",
                  ms, plain_ms, b_ms, b_by, None))
     # fused_sample at C's main-path shapes: the draw without the walk.
-    ms = timed(lambda: fd_mod.fused_sample(keyC, planC.draw_params, **kwC),
-               reps, device)
+    call["fused_sample"] = lambda: fd_mod.fused_sample(
+        keyC, planC.draw_params, **kwC)
+    ms = timed(call["fused_sample"], reps, device)
     plain_ms = timed(lambda: fd_mod.fused_sample_plain(
         keyC, planC.draw_params, **kwC), 1, device)
     RC = planC.w.numel()
@@ -1076,8 +1223,9 @@ def run(args, device, kernel_policy=None) -> dict:
             "src/repro/kernels/tree_probe.py:195",
             "src/repro/kernels/tree_probe.py:274",
             "src/repro/kernels/tree_probe.py:195")):
-        ms = timed(lambda: tp_mod.tree_probe_paged(pvC, posS, dma=dma), reps,
-                   device)
+        call[name] = (lambda d: lambda: tp_mod.tree_probe_paged(
+            pvC, posS, dma=d))(dma)
+        ms = timed(call[name], reps, device)
         plain_ms = timed(
             (lambda: tp_mod.tree_probe_plain(pvC.buffer, posS, lay))
             if dma is None else (lambda: tp_mod.tree_probe_paged_plain(
@@ -1119,6 +1267,23 @@ def run(args, device, kernel_policy=None) -> dict:
     }
     for k, v in e2e.items():
         log(f"[time] warm {k}: {v:.3f}")
+    if on_card:
+        e2e["peak_device_bytes_A_to_C"] = int(
+            torch.cuda.max_memory_allocated(device))
+    e2e["walks_C_ms"] = get_ms
+    e2e["tree_get_staged_A"] = staged_A
+    e2e["tree_get_yardstick"] = yardstick
+
+    # -- 7. phase D: the kernel-ops entry point, after A-C's timings so that
+    # its multi-GiB attention inputs do not change the conditions of theirs
+    rowsD, errsD, launchesD, sizesD = run_ops(args, device, kernels,
+                                              planA.join_size)
+    # -- 7b. device time: each row's call, then (--profile) the warm engine
+    # calls by kernel, after every timing of the run
+    dev_ms = sizesD.pop("device_ms")
+    if on_card:
+        for name, fn in call.items():
+            dev_ms[name] = device_ms(fn)
     if on_card and args.profile:
         e2e["profile"] = {
             "full_join_A": profile_window(lambda: engA.full_join(q),
@@ -1147,17 +1312,6 @@ def run(args, device, kernel_policy=None) -> dict:
             log(f"[profile] {label} phases (ms, mean of {len(runs)}): "
                 f"total {sum(mean.values()):.4f}; " + ", ".join(
                     f"{k} {v:.4f}" for k, v in mean.items()))
-    if on_card:
-        e2e["peak_device_bytes_A_to_C"] = int(
-            torch.cuda.max_memory_allocated(device))
-    e2e["walks_C_ms"] = get_ms
-    e2e["tree_get_staged_A"] = staged_A
-    e2e["tree_get_yardstick"] = yardstick
-
-    # -- 7. phase D: the kernel-ops entry point, after A-C's timings so that
-    # its multi-GiB attention inputs do not change the conditions of theirs
-    rowsD, errsD, launchesD, sizesD = run_ops(args, device, kernels,
-                                              planA.join_size)
     errs["threefry_uniforms"] = max(errs["threefry_uniforms"],
                                     errsD.pop("threefry_uniforms"))
     errs.update(errsD)
@@ -1179,9 +1333,13 @@ def run(args, device, kernel_policy=None) -> dict:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        dms = (f"; device {dev_ms[name][0]:.4f} ms in "
+               f"{dev_ms[name][1]:g} operations a call"
+               if name in dev_ms else "")
         log(f"[time] {name}: {ms:.4f} ms (plain {plain_ms:.3f}, bound "
             f"{b_ms:.4f} by {b_by}"
-            + (f", library {lib_ms:.4f}" if lib_ms is not None else "") + ")")
+            + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
+            + f"){dms}")
 
     if on_card:
         e2e["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(device))
@@ -1189,7 +1347,8 @@ def run(args, device, kernel_policy=None) -> dict:
             f"GiB ({e2e['peak_device_bytes_A_to_C'] / 2**30:.2f} GiB through "
             f"A-C)")
     return {"kernels": table, "end_to_end": e2e, "ops_sizes": sizesD,
-            "draw_grids": grids,
+            "draw_grids": grids, "device_ms": dev_ms,
+            "bsearch_tiles_A": tiles_bs,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),

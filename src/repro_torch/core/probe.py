@@ -58,15 +58,16 @@ def _root_locate(shred: Shred, pos: torch.Tensor,
                  policy: KernelPolicy = DEFAULT_POLICY
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Binary search the root prefix vector: pos -> (root row j, local
-    offset i). Through the bsearch kernel on int32-narrowed views when the
-    shred built an int32 index, monolithic or paged (every prefix value
-    fits int32), and kernels are preferred on this device; the int64
-    local offset comes from the original prefix either way."""
+    offset i). Through the bsearch kernel over the int32 index's root
+    prefix (``Shred.root_pref32``, a view) when the shred built an int32
+    index, monolithic or paged (every prefix value fits int32), and
+    kernels are preferred on this device; the int64 local offset comes
+    from the original prefix either way."""
     prefE = shred.root_prefE
     n = shred.root.num_rows
     if _int32_index(shred) and n and policy.preferred(prefE.device):
         j = torch.clamp(
-            ops.searchsorted_prefix(prefE.to(I32), pos.to(I32), policy),
+            ops.searchsorted_prefix(shred.root_pref32, pos.to(I32), policy),
             max=n - 1).to(I64)
     else:
         j = torch.clamp(torch.searchsorted(prefE, pos, right=True) - 1,

@@ -14,7 +14,8 @@ streams seeded from the key words (one for M, one for the uniforms,
 mirroring the reference's key split). It is checked by distribution.
 The sort, ``index_add_``, masked scatter and ``searchsorted`` here are
 library calls, as they are XLA operations in the reference; the int32
-prefix searches go through the bsearch kernel when ``narrow``.
+prefix searches go through the bsearch kernel when the caller hands over
+the index's int32 root prefix (``pref32``).
 
 The uniform samplers (BERN/GEO/BINOM/HYBRID) and the host oracles are
 not ported yet (ROADMAP queue A).
@@ -69,8 +70,9 @@ def generators(key, device):
 def _locate_prefix(prefE, q, hi: int, narrow: bool,
                    policy: KernelPolicy = DEFAULT_POLICY):
     """clamp(searchsorted(prefE, q, right) - 1, 0, hi), through the
-    bsearch kernel on int32-narrowed views when ``narrow`` (the caller
-    guarantees every value fits int32 — the shred packed its arena)."""
+    bsearch kernel on int32 operands when ``narrow`` (the caller
+    guarantees every value fits int32 — the shred built an int32 index);
+    an int32 ``prefE`` is taken as it is."""
     if narrow:
         prefE, q = prefE.to(I32), q.to(I32)
     return torch.clamp(ops.searchsorted_prefix(prefE, q, policy),
@@ -78,7 +80,7 @@ def _locate_prefix(prefE, q, hi: int, narrow: bool,
 
 
 def exprace_positions(key, w, p, prefE, cap: int, arrival_cap: int = 0,
-                      narrow: bool = False,
+                      pref32: Optional[torch.Tensor] = None,
                       policy: KernelPolicy = DEFAULT_POLICY) -> PositionSample:
     """EXPRACE positions in float64 (module docstring).
 
@@ -87,8 +89,11 @@ def exprace_positions(key, w, p, prefE, cap: int, arrival_cap: int = 0,
     prefE: (R+1,) int64 exclusive prefix of w; prefE[-1] = join size n
     cap:        output position capacity
     arrival_cap: scratch capacity for raw Poisson arrivals (default: cap)
-    narrow: every integer prefix value fits int32 (int32 kernel searches)
+    pref32: prefE in int32 (``Shred.root_pref32``, a view of the int32
+            index), given when every integer prefix value fits int32: the
+            prefix searches then take the int32 kernel
     """
+    narrow = pref32 is not None
     acap = arrival_cap or cap
     dev = w.device
     R = w.shape[0]
@@ -118,7 +123,8 @@ def exprace_positions(key, w, p, prefE, cap: int, arrival_cap: int = 0,
     gid = torch.sort(gid).values
     head = torch.ones((1,), dtype=torch.bool, device=dev)
     uniq = (gid < n) & torch.cat([head, gid[1:] != gid[:-1]])
-    seg = _locate_prefix(prefE, gid, R - 1, narrow, policy)
+    seg = _locate_prefix(pref32 if narrow else prefE, gid, R - 1, narrow,
+                         policy)
     hits = torch.zeros((R,), dtype=I64, device=dev).index_add_(
         0, seg, uniq.to(I64))
     k_r = torch.where(comp, w - hits, hits)  # success count per root

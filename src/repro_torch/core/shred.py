@@ -274,6 +274,17 @@ class Shred:
     def device(self) -> torch.device:
         return self.root_prefE.device
 
+    @property
+    def root_pref32(self) -> Optional[torch.Tensor]:
+        """``root_prefE`` in int32 as a view of the int32 index: the
+        arena's first ``root_len`` words (page 0 of a paged index), or
+        ``None`` when the shred built no int32 index."""
+        form = self.packed if self.packed is not None else self.paged
+        if form is None:
+            return None
+        buf = form.arena if self.packed is not None else form.buffer
+        return buf[:form.layout.root_len]
+
 
 def build_plan(query: JoinQuery) -> JoinTreeNode:
     """Join tree for the query, rerooted so prob_var is flat at the root

@@ -38,9 +38,9 @@ def _sample(shred: Shred, w, p, prefE, key, cap: int, rep: str, method: str,
         cols = probe.gather_columns(shred, node_rows)
     else:
         if method == "exprace":
-            ps = sampling.exprace_positions(key, w, p, prefE, cap,
-                                            arrival_cap=acap, narrow=narrow,
-                                            policy=policy)
+            ps = sampling.exprace_positions(
+                key, w, p, prefE, cap, arrival_cap=acap,
+                pref32=shred.root_pref32 if narrow else None, policy=policy)
         elif method == "ptbern_flat":  # n is the join size
             ps = sampling.pt_bern_flat_positions(key, p, prefE, n, cap)
         else:

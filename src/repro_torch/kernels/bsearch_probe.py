@@ -5,14 +5,34 @@ The inner loop of USR-GET's root location and of EXPRACE's prefix
 searches. ``bsearch_probe`` launches ``csrc/bsearch_probe.cu`` for CUDA
 tensors and runs ``bsearch_probe_plain`` for CPU tensors; ``launches``
 counts kernel launches.
+
+The kernel searches by tiles of queries (the design is in
+``csrc/bsearch_probe.cu``): the GET's search of one vector
+(``csrc/tree_get.cuh`` ``tg_search``), a tile's bracket staged in shared
+memory when it is at most ``SPAN`` wide, else a per-lane descent whose
+first ``LEVELS`` steps read a pivot table. ``bsearch_probe_tiled`` spells
+that logic out as torch ops, and this module holds the one-vector pieces
+of it that ``tree_probe.tree_walk_tiled`` builds on.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["steps_for", "bsearch_probe_plain", "bsearch_probe"]
+from . import build
+
+__all__ = ["THREADS", "ITEMS", "SPAN", "LEVELS", "steps_for",
+           "bsearch_probe_plain", "bsearch_probe_tiled", "bsearch_probe",
+           "bsearch_probe_config"]
+
+# The kernels' constants (``tests/test_torch_bsearch.py`` holds them to
+# the sources' ``#define`` lines).
+THREADS = 256   # TG_THREADS in csrc/tree_get.cuh: threads of a block
+ITEMS = 4       # BP_ITEMS in csrc/bsearch_probe.cu: queries a thread
+SPAN = 2048     # TG_SPAN: the widest bracket a tile stages in shared memory
+LEVELS = 10     # TG_LEVELS: descent steps a pivot table holds (2^LEVELS values)
 
 
 def steps_for(length: int) -> int:
@@ -21,7 +41,7 @@ def steps_for(length: int) -> int:
 
 
 def bsearch_probe_plain(pref: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """The kernel's branchless power-of-two descent as torch ops."""
+    """The reference's branchless power-of-two descent as torch ops."""
     np_len = pref.shape[0]
     pos = torch.zeros_like(q, dtype=torch.int32)
     for k in range(steps_for(np_len) - 1, -1, -1):
@@ -32,6 +52,128 @@ def bsearch_probe_plain(pref: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return pos
 
 
+# ---------------------------------------------------------------------------
+# The search of one vector by tiles (csrc/tree_get.cuh tg_search) as torch
+# ops, all tiles at once: a tile is a row of ``qt`` (tiles, tile), values
+# int64.
+# ---------------------------------------------------------------------------
+
+def _pivot_descend(piv, length: int, steps: int, sh: int, q):
+    """``tg_pivot_descend``: the descent's steps above 2^sh, read from the
+    pivot table; the answer then lies in [p, p + 2^sh - 1]."""
+    p = torch.zeros_like(q)
+    for k in range(steps - 1, sh - 1, -1):
+        cand = p + (1 << k)
+        p = torch.where((cand < length) & (piv[cand >> sh] <= q), cand, p)
+    return p
+
+
+def _warp_search(a, off: int, lo, hi, q):
+    """``tg_warp_search`` for each tile: max j in [lo, hi] with a[off + j]
+    <= q (lo if none); lanes 1..31 test evenly spaced points a round."""
+    lanes = torch.arange(1, 32, device=q.device)
+    while bool((hi > lo).any()):
+        stride = (hi - lo) // 32 + 1
+        pos = lo[:, None] + lanes * stride[:, None]
+        le = (pos <= hi[:, None]) & (
+            a[off + torch.minimum(pos, hi[:, None])] <= q[:, None])
+        c = le.sum(1)
+        hi = torch.minimum(hi, lo + (c + 1) * stride - 1)
+        lo = lo + c * stride
+    return lo
+
+
+def _search(a, off: int, perm_off: Optional[int], length: int, cap: int, qt,
+            span: int, levels: int):
+    """``tg_search``: per probe j = min(max j' with a[off + j'] <= q, cap),
+    a[off + j] and a[perm_off + j]; and which tiles staged their bracket."""
+    steps = steps_for(length)
+    sh = max(steps - levels, 0)
+    m = torch.arange(1 << (steps - sh), device=qt.device)
+    piv = a[off + torch.clamp(m << sh, max=length - 1)].long()
+    qmin, qmax = qt.min(1).values, qt.max(1).values
+    dlo = _pivot_descend(piv, length, steps, sh, qmin)
+    dhi = _pivot_descend(piv, length, steps, sh, qmax)
+    w = 1 << sh
+    fits = dhi - dlo - w + 2 <= span  # else the bracket surely exceeds span
+    if sh > 0 and bool(fits.any()):
+        lo, hi = dlo[fits], dhi[fits]
+        dlo[fits] = _warp_search(a, off, lo,
+                                 torch.clamp(lo + w - 1, max=length - 1),
+                                 qmin[fits])
+        dhi[fits] = _warp_search(a, off, hi,
+                                 torch.clamp(hi + w - 1, max=length - 1),
+                                 qmax[fits])
+    lo = torch.clamp(dlo, max=cap)
+    width = dhi - lo + 1
+    staged = fits & (width <= span)
+    j, aj = torch.empty_like(qt), torch.empty_like(qt)
+    pj = torch.empty_like(qt) if perm_off is not None else None
+    if bool(staged.any()):
+        # the staged slice a[off + lo .. off + dhi], searched in place
+        st = staged
+        los, qs, wd = lo[st, None], qt[st], width[st, None]
+        idx = los + torch.arange(span, device=qt.device)
+        sl = a[off + torch.clamp(idx, max=length - 1)].long()
+        p = torch.zeros_like(qs)
+        for k in range(steps_for(span) - 1, -1, -1):
+            cand = p + (1 << k)
+            val = torch.gather(sl, 1, torch.clamp(cand, max=span - 1))
+            p = torch.where((cand < wd) & (val <= qs), cand, p)
+        r = torch.clamp(los + p, max=cap) - los
+        j[st] = los + r
+        aj[st] = torch.gather(sl, 1, r)
+        if pj is not None:
+            psl = a[perm_off + torch.clamp(idx, max=cap)].long()
+            pj[st] = torch.gather(psl, 1, r)
+    fb = ~staged
+    if bool(fb.any()):
+        qf = qt[fb]
+        p = _pivot_descend(piv, length, steps, sh, qf)
+        for k in range(sh - 1, -1, -1):
+            cand = p + (1 << k)
+            val = a[off + torch.clamp(cand, max=length - 1)]
+            p = torch.where((cand < length) & (val <= qf), cand, p)
+        jf = torch.clamp(p, max=cap)
+        j[fb], aj[fb] = jf, a[off + jf].long()
+        if pj is not None:
+            pj[fb] = a[perm_off + jf].long()
+    return j, aj, pj, staged
+
+
+def bsearch_probe_tiled(pref: torch.Tensor, q: torch.Tensor, *,
+                        tile: int = THREADS * ITEMS, span: int = SPAN,
+                        levels: int = LEVELS,
+                        stats: Optional[Dict[str, int]] = None
+                        ) -> torch.Tensor:
+    """``csrc/bsearch_probe.cu``'s search as torch ops, tile by tile: equal
+    to ``bsearch_probe_plain``. ``tile``, ``span`` and ``levels`` are the
+    kernel's unless given (the tests shrink them); a ragged last tile
+    searches its last query in the missing lanes. ``stats``, when given,
+    takes the tiles and how many staged their bracket or fell back."""
+    _check(pref, q)
+    if not 0 <= levels <= 30 or span < 1 or tile < 1:
+        raise ValueError(f"levels {levels} (0..30), span {span} and tile "
+                         f"{tile} (>= 1)")
+    flat = q.reshape(-1).long()
+    n = flat.numel()
+    if n == 0:
+        return q.new_empty(q.shape)
+    nt = -(-n // tile)
+    qt = torch.cat([flat, flat[-1:].expand(nt * tile - n)]).reshape(nt, tile)
+    np_len = pref.shape[0]
+    j, _, _, staged = _search(pref, 0, None, np_len, np_len - 1, qt, span,
+                              levels)
+    if stats is not None:
+        st = int(staged.sum())
+        stats.update(tiles=nt, staged=st, fallback=nt - st)
+    return j.reshape(-1)[:n].reshape(q.shape).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's launch.
+# ---------------------------------------------------------------------------
+
 def _check(pref: torch.Tensor, q: torch.Tensor) -> None:
     if pref.dtype != torch.int32 or q.dtype != torch.int32:
         raise TypeError(f"bsearch_probe takes int32, got {pref.dtype}/{q.dtype}")
@@ -41,29 +183,76 @@ def _check(pref: torch.Tensor, q: torch.Tensor) -> None:
         raise ValueError(f"pref on {pref.device}, q on {q.device}")
 
 
-def bsearch_probe(pref: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+_VP = ctypes.c_void_p
+_CONFIGS: Dict[int, tuple] = {}
+
+
+def _config(index: int) -> tuple:
+    """``bsearch_probe_config`` on card ``index`` (the current one), once
+    per card: queries a tile, blocks an SM, SMs, shared memory bytes."""
+    cfg = _CONFIGS.get(index)
+    if cfg is None:
+        arr = (ctypes.c_int * 4)()
+        build.check(build.entry("bsearch_probe", "bsearch_probe_config",
+                                [_VP])(arr), "bsearch_probe_config")
+        cfg = _CONFIGS[index] = tuple(arr)
+    return cfg
+
+
+def bsearch_probe_config(device=None) -> dict:
+    """The launch shape of ``bsearch_probe`` on the card (the current one
+    unless ``device``); a launch takes min(blocks an SM x SMs, tiles)
+    blocks."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    with build.on_device(device):
+        cfg = _config(device.index)
+    return dict(zip(("tile", "blocks_per_sm", "sms", "smem_bytes"), cfg))
+
+
+def _launch(pref: torch.Tensor, q: torch.Tensor,
+            stats: Optional[Dict[str, int]]) -> torch.Tensor:
+    fn = build.entry("bsearch_probe", "bsearch_probe_launch",
+                     [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP,
+                      ctypes.c_longlong, ctypes.c_int, _VP, _VP])
+    pref = pref.contiguous()
+    qc = q.contiguous()
+    n = qc.numel()
+    dev = qc.device
+    out = torch.empty_like(qc)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev) \
+        if stats is not None else None
+    with build.on_device(dev):
+        tile, per_sm, sms, _ = _config(dev.index)
+        blocks = min(per_sm * sms, -(-n // tile))
+        stream = build.current_stream(dev)
+        build.check(fn(pref.data_ptr(), pref.shape[0],
+                       steps_for(pref.shape[0]), qc.data_ptr(),
+                       out.data_ptr(), n, blocks,
+                       counts.data_ptr() if counts is not None else None,
+                       stream), "bsearch_probe")
+    if counts is not None:
+        staged, fallback = counts.tolist()
+        stats.update(tiles=staged + fallback, staged=staged,
+                     fallback=fallback)
+    return out
+
+
+def bsearch_probe(pref: torch.Tensor, q: torch.Tensor,
+                  stats: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """pref: (NP,) int32 ascending with pref[0] == 0; q: int32, any shape.
-    Returns int32 of q's shape: max j with pref[j] <= q."""
+    Returns int32 of q's shape: max j with pref[j] <= q. ``stats``, when
+    given, takes the tiles that staged their bracket and that fell back
+    (the kernel's own count on the card, ``bsearch_probe_tiled``'s on the
+    CPU)."""
     _check(pref, q)
     if q.device.type == "cpu":
+        if stats is not None:
+            return bsearch_probe_tiled(pref, q, stats=stats)
         return bsearch_probe_plain(pref, q)
     if q.device.type != "cuda":
         raise ValueError(f"bsearch_probe: unsupported device {q.device}")
-    from . import build
-
-    fn = build.library("bsearch_probe").bsearch_probe_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    pref = pref.contiguous()
-    qc = q.contiguous()
-    out = torch.empty_like(qc)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(fn(pref.data_ptr(), pref.shape[0],
-                       steps_for(pref.shape[0]), qc.data_ptr(),
-                       out.data_ptr(), qc.numel(), stream), "bsearch_probe")
+    out = _launch(pref, q, stats)
     bsearch_probe.launches += 1
     return out
 

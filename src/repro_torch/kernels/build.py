@@ -16,6 +16,7 @@ machine may have no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,8 +25,11 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "library_path",
-           "check", "ptxas_report", "vector_operand"]
+           "entry", "check", "on_device", "current_stream", "ptxas_report",
+           "vector_operand"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,6 +38,7 @@ SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -114,10 +119,37 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(lib: str, name: str, argtypes):
+    """``csrc/<lib>.cu``'s C function ``name``, its argument types and its
+    int result (a CUDA error code) set once."""
+    fn = _ENTRIES.get((lib, name))
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(lib, name)] = fn
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error (``cudaGetLastError``)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current card: none when it
+    already is (the usual case), else ``torch.cuda.device``."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def current_stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, as a launch takes it:
+    the raw query behind ``torch.cuda.current_stream(device).cuda_stream``,
+    without building a ``Stream`` object on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def vector_operand(t):

@@ -1,33 +1,118 @@
 // Bulk binary search of int32 probes into a sorted int32 prefix vector.
 //
 // Replaces bsearch_probe of src/repro/kernels/bsearch_probe.py: for each
-// query q, the largest j with pref[j] <= q (pref[0] == 0 <= q). One thread
-// per query runs the same branchless power-of-two descent. Bound on the
-// card: each query makes ceil(log2 NP) dependent loads, so it is bound by
-// load latency; the table stays in device memory and its upper levels, which
-// every query touches, in L2 and L1 through read-only loads. A grid-stride
-// loop over enough blocks to fill the SMs keeps many loads in flight.
+// query q, the largest j with pref[j] <= q (0 if none), what the
+// reference's branchless power-of-two descent returns.
+//
+// What bounds it. A lane that searches alone makes ceil(log2 NP) dependent
+// loads (22 over the root prefix of JOB's 2.5 M titles), each waiting the
+// L2 or HBM latency; the bytes bound (each query read and each answer
+// written once, the vector once) is several times lower. So the design
+// cuts dependent global loads: it is the GET's search of one vector
+// (tree_get.cuh tg_search) over a bare prefix vector.
+//
+//  1. A persistent grid, as many blocks as are resident, each loading the
+//     vector's pivot table (2^TG_LEVELS values) into shared memory once and
+//     then striding over tiles of TG_THREADS x BP_ITEMS queries.
+//  2. Per tile: the block reduces its min and max query; warps 0 and 1
+//     find both ends' answers (pivots, then a 32-ary ballot search),
+//     skipped when the pivots already show the bracket wider than TG_SPAN.
+//     A bracket of at most TG_SPAN words is staged in shared memory with
+//     coalesced loads and every lane descends there; a wider one takes the
+//     per-lane descent whose top TG_LEVELS steps read the pivot table.
+//
+// The bracket comes from the tile's own min and max, so the answer is exact
+// for queries in any order; sorted queries (every caller on the main path)
+// make the brackets narrow: a tile of 1,024 sorted queries at JOB scale
+// spans a few hundred words of the root prefix.
 #include <cuda_runtime.h>
 
-#include "tree_walk.cuh"
+#include "tree_get.cuh"
 
-__global__ void bsearch_probe_kernel(const int* __restrict__ pref, int np_len,
-                                     int steps, const int* __restrict__ q,
-                                     int* __restrict__ out, long long n) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = rt_descend(pref, 0, np_len, steps, q[i]);
+#define BP_ITEMS 4
+// Words of dynamic shared memory: the largest pivot table and one staging
+// buffer with the reduction words (tg_search over a vector without perm).
+#define BP_SMEM_WORDS ((1 << TG_LEVELS) + TG_SPAN + 4 * TG_WARPS + 2)
+
+// stats, when not null, counts the tiles that staged ([0]) and that fell
+// back ([1]).
+__global__ void __launch_bounds__(TG_THREADS)
+    bsearch_probe_kernel(const int* __restrict__ pref, int np_len, int steps,
+                         const int* __restrict__ q, int* __restrict__ out,
+                         long long n, int* __restrict__ stats) {
+  // tree_get.cu tg_run's set-up for one bare vector: its pivot table, then
+  // one staging buffer (no perm column to stage), the reduction words and
+  // the bracket.
+  extern __shared__ int bp_smem[];
+  TgVec v;
+  v.a = pref;
+  v.perm = nullptr;
+  v.piv = bp_smem;
+  v.len = np_len;
+  v.steps = steps;
+  v.sh = tg_pivot_shift(steps);
+  v.cap = np_len - 1;
+  const int count = tg_pivot_count(steps);
+  for (int i = threadIdx.x; i < count; i += TG_THREADS)
+    bp_smem[i] = __ldg(pref + min(i << v.sh, np_len - 1));
+  TgShared sm;
+  sm.buf0 = bp_smem + count;
+  sm.buf1 = nullptr;
+  sm.red = sm.buf0 + TG_SPAN;
+  sm.bracket = sm.red + 4 * TG_WARPS;
+  __syncthreads();
+  const long long tile = TG_THREADS * BP_ITEMS;
+  const long long tiles = (n + tile - 1) / tile;
+  int phase = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * tile;
+    // items past n search q[n - 1], a query of the same tile
+    int qv[BP_ITEMS], j[BP_ITEMS], aj[BP_ITEMS], unused[BP_ITEMS];
+#pragma unroll
+    for (int it = 0; it < BP_ITEMS; ++it)
+      qv[it] = __ldg(q + min(base + it * TG_THREADS + threadIdx.x, n - 1));
+    const bool staged =
+        tg_search<BP_ITEMS, false>(v, qv, sm, phase, j, aj, unused);
+    if (stats != nullptr && threadIdx.x == 0)
+      atomicAdd(stats + (staged ? 0 : 1), 1);
+#pragma unroll
+    for (int it = 0; it < BP_ITEMS; ++it) {
+      const long long i = base + it * TG_THREADS + threadIdx.x;
+      if (i < n) out[i] = j[it];
+    }
+  }
 }
 
+// The launch shape on the current device: cfg = [queries a tile, blocks an
+// SM, SMs, shared memory bytes]. A launch takes at most blocks an SM x SMs
+// blocks. Returns a CUDA error code.
+extern "C" int bsearch_probe_config(int* cfg) {
+  const size_t smem = BP_SMEM_WORDS * sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bsearch_probe_kernel, TG_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  cfg[0] = TG_THREADS * BP_ITEMS;
+  cfg[1] = per_sm;
+  cfg[2] = sms;
+  cfg[3] = (int)smem;
+  return 0;
+}
+
+// One launch of `blocks` blocks (at most the resident grid of
+// bsearch_probe_config, at most one a tile) over n queries.
 extern "C" int bsearch_probe_launch(const int* pref, int np_len, int steps,
                                     const int* q, int* out, long long n,
-                                    void* stream) {
+                                    int blocks, int* stats, void* stream) {
   if (n == 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132LL * 64) blocks = 132LL * 64;
-  bsearch_probe_kernel<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      pref, np_len, steps, q, out, n);
+  if (blocks < 1 || steps < 1 || steps > 30)
+    return (int)cudaErrorInvalidConfiguration;
+  bsearch_probe_kernel<<<blocks, TG_THREADS, BP_SMEM_WORDS * sizeof(int),
+                         (cudaStream_t)stream>>>(pref, np_len, steps, q, out,
+                                                 n, stats);
   return (int)cudaGetLastError();
 }

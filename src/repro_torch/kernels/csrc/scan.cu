@@ -10,20 +10,40 @@
 // int32 and GEO: one pass, a decoupled look-back (Merrill and Garland,
 // "Single-pass Parallel Prefix Scan with Decoupled Look-back", 2016). A
 // block takes its tile index from an atomic ticket, so every tile it waits
-// on belongs to a block that has already started. It reads its tile of
-// LB_TILE elements once (16-byte loads, staged through shared memory),
-// sums it, and publishes the tile's aggregate in the tile's status word.
-// Warp 0 then looks back over the predecessors' words, 32 at a time, adding
-// aggregates until it meets an inclusive prefix; it publishes its own
-// inclusive prefix, and the block writes the tile once (16-byte stores).
-// A status word is 64 bits, flag in the high half and the uint32 value in
-// the low, written with st.release.gpu and read with ld.acquire.gpu; flag
-// 0 means not yet published. The words and the ticket are reset before
-// every launch by one cudaMemsetAsync of (tiles + 1) * 8 bytes (35 KB at
-// 36 M elements), which the launch function issues itself. int32 adds in
-// uint32, so it wraps as XLA's int32 cumsum wraps and any order gives the
-// reference's bits. GEO is the same scan with a prologue (the geometric
-// step of a uniform) and an epilogue (- 1).
+// on belongs to a block that has already started. It reads its tile once
+// (16-byte loads, staged through shared memory), sums it, and publishes the
+// tile's aggregate in the tile's status word. Warp 0 then looks back over
+// the predecessors' words, 32 at a time, adding aggregates until it meets
+// an inclusive prefix; it publishes its own inclusive prefix, and the block
+// writes the tile once (16-byte stores). Words are written with
+// st.release.gpu and read with ld.acquire.gpu. int32 adds in uint32, so it
+// wraps as XLA's int32 cumsum wraps and any order gives the reference's
+// bits. GEO is the same scan with a prologue (the geometric step of a
+// uniform) and an epilogue (- 1).
+//
+// One launch a call, with no reset: the status words live in a scratch
+// that the wrapper keeps per (device, stream) and reuses (prefix_sum.py
+// _look_back_scratch), zeroed only when it is first made or grows. A
+// status word is 64 bits:
+//
+//   bits 63-62  flag: 1 the tile's aggregate, 2 its inclusive prefix
+//   bits 61-32  the launch's epoch, 1 .. LB_EPOCH_MAX
+//   bits 31-0   the uint32 value
+//
+// Each launch takes the next epoch, so a word left by an earlier launch
+// (or a zero word) reads as not yet published. The ticket is never reset
+// either: it counts on from launch to launch, and a launch's tiles are its
+// tickets less the count its predecessors took (the ticket base), in
+// uint32 arithmetic, which wraps harmlessly. Launches on one stream run in
+// order, so each one finds every earlier ticket taken and every earlier
+// word written. The host keeps the epoch and the base (lb_launch); when the
+// epoch would pass LB_EPOCH_MAX, that launch first clears the scratch with
+// one cudaMemsetAsync and starts again at epoch 1 and base 0.
+//
+// Tiles: LB_TILE elements (256 x 32), or LB_SMALL_TILE (256 x 8) when n
+// gives fewer tiles of LB_TILE than the card holds blocks at once, so that
+// a small scan still spreads over every SM. The choice depends on n and the
+// card alone (lb_tile) and changes no sum.
 //
 // float32: three passes in a fixed order (scan.cuh): every block reduces
 // its tile of SC_TILE elements to one total; one block scans the totals
@@ -49,13 +69,20 @@
 #define SC_TILE (SC_THREADS * SC_ITEMS)
 #define LB_THREADS 256
 #define LB_ITEMS 32
+#define LB_SMALL_ITEMS 8
 // Blocks an SM holds: the thread-local prefixes are added again from shared
 // memory instead of kept in registers, so six blocks fit (35 KB of shared
 // memory each), against four with the prefixes in registers.
 #define LB_MIN_BLOCKS 6
+// The small tiles' instance: 9.5 KB of shared memory, so the thread limit
+// (eight blocks of 256) is what bounds it.
+#define LB_SMALL_MIN_BLOCKS 8
 #define LB_TILE (LB_THREADS * LB_ITEMS)
-#define LB_AGGREGATE 1ull
-#define LB_PREFIX 2ull
+#define LB_SMALL_TILE (LB_THREADS * LB_SMALL_ITEMS)
+#define LB_AGGREGATE 1u
+#define LB_PREFIX 2u
+#define LB_EPOCH_BITS 30
+#define LB_EPOCH_MAX ((1u << LB_EPOCH_BITS) - 1)
 
 // Prologues: element i of the input as the scanned type, with a 16-byte
 // path for full tiles of an aligned input.
@@ -154,10 +181,17 @@ __global__ void __launch_bounds__(SC_THREADS)
 
 // ---- int32 and GEO: one pass with a decoupled look-back ------------------
 
+// The status word of a tile: flag, epoch and value (the layout above).
+__device__ __forceinline__ unsigned long long lb_word(unsigned flag,
+                                                      unsigned epoch,
+                                                      uint32_t value) {
+  return ((unsigned long long)((flag << LB_EPOCH_BITS) | epoch) << 32) | value;
+}
+
 __device__ __forceinline__ void lb_publish(unsigned long long* word,
-                                           unsigned long long flag,
+                                           unsigned flag, unsigned epoch,
                                            uint32_t value) {
-  const unsigned long long w = (flag << 32) | value;
+  const unsigned long long w = lb_word(flag, epoch, value);
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(w)
                : "memory");
 }
@@ -172,23 +206,31 @@ __device__ __forceinline__ unsigned long long lb_read(
   return w;
 }
 
+// The flag of a word published in this launch's epoch, else 0.
+__device__ __forceinline__ unsigned lb_flag(unsigned long long w,
+                                            unsigned epoch) {
+  const unsigned hi = (unsigned)(w >> 32);
+  return (hi & LB_EPOCH_MAX) == epoch ? hi >> LB_EPOCH_BITS : 0u;
+}
+
 // Warp 0 of tile `tile` > 0: the sum of every tile before it. Lane l waits
-// for tile top - l's word; the window stops at the nearest inclusive
-// prefix, else all 32 aggregates are added and it moves 32 tiles back.
-// Lanes before tile 0 read as an empty inclusive prefix.
+// for tile top - l's word of this epoch; the window stops at the nearest
+// inclusive prefix, else all 32 aggregates are added and it moves 32 tiles
+// back. Lanes before tile 0 read as an empty inclusive prefix.
 __device__ __forceinline__ uint32_t lb_look_back(
-    const unsigned long long* status, long long tile) {
+    const unsigned long long* status, long long tile, unsigned epoch) {
   const int lane = threadIdx.x & 31;
   uint32_t excl = 0;
   for (long long top = tile - 1;; top -= 32) {
     const long long j = top - lane;
-    unsigned long long w = LB_PREFIX << 32;
+    unsigned long long w = lb_word(LB_PREFIX, epoch, 0);
     if (j >= 0) {
       do {
         w = lb_read(status + j);
-      } while ((w >> 32) == 0);
+      } while (lb_flag(w, epoch) == 0);
     }
-    const unsigned prefixes = __ballot_sync(SC_FULL, (w >> 32) == LB_PREFIX);
+    const unsigned prefixes =
+        __ballot_sync(SC_FULL, lb_flag(w, epoch) == LB_PREFIX);
     const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
     uint32_t v = lane <= stop ? (uint32_t)w : 0u;
 #pragma unroll
@@ -198,39 +240,42 @@ __device__ __forceinline__ uint32_t lb_look_back(
   }
 }
 
-// status: tiles + 1 words, zero at launch; the last one is the ticket.
-template <class Load, class Epi>
-__global__ void __launch_bounds__(LB_THREADS, LB_MIN_BLOCKS)
+// A tile of LB_THREADS x ITEMS elements a block. ticket: the launch's
+// counter; base: the tickets earlier launches took; status: the tiles'
+// words.
+template <int ITEMS, int MINB, class Load, class Epi>
+__global__ void __launch_bounds__(LB_THREADS, MINB)
     sc_look_back_kernel(Load load, long long n, Epi epi, int* out,
                         bool out_aligned, unsigned long long* status,
-                        unsigned* ticket) {
-  __shared__ uint32_t sm[SC_PAD(LB_TILE)];
+                        unsigned* ticket, unsigned base, unsigned epoch) {
+  constexpr int TILE = LB_THREADS * ITEMS;
+  __shared__ uint32_t sm[SC_PAD(TILE)];
   __shared__ uint32_t sh[LB_THREADS];
   __shared__ unsigned tile_sh;
   __shared__ uint32_t excl_sh;
   const int tid = threadIdx.x;
-  if (tid == 0) tile_sh = atomicAdd(ticket, 1u);
+  if (tid == 0) tile_sh = atomicAdd(ticket, 1u) - base;
   __syncthreads();
   const long long tile = tile_sh;
-  const long long base = tile * LB_TILE;
+  const long long base_e = tile * TILE;
   // The tile once through shared memory; this thread's total, then its
   // exclusive prefix across the block.
-  sc_stage<LB_THREADS, LB_ITEMS>(load, base, n, 0u, sm);
+  sc_stage<LB_THREADS, ITEMS>(load, base_e, n, 0u, sm);
   __syncthreads();
   uint32_t acc = 0;
 #pragma unroll
-  for (int i = 0; i < LB_ITEMS; ++i) acc += sm[SC_PAD(tid * LB_ITEMS + i)];
+  for (int i = 0; i < ITEMS; ++i) acc += sm[SC_PAD(tid * ITEMS + i)];
   uint32_t total;
   const uint32_t texcl =
       sc_block_excl<LB_THREADS>(acc, 0u, AddU(), sh, &total);
   if (tid < 32) {
     uint32_t excl = 0;
     if (tile > 0) {
-      if (tid == 0) lb_publish(status + tile, LB_AGGREGATE, total);
-      excl = lb_look_back(status, tile);
+      if (tid == 0) lb_publish(status + tile, LB_AGGREGATE, epoch, total);
+      excl = lb_look_back(status, tile, epoch);
     }
     if (tid == 0) {
-      lb_publish(status + tile, LB_PREFIX, excl + total);
+      lb_publish(status + tile, LB_PREFIX, epoch, excl + total);
       excl_sh = excl;
     }
   }
@@ -240,58 +285,119 @@ __global__ void __launch_bounds__(LB_THREADS, LB_MIN_BLOCKS)
   // aligned output).
   uint32_t run = excl_sh + texcl;
 #pragma unroll
-  for (int i = 0; i < LB_ITEMS; ++i) {
-    run += sm[SC_PAD(tid * LB_ITEMS + i)];
-    sm[SC_PAD(tid * LB_ITEMS + i)] = epi(run);
+  for (int i = 0; i < ITEMS; ++i) {
+    run += sm[SC_PAD(tid * ITEMS + i)];
+    sm[SC_PAD(tid * ITEMS + i)] = epi(run);
   }
   __syncthreads();
-  if (base + LB_TILE <= n && out_aligned) {
+  if (base_e + TILE <= n && out_aligned) {
 #pragma unroll
-    for (int i = 0; i < LB_ITEMS / 4; ++i) {
+    for (int i = 0; i < ITEMS / 4; ++i) {
       const int e = 4 * (i * LB_THREADS + tid);
       const uint4 w = make_uint4(sm[SC_PAD(e)], sm[SC_PAD(e + 1)],
                                  sm[SC_PAD(e + 2)], sm[SC_PAD(e + 3)]);
-      *reinterpret_cast<uint4*>(out + base + e) = w;
+      *reinterpret_cast<uint4*>(out + base_e + e) = w;
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < LB_ITEMS; ++i) {
+    for (int i = 0; i < ITEMS; ++i) {
       const int e = i * LB_THREADS + tid;
-      if (base + e < n) out[base + e] = (int)sm[SC_PAD(e)];
+      if (base_e + e < n) out[base_e + e] = (int)sm[SC_PAD(e)];
     }
   }
 }
 
 static bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-template <class Load, class Epi>
-static int sc_look_back_launch(Load load, long long n, Epi epi, int* out,
-                               unsigned long long* status, void* stream) {
-  if (n == 0) return (int)cudaGetLastError();
-  const long long ntiles = (n + LB_TILE - 1) / LB_TILE;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(status, 0, (size_t)(ntiles + 1) * 8, s);
-  if (err) return err;
-  sc_look_back_kernel<<<(unsigned)ntiles, LB_THREADS, 0, s>>>(
-      load, n, epi, out, aligned16(out), status,
-      reinterpret_cast<unsigned*>(status + ntiles));
-  return (int)cudaGetLastError();
+// The blocks of LB_TILE elements the current card holds at once (the
+// occupancy of the scan_i32 instance; GEO's has the same shared memory and
+// bounds), found once per device. 0 if the query fails.
+static long long lb_resident() {
+  static int cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, sc_look_back_kernel<LB_ITEMS, LB_MIN_BLOCKS, LoadVecU32,
+                                         Same>,
+            LB_THREADS, 0) != cudaSuccess)
+      return 0;
+    cache[dev] = sms * per_sm;
+  }
+  return cache[dev];
 }
 
-// status: scratch of ceil(n / LB_TILE) + 1 64-bit words (the wrapper's).
+// The tile of a scan of n elements: LB_SMALL_TILE when LB_TILE gives less
+// than one wave of the resident grid, else LB_TILE.
+static int lb_tile(long long n) {
+  return (n + LB_TILE - 1) / LB_TILE < lb_resident() ? LB_SMALL_TILE
+                                                       : LB_TILE;
+}
+
+// One launch over the scratch `words` (`capacity` 64-bit words: the ticket
+// in word 0's low half, the status words from word 1) with the host state
+// `state` = [epoch of the last launch, ticket base], advanced here.
+template <class Load, class Epi>
+static int lb_launch(Load load, long long n, Epi epi, int* out,
+                     unsigned long long* words, long long capacity,
+                     unsigned* state, void* stream) {
+  if (n == 0) return (int)cudaGetLastError();
+  const int tile = lb_tile(n);
+  const long long ntiles = (n + tile - 1) / tile;
+  if (ntiles + 1 > capacity) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned epoch = state[0] + 1;
+  if (epoch > LB_EPOCH_MAX) {
+    const int err = (int)cudaMemsetAsync(words, 0, (size_t)capacity * 8, s);
+    if (err) return err;
+    epoch = 1;
+    state[1] = 0;
+  }
+  unsigned* ticket = reinterpret_cast<unsigned*>(words);
+  if (tile == LB_TILE)
+    sc_look_back_kernel<LB_ITEMS, LB_MIN_BLOCKS>
+        <<<(unsigned)ntiles, LB_THREADS, 0, s>>>(load, n, epi, out,
+                                                 aligned16(out), words + 1,
+                                                 ticket, state[1], epoch);
+  else
+    sc_look_back_kernel<LB_SMALL_ITEMS, LB_SMALL_MIN_BLOCKS>
+        <<<(unsigned)ntiles, LB_THREADS, 0, s>>>(load, n, epi, out,
+                                                 aligned16(out), words + 1,
+                                                 ticket, state[1], epoch);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  state[0] = epoch;
+  state[1] += (unsigned)ntiles;
+  return 0;
+}
+
+// The tile a scan of n elements takes on the current card, in *tile.
+extern "C" int scan_look_back_tile(long long n, int* tile) {
+  if (lb_resident() == 0) return (int)cudaGetLastError();
+  *tile = lb_tile(n);
+  return 0;
+}
+
+// words, capacity, state: the look-back's scratch and host state
+// (lb_launch); capacity >= ceil(n / LB_SMALL_TILE) + 1 always suffices.
 extern "C" int scan_i32_launch(const int* x, int* out, long long n,
-                               unsigned long long* status, void* stream) {
+                               unsigned long long* words, long long capacity,
+                               unsigned* state, void* stream) {
   const LoadVecU32 load{(const uint32_t*)x, aligned16(x)};
-  return sc_look_back_launch(load, n, Same(), out, status, stream);
+  return lb_launch(load, n, Same(), out, words, capacity, state, stream);
 }
 
 // p_clipped: p already clipped to [1e-12, 1 - 1e-7] in float32 by the
 // wrapper, as the reference clips it.
 extern "C" int geo_gaps_launch(const float* u, float p_clipped, int* out,
-                               long long n, unsigned long long* status,
+                               long long n, unsigned long long* words,
+                               long long capacity, unsigned* state,
                                void* stream) {
   const LoadGeo load{u, p_clipped, aligned16(u)};
-  return sc_look_back_launch(load, n, MinusOne(), out, status, stream);
+  return lb_launch(load, n, MinusOne(), out, words, capacity, state, stream);
 }
 
 // totals and carries: scratch of ceil(n / SC_TILE) floats each.

@@ -48,6 +48,9 @@
 // max j with a[j] <= q (0 if none) for non-decreasing a, which is what the
 // branchless descent of tree_walk returns. Division and remainder act on
 // the same non-negative values as there.
+//
+// The search of one vector (TgVec, TgShared, tg_search and what it calls)
+// is also the device code of bsearch_probe.cu, over a bare prefix vector.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -223,8 +226,9 @@ __device__ __forceinline__ void tg_stage(int* dst, const int* src, int n,
 // tile's bracket [d(qmin), d(qmax)] (pivots, then a warp search each,
 // skipped when the pivots already show it wider than TG_SPAN); the tile
 // stages it when it fits TG_SPAN, else takes the per-lane fallback.
+// Returns whether the tile staged (the same in every thread).
 template <int ITEMS, bool PERM>
-__device__ __forceinline__ void tg_search(const TgVec& v, const int (&q)[ITEMS],
+__device__ __forceinline__ bool tg_search(const TgVec& v, const int (&q)[ITEMS],
                                           const TgShared& sm, int& phase,
                                           int (&j)[ITEMS],
                                           int (&aj)[ITEMS], int (&pj)[ITEMS]) {
@@ -272,7 +276,7 @@ __device__ __forceinline__ void tg_search(const TgVec& v, const int (&q)[ITEMS],
       aj[it] = sm.buf0[r];
       if (PERM) pj[it] = sm.buf1[r];
     }
-    return;
+    return true;
   }
   int p[ITEMS];
   tg_pivot_descend<ITEMS>(v, q, p);
@@ -290,6 +294,7 @@ __device__ __forceinline__ void tg_search(const TgVec& v, const int (&q)[ITEMS],
     aj[it] = __ldg(v.a + j[it]);
     if (PERM) pj[it] = __ldg(v.perm + j[it]);
   }
+  return false;
 }
 
 // x[idx] and y[idx] per item, through shared memory when the tile's index

@@ -15,6 +15,8 @@ taken on the device in both versions. Positions wrap as int32 sums wrap.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -25,10 +27,16 @@ __all__ = ["clip_p", "geo_steps_plain", "geo_gaps_plain", "geo_gaps_tiles"]
 _STEP_MAX = 2_000_000_000.0  # the gap's clamp before the int32 cast
 
 
-def clip_p(p) -> float:
-    """``p`` clipped to [1e-12, 1 - 1e-7] in float32, as the reference."""
+@functools.lru_cache(maxsize=256)
+def _clip_f32(p: float) -> float:
     return float(np.clip(np.float32(p), np.float32(1e-12),
                          np.float32(1.0 - 1e-7)))
+
+
+def clip_p(p) -> float:
+    """``p`` clipped to [1e-12, 1 - 1e-7] in float32, as the reference
+    (numpy's float32 clip, once per value of ``p``)."""
+    return _clip_f32(float(p))
 
 
 def geo_steps_plain(u: torch.Tensor, p) -> torch.Tensor:
@@ -56,7 +64,7 @@ def geo_gaps_tiles(u: torch.Tensor, p) -> torch.Tensor:
     if u.device.type != "cuda":
         raise ValueError(f"geo_gaps_tiles: unsupported device {u.device}")
     uc = u.contiguous()
-    out = torch.empty(uc.shape, dtype=torch.int32, device=u.device)
+    out = torch.empty_like(uc, dtype=torch.int32)
     if uc.numel() == 0:
         return out
     scan_launch("geo_gaps", uc, out, clip_p(p))

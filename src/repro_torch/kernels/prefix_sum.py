@@ -4,8 +4,10 @@
 ``prefix_sum_plain`` for CPU tensors; ``launches`` counts its calls that
 launch the kernel. The reference's kernel carries its total through a
 sequential grid. On the card, int32 takes a single-pass decoupled
-look-back scan (one memset of the tiles' status words, one kernel that
-reads the input once); float32 takes a reduce-then-scan in three launches
+look-back scan (one kernel that reads the input once; its status words
+live in a scratch kept per device and stream, tagged by the launch's
+epoch, so a call needs no reset and no allocation beyond its output);
+float32 takes a reduce-then-scan in three launches
 (tile totals, one block scanning them into carries, the tiles scanned
 again with their carries), so that its order is fixed. Both are described
 in the source.
@@ -23,17 +25,22 @@ order at its own tile shape.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["THREADS", "ITEMS", "TILE", "LOOK_BACK_TILE", "prefix_sum_plain",
-           "prefix_sum_tiles", "scan_order_f32", "wrap_i32", "scan_launch"]
+from . import build
+
+__all__ = ["THREADS", "ITEMS", "TILE", "LOOK_BACK_TILE",
+           "LOOK_BACK_SMALL_TILE", "prefix_sum_plain", "prefix_sum_tiles",
+           "scan_order_f32", "wrap_i32", "scan_launch", "look_back_tile"]
 
 THREADS = 256           # SC_THREADS in csrc/scan.cu: the float32 order
 ITEMS = 16              # SC_ITEMS
 TILE = THREADS * ITEMS  # SC_TILE: elements per block of the float32 passes
 LOOK_BACK_TILE = 8192   # LB_TILE: elements per block of the int32 scan
+LOOK_BACK_SMALL_TILE = 2048  # LB_SMALL_TILE: its tile below one wave
 
 
 def wrap_i32(s: torch.Tensor) -> torch.Tensor:
@@ -89,50 +96,83 @@ def prefix_sum_plain(x: torch.Tensor) -> torch.Tensor:
     return scan_order_f32(flat, THREADS, ITEMS).reshape(x.shape)
 
 
-_ENTRIES = {}
+_VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+# csrc/scan.cu's <entry>_launch: (input, [scalars], output, n, scratch...,
+# stream); the look-back's scratch is (words, capacity, host state).
+_ARGTYPES = {"scan_i32": [_VP, _VP, _LL, _VP, _LL, _VP, _VP],
+             "geo_gaps": [_VP, ctypes.c_float, _VP, _LL, _VP, _LL, _VP, _VP],
+             "scan_f32": [_VP, _VP, _LL, _VP, _VP, _VP]}
 
 
-def _entry(name: str):
-    """``csrc/scan.cu``'s ``<name>_launch`` with its argument types, set
-    once: (input, [scalars], output, n, scratch..., stream)."""
-    fn = _ENTRIES.get(name)
-    if fn is None:
-        from . import build
+class _LookBack:
+    """The look-back's scratch on one (device, stream): ``words`` (the
+    ticket, then a status word a tile; zero when made) and the host state
+    ``[epoch of the last launch, ticket base]`` that each launch advances
+    (``csrc/scan.cu`` ``lb_launch``)."""
 
-        fn = getattr(build.library("scan"), f"{name}_launch")
-        vp = ctypes.c_void_p
-        scalars = [ctypes.c_float] if name == "geo_gaps" else []
-        scratch = [vp, vp] if name == "scan_f32" else [vp]
-        fn.argtypes = ([vp] + scalars + [vp, ctypes.c_longlong] + scratch
-                       + [vp])
-        fn.restype = ctypes.c_int
-        _ENTRIES[name] = fn
-    return fn
+    def __init__(self, device: torch.device, capacity: int):
+        self.words = torch.zeros(capacity, dtype=torch.int64, device=device)
+        self.capacity = capacity
+        self.state = (ctypes.c_uint * 2)()
+
+
+_SCRATCH: Dict[Tuple[int, int], _LookBack] = {}
+
+
+def _look_back_scratch(device: torch.device, stream: int,
+                       n: int) -> _LookBack:
+    """The scratch of ``stream`` on ``device``, grown (to a power of two
+    words, zeroed) when a scan of ``n`` elements could take more tiles
+    than it holds: the small tile's count bounds either tile's."""
+    need = -(-n // LOOK_BACK_SMALL_TILE) + 1
+    s = _SCRATCH.get((device.index, stream))
+    if s is None or s.capacity < need:
+        s = _SCRATCH[(device.index, stream)] = _LookBack(
+            device, 1 << (need - 1).bit_length())
+    return s
 
 
 def scan_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
                 *scalars) -> None:
     """Launch one entry of ``csrc/scan.cu`` over the flat ``x`` into
-    ``out``, with the scratch it needs: the look-back's status words (and
-    ticket) for ``scan_i32`` and ``geo_gaps``, the tile totals and carries
-    for ``scan_f32``. ``scalars`` go between ``x`` and ``out`` (GEO's
-    clipped p)."""
-    from . import build
-
-    fn = _entry(entry)
+    ``out``: ``scan_i32`` and ``geo_gaps`` on the look-back's cached
+    scratch (no allocation and no reset in steady state); ``scan_f32``
+    with the tile totals and carries it allocates. ``scalars`` go between
+    ``x`` and ``out`` (GEO's clipped p)."""
+    fn = build.entry("scan", f"{entry}_launch", _ARGTYPES[entry])
     n = x.numel()
-    if entry == "scan_f32":
-        nt = max(1, -(-n // TILE))
-        scratch = torch.empty((2, nt), dtype=torch.float32, device=x.device)
-        ptrs = [scratch[0].data_ptr(), scratch[1].data_ptr()]
-    else:
-        words = -(-n // LOOK_BACK_TILE) + 1
-        scratch = torch.empty((words,), dtype=torch.int64, device=x.device)
-        ptrs = [scratch.data_ptr()]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        build.check(fn(x.data_ptr(), *scalars, out.data_ptr(), n, *ptrs,
-                       stream), entry)
+    dev = x.device
+    with build.on_device(dev):
+        stream = build.current_stream(dev)
+        if entry == "scan_f32":
+            nt = max(1, -(-n // TILE))
+            scratch = torch.empty((2, nt), dtype=torch.float32, device=dev)
+            build.check(fn(x.data_ptr(), out.data_ptr(), n,
+                           scratch[0].data_ptr(), scratch[1].data_ptr(),
+                           stream), entry)
+            return
+        s = _look_back_scratch(dev, stream, n)
+        err = fn(x.data_ptr(), *scalars, out.data_ptr(), n,
+                 s.words.data_ptr(), s.capacity, s.state, stream)
+        if err:
+            # a refused launch leaves the scratch's state unknown: the next
+            # call starts from a fresh one
+            del _SCRATCH[(dev.index, stream)]
+        build.check(err, entry)
+
+
+def look_back_tile(n: int, device=None) -> int:
+    """The tile (elements a block) that the int32 and GEO look-back takes
+    for ``n`` elements on the card (the current one unless ``device``):
+    ``LOOK_BACK_SMALL_TILE`` below one wave of ``LOOK_BACK_TILE``."""
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    fn = build.entry("scan", "scan_look_back_tile",
+                     [_LL, ctypes.POINTER(ctypes.c_int)])
+    tile = ctypes.c_int()
+    with build.on_device(device):
+        build.check(fn(n, ctypes.byref(tile)), "scan_look_back_tile")
+    return tile.value
 
 
 def prefix_sum_tiles(x: torch.Tensor) -> torch.Tensor:

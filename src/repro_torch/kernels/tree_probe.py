@@ -33,7 +33,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from .bsearch_probe import steps_for
+from . import build
+from .bsearch_probe import LEVELS, SPAN, THREADS, _search, steps_for
 
 __all__ = ["MAX_SLOTS", "THREADS", "SPAN", "LEVELS", "layout_table",
            "stacked_bases", "items_for", "tree_walk", "tree_walk_tiled",
@@ -42,11 +43,10 @@ __all__ = ["MAX_SLOTS", "THREADS", "SPAN", "LEVELS", "layout_table",
            "tree_probe_paged_dma", "tree_probe_paged_pages"]
 
 # The kernels' constants (``tests/test_torch_tree_get.py`` holds them to
-# the sources' ``#define`` lines).
+# the sources' ``#define`` lines); THREADS, SPAN and LEVELS, the constants
+# of csrc/tree_get.cuh's tile search, come with that search's model from
+# ``bsearch_probe``.
 MAX_SLOTS = 16  # RT_MAX_SLOTS in csrc/tree_walk.cuh
-THREADS = 256   # TG_THREADS: threads of a block of tree_get.cu
-SPAN = 2048     # TG_SPAN: the widest bracket a tile stages in shared memory
-LEVELS = 10     # TG_LEVELS: descent steps a pivot table holds (2^LEVELS values)
 HEAD, EDGE_FIELDS = 4, 8  # words of the table's head and of each edge
 
 
@@ -132,91 +132,9 @@ def tree_probe_plain(arena: torch.Tensor, q: torch.Tensor, layout):
 
 # ---------------------------------------------------------------------------
 # The tile logic of csrc/tree_get.cuh as torch ops, all tiles at once: a
-# tile is a row of ``qt`` (tiles, tile), values int64.
+# tile is a row of ``qt`` (tiles, tile), values int64. The search of one
+# vector (``_search``) is ``bsearch_probe``'s.
 # ---------------------------------------------------------------------------
-
-def _pivot_descend(piv, length: int, steps: int, sh: int, q):
-    """``tg_pivot_descend``: the descent's steps above 2^sh, read from the
-    pivot table; the answer then lies in [p, p + 2^sh - 1]."""
-    p = torch.zeros_like(q)
-    for k in range(steps - 1, sh - 1, -1):
-        cand = p + (1 << k)
-        p = torch.where((cand < length) & (piv[cand >> sh] <= q), cand, p)
-    return p
-
-
-def _warp_search(a, off: int, lo, hi, q):
-    """``tg_warp_search`` for each tile: max j in [lo, hi] with a[off + j]
-    <= q (lo if none); lanes 1..31 test evenly spaced points a round."""
-    lanes = torch.arange(1, 32, device=q.device)
-    while bool((hi > lo).any()):
-        stride = (hi - lo) // 32 + 1
-        pos = lo[:, None] + lanes * stride[:, None]
-        le = (pos <= hi[:, None]) & (
-            a[off + torch.minimum(pos, hi[:, None])] <= q[:, None])
-        c = le.sum(1)
-        hi = torch.minimum(hi, lo + (c + 1) * stride - 1)
-        lo = lo + c * stride
-    return lo
-
-
-def _search(a, off: int, perm_off: Optional[int], length: int, cap: int, qt,
-            span: int, levels: int):
-    """``tg_search``: per probe j = min(max j' with a[off + j'] <= q, cap),
-    a[off + j] and a[perm_off + j]; and which tiles staged their bracket."""
-    steps = steps_for(length)
-    sh = max(steps - levels, 0)
-    m = torch.arange(1 << (steps - sh), device=qt.device)
-    piv = a[off + torch.clamp(m << sh, max=length - 1)].long()
-    qmin, qmax = qt.min(1).values, qt.max(1).values
-    dlo = _pivot_descend(piv, length, steps, sh, qmin)
-    dhi = _pivot_descend(piv, length, steps, sh, qmax)
-    w = 1 << sh
-    fits = dhi - dlo - w + 2 <= span  # else the bracket surely exceeds span
-    if sh > 0 and bool(fits.any()):
-        lo, hi = dlo[fits], dhi[fits]
-        dlo[fits] = _warp_search(a, off, lo,
-                                 torch.clamp(lo + w - 1, max=length - 1),
-                                 qmin[fits])
-        dhi[fits] = _warp_search(a, off, hi,
-                                 torch.clamp(hi + w - 1, max=length - 1),
-                                 qmax[fits])
-    lo = torch.clamp(dlo, max=cap)
-    width = dhi - lo + 1
-    staged = fits & (width <= span)
-    j, aj = torch.empty_like(qt), torch.empty_like(qt)
-    pj = torch.empty_like(qt) if perm_off is not None else None
-    if bool(staged.any()):
-        # the staged slice a[off + lo .. off + dhi], searched in place
-        st = staged
-        los, qs, wd = lo[st, None], qt[st], width[st, None]
-        idx = los + torch.arange(span, device=qt.device)
-        sl = a[off + torch.clamp(idx, max=length - 1)].long()
-        p = torch.zeros_like(qs)
-        for k in range(steps_for(span) - 1, -1, -1):
-            cand = p + (1 << k)
-            val = torch.gather(sl, 1, torch.clamp(cand, max=span - 1))
-            p = torch.where((cand < wd) & (val <= qs), cand, p)
-        r = torch.clamp(los + p, max=cap) - los
-        j[st] = los + r
-        aj[st] = torch.gather(sl, 1, r)
-        if pj is not None:
-            psl = a[perm_off + torch.clamp(idx, max=cap)].long()
-            pj[st] = torch.gather(psl, 1, r)
-    fb = ~staged
-    if bool(fb.any()):
-        qf = qt[fb]
-        p = _pivot_descend(piv, length, steps, sh, qf)
-        for k in range(sh - 1, -1, -1):
-            cand = p + (1 << k)
-            val = a[off + torch.clamp(cand, max=length - 1)]
-            p = torch.where((cand < length) & (val <= qf), cand, p)
-        jf = torch.clamp(p, max=cap)
-        j[fb], aj[fb] = jf, a[off + jf].long()
-        if pj is not None:
-            pj[fb] = a[perm_off + jf].long()
-    return j, aj, pj, staged
-
 
 def _gather2(a, x_off: int, y_off: int, idx, span: int):
     """``tg_gather2``: a[x_off + idx] and a[y_off + idx], from staged
@@ -288,22 +206,6 @@ def tree_walk_tiled(operand: torch.Tensor, q: torch.Tensor, layout, *,
 # The kernel's launch.
 # ---------------------------------------------------------------------------
 
-_ENTRIES = {}
-
-
-def _entry(lib: str, name: str, argtypes):
-    """``csrc/<lib>.cu``'s ``name`` with its argument types, set once."""
-    fn = _ENTRIES.get((lib, name))
-    if fn is None:
-        from . import build
-
-        fn = getattr(build.library(lib), name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _ENTRIES[(lib, name)] = fn
-    return fn
-
-
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
 
 
@@ -318,9 +220,7 @@ def _ctable(layout, bases):
 @functools.lru_cache(maxsize=64)
 def _config(layout, device: int) -> tuple:
     """``tree_get_config`` on the current card, once per layout."""
-    from . import build
-
-    fn = _entry("tree_get", "tree_get_config", [_VP, _VP])
+    fn = build.entry("tree_get", "tree_get_config", [_VP, _VP])
     cfg = (ctypes.c_int * 4)()
     build.check(fn(_ctable(layout, None), cfg), "tree_get_config")
     return tuple(cfg)
@@ -350,9 +250,7 @@ def tree_get(operand: torch.Tensor, q: torch.Tensor, layout,
         raise TypeError(f"tree_get takes int32, got {operand.dtype}/{q.dtype}")
     if not operand.is_contiguous():
         raise ValueError("tree_get: the operand must be contiguous")
-    from . import build
-
-    fn = _entry("tree_get", "tree_get_launch",
+    fn = build.entry("tree_get", "tree_get_launch",
                 [_VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP])
     ctable = _ctable(layout, bases)
     qc = q.contiguous()
@@ -498,11 +396,9 @@ def tree_probe_paged_pages(paged, q: torch.Tensor) -> torch.Tensor:
     _check_paged(paged, q)
     if q.device.type == "cpu":
         return tree_probe_paged_plain(paged, q)
-    from . import build
-
-    root = _entry("tree_probe_paged", "tpp_root_launch",
+    root = build.entry("tree_probe_paged", "tpp_root_launch",
                   [_VP] + [ctypes.c_int] * 3 + [_VP, _VP, _LL, _VP])
-    edge = _entry("tree_probe_paged", "tpp_edge_launch",
+    edge = build.entry("tree_probe_paged", "tpp_edge_launch",
                   [_VP] * 5 + [_LL, _VP])
     layout = paged.layout
     qc = q.contiguous()

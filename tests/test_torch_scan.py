@@ -2,11 +2,17 @@
 
   * The int32 prefix sum's single-pass decoupled look-back
     (``csrc/scan.cu``): a Python model of its protocol (an atomic ticket
-    per tile, 64-bit status words holding an aggregate or an inclusive
+    per tile taken relative to the host's ticket base, 64-bit status words
+    holding a flag, the launch's epoch and an aggregate or an inclusive
     prefix, one warp looking back 32 predecessors at a time) run under many
     random interleavings and residencies. Every run must equal
     ``wrap_i32(cumsum)`` exactly, across ragged sizes, more than 32 tiles
-    (the look-back crosses several windows) and uint32 wrap.
+    (the look-back crosses several windows) and uint32 wrap; and so must
+    many launches of both tile sizes in turn on one reused scratch, with
+    no reset between them, through epoch wraps and a ticket that wraps.
+  * The wrapper's scratch on a fake library: one per (device, stream),
+    made once and grown, never allocated in steady state; a refused
+    launch drops it.
   * The one float32 order function (``prefix_sum.scan_order_f32``) at tiny
     tile constants, for both of its users: the float32 prefix sum and the
     fused draw's arrivals. Each is held bit for bit against a scalar numpy
@@ -17,49 +23,92 @@ On the card ``chip_smoke.py`` holds the kernels themselves against these
 plain versions.
 """
 import re
+import types
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import fused_draw as t_fd
+from repro_torch.kernels import geo_gaps as t_geo
 from repro_torch.kernels import prefix_sum as t_ps
 from repro_torch.kernels import threefry as t_threefry
 
 CSRC = Path(t_ps.__file__).resolve().parent / "csrc"
 MASK = (1 << 32) - 1
 AGGREGATE, PREFIX = 1, 2
+EPOCH_BITS = 30
+EPOCH_MAX = (1 << EPOCH_BITS) - 1
 WINDOW = 32  # lanes of the looking-back warp
+
+
+class Scratch:
+    """The look-back's scratch and the host's state for it, as
+    ``csrc/scan.cu``'s ``lb_launch`` keeps them: the status words, the
+    ticket counter (never reset), the epoch of the last launch and the
+    ticket base; zero when made."""
+
+    def __init__(self, words: int, epoch_max: int = EPOCH_MAX):
+        self.status = [0] * words
+        self.ticket = 0
+        self.epoch = 0
+        self.base = 0
+        self.epoch_max = epoch_max
+        self.resets = 0
+
+
+def word(flag: int, epoch: int, value: int) -> int:
+    """A status word: flag (2 bits), epoch (30), uint32 value."""
+    return (((flag << EPOCH_BITS) | epoch) << 32) | value
+
+
+def flag_of(w: int, epoch: int) -> int:
+    """``lb_flag``: the flag of a word of this epoch, else 0."""
+    hi = w >> 32
+    return hi >> EPOCH_BITS if hi & EPOCH_MAX == epoch else 0
 
 
 # --- the look-back protocol -----------------------------------------------------
 
 def look_back_scan(x: np.ndarray, tile: int, rng, resident: int,
-                   windows=None) -> np.ndarray:
+                   windows=None, scratch=None) -> np.ndarray:
     """``csrc/scan.cu``'s int32 scan as a protocol among tile blocks,
-    interleaved at random. At most ``resident`` blocks run at once (a block
-    leaves when it has written its tile); a block draws its tile from the
-    ticket when it first runs. Every shared read or write is its own
-    step, and the looking-back warp reads its 32 words one lane at a time in
-    random order, each lane spinning until its word is published. The
-    number of windows each block read is appended to ``windows``."""
+    interleaved at random, on ``scratch`` (a fresh one if None). The host
+    takes the next epoch (clearing the scratch when it would pass
+    ``epoch_max``). At most ``resident`` blocks run at once (a block leaves
+    when it has written its tile); a block draws its tile from the ticket,
+    less the base, when it first runs. Every shared read or write is its
+    own step, and the looking-back warp reads its 32 words one lane at a
+    time in random order, each lane spinning until its word carries this
+    epoch. The number of windows each block read is appended to
+    ``windows``."""
     n = x.shape[0]
     nt = -(-n // tile)
+    if scratch is None:
+        scratch = Scratch(nt)
+    assert nt <= len(scratch.status), "the wrapper sizes the scratch"
+    epoch = scratch.epoch + 1
+    if epoch > scratch.epoch_max:
+        scratch.status = [0] * len(scratch.status)
+        scratch.ticket = scratch.base = 0
+        scratch.resets += 1
+        epoch = 1
+    base = scratch.base
+    status = scratch.status
     xu = x.astype(np.int64) & MASK
-    status = [0] * nt
-    ticket = [0]
     out = np.zeros(n, np.int64)
 
     def block():
-        t = ticket[0]
-        ticket[0] += 1
+        t = (scratch.ticket - base) & MASK
+        scratch.ticket = (scratch.ticket + 1) & MASK
         yield
         local = np.cumsum(xu[t * tile:(t + 1) * tile]) & MASK
         agg = int(local[-1])
         excl = 0
         if t > 0:
-            status[t] = (AGGREGATE << 32) | agg
+            status[t] = word(AGGREGATE, epoch, agg)
             yield
             top, read = t - 1, 0
             while True:
@@ -68,12 +117,13 @@ def look_back_scan(x: np.ndarray, tile: int, rng, resident: int,
                 while pending:
                     lane = pending[rng.integers(len(pending))]
                     j = top - lane
-                    w = PREFIX << 32 if j < 0 else status[j]
-                    if w >> 32:
+                    w = word(PREFIX, epoch, 0) if j < 0 else status[j]
+                    if flag_of(w, epoch):
                         words[lane] = w
                         pending.remove(lane)
                     yield
-                prefixes = [l for l in range(WINDOW) if words[l] >> 32 == PREFIX]
+                prefixes = [l for l in range(WINDOW)
+                            if flag_of(words[l], epoch) == PREFIX]
                 stop = prefixes[0] if prefixes else WINDOW - 1
                 excl = (excl + sum(words[l] & MASK
                                    for l in range(stop + 1))) & MASK
@@ -82,7 +132,7 @@ def look_back_scan(x: np.ndarray, tile: int, rng, resident: int,
                 top -= WINDOW
             if windows is not None:
                 windows.append(read)
-        status[t] = (PREFIX << 32) | ((excl + agg) & MASK)
+        status[t] = word(PREFIX, epoch, (excl + agg) & MASK)
         yield
         out[t * tile:(t + 1) * tile] = (local + excl) & MASK
 
@@ -98,7 +148,10 @@ def look_back_scan(x: np.ndarray, tile: int, rng, resident: int,
             running.remove(g)
         steps += 1
         assert steps < 200 * nt * WINDOW, "the look-back made no progress"
-    assert all(w >> 32 == PREFIX for w in status)
+    assert all(flag_of(w, epoch) == PREFIX for w in status[:nt])
+    scratch.epoch = epoch
+    scratch.base = (base + nt) & MASK
+    assert scratch.ticket == scratch.base
     return ((out + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
 
 
@@ -129,6 +182,35 @@ def test_look_back_crosses_windows_and_wraps():
             look_back_scan(x, tile, rng, resident=100, windows=windows), want,
             err_msg=f"trial {trial}")
     assert max(windows) >= 2
+
+
+@pytest.mark.parametrize("epoch_max", [3, EPOCH_MAX])
+def test_look_back_reuses_one_scratch(epoch_max):
+    """Launches of random sizes in turn on one scratch, never reset between
+    them, each tile size chosen as the kernel chooses it (the small tile
+    below one wave of the large one): a word of an earlier launch, of any
+    value, never enters a sum. A small ``epoch_max`` makes the host clear
+    the scratch now and then; the other run starts the ticket and its base
+    just below the uint32 wrap."""
+    rng = np.random.default_rng(epoch_max)
+    small, big, waves = 2, 8, 6
+    scratch = Scratch(64, epoch_max)
+    if epoch_max == EPOCH_MAX:
+        scratch.ticket = scratch.base = MASK - 40
+    for launch in range(40):
+        n = int(rng.integers(1, small * 63))
+        tile = small if -(-n // big) < waves else big
+        x = rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+        want = t_ps.wrap_i32(torch.cumsum(torch.from_numpy(x).long(),
+                                          0)).numpy()
+        resident = int(rng.choice([1, 2, 5, 64]))
+        np.testing.assert_array_equal(
+            look_back_scan(x, tile, rng, resident, scratch=scratch), want,
+            err_msg=f"launch {launch}, n {n}, tile {tile}")
+    assert scratch.epoch == (39 % 3 + 1 if epoch_max == 3 else 40)
+    assert (scratch.resets > 0) == (epoch_max == 3)
+    if epoch_max == EPOCH_MAX:
+        assert scratch.ticket < MASK - 40  # the ticket wrapped
 
 
 def test_look_back_matches_the_plain_prefix_sum():
@@ -224,5 +306,70 @@ def test_tile_constants_are_the_kernels():
     assert (t_ps.THREADS, t_ps.ITEMS) == (scan["SC_THREADS"], scan["SC_ITEMS"])
     assert t_ps.TILE == t_ps.THREADS * t_ps.ITEMS
     assert t_ps.LOOK_BACK_TILE == scan["LB_THREADS"] * scan["LB_ITEMS"]
+    assert t_ps.LOOK_BACK_SMALL_TILE == (scan["LB_THREADS"]
+                                         * scan["LB_SMALL_ITEMS"])
+    assert scan["LB_EPOCH_BITS"] == EPOCH_BITS
     assert (t_fd.THREADS, t_fd.ITEMS) == (draw["FD_THREADS"],
                                           draw["FD_ITEMS"])
+
+
+# --- the wrapper's scratch, on a fake library ------------------------------------
+
+def _fake_scan(monkeypatch, calls, rc=0):
+    """``csrc/scan.cu`` as a fake library whose entries record the scratch
+    (pointer, capacity) and host state each launch gets, and advance the
+    state as ``lb_launch`` does."""
+    def entry(name):
+        def launch(*args):
+            words, capacity, state = args[-4], args[-3], args[-2]
+            calls.append((name, words, capacity, args[-1]))
+            if rc == 0:
+                state[0] += 1
+            return rc
+        return launch
+
+    monkeypatch.setattr(build, "library", lambda name: types.SimpleNamespace(
+        scan_i32_launch=entry("scan_i32"), geo_gaps_launch=entry("geo_gaps")))
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    monkeypatch.setattr(t_ps, "_SCRATCH", {})
+    stream = types.SimpleNamespace(cuda_stream=5)
+    monkeypatch.setattr(build, "current_stream", lambda d: stream.cuda_stream)
+    return stream
+
+
+def test_scratch_is_made_once_per_stream_and_grown(monkeypatch):
+    calls, zeros = [], []
+    stream = _fake_scan(monkeypatch, calls)
+    x, u = torch.zeros(5000, dtype=torch.int32), torch.rand(5000)
+    out = torch.empty(5000, dtype=torch.int32)
+    big = torch.zeros(70000, dtype=torch.int32)
+    real_zeros = torch.zeros
+    monkeypatch.setattr(torch, "zeros",
+                        lambda *a, **k: zeros.append(a) or real_zeros(*a, **k))
+    for _ in range(50):  # the two entries in turn on one scratch
+        t_ps.scan_launch("scan_i32", x, out)
+        t_ps.scan_launch("geo_gaps", u, out, t_geo.clip_p(0.05))
+    assert len(zeros) == 1 and {c[0] for c in calls} == {"scan_i32",
+                                                         "geo_gaps"}
+    assert len({(c[1], c[2]) for c in calls}) == 1
+    need = -(-5000 // t_ps.LOOK_BACK_SMALL_TILE) + 1
+    assert calls[0][2] == 1 << (need - 1).bit_length() >= need
+    (scratch,) = t_ps._SCRATCH.values()
+    assert scratch.state[0] == 100  # every launch took the next epoch
+    t_ps.scan_launch("scan_i32", big, torch.empty_like(big))
+    assert len(zeros) == 2 and calls[-1][2] >= -(-70000 // 2048) + 1
+    t_ps.scan_launch("scan_i32", x, out)  # the grown scratch serves it
+    assert len(zeros) == 2 and calls[-1][1] == calls[-2][1]
+    stream.cuda_stream = 9  # another stream, another scratch
+    t_ps.scan_launch("scan_i32", x, out)
+    assert len(zeros) == 3 and calls[-1][3] == 9
+    assert len(t_ps._SCRATCH) == 2
+
+
+def test_a_refused_launch_drops_the_scratch(monkeypatch):
+    calls = []
+    _fake_scan(monkeypatch, calls, rc=700)
+    x = torch.zeros(100, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="scan_i32: CUDA error 700"):
+        t_ps.scan_launch("scan_i32", x, torch.empty_like(x))
+    assert t_ps._SCRATCH == {}
