@@ -6,7 +6,11 @@ index build, the full join through the GET kernel (``tree_probe``, from
 ``csrc/tree_get.cu``), Poisson sampling through the per-node route
 (``bsearch_probe`` + ``tree_probe``), through the one-launch ``fused_draw``
 kernel, and through the paged draw (``fused_sample`` + ``tree_probe_paged``,
-one launch of the GET kernel over the pages); then (phase D) the kernel-ops
+one launch of the GET kernel over the pages); then (phase E) batched draws
+through ``sample_batch`` on each route (the batched ``fused_draw_batch``
+and ``fused_sample_batch`` launches: one a batch), ``uniform_sample``, the
+facades (``materialize_and_scan``, ``binary_join``, ``PoissonSampler``) and
+the repeats of one key; then (phase D) the kernel-ops
 entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 ``geo_positions_fused``, ``decode_attention`` and ``prefill_attention``
 (the ``scan``, ``flash_decode``, ``flash_prefill`` and
@@ -39,6 +43,14 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        ``sample`` takes the paged draw (as the reference
                        routes it); the full IMDB arena is over the paged
                        rung's own ceiling.
+  E  batches           ``sample_batch`` of 32 keys at B and C, of 6 (padded
+                       to 8) at both, of 4 keys at A, every lane held bit
+                       for bit against ``sample(keys[b])``; the batched
+                       kernels against their plain versions at B and C (1,
+                       32 and 64 keys, flat PTBERN); ``uniform_sample`` at A
+                       (p = 0.05 and 0.7) and BINOM at B; the facades at B;
+                       five per-node draws of one key at A; the float64
+                       mass prefix at A against ``torch.cumsum``.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32); GEO positions at
                        p = 0.05 over A's join from device Threefry uniforms
@@ -317,7 +329,7 @@ def check_draws(label, fd_mod, ps_mod, pack, variants, keys, samples,
             assert bool(smp.overflow) == bool(full[3]), label
             u = threefry.uniforms_plain(key, kw["acap"], 0,
                                         pack.arena.device)
-            raw = ps_mod.scan_order_f32(-torch.log1p(-u), fd_mod.THREADS,
+            raw = ps_mod.scan_order(-torch.log1p(-u), fd_mod.THREADS,
                                         fd_mod.ITEMS)
             if bool((raw[1:] < raw[:-1]).any()):
                 dips.append(int(key[1]))  # the key's seed
@@ -335,6 +347,24 @@ def walk_ops(layout, steps_for) -> int:
     for e in layout.edges:
         ops += 6 * steps_for(e.n_child + 1) + 12
     return ops
+
+
+def draw_bound(plan, layout, steps_for, keys: int = 1):
+    """The bound of ``keys`` EXPRACE draws of the draw kernel at the plan's
+    shapes: ``fused_draw`` with the walk of ``layout``, ``fused_sample``
+    when ``layout`` is None. Bytes: the parameter vectors (and the arena)
+    read once, each key's positions, rows and scalars written once;
+    operations: each key's arrivals, root prefixes and output lanes."""
+    R = plan.w.numel()
+    cap, acap = plan.default_capacity(), plan.arrival_capacity()
+    s_acap, s_R = steps_for(acap + 1), steps_for(R + 2)
+    ops = (acap * (150 + 6 * 2 * s_R + 40) + (R + 1) * 6 * s_acap
+           + cap * (6 * (s_R + 2 * s_acap) + 30))
+    nbytes = 4 * 7 * (R + 1) + keys * 4 * (cap + 2)
+    if layout is not None:
+        nbytes += 4 * layout.size + keys * 4 * cap * layout.num_slots
+        ops += cap * walk_ops(layout, steps_for)
+    return bound(nbytes, keys * ops)
 
 
 # Widths of the attention checks (src/repro/configs/): heads, KV heads,
@@ -767,6 +797,339 @@ def run_ops(args, device, kernels, n_join: int):
     return rows, errs, launches, sizes
 
 
+def lane(smp, b: int):
+    """Lane b of a batched sample, as a single one."""
+    from repro_torch.core import JoinSample
+
+    return JoinSample({v: c[b] for v, c in smp.columns.items()},
+                      smp.positions[b], smp.count[b], smp.overflow[b])
+
+
+def assert_same_sample(a, b, label) -> None:
+    """Positions, count, overflow and every column bit for bit."""
+    import torch
+
+    assert torch.equal(a.positions, b.positions), label
+    assert int(a.count) == int(b.count), label
+    assert bool(a.overflow) == bool(b.overflow), label
+    assert set(a.columns) == set(b.columns), label
+    for v, col in b.columns.items():
+        assert torch.equal(a.columns[v], col), (label, v)
+
+
+def rows_multiset(cols, names):
+    """The rows of a join as one sorted (n, columns) int64 array (float
+    columns by their bits): a multiset to compare joins in any order."""
+    import numpy as np
+
+    arr = np.stack([np.asarray(cols[v]).astype(np.float64).view(np.int64)
+                    if np.asarray(cols[v]).dtype.kind == "f"
+                    else np.asarray(cols[v]).astype(np.int64)
+                    for v in names], axis=1)
+    return arr[np.lexsort(arr.T[::-1])]
+
+
+def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
+    """Phase E: batched draws, the uniform samplers and the facades.
+
+    E.B, E.C, E.A drive ``sample_batch`` at B (one ``fused_draw_batch``
+    launch a batch), C (one ``fused_sample_batch`` and one paged GET
+    launch) and A (the per-node route: per-key positions, one
+    ``tree_probe`` launch), each with the counts zeroed just before and
+    read just after; every lane is then held bit for bit against
+    ``sample(keys[b])``. The batched kernels are held against their plain
+    versions; ``uniform_sample`` runs at A (HYBRID -> GEO and -> BERN) and
+    BINOM at B, ``materialize_and_scan``, ``binary_join`` and
+    ``PoissonSampler`` at B; five per-node draws of one key at A and two
+    builds of the fused draw's tables must repeat bit for bit. Then the
+    times. Returns the launches of each main path, the kernels' rows, the
+    calls for their device times, the end-to-end times and the warm calls
+    to profile."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PoissonSampler, estimate, sampling, yannakakis
+    from repro_torch.kernels import fused_draw as fd_mod
+    from repro_torch.kernels import prefix_sum as ps_mod
+    from repro_torch.kernels import threefry
+
+    on_card = device.type == "cuda"
+    (tabA, engA, planA), (tabB, engB, planB), (tabC, engC, planC) = (
+        configs[k] for k in "ABC")
+    fullA, fullB, fullC = fulls
+    launches = {}
+
+    def main_path(label, fn):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        launches[label] = {k: f.launches for k, f in kernels.items()}
+        log(f"[{label}] launches " + str({k: v for k, v in
+                                          launches[label].items() if v}))
+        return out
+
+    def count_z(plan, counts):
+        mean = plan.expected_k()
+        sd = float(estimate.sample_std(plan.w, plan.p))
+        return (float(np.mean(counts)) - mean) / (sd / math.sqrt(len(counts)))
+
+    def check_lanes(label, eng, full, smp, keys):
+        assert smp.batch == len(keys), (label, smp.batch)
+        counts = []
+        for b in range(len(keys)):
+            one = lane(smp, b)
+            assert_same_sample(one, eng.sample(q, keys[b]), (label, b))
+            counts.append(check_sample(one, full, label))
+        return counts
+
+    # -- E.B: the fused batch -------------------------------------------------
+    keysB = threefry.keys(2000, args.draws)
+    keys6 = threefry.keys(2006, 6)
+    smpB, smpB6 = main_path("E.B", lambda: (engB.sample_batch(q, keysB),
+                                            engB.sample_batch(q, keys6)))
+    if on_card:
+        lb = launches["E.B"]
+        assert lb["fused_draw_batch"] == 2 and lb["fused_draw"] == 0, lb
+        assert lb["tree_probe"] == 0 and lb["fused_sample_batch"] == 0, lb
+    countsB = check_lanes("E.B", engB, fullB, smpB, keysB)
+    check_lanes("E.B, 6 keys padded to 8", engB, fullB, smpB6, keys6)
+    zB = count_z(planB, countsB)
+    log(f"[E.B] sample_batch of {len(keysB)} keys and of 6 (padded to 8): "
+        f"every lane equals sample(keys[b]) bit for bit; mean count "
+        f"{np.mean(countsB):.1f} vs E[k] {planB.expected_k():.1f}, z {zB:+.2f}")
+    assert abs(zB) < Z_LIMIT
+    del smpB, smpB6
+
+    # -- E.C: the paged batch -------------------------------------------------
+    keysC = threefry.keys(3000, args.draws)
+    keys6C = threefry.keys(3006, 6)
+    smpC, smpC6 = main_path("E.C", lambda: (engC.sample_batch(q, keysC),
+                                            engC.sample_batch(q, keys6C)))
+    if on_card:
+        lc = launches["E.C"]
+        assert lc["fused_sample_batch"] == 2 and lc["fused_sample"] == 0, lc
+        assert lc["tree_probe_paged"] == 2 and lc["fused_draw_batch"] == 0, lc
+        assert lc["tree_probe_paged_pages"] == 0 and lc["tree_probe"] == 0, lc
+    countsC = check_lanes("E.C", engC, fullC, smpC, keysC)
+    check_lanes("E.C, 6 keys padded to 8", engC, fullC, smpC6, keys6C)
+    zC = count_z(planC, countsC)
+    log(f"[E.C] sample_batch of {len(keysC)} keys and of 6: every lane "
+        f"equals sample(keys[b]); mean count {np.mean(countsC):.1f} vs E[k] "
+        f"{planC.expected_k():.1f}, z {zC:+.2f}")
+    assert abs(zC) < Z_LIMIT
+    del smpC, smpC6
+
+    # -- E.A: the per-node batch ------------------------------------------------
+    keysA = threefry.keys(1000, 4)
+    smpA = main_path("E.A", lambda: engA.sample_batch(q, keysA))
+    if on_card:
+        la = launches["E.A"]
+        assert la["tree_probe"] == 1 and la["bsearch_probe"] == 2 * len(keysA)
+        assert la["prefix_sum"] == len(keysA) and la["fused_draw_batch"] == 0
+    countsA = check_lanes("E.A", engA, fullA, smpA, keysA)
+    zA = count_z(planA, countsA)
+    log(f"[E.A] sample_batch of {len(keysA)} keys on the per-node route: "
+        f"every lane equals sample(keys[b]); counts {countsA}, z {zA:+.2f}")
+    assert abs(zA) < Z_LIMIT
+    del smpA
+
+    # -- the repeats: one key, one sample; one database, one set of tables ----
+    key = threefry.key(1000)
+    first = engA.sample(q, key)
+    for r in range(4):
+        assert_same_sample(engA.sample(q, key), first, ("repeat", r))
+    for label, eng, plan in (("A", engA, planA), ("B", engB, planB)):
+        one, two = (sampling.fused_draw_params(plan.w, plan.p, plan.prefE,
+                                               eng.kernel_policy)
+                    for _ in range(2))
+        assert all(torch.equal(one[k], two[k]) for k in one), label
+        if plan.draw_params is not None:
+            assert all(torch.equal(one[k], plan.draw_params[k]) for k in one)
+    log("[E] five per-node draws of one key at A equal bit for bit "
+        "(positions, count, overflow, every column); fused_draw_params built "
+        "twice at A and at B equal, and equal the plan's")
+
+    # -- the batched kernels against their plain versions ------------------------
+    errs["fused_draw_batch"] = errs["fused_sample_batch"] = 0.0
+    keys64 = threefry.keys(4000, 64)
+    for label, plan, keys, method in (
+            ("B", planB, keysB, "exprace"),
+            ("B, flat PTBERN", planB, keysB, "ptbern_flat"),
+            ("B, one key", planB, keysB[:1], "exprace"),
+            ("C", planC, keysC, "exprace"),
+            ("C, a bucket of 64", planC, keys64, "exprace")):
+        pk = plan.shred.packed
+        kw = dict(method=method, cap=plan.default_capacity(),
+                  acap=plan.arrival_capacity() if method == "exprace" else 0,
+                  n=plan.join_size if method == "ptbern_flat" else 0)
+        got = fd_mod.fused_draw_batch(pk.arena, keys, plan.draw_params,
+                                      layout=pk.layout, **kw)
+        want = fd_mod.fused_draw_batch_plain(pk.arena, keys, plan.draw_params,
+                                             layout=pk.layout, **kw)
+        pos = fd_mod.fused_sample_batch(keys, plan.draw_params, **kw)
+        e_draw = max(max_abs_err(g, w) for g, w in zip(got, want))
+        e_sample = max(max_abs_err(g, w) for g, w in zip(pos, want[1:]))
+        errs["fused_draw_batch"] = max(errs["fused_draw_batch"], e_draw)
+        errs["fused_sample_batch"] = max(errs["fused_sample_batch"], e_sample)
+        assert not bool(want[3].any()), label
+        log(f"[check] fused_draw_batch / fused_sample_batch at {label} "
+            f"({len(keys)} keys, {method}): vs plain max_abs_err {e_draw} / "
+            f"{e_sample}")
+        del got, want, pos
+    if on_card:
+        for label, walk, plan, nkeys in (("B", True, planB, args.draws),
+                                         ("C", False, planC, args.draws),
+                                         ("C", False, planC, 64)):
+            per_sm, sms, blocks = fd_mod.grid(
+                walk, plan.arrival_capacity(), plan.default_capacity(),
+                plan.w.numel(), nkeys)
+            log(f"[build] {'fused_draw' if walk else 'fused_sample'} batch of "
+                f"{nkeys} at {label}: occupancy {per_sm} x {sms}; {blocks} "
+                "blocks launched")
+    assert errs["fused_draw_batch"] == 0.0
+    assert errs["fused_sample_batch"] == 0.0
+
+    # -- uniform samplers ----------------------------------------------------
+    def uniform(label, eng, full, p, method, seeds):
+        n = eng.join_size(q)
+        for s in seeds:
+            smp = eng.uniform_sample(q, threefry.key(s), p, method=method)
+            c = check_sample(smp, full, label)
+            z = (c - n * p) / math.sqrt(n * p * (1 - p))
+            log(f"[{label}] uniform_sample p={p} {method}: count {c} of cap "
+                f"{smp.capacity} vs n p {n * p:.1f}, z {z:+.2f}; rows are the "
+                "join's at their positions")
+            assert abs(z) < Z_LIMIT
+
+    main_path("E.U", lambda: (
+        uniform("E.U A", engA, fullA, 0.05, "hybrid", (5000, 5001)),
+        uniform("E.U A", engA, fullA, 0.7, "hybrid", (5002,)),
+        uniform("E.U B", engB, fullB, 0.3, "binom", (5003, 5004))))
+
+    # -- facades ---------------------------------------------------------------
+    cols, keep = engB.materialize_and_scan(threefry.key(6000), q)
+    pB = cols["p"].double()
+    z = (float(keep.sum()) - float(pB.sum())) / math.sqrt(
+        float((pB * (1 - pB)).sum()))
+    assert abs(z) < Z_LIMIT
+    for v, col in fullB.items():
+        assert torch.equal(cols[v], col), v
+    log(f"[E facades] materialize_and_scan at B: columns equal the full "
+        f"join; kept {int(keep.sum())} of {keep.numel()} vs sum p "
+        f"{float(pB.sum()):.1f}, z {z:+.2f}")
+    del cols, keep, pB
+    bj = yannakakis.binary_join(engB.db, q)
+    want = expand_numpy(tabB)
+    names = sorted(want)
+    assert sorted(bj) == names
+    assert np.array_equal(rows_multiset({v: c.cpu().numpy() for v, c in
+                                         bj.items()}, names),
+                          rows_multiset(want, names))
+    log(f"[E facades] binary_join at B: {bj[names[0]].shape[0]} rows, as a "
+        "multiset the numpy expansion's")
+    del bj
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        sampler = PoissonSampler(engB.db, q, kernel_policy=engB.kernel_policy)
+    assert_same_sample(sampler.sample(threefry.key(77)),
+                       engB.sample(q, threefry.key(77)), "PoissonSampler")
+    log("[E facades] PoissonSampler.sample equals engine.sample at B")
+    del sampler
+
+    # -- times ----------------------------------------------------------------
+    reps = args.reps
+    e2e = {}
+    for label, eng, keys, nreps in (("B", engB, keysB, reps),
+                                    ("C", engC, keysC, reps),
+                                    ("A", engA, keysA, 2)):
+        e2e[f"sample_batch_{label}_{len(keys)}_ms"] = timed(
+            lambda: eng.sample_batch(q, keys), nreps, device)
+        e2e[f"sample_loop_{label}_{len(keys)}_ms"] = timed(
+            lambda: [eng.sample(q, k) for k in keys], nreps, device)
+        log(f"[time] {label}: sample_batch of {len(keys)} keys "
+            f"{e2e[f'sample_batch_{label}_{len(keys)}_ms']:.3f} ms; "
+            f"{len(keys)} single warm draws in a loop "
+            f"{e2e[f'sample_loop_{label}_{len(keys)}_ms']:.3f} ms")
+    for p in (0.05, 0.7):
+        e2e[f"uniform_sample_A_p{p}_ms"] = timed(
+            lambda: engA.uniform_sample(q, threefry.key(5000), p), reps,
+            device)
+        log(f"[time] A: uniform_sample p={p} "
+            f"{e2e[f'uniform_sample_A_p{p}_ms']:.3f} ms")
+    rows, call = [], {}
+    capB = planB.default_capacity()
+    kwB = dict(layout=planB.shred.packed.layout, method="exprace", cap=capB,
+               acap=planB.arrival_capacity())
+    call["fused_draw_batch"] = lambda: fd_mod.fused_draw_batch(
+        planB.shred.packed.arena, keysB, planB.draw_params, **kwB)
+    ms = timed(call["fused_draw_batch"], reps, device)
+    plain_ms = timed(lambda: fd_mod.fused_draw_batch_plain(
+        planB.shred.packed.arena, keysB, planB.draw_params, **kwB), 1, device)
+    b_ms, b_by = draw_bound(planB, planB.shred.packed.layout, steps,
+                            len(keysB))
+    rows.append(("fused_draw_batch", "src/repro/kernels/fused_draw.py:212",
+                 ms, plain_ms, b_ms, b_by, None))
+    kwC = dict(method="exprace", cap=planC.default_capacity(),
+               acap=planC.arrival_capacity())
+    call["fused_sample_batch"] = lambda: fd_mod.fused_sample_batch(
+        keysC, planC.draw_params, **kwC)
+    ms = timed(call["fused_sample_batch"], reps, device)
+    plain_ms = timed(lambda: fd_mod.fused_sample_batch_plain(
+        keysC, planC.draw_params, **kwC), 1, device)
+    b_ms, b_by = draw_bound(planC, None, steps, len(keysC))
+    rows.append(("fused_sample_batch", "src/repro/kernels/fused_draw.py:261",
+                 ms, plain_ms, b_ms, b_by, None))
+    # The float64 scan at A's mass prefix (R lanes: its R + 1 entries less
+    # the leading zero), against torch.cumsum.
+    pA = torch.clamp(planA.p.double(), 0.0, 1.0)
+    lamA = -torch.log1p(-torch.clamp(torch.where(pA > 0.5, 1.0 - pA, pA),
+                                     max=0.5))
+    xA = planA.w.double() * lamA
+    errs["prefix_sum_f64"] = max_abs_err(ps_mod.prefix_sum_tiles(xA),
+                                         ps_mod.prefix_sum_plain(xA))
+    log(f"[check] prefix_sum float64 at A's {xA.numel()} masses: kernel vs "
+        f"plain max_abs_err {errs['prefix_sum_f64']}")
+    assert errs["prefix_sum_f64"] == 0.0
+    # What the fixed order repairs: the library scan repeated on the same
+    # masses (off the port's path since this change), and its float32 cast,
+    # which the fused draw's tables take.
+    lib = [torch.cumsum(xA, 0) for _ in range(20)]
+    differ = sum(not torch.equal(x, lib[0]) for x in lib[1:])
+    differ32 = sum(not torch.equal(x.float(), lib[0].float()) for x in lib[1:])
+    first = ps_mod.prefix_sum_tiles(xA)
+    fixed = sum(not torch.equal(ps_mod.prefix_sum_tiles(xA), first)
+                for _ in lib[1:])
+    e2e["cumsum_f64_repeats_differing"] = {
+        "torch.cumsum": differ, "torch.cumsum as float32": differ32,
+        "prefix_sum_tiles": fixed, "of": len(lib) - 1}
+    log(f"[E] repeated at A's masses, differing from the first: "
+        f"torch.cumsum in float64 {differ} of {len(lib) - 1} ({differ32} "
+        f"after the cast to float32); the fixed-order scan {fixed}")
+    assert fixed == 0
+    del lib
+    call["prefix_sum_f64"] = lambda: ps_mod.prefix_sum_tiles(xA)
+    ms = timed(call["prefix_sum_f64"], max(reps, 50), device)
+    plain_ms = timed(lambda: ps_mod.prefix_sum_plain(xA), 1, device)
+    lib_ms = timed(lambda: torch.cumsum(xA, 0), max(reps, 50), device)
+    b_ms, b_by = bound(16 * xA.numel(), xA.numel())
+    rows.append(("prefix_sum_f64", "src/repro/kernels/prefix_sum.py:42",
+                 ms, plain_ms, b_ms, b_by, lib_ms))
+    windows = {
+        "sample_batch_B": (lambda: engB.sample_batch(q, keysB),
+                           e2e[f"sample_batch_B_{len(keysB)}_ms"]),
+        "sample_batch_C": (lambda: engC.sample_batch(q, keysC),
+                           e2e[f"sample_batch_C_{len(keysC)}_ms"]),
+        "sample_batch_A": (lambda: engA.sample_batch(q, keysA),
+                           e2e[f"sample_batch_A_{len(keysA)}_ms"]),
+        "uniform_sample_A": (lambda: engA.uniform_sample(
+            q, threefry.key(5000), 0.05), e2e["uniform_sample_A_p0.05_ms"]),
+    }
+    phases = (planB.shred.packed.arena, keysB, planB.draw_params, kwB)
+    return launches, rows, call, e2e, windows, phases
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -793,6 +1156,8 @@ def run(args, device, kernel_policy=None) -> dict:
                "bsearch_probe": bp_mod.bsearch_probe,
                "fused_draw": fd_mod.fused_draw,
                "fused_sample": fd_mod.fused_sample,
+               "fused_draw_batch": fd_mod.fused_draw_batch,
+               "fused_sample_batch": fd_mod.fused_sample_batch,
                "tree_probe_paged": tp_mod.tree_probe_paged,
                "tree_probe_paged_dma": tp_mod.tree_probe_paged_dma,
                "tree_probe_paged_pages": tp_mod.tree_probe_paged_pages,
@@ -1151,6 +1516,11 @@ def run(args, device, kernel_policy=None) -> dict:
     for kname, _ in paged_forms:
         assert errs[kname] == 0.0, kname
 
+    # -- 5d. phase E: batched draws, uniform samplers, facades, repeats -------
+    launchesE, rowsE, callE, e2eE, windowsE, phasesE = run_batched(
+        args, device, q, configs, (fullA, fullB, fullC), kernels, errs,
+        bp_mod.steps_for)
+
     # -- 6. times --------------------------------------------------------------
     # Each kernel's wrapper by CUDA events (``reps`` warm calls; at least
     # 50 for the kernels of the last redesign, whose calls are short); the
@@ -1188,15 +1558,7 @@ def run(args, device, kernel_policy=None) -> dict:
     ms = timed(call["fused_draw"], reps, device)
     plain_ms = timed(lambda: fd_mod.fused_draw_plain(
         packB.arena, keyB, planB.draw_params, **kw), 1, device)
-    RB = planB.w.numel()
-    draw_bytes = 4 * (packB.layout.size + 7 * (RB + 1)
-                      + capB * (packB.layout.num_slots + 1) + 2)
-    s_acap, s_R = steps(acapB + 1), steps(RB + 2)
-    draw_ops = (acapB * (150 + 6 * 2 * s_R + 40)
-                + (RB + 1) * 6 * s_acap
-                + capB * (6 * (s_R + 2 * s_acap) + 30
-                          + walk_ops(packB.layout, steps)))
-    b_ms, b_by = bound(draw_bytes, draw_ops)
+    b_ms, b_by = draw_bound(planB, packB.layout, steps)
     rows.append(("fused_draw", "src/repro/kernels/fused_draw.py:212",
                  ms, plain_ms, b_ms, b_by, None))
     # fused_sample at C's main-path shapes: the draw without the walk.
@@ -1205,12 +1567,7 @@ def run(args, device, kernel_policy=None) -> dict:
     ms = timed(call["fused_sample"], reps, device)
     plain_ms = timed(lambda: fd_mod.fused_sample_plain(
         keyC, planC.draw_params, **kwC), 1, device)
-    RC = planC.w.numel()
-    s_acap, s_R = steps(acapC + 1), steps(RC + 2)
-    b_ms, b_by = bound(4 * (7 * (RC + 1) + capC + 2),
-                       acapC * (150 + 6 * 2 * s_R + 40)
-                       + (RC + 1) * 6 * s_acap
-                       + capC * (6 * (s_R + 2 * s_acap) + 30))
+    b_ms, b_by = draw_bound(planC, None, steps)
     rows.append(("fused_sample", "src/repro/kernels/fused_draw.py:261",
                  ms, plain_ms, b_ms, b_by, None))
     # The paged GET's three forms at the paged draw's shape: one draw's
@@ -1270,6 +1627,9 @@ def run(args, device, kernel_policy=None) -> dict:
     if on_card:
         e2e["peak_device_bytes_A_to_C"] = int(
             torch.cuda.max_memory_allocated(device))
+    e2e.update(e2eE)
+    rows += rowsE
+    call.update(callE)
     e2e["walks_C_ms"] = get_ms
     e2e["tree_get_staged_A"] = staged_A
     e2e["tree_get_yardstick"] = yardstick
@@ -1299,12 +1659,17 @@ def run(args, device, kernel_policy=None) -> dict:
                 lambda: engC.sample(q, threefry.key(7)), "sample(C)",
                 e2e["sample_C_ms"]),
         }
+        for label, (fn, wall) in windowsE.items():
+            e2e["profile"][label] = profile_window(fn, label, wall)
         # The draw kernel's own phases (its global clock after each grid
         # barrier), the mean of 10 launches after one.
+        arenaE, keysE, paramsE, kwE = phasesE
         for label, arena, key, params, kwx in (
                 ("fused_draw at B", packB.arena, keyB, planB.draw_params, kw),
                 ("fused_sample at C", None, keyC, planC.draw_params,
-                 dict(kwC, layout=None))):
+                 dict(kwC, layout=None)),
+                (f"fused_draw_batch of {len(keysE)} at B", arenaE, None,
+                 paramsE, dict(kwE, keys=keysE))):
             runs = [fd_mod.phase_ms(arena, key, params, **kwx)
                     for _ in range(11)][1:]
             mean = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
@@ -1317,10 +1682,17 @@ def run(args, device, kernel_policy=None) -> dict:
     errs.update(errsD)
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
-                       + launchesR[k] + launchesD[k])
+                       + launchesR[k] + launchesD[k]
+                       + sum(lp[k] for lp in launchesE.values()))
+    # the float64 scans of the main path: the per-node draws' mass prefixes
+    launches["prefix_sum_f64"] = (launchesA["prefix_sum"]
+                                  + launchesE["E.A"]["prefix_sum"])
 
     # -- 8. the kernels' rows ---------------------------------------------------
     sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",
+               "fused_draw_batch": "fused_draw.cu",
+               "fused_sample_batch": "fused_draw.cu",
+               "prefix_sum_f64": "scan.cu",
                "tree_probe_paged": "tree_get.cu",
                "tree_probe_paged_dma": "tree_get.cu",
                "tree_probe_paged_pages": "tree_probe_paged.cu"}
@@ -1348,7 +1720,7 @@ def run(args, device, kernel_policy=None) -> dict:
             f"A-C)")
     return {"kernels": table, "end_to_end": e2e, "ops_sizes": sizesD,
             "draw_grids": grids, "device_ms": dev_ms,
-            "bsearch_tiles_A": tiles_bs,
+            "bsearch_tiles_A": tiles_bs, "phase_e_launches": launchesE,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),

@@ -6,7 +6,7 @@ from .shred import (Shred, ShredNode, build_shred, build_plan, PackedShred,
                     PagedArena, pack_index, shred_from_arrays)
 from .probe import (get, get_rows, usr_get_rows, usr_get_rows_fused,
                     usr_get_rows_paged)
-from .poisson import JoinSample
+from .poisson import JoinSample, PoissonSampler
 from . import sampling, estimate, yannakakis
 
 __all__ = [
@@ -15,5 +15,5 @@ __all__ = [
     "build_plan", "PackedShred", "PagedArena", "pack_index",
     "shred_from_arrays", "get", "get_rows", "usr_get_rows",
     "usr_get_rows_fused", "usr_get_rows_paged", "sampling", "estimate",
-    "yannakakis", "JoinSample", "dense_keys",
+    "yannakakis", "JoinSample", "PoissonSampler", "dense_keys",
 ]

@@ -12,16 +12,19 @@ Fused USR-GET (rep 'usr_fused'): the whole walk in ONE launch of the
 as the per-node GET.
 
 The one-launch draw (``draw_fused``): key -> positions and per-node rows
-in one launch of the ``fused_draw`` kernel, routed by ``select_draw``.
+in one launch of the ``fused_draw`` kernel, routed by ``select_draw``;
+``draw_fused_batch`` serves B keys in one launch of the same kernel.
 
 The paged rung, for an int32 index over a budget whose every page fits
 it: the GET (rep 'usr_paged') walks the pages with ``tree_probe_paged``;
 the draw (``draw_paged``, ``kernels='paged'``) samples positions with
 ``fused_sample`` and walks them with ``tree_probe_paged``, one launch of
-the GET kernel over the pages' buffer on the card. The GET's budget is
-``KernelPolicy.arena_limit``, the draw's ``draw_limit``.
+the GET kernel over the pages' buffer on the card; ``draw_paged_batch`` is one batched
+``fused_sample`` launch and one GET launch over all B x cap lanes. The
+GET's budget is ``KernelPolicy.arena_limit``, the draw's ``draw_limit``.
 
-Not ported yet (ROADMAP queue A): CSR GET.
+Not ported yet (ROADMAP queue A): the CSR GET, which comes with the
+updates that rebuild its chains.
 """
 from __future__ import annotations
 
@@ -31,8 +34,10 @@ import torch
 
 from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused_draw import (fused_draw, fused_draw_plain,
-                                            fused_sample)
+from repro_torch.kernels.fused_draw import (fused_draw, fused_draw_batch,
+                                            fused_draw_batch_plain,
+                                            fused_draw_plain, fused_sample,
+                                            fused_sample_batch)
 from repro_torch.kernels.tree_probe import tree_probe, tree_probe_paged
 
 from .sampling import PositionSample
@@ -42,7 +47,8 @@ __all__ = ["get", "get_rows", "gather_columns", "usr_get_rows",
            "usr_get_rows_fused", "usr_get_rows_paged", "fused_available",
            "paged_view", "paged_available", "select_rep",
            "draw_fused_available", "draw_paged_available", "select_draw",
-           "draw_fused", "draw_paged"]
+           "draw_fused", "draw_paged", "draw_fused_batch",
+           "draw_paged_batch"]
 
 I64 = torch.int64
 I32 = torch.int32
@@ -291,6 +297,14 @@ def select_draw(shred: Shred, dparams, *, method: str, n: int = 0,
     return "pernode"
 
 
+def _draw_arena(shred: Shred):
+    """The arena the draw walks: the packed one, else the paged index's
+    buffer (the whole arena, for the plain version)."""
+    if shred.packed is not None:
+        return shred.packed.arena, shred.packed.layout
+    return shred.paged.buffer, shred.paged.layout
+
+
 def draw_fused(shred: Shred, dparams, key, *, method: str, cap: int,
                acap: int = 0, n: int = 0, reference: bool = False):
     """Run the one-launch draw: key -> per-node rows + ``PositionSample``.
@@ -300,10 +314,7 @@ def draw_fused(shred: Shred, dparams, key, *, method: str, cap: int,
     Returns ``(node_rows, ps)``: node name -> (cap,) int32 rows (lanes
     beyond ``ps.count`` arbitrary-but-masked) and a ``PositionSample``
     with the int64 / sentinel-n conventions."""
-    if shred.packed is not None:
-        arena, layout = shred.packed.arena, shred.packed.layout
-    else:
-        arena, layout = shred.paged.buffer, shred.paged.layout
+    arena, layout = _draw_arena(shred)
     run = fused_draw_plain if reference else fused_draw
     rows, pos, cnt, ovf = run(arena, key, dparams, layout=layout,
                               method=method, cap=cap, acap=acap, n=n)
@@ -327,6 +338,37 @@ def draw_paged(shred: Shred, dparams, key, *, method: str, cap: int,
     return node_rows, PositionSample(pos.to(I64), cnt.to(I64), ovf)
 
 
+def draw_fused_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
+                     acap: int = 0, n: int = 0, reference: bool = False):
+    """``draw_fused`` under the (B, 2) ``keys`` in one launch of the draw
+    kernel (``reference=True``: its plain version, per key). Returns
+    ``(node_rows, ps)`` with a leading batch axis: node name -> (B, cap)
+    rows, and positions (B, cap), count and overflow (B,); lane b equals
+    ``draw_fused`` under ``keys[b]``."""
+    arena, layout = _draw_arena(shred)
+    run = fused_draw_batch_plain if reference else fused_draw_batch
+    rows, pos, cnt, ovf = run(arena, keys, dparams, layout=layout,
+                              method=method, cap=cap, acap=acap, n=n)
+    node_rows = {name: rows[:, i] for i, name in enumerate(layout.names)}
+    return node_rows, PositionSample(pos.to(I64), cnt.to(I64), ovf)
+
+
+def draw_paged_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
+                     acap: int = 0, n: int = 0):
+    """``draw_paged`` under the (B, 2) ``keys``: one batched
+    ``fused_sample`` launch, then one GET over all B x cap positions (the
+    walk is per lane, so each key's rows are its single paged draw's).
+    Same return contract as ``draw_fused_batch``."""
+    pv = paged_view(shred)
+    pos, cnt, ovf = fused_sample_batch(keys, dparams, method=method, cap=cap,
+                                       acap=acap, n=n)
+    wpos = torch.clamp(pos, max=dparams["prefE32"][-1] - 1)
+    rows = tree_probe_paged(pv, wpos.reshape(-1))
+    node_rows = {name: rows[i].reshape(pos.shape)
+                 for i, name in enumerate(pv.layout.names)}
+    return node_rows, PositionSample(pos.to(I64), cnt.to(I64), ovf)
+
+
 def get_rows(shred: Shred, pos: torch.Tensor, rep: str = None,
              policy: KernelPolicy = DEFAULT_POLICY) -> Dict[str, torch.Tensor]:
     rep = rep or "usr"
@@ -337,18 +379,22 @@ def get_rows(shred: Shred, pos: torch.Tensor, rep: str = None,
     if rep == "usr_paged":
         return usr_get_rows_paged(shred, pos)
     raise NotImplementedError(
-        f"rep={rep!r} is not ported yet (ROADMAP queue A: CSR GET)")
+        f"rep={rep!r} is not ported yet (ROADMAP queue A: the CSR GET, with "
+        "updates)")
 
 
 def gather_columns(shred: Shred, node_rows: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
     """Per-node row indices -> owned output columns (the gather half of
-    GET), shared by the positional routes and the fused draw."""
+    GET), shared by the positional routes and the fused draw. Rows of any
+    shape ((cap,), or (B, cap) for a batch) give columns of that shape."""
     out: Dict[str, torch.Tensor] = {}
     for node in shred.root.nodes():
         rows = node_rows[node.name]
+        flat = rows.reshape(-1)
         for v in node.owned:
-            out[v] = torch.index_select(node.data.column(v), 0, rows)
+            out[v] = torch.index_select(node.data.column(v), 0,
+                                        flat).reshape(rows.shape)
     return out
 
 

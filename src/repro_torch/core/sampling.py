@@ -1,5 +1,7 @@
-"""Non-uniform (Poisson) position sampling over root groups: EXPRACE, the
-per-node float64 route, and the operand tables of the fused draw.
+"""Position sampling: the uniform samplers BERN / GEO / BINOM / HYBRID
+(paper §5), the non-uniform (Poisson) EXPRACE of the per-node float64
+route, the operand tables of the fused draw, and the paper's sequential
+PT* loop as a numpy host oracle.
 
 EXPRACE samples a Bernoulli(p) trial per unit cell as "a Poisson process
 with rate lambda = -ln(1-p) drops >= 1 arrival in the cell". Over all root
@@ -9,33 +11,41 @@ inverse CDF, dedupe cells with one sort, and for p > 1/2 sample the
 complement (failures) and invert by the l-th-missing-value formula.
 
 The reference draws through ``jax.random``; torch cannot give those bits,
-so the per-node route draws through two explicit ``torch.Generator``
-streams seeded from the key words (one for M, one for the uniforms,
-mirroring the reference's key split). It is checked by distribution.
+so the per-node route and the uniform samplers draw through two explicit
+``torch.Generator`` streams seeded from the key words (one for M or k,
+one for the uniforms, mirroring the reference's key split). They are
+checked by distribution. Everything a draw computes depends on its key
+alone, in a fixed order: the float64 mass prefix is the scan kernel's
+fixed-order instance (``prefix_sum.prefix_sum_tiles``), because a library
+scan on the card sums in an order that changes from run to run, and one
+key would give two samples. So a batch of draws equals the same draws
+one by one, lane for lane.
 The sort, ``index_add_``, masked scatter and ``searchsorted`` here are
 library calls, as they are XLA operations in the reference; the int32
 prefix searches go through the bsearch kernel when the caller hands over
 the index's int32 root prefix (``pref32``).
-
-The uniform samplers (BERN/GEO/BINOM/HYBRID) and the host oracles are
-not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from repro_torch.config import DEFAULT_POLICY, KernelPolicy
+from repro_torch.config import DEFAULT_POLICY, KernelPolicy, resolve_device
 from repro_torch.kernels import ops, threefry
+from repro_torch.kernels.prefix_sum import prefix_sum_plain, prefix_sum_tiles
 
-__all__ = ["PositionSample", "exprace_positions", "pt_bern_flat_positions",
-           "fused_draw_params", "generators"]
+__all__ = ["PositionSample", "bern_positions", "geo_positions",
+           "binom_positions", "hybrid_positions", "exprace_positions",
+           "pt_bern_flat_positions", "fused_draw_params", "pt_positions_host",
+           "generators", "mass_prefix", "HYBRID_THRESHOLD"]
 
 I64 = torch.int64
 I32 = torch.int32
 F64 = torch.float64
+HYBRID_THRESHOLD = 0.5  # paper §6.1: GEO wins for p <= 0.5, BERN above
 _TINY = 1e-12
 
 
@@ -66,6 +76,104 @@ def generators(key, device):
         out.append(g)
     return out
 
+
+def mass_prefix(x: torch.Tensor,
+                policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
+    """The exclusive float64 prefix ``[0, x0, x0 + x1, ...]`` in the scan
+    kernel's fixed order: the kernel where the policy enables kernels,
+    else its plain version (the same bits on either device)."""
+    scan = prefix_sum_tiles if policy.enabled else prefix_sum_plain
+    return torch.cat([x.new_zeros(1), scan(x.to(F64))])
+
+
+def _compact(mask: torch.Tensor, n: int, cap: int) -> PositionSample:
+    """The first ``cap`` flat positions where ``mask`` holds, by a rank
+    scatter with a dropped slot (no host sync); overflow if more hold."""
+    dev = mask.device
+    flat = torch.arange(n, dtype=I64, device=dev)
+    total = torch.sum(mask).to(I64)
+    rank = torch.cumsum(mask.to(I64), 0) - 1
+    tgt = torch.where(mask & (rank < cap), rank, cap)
+    idx = torch.full((cap + 1,), n, dtype=I64, device=dev)
+    idx = idx.scatter_(0, tgt, torch.where(mask, flat, n))[:cap]
+    valid = torch.arange(cap, dtype=I64, device=dev) < torch.clamp(total,
+                                                                   max=cap)
+    return _finish(idx, valid, torch.tensor(n, dtype=I64, device=dev),
+                   total > cap)
+
+
+# ---------------------------------------------------------------------------
+# Uniform position sampling over [0, n)
+# ---------------------------------------------------------------------------
+
+def bern_positions(key, p, n: int, cap: int, device=None) -> PositionSample:
+    """Paper's BERN: one Bernoulli(p) trial per position. Theta(n) lanes.
+    ``device=None`` is the card."""
+    dev = resolve_device(device)
+    u = torch.rand((n,), dtype=F64, device=dev,
+                   generator=generators(key, dev)[1])
+    return _compact(u < torch.as_tensor(p, dtype=F64, device=dev), n, cap)
+
+
+def geo_positions(key, p, n: int, cap: int, device=None) -> PositionSample:
+    """Paper's GEO (Fig. 6), vectorized: ``cap`` geometric gaps at once in
+    float64, an int64 prefix sum of them into positions. O(cap) whatever n;
+    exact because a Bernoulli(p) process's success indices have iid
+    Geometric(p) gaps."""
+    dev = resolve_device(device)
+    u = torch.rand((cap,), dtype=F64, device=dev,
+                   generator=generators(key, dev)[1])
+    u = torch.clamp(u * (1.0 - _TINY) + _TINY, min=_TINY)  # [_TINY, 1)
+    pt = torch.as_tensor(p, dtype=F64, device=dev)
+    safe_p = torch.clamp(pt, _TINY, 1.0 - _TINY)
+    gaps = torch.floor(torch.log(u) / torch.log1p(-safe_p))
+    gaps = torch.where(pt <= 0.0, float(n) + 1.0, gaps)
+    gaps = torch.where(pt >= 1.0, 0.0, gaps)
+    gaps = torch.clamp(gaps, max=4.0 * n + 2.0)  # avoid inf -> int
+    positions = (torch.cumsum(gaps.to(I64), 0)
+                 + torch.arange(cap, dtype=I64, device=dev))
+    valid = positions < n
+    # If the last lane is still in range the process has not left [0, n).
+    more = valid[-1] if cap > 0 else torch.zeros((), dtype=torch.bool,
+                                                 device=dev)
+    return _finish(positions, valid, torch.tensor(n, dtype=I64, device=dev),
+                   more)
+
+
+def binom_positions(key, p, n: int, cap: int, device=None) -> PositionSample:
+    """Paper's BINOM: k ~ Binomial(n, p) in float64, then a uniform
+    k-subset of [0, n) by Gumbel-top-k: the indices of the k smallest of n
+    iid float64 keys (an ``argsort``). Theta(n log n), as in the
+    reference."""
+    dev = resolve_device(device)
+    gk, gu = generators(key, dev)
+    k = torch.binomial(torch.full((1,), float(n), dtype=F64, device=dev),
+                       torch.as_tensor(p, dtype=F64, device=dev).reshape(1),
+                       generator=gk).to(I64)[0]
+    k = torch.clamp(k, max=n)
+    k_eff = torch.clamp(k, max=cap)
+    order = torch.argsort(torch.rand((n,), dtype=F64, device=dev,
+                                     generator=gu))
+    chosen = torch.sort(torch.where(
+        torch.arange(n, dtype=I64, device=dev) < k_eff, order, n)).values
+    m = min(n, cap)
+    positions = torch.full((cap,), n, dtype=I64, device=dev)
+    positions[:m] = chosen[:m]
+    valid = torch.arange(cap, dtype=I64, device=dev) < k_eff
+    return _finish(positions, valid, torch.tensor(n, dtype=I64, device=dev),
+                   k > cap)
+
+
+def hybrid_positions(key, p, n: int, cap: int, device=None) -> PositionSample:
+    """Paper's HYBRID: GEO for p <= 0.5, BERN above (threshold from §6.1),
+    chosen on the host (a tensor ``p`` is read there)."""
+    pick = geo_positions if float(p) <= HYBRID_THRESHOLD else bern_positions
+    return pick(key, p, n, cap, device)
+
+
+# ---------------------------------------------------------------------------
+# Non-uniform (Poisson) position sampling over root groups
+# ---------------------------------------------------------------------------
 
 def _locate_prefix(prefE, q, hi: int, narrow: bool,
                    policy: KernelPolicy = DEFAULT_POLICY):
@@ -106,8 +214,7 @@ def exprace_positions(key, w, p, prefE, cap: int, arrival_cap: int = 0,
     wF = w.to(F64)
 
     # --- Poisson arrivals over the piecewise-constant-rate line ------------
-    zero = torch.zeros((1,), dtype=F64, device=dev)
-    massE = torch.cat([zero, torch.cumsum(wF * lam, 0)])
+    massE = mass_prefix(wF * lam, policy)
     Lam = massE[-1]
     M = torch.poisson(Lam.reshape(1), generator=gM).to(I64)[0]
     aM = torch.clamp(M, max=acap)
@@ -175,23 +282,18 @@ def pt_bern_flat_positions(key, root_p, prefE, n: int,
     r = torch.clamp(torch.searchsorted(prefE, flat, right=True) - 1, 0, R - 1)
     u = torch.rand((n,), dtype=F64, device=dev,
                    generator=generators(key, dev)[1])
-    mask = u < root_p.to(F64)[r]
-    total = torch.sum(mask).to(I64)
-    rank = torch.cumsum(mask.to(I64), 0) - 1
-    tgt = torch.where(mask & (rank < cap), rank, cap)
-    idx = torch.full((cap + 1,), n, dtype=I64, device=dev)
-    idx = idx.scatter_(0, tgt, torch.where(mask, flat, n))[:cap]
-    valid = torch.arange(cap, dtype=I64, device=dev) < torch.clamp(total, max=cap)
-    return _finish(idx, valid, torch.tensor(n, dtype=I64, device=dev),
-                   total > cap)
+    return _compact(u < root_p.to(F64)[r], n, cap)
 
 
-def fused_draw_params(w, p, prefE) -> Optional[dict]:
+def fused_draw_params(w, p, prefE,
+                      policy: KernelPolicy = DEFAULT_POLICY) -> Optional[dict]:
     """Plan-bound operand vectors of the fused draw: the EXPRACE thinning
     tables (mass prefix, per-cell rates, complement signs) accumulated in
     float64 and cast to float32, plus the int32-narrowed root prefixes.
-    ``None`` when the int32 narrowing cannot be certified (join + R beyond
-    int32, or an empty join)."""
+    The mass prefix is summed in the scan's fixed order (``mass_prefix``),
+    so two plans on one database bind the same tables. ``None`` when the
+    int32 narrowing cannot be certified (join + R beyond int32, or an empty
+    join)."""
     R = int(w.shape[0])
     n = int(prefE[-1])
     # offE[-1] = n + R must fit the int32 complement offsets.
@@ -202,8 +304,7 @@ def fused_draw_params(w, p, prefE) -> Optional[dict]:
     comp = p64 > 0.5
     pi = torch.where(comp, 1.0 - p64, p64)
     lam = -torch.log1p(-torch.clamp(pi, max=0.5))
-    zero1 = torch.zeros((1,), dtype=F64, device=dev)
-    massE = torch.cat([zero1, torch.cumsum(w.to(F64) * lam, 0)])
+    massE = mass_prefix(w.to(F64) * lam, policy)
     izero1 = torch.zeros((1,), dtype=I64, device=dev)
     cwE = torch.cat([izero1, torch.cumsum(torch.where(comp, w, 0), 0)])
     offE = torch.cat([izero1, torch.cumsum(w + 1, 0)])
@@ -217,3 +318,41 @@ def fused_draw_params(w, p, prefE) -> Optional[dict]:
         "offE": offE.to(I32),
         "p32": p64.to(torch.float32),
     }
+
+
+# ---------------------------------------------------------------------------
+# Paper-faithful sequential host oracle (numpy; used in tests)
+# ---------------------------------------------------------------------------
+
+def pt_positions_host(rng: np.random.Generator, w: np.ndarray, p: np.ndarray,
+                      method: str = "hybrid") -> np.ndarray:
+    """The paper's PT* loop (§5 "Non-uniform"): iterate root tuples, run
+    the uniform sampler per group, shift by the group's base offset.
+    Sequential single-core semantics — the reproduction baseline."""
+    w = np.asarray(w, np.int64)
+    p = np.asarray(p, np.float64)
+    base = np.concatenate([[0], np.cumsum(w)])
+    out = []
+    for t in range(w.shape[0]):
+        wt, pt = int(w[t]), float(p[t])
+        if wt == 0 or pt <= 0.0:
+            continue
+        m = method if method != "hybrid" else (
+            "geo" if pt <= HYBRID_THRESHOLD else "bern")
+        if m == "bern":
+            idx = np.nonzero(rng.random(wt) < pt)[0]
+        elif m == "geo":
+            idx = []
+            step = np.log1p(-min(pt, 1 - 1e-15))
+            i = int(np.floor(np.log(max(rng.random(), _TINY)) / step))
+            while i < wt:
+                idx.append(i)
+                g = int(np.floor(np.log(max(rng.random(), _TINY)) / step))
+                i += 1 + g
+            idx = np.asarray(idx, np.int64)
+        else:
+            raise ValueError(m)
+        out.append(idx + base[t])
+    if not out:
+        return np.zeros((0,), np.int64)
+    return np.concatenate(out)

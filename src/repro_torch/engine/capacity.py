@@ -47,5 +47,10 @@ class CapacityPolicy:
         mass = float(estimate.exprace_arrival_mass(w, p))
         return self.plan(mass, mass**0.5)
 
+    def uniform_capacity(self, n: int, p: float) -> int:
+        """Capacity for a uniform beta_p sample over n positions."""
+        mean = n * p
+        return self.plan(mean, (mean * max(1.0 - p, 0.0)) ** 0.5)
+
 
 DEFAULT_POLICY = CapacityPolicy()

@@ -5,9 +5,11 @@ shred cache — (query fingerprint, rep) -> built index; a plan cache —
 (query fingerprint, spec identity) -> ``CompiledPlan``; a
 ``CapacityPolicy`` and a ``KernelPolicy``. Repeated queries with the same
 fingerprint skip GYO and the index build; both caches are LRU-bounded.
+Single draws, batches of draws (``sample_batch``), uniform samples and
+full joins of one query share one plan-cache entry.
 
-Not ported yet (ROADMAP queue A): ``sample_batch``, ``uniform_sample``,
-``apply_delta``/``rebind``, meshes and sharded plans.
+Not ported yet (ROADMAP queue A): the CSR index, ``apply_delta``/``rebind``
+(deltas), meshes and sharded plans.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.database import Database
 from repro_torch.core.jointree import JoinQuery
 from repro_torch.core.poisson import JoinSample
 from repro_torch.core.shred import Shred, build_plan, build_shred
+from repro_torch.core import yannakakis
 
 from .capacity import CapacityPolicy, DEFAULT_POLICY
 from .fingerprint import executor_key, plan_key, query_fingerprint
@@ -164,6 +167,43 @@ class QueryEngine:
 
     sample = poisson_sample
 
+    def sample_batch(self, query: JoinQuery, keys,
+                     spec: Optional[DrawSpec] = None, *,
+                     cap: Optional[int] = None, acap: Optional[int] = None,
+                     rep: Optional[str] = None,
+                     method: Optional[str] = None,
+                     project: Optional[tuple] = None,
+                     narrow: Optional[bool] = None,
+                     kernels: Optional[str] = None) -> JoinSample:
+        """``B`` independent Poisson draws of ``beta_y(Q)`` in one
+        dispatch. ``keys`` is (B, 2) uint32 words — ``threefry.keys(seed,
+        B)`` for the canonical stream (the words of ``jax.random.split``).
+        The result's leaves carry a leading batch axis (columns/positions
+        ``(B, cap)``, count/overflow ``(B,)``) and lane ``b`` equals
+        ``sample(query, keys[b])`` with the same spec and kwargs. The plan
+        is the same cache entry the single-draw path uses."""
+        spec = merge_spec(spec, cap=cap, acap=acap, rep=rep, method=method,
+                          project=tuple(project) if project else None,
+                          narrow=narrow, kernels=kernels)
+        if query.prob_var is None:
+            raise ValueError("Poisson sampling needs query.prob_var (beta_y)")
+        plan = self.compile(query, spec)
+        return plan.sample_batch(keys, cap=spec.cap, acap=spec.acap,
+                                 rep=spec.rep if spec.rep != "both" else None)
+
+    def uniform_sample(self, query: JoinQuery, key, p: float, *,
+                       spec: Optional[DrawSpec] = None,
+                       cap: Optional[int] = None, method: str = "hybrid",
+                       rep: Optional[str] = None) -> JoinSample:
+        """beta_p with one fixed probability for every join tuple (§6.1).
+
+        ``method`` here selects the *position* sampler (hybrid/bern/geo/
+        binom) — it is unrelated to ``DrawSpec.method``, so a ``spec``
+        contributes only ``rep``/``cap``/``narrow`` on this path."""
+        spec = merge_spec(spec, cap=cap, rep=rep)
+        plan = self.compile(query, rep=spec.rep, narrow=spec.narrow)
+        return plan.uniform_sample(key, p, cap=spec.cap, method=method)
+
     def join_size(self, query: JoinQuery) -> int:
         """|Q(db)| in O(1) from the cached index (never materialized)."""
         return self.compile(query).join_size
@@ -202,3 +242,13 @@ class QueryEngine:
             f"(hits: shred={self.stats.shred_hits} plan={self.stats.plan_hits})",
         ]
         return "\n".join(lines)
+
+    # -- baselines (not cached) ----------------------------------------------
+    def materialize_and_scan(self, key, query: JoinQuery,
+                             uniform_p: Optional[float] = None):
+        """The M&S baseline: end-to-end materialize-then-Bernoulli, which
+        deliberately bypasses the engine caches — it rebuilds its index per
+        call, exactly the naive cost the I&P plans are measured against."""
+        return yannakakis.materialize_and_scan(
+            key, self.db, query, uniform_p=uniform_p, rep=self.rep,
+            policy=self.kernel_policy)

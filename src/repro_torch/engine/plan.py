@@ -4,8 +4,8 @@ A ``CompiledPlan`` is the engine's unit of caching: the GYO join tree has
 been run, the shred index built, the GET rep and the draw route chosen,
 and the fused draw's operand vectors bound. Everything data-dependent (the
 key, per-call capacity overrides) stays a call argument, so one plan
-serves any number of independent draws and full-join flattens without
-rebuilding anything.
+serves any number of independent draws, batches of draws, uniform
+samples and full-join flattens without rebuilding anything.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ class CompiledPlan:
     ``spec`` is the resolved plan-identity ``DrawSpec`` (concrete ``rep``).
     w / p / prefE are the root-level weight, probability and exclusive
     prefix vectors (p is None for queries without ``prob_var`` — such
-    plans serve full joins only).
+    plans serve full joins and uniform samples only).
     """
 
     query: JoinQuery
@@ -73,6 +73,8 @@ class CompiledPlan:
     def __post_init__(self):
         self._bind_shred(self.shred)
         self._run = executors.sample_executor(self.method, self.project)
+        self._run_batch = executors.batched_sample_executor(self.method,
+                                                            self.project)
 
     def _resolve_narrow(self, shred: Shred, auto_narrow: bool) -> bool:
         """Apply the spec's narrowing override to the auto verdict. Forcing
@@ -102,7 +104,8 @@ class CompiledPlan:
             self.p = root.data.column(self.query.prob_var)
             self._default_cap = self.policy.sample_capacity(self.w, self.p)
             self._arrival_cap = self.policy.arrival_capacity(self.w, self.p)
-            dparams = sampling.fused_draw_params(self.w, self.p, self.prefE)
+            dparams = sampling.fused_draw_params(self.w, self.p, self.prefE,
+                                                 self.kernel_policy)
             self._route = probe.select_draw(
                 shred, dparams, method=self.method, n=self._lanes(),
                 kernels=self.spec.kernels, policy=self.kernel_policy)
@@ -158,7 +161,8 @@ class CompiledPlan:
         """One independent Poisson sample draw (fresh randomness per key)."""
         cap, rep, acap = self._call_overrides(spec, cap, rep, acap)
         if self.p is None:
-            raise ValueError("plan has no prob_var; use full_join")
+            raise ValueError("plan has no prob_var; use "
+                             "uniform_sample/full_join")
         cap = cap or self.default_capacity()
         if self.join_size == 0:
             return executors.empty_sample(self.shred, cap)
@@ -174,6 +178,38 @@ class CompiledPlan:
                          dparams=self._dparams if route != "pernode" else None,
                          policy=self.kernel_policy)
 
+    def sample_batch(self, keys, cap: Optional[int] = None,
+                     rep: Optional[str] = None, acap: Optional[int] = None,
+                     spec: Optional[DrawSpec] = None) -> JoinSample:
+        """``B`` independent Poisson draws in one dispatch. ``keys`` holds
+        (B, 2) uint32 words (``threefry.keys``); the result's leaves carry
+        a leading batch axis — columns/positions ``(B, cap)``,
+        count/overflow ``(B,)`` — and lane ``b`` equals
+        ``self.sample(keys[b])``. The keys are padded to their power-of-two
+        bucket for the dispatch, and the padding lanes sliced off."""
+        cap, rep, acap = self._call_overrides(spec, cap, rep, acap)
+        if self.p is None:
+            raise ValueError("plan has no prob_var; use "
+                             "uniform_sample/full_join")
+        kpad, batch = executors.pad_batch_keys(keys)
+        cap = cap or self.default_capacity()
+        if self.join_size == 0:
+            return executors.empty_sample_batch(self.shred, cap, batch)
+        acap = acap or (self.arrival_capacity()
+                        if self.method == "exprace" else 0)
+        route = "pernode" if rep else self._route  # an explicit rep pins it
+        smp = self._run_batch(
+            self.shred, self.w, self.p, self.prefE, kpad, cap=cap,
+            rep=rep or self.rep_default, n=self._lanes(), acap=acap,
+            narrow=self._narrow, route=route,
+            dparams=self._dparams if route != "pernode" else None,
+            policy=self.kernel_policy)
+        if kpad.shape[0] != batch:
+            smp = JoinSample({v: c[:batch] for v, c in smp.columns.items()},
+                             smp.positions[:batch], smp.count[:batch],
+                             smp.overflow[:batch])
+        return smp
+
     def sample_auto(self, key, max_doublings: Optional[int] = None,
                     cap: Optional[int] = None, acap: Optional[int] = None,
                     spec: Optional[DrawSpec] = None) -> JoinSample:
@@ -187,6 +223,23 @@ class CompiledPlan:
         return redraw_with_doubling(
             lambda c, a: self.sample(key, cap=c, acap=a),
             cap, acap, max_doublings)
+
+    def uniform_sample(self, key, p: float, cap: Optional[int] = None,
+                       method: str = "hybrid") -> JoinSample:
+        """beta_p with one fixed probability for every join tuple (paper
+        §6.1): positions from the uniform sampler ``method``
+        (hybrid/bern/geo/binom), then the plan's GET."""
+        n = self.join_size
+        if cap is None:
+            cap = self.policy.uniform_capacity(n, p)
+        if n == 0:
+            return executors.empty_sample(self.shred, cap)
+        ps = executors.uniform_positions_fn(method)(key, p, n, cap,
+                                                    self.shred.device)
+        pos = torch.clamp(ps.positions, max=n - 1)
+        cols = probe.get(self.shred, pos, rep=self.rep_default,
+                         policy=self.kernel_policy)
+        return JoinSample(cols, ps.positions, ps.count, ps.overflow)
 
     def full_join(self, rep: Optional[str] = None,
                   spec: Optional[DrawSpec] = None) -> Dict[str, torch.Tensor]:

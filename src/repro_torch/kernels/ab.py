@@ -1,4 +1,5 @@
-"""Time the search and scan wrappers of two checkouts of the port on one card.
+"""Time the search, scan and draw wrappers of two checkouts of the port on
+one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab --parent DIR \\
         [--reps N] [--json-out FILE]
@@ -18,13 +19,19 @@ D's inputs from the same seeds, and calls its own wrappers on them:
     rows);
   * ``tree_probe`` over A's arena at every position of the join;
   * A's warm Poisson draw through the engine (the per-node route, whose
-    int32 searches take ``bsearch_probe``), 10 calls. Its float64 stages
-    are library calls, so its checksum is reported per run, with whether
-    two draws of one key in one process agree, and not held across runs.
+    int32 searches take ``bsearch_probe``), 10 calls. Its checksum is
+    reported per run, with whether five draws of one key in one process
+    agree, and not held across runs;
+  * ``fused_draw`` at B's shapes and ``fused_sample`` at C's (32,000 and
+    60,000 titles), one key each: single launches of the draw kernel.
+    Their checksums are reported per run and not held across runs either:
+    the float32 tables come from a float64 mass prefix whose summation
+    order may differ between checkouts.
 
 Every result is held against the plain version first, and its checksum
 against the other runs'. Each checkout's ``-Xptxas -v`` lines of
-``bsearch_probe``, ``scan`` and ``tree_get`` are printed once. ``ms`` is the mean of ``--reps`` warm wrapper
+``bsearch_probe``, ``scan``, ``tree_get`` and ``fused_draw`` are printed
+once. ``ms`` is the mean of ``--reps`` warm wrapper
 calls by CUDA events (timed before any profiler session of the process);
 ``device_ms`` and ``ops`` are the device busy time and the device
 operations (kernels, memsets) of a call by ``torch.profiler``. Needs one
@@ -43,7 +50,7 @@ ROOT = Path(__file__).resolve().parents[3]
 SEED = 0
 GEO_P, GEO_KEY, Z_LIMIT = 0.05, 4000, 6.0  # chip_smoke.py's phase D
 SCAN_N = 36_244_344
-PTXAS = ("bsearch_probe", "scan", "tree_get")
+PTXAS = ("bsearch_probe", "scan", "tree_get", "fused_draw")
 
 
 def child(tree: Path, reps: int) -> dict:
@@ -115,15 +122,43 @@ def child(tree: Path, reps: int) -> dict:
         del got
     key = threefry.key(7)
     cases["sample A"] = (None, lambda: engine.sample(q, key), None)
-    smp, again = engine.sample(q, key), engine.sample(q, key)
+    smp, *again = (engine.sample(q, key) for _ in range(5))
     assert plan.route == "pernode" and not bool(smp.overflow)
     out["sample A"] = {
         "inputs": plan.arrival_capacity(), "input_sum": 0,
         "output_sum": int(smp.positions[:int(smp.count)].sum()),
         "count": int(smp.count),
-        "repeat_equal": torch.equal(smp.positions, again.positions),
+        "repeat_equal": all(torch.equal(smp.positions, a.positions)
+                            for a in again),
         "ms": chip_smoke.timed(cases["sample A"][1], 10, device)}
     del smp, again
+    from repro_torch.kernels import fused_draw as fd
+
+    for name, seed, titles, walk in (("fused_draw B", SEED + 1, 32_000, True),
+                                     ("fused_sample C", SEED + 2, 60_000,
+                                      False)):
+        eng = QueryEngine(Database.from_columns(
+            chip_smoke.make_tables(seed, titles), device=device),
+            device=device)
+        pl = eng.compile(q)
+        kw = dict(method="exprace", cap=pl.default_capacity(),
+                  acap=pl.arrival_capacity())
+        arena, layout = pl.shred.packed.arena, pl.shred.packed.layout
+        if walk:
+            fn = (lambda a=arena, lay=layout, p=pl.draw_params, k=kw:
+                  fd.fused_draw(a, key, p, layout=lay, **k))
+            want = fd.fused_draw_plain(arena, key, pl.draw_params,
+                                       layout=layout, **kw)
+        else:
+            fn = (lambda p=pl.draw_params, k=kw: fd.fused_sample(key, p, **k))
+            want = fd.fused_sample_plain(key, pl.draw_params, **kw)
+        got = fn()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+        cases[name] = (None, fn, None)
+        out[name] = {"inputs": kw["acap"], "input_sum": 0,
+                     "output_sum": int(got[-3].sum(dtype=torch.int64)),
+                     "count": int(got[-2]),
+                     "ms": chip_smoke.timed(fn, reps, device)}
     for name, (_, fn, _) in cases.items():
         out[name]["device_ms"], out[name]["ops"] = chip_smoke.device_ms(
             fn, 5 if name == "sample A" else 20)
@@ -175,13 +210,15 @@ def main(argv=None) -> int:
     for name in runs[0][1]:
         sums = [(r[name]["input_sum"], r[name]["output_sum"])
                 for _, r in runs]
-        if "repeat_equal" in runs[0][1][name]:
-            print(f"{name}: (count, position sum) "
-                  + " | ".join(f"{lb} ({r[name]['count']}, "
-                               f"{r[name]['output_sum']})" for lb, r in runs)
-                  + "; two draws of one process equal: "
-                  + " | ".join(f"{lb} {r[name]['repeat_equal']}"
-                               for lb, r in runs), flush=True)
+        if "count" in runs[0][1][name]:
+            line = f"{name}: (count, position sum) " + " | ".join(
+                f"{lb} ({r[name]['count']}, {r[name]['output_sum']})"
+                for lb, r in runs)
+            if "repeat_equal" in runs[0][1][name]:
+                line += "; repeats of one key in one process equal: " + \
+                    " | ".join(f"{lb} {r[name]['repeat_equal']}"
+                               for lb, r in runs)
+            print(line, flush=True)
         else:
             assert len(set(sums)) == 1, (name, sums)
 

@@ -1,6 +1,6 @@
-// One launch from a Threefry key to the compacted sample rows: the
-// sort-free EXPRACE draw (or flat PTBERN) plus the tree walk of every
-// sampled position.
+// One launch from Threefry keys to the compacted sample rows: the sort-free
+// EXPRACE draw (or flat PTBERN) plus the tree walk of every sampled
+// position, for one key or a batch of B keys.
 //
 // Replaces fused_draw of src/repro/kernels/fused_draw.py (its _kernel,
 // draw_core, _exprace_core, _ptbern_core and _count_le), which runs as
@@ -8,51 +8,63 @@
 // draw without the walk, the paged draw's front end). Both are one kernel
 // body here, fused_draw_kernel<WALK>: fused_sample is the instance that
 // writes each position and skips the walk, so the two give bit-equal
-// positions under one key.
+// positions under one key. The reference batches by vmapping the launch
+// over its keys (QueryEngine.sample_batch); here a batch is one launch of
+// the same kernel.
 //
 // The kernel runs on the whole card in one cooperative launch
 // (cudaLaunchCooperativeKernel): the grid is the occupancy limit
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count), cut to the
 // blocks the draw's lanes can use. Every stage of the draw is a grid-wide
-// phase; blocks loop over fixed tiles of FD_TILE lanes, and phases are
-// separated by fd_grid_sync, a barrier on one counter in the scratch
-// (cooperative groups' own barrier, written out so that the one set of
-// build flags needs no -rdc). EXPRACE runs eight barriers:
+// phase; blocks loop over work items, and phases are separated by
+// fd_grid_sync, a barrier on one counter in the scratch (cooperative
+// groups' own barrier, written out so that the one set of build flags needs
+// no -rdc). A work item is a (key, tile) pair of FD_TILE lanes, in key-major
+// order, or a (key, lane) pair for the per-root and output phases; a single
+// draw is the batch of one, its key passed by value. EXPRACE runs eight
+// barriers, whatever the batch:
 //   1. Exp(1) gaps from the Threefry uniforms, each tile scanned in the
 //      float32 order of scan.cuh: tile-local prefixes, tile totals, and
 //      the largest prefix of each tile;
-//   2. one block: the tile carries (the chunked scan of the totals), and
-//      the running max of the tiles before each tile;
+//   2. one block a key (blocks loop over keys when there are more keys):
+//      the tile carries (the chunked scan of the totals), and the running
+//      max of the tiles before each tile;
 //   3. arrivals = running max of (carry + prefix), and cell placement;
 //   4. dedupe, segment of each unique arrival, tile scans of the unsigned
 //      and signed counts U and S (gid[i - 1] crosses a tile edge: phase 3
 //      ended with a barrier);
 //   5. U and S plus the sum of the tile totals before them;
-//   6. per-root output and hit prefixes (outE, hitsE) over R + 1 lanes;
+//   6. per-root output and hit prefixes (outE, hitsE) over B x (R + 1)
+//      lanes;
 //   7. the complement's carry-forward values, tile running max;
 //   8. that max plus the max of the tiles before;
-//   9. output slots, then (WALK) the walk of each output lane.
+//   9. output slots, then (WALK) the walk of each output lane; lane 0 of a
+//      key writes its count and overflow.
 // Flat PTBERN is two barriers: a tile count scan, the carries, compaction.
-// Scratch is one allocation of fused_draw_scratch_words int32 words; the
-// barrier counter in it is zeroed by one 4-byte memset before the launch.
-// If the cooperative launch is refused, the launch function returns the
-// error; nothing falls back to a smaller grid.
+// Scratch is one allocation of fused_draw_scratch_words int32 words: a slab
+// of the same layout for each key (offsets in 64 bits), then the barrier
+// counter, zeroed by one 4-byte memset before the launch. If the
+// cooperative launch is refused, the launch function returns the error;
+// nothing falls back to a smaller grid or to one launch a key.
 //
 // Bound on the card: the draw reads a few parameter vectors and writes cap
-// lanes, so its bytes and operations bound is microseconds; what it takes
-// is latency: eight barriers, and per output lane several dependent binary
-// searches and (WALK) a tree walk.
+// lanes a key, so its bytes and operations bound is microseconds; what it
+// takes is latency: eight barriers, and per output lane several dependent
+// binary searches and (WALK) a tree walk. A batch pays the barriers and the
+// launch once for B keys.
 //
 // The float32 arrival sum is the only order-sensitive step. Its order is
 // scan.cuh's at FD_THREADS x FD_ITEMS, which the plain version repeats
-// (prefix_sum.py scan_order_f32, called by fused_draw.py arrivals); it does
-// not depend on the grid. Built with -fmad=false and explicit
-// round-to-nearest operations, so the kernel and the plain version agree
-// bit for bit on the card. That order is not monotone: at a thread or tile
-// boundary an element's sum is rounded along another path than its
-// predecessor's, and after a tiny gap it can land an ulp below it. Arrivals
-// must ascend (a dip places two arrivals' cells out of order), so a running
-// max follows the sum; max and the integer scans are exact in any order.
+// (prefix_sum.py scan_order, called by fused_draw.py arrivals); it depends
+// on the tile and never on the grid or the batch, and no work item mixes
+// two keys, so lane b of a batch is bit-equal to a single launch under
+// keys[b]. Built with -fmad=false and explicit round-to-nearest operations,
+// so the kernel and the plain version agree bit for bit on the card. That
+// order is not monotone: at a thread or tile boundary an element's sum is
+// rounded along another path than its predecessor's, and after a tiny gap
+// it can land an ulp below it. Arrivals must ascend (a dip places two
+// arrivals' cells out of order), so a running max follows the sum; max and
+// the integer scans are exact in any order.
 #include <climits>
 #include <cstdint>
 
@@ -73,7 +85,7 @@ static inline __host__ __device__ int fd_tiles(int lanes) {
   return (lanes + FD_TILE - 1) / FD_TILE;
 }
 
-// Device-memory scratch, carved from one int32 allocation.
+// One key's device-memory scratch (a slab), carved from the int32 words.
 struct FdScratch {
   float* v;     // arrivals (lanes)
   int* gid;     // cells (lanes); flat PTBERN's running count
@@ -90,10 +102,15 @@ struct FdScratch {
   int* totU;    //   U total (flat PTBERN: count total),
   int* totS;    //   S total,
   int* gmax;    //   gc max
-  unsigned* bar;  // grid barrier counter, zero at launch
 };
 
-static FdScratch fd_carve(int* w, int lanes, int R) {
+// int32 words of one key's slab.
+static inline __host__ __device__ long long fd_slab_words(int lanes, int R) {
+  return 6LL * lanes + 2LL * (R + 1) + 7LL * fd_tiles(lanes);
+}
+
+static inline __host__ __device__ FdScratch fd_carve(int* w, int lanes,
+                                                     int R) {
   const int nt = fd_tiles(lanes);
   FdScratch s;
   s.v = reinterpret_cast<float*>(w);
@@ -125,13 +142,12 @@ static FdScratch fd_carve(int* w, int lanes, int R) {
   s.totS = w;
   w += nt;
   s.gmax = w;
-  w += nt;
-  s.bar = reinterpret_cast<unsigned*>(w);
   return s;
 }
 
-extern "C" long long fused_draw_scratch_words(int lanes, int R) {
-  return 6LL * lanes + 2LL * (R + 1) + 7LL * fd_tiles(lanes) + 1;
+// The batch's slabs, then the barrier counter.
+extern "C" long long fused_draw_scratch_words(int lanes, int R, int batch) {
+  return (long long)batch * fd_slab_words(lanes, R) + 1;
 }
 
 struct FdArgs {
@@ -144,14 +160,31 @@ struct FdArgs {
   const int* cwE;
   const int* offE;
   const float* p32;
-  int* rows;
-  int* positions;
-  int* scalars;
+  const uint32_t* keys;  // (batch, 2) words, or null: the one key k0, k1
+  int* rows;             // (batch, slots, cap)
+  int* positions;        // (batch, cap)
+  int* scalars;          // (batch, 2): count, overflow
   unsigned long long* stamps;  // phase clock (fd_stamp), or null
-  FdScratch s;
+  int* scratch;
+  long long slab;  // int32 words a key
+  unsigned* bar;   // grid barrier counter, zero at launch
   uint32_t k0, k1;
-  int method, R, lanes, cap;
+  int method, batch, R, lanes, cap;
 };
+
+// Key b's scratch.
+__device__ __forceinline__ FdScratch fd_slab(const FdArgs& a, int b) {
+  return fd_carve(a.scratch + (long long)b * a.slab, a.lanes, a.R);
+}
+
+// Subkey of `stream` for key b.
+__device__ __forceinline__ void fd_fold(const FdArgs& a, int b,
+                                        uint32_t stream, uint32_t& s0,
+                                        uint32_t& s1) {
+  const uint32_t k0 = a.keys ? a.keys[2 * b] : a.k0;
+  const uint32_t k1 = a.keys ? a.keys[2 * b + 1] : a.k1;
+  rt_fold(k0, k1, stream, s0, s1);
+}
 
 // #elements of the ascending vec[0, L) that are <= q (branchless descent).
 // No __restrict__: several searched vectors are written by earlier phases of
@@ -249,6 +282,12 @@ __device__ __forceinline__ void fd_put(T* x, long long base, int lanes,
   }
 }
 
+// Work item w of a tile phase: key b, tile t.
+__device__ __forceinline__ void fd_item(long long w, int nt, int& b, int& t) {
+  b = (int)(w / nt);
+  t = (int)(w - (long long)b * nt);
+}
+
 // Tile loads of the phases.
 struct LoadGap {  // Exp(1) gap of stream 0's uniform
   static constexpr bool kVec = false;
@@ -275,16 +314,20 @@ struct LoadTileMax {  // the largest running sum of tile t
 };
 struct LoadGc {  // the complement's carry-forward value of a unique arrival
   static constexpr bool kVec = false;
-  const FdArgs* a;
+  const int* gid;
+  const int* seg;
+  const int* U;
+  const int* hitsE;
+  const int* prefE32;
+  const int* offE;
   int n32;
   __device__ int operator()(long long i) const {
-    const FdScratch& s = a->s;
-    const int g = s.gid[i];
-    const int prev = i > 0 ? s.gid[i - 1] : -1;
+    const int g = gid[i];
+    const int prev = i > 0 ? gid[i - 1] : -1;
     if (g >= n32 || g == prev) return -(1 << 30);
-    const int sg = s.seg[i];
-    const int lrank = (s.U[i] - 1) - s.hitsE[sg];
-    return (g - a->prefE32[sg]) - lrank + a->offE[sg];
+    const int sg = seg[i];
+    const int lrank = (U[i] - 1) - hitsE[sg];
+    return (g - prefE32[sg]) - lrank + offE[sg];
   }
 };
 struct LoadTrial {  // flat PTBERN: stream 1's trial of flat position i
@@ -299,60 +342,73 @@ struct LoadTrial {  // flat PTBERN: stream 1's trial of flat position i
   }
 };
 
-// Output lane tt: its position, then (WALK) the walk of that position.
+// Output lane tt of key b: its position, then (WALK) the walk of that
+// position.
 template <bool WALK>
 __device__ __forceinline__ void fd_emit(const FdArgs& a, const RtLayout& L,
-                                        int tt, int p_out, int n32) {
-  a.positions[tt] = p_out;
+                                        int b, int tt, int p_out, int n32) {
+  a.positions[(long long)b * a.cap + tt] = p_out;
   if (!WALK) return;
   int rws[RT_MAX_SLOTS];
   rt_tree_walk(a.arena, L, min(p_out, n32 - 1), rws);
-  for (int s = 0; s <= L.num_edges; ++s)
-    a.rows[(long long)s * a.cap + tt] = rws[s];
+  int* rows = a.rows + (long long)b * (L.num_edges + 1) * a.cap + tt;
+  for (int s = 0; s <= L.num_edges; ++s) rows[(long long)s * a.cap] = rws[s];
 }
 
-// Flat PTBERN over n = prefE32[R] lanes: one trial per flat position, a
-// running count C, and lane tt = the first flat position with C == tt + 1.
+// Flat PTBERN over n = prefE32[R] lanes a key: one trial per flat position,
+// a running count C, and lane tt = the first flat position with C == tt + 1.
 template <bool WALK>
 __device__ void fd_ptbern(const FdArgs& a, const RtLayout& L, int* smi,
                           int* shi) {
-  const FdScratch& s = a.s;
   const int tid = threadIdx.x, n = a.lanes, nt = fd_tiles(n);
   const int n32 = a.prefE32[a.R];
-  uint32_t s0, s1;
-  rt_fold(a.k0, a.k1, 1u, s0, s1);
-  int* C = s.gid;
+  const long long items = (long long)a.batch * nt;
   fd_stamp(a.stamps, 0);
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  int kb = -1;
+  uint32_t s0 = 0, s1 = 0;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    if (b != kb) {
+      fd_fold(a, b, 1u, s0, s1);
+      kb = b;
+    }
+    const FdScratch s = fd_slab(a, b);
     const long long base = (long long)t * FD_TILE;
     int pre[FD_ITEMS];
     const int total = sc_tile<FD_THREADS, FD_ITEMS>(
         LoadTrial{s0, s1, a.prefE32, a.p32, a.R}, base, n, 0, AddI(), smi,
         shi, pre);
-    fd_put(C, base, n, pre);
+    fd_put(s.gid, base, n, pre);
     if (tid == 0) s.totU[t] = total;
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 1);
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    const FdScratch s = fd_slab(a, b);
     const int carry = fd_before(s.totU, t, 0, AddI(), shi);
     for (int k = 0; k < FD_ITEMS; ++k) {
       const long long i = (long long)t * FD_TILE + k * FD_THREADS + tid;
-      if (i < n) C[i] += carry;
+      if (i < n) s.gid[i] += carry;
     }
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 2);
-  const int total = C[n - 1];
-  const int count = min(total, a.cap);
-  for (int tt = blockIdx.x * FD_THREADS + tid; tt < a.cap;
-       tt += gridDim.x * FD_THREADS) {
+  const long long lanes = (long long)a.batch * a.cap;
+  for (long long g = (long long)blockIdx.x * FD_THREADS + tid; g < lanes;
+       g += (long long)gridDim.x * FD_THREADS) {
+    const int b = (int)(g / a.cap), tt = (int)(g - (long long)b * a.cap);
+    const int* C = fd_slab(a, b).gid;
+    const int total = C[n - 1];
+    const int count = min(total, a.cap);
     const int pos = min(fd_count_le(C, n, tt), n - 1);
-    fd_emit<WALK>(a, L, tt, tt < count ? pos : n32, n32);
-  }
-  if (blockIdx.x == 0 && tid == 0) {
-    a.scalars[0] = count;
-    a.scalars[1] = total > a.cap ? 1 : 0;
+    fd_emit<WALK>(a, L, b, tt, tt < count ? pos : n32, n32);
+    if (tt == 0) {
+      a.scalars[2 * b] = count;
+      a.scalars[2 * b + 1] = total > a.cap ? 1 : 0;
+    }
   }
   fd_stamp_end(a.stamps, 3);
 }
@@ -371,19 +427,26 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
     fd_ptbern<WALK>(a, L, smi, shi);
     return;
   }
-  const FdScratch& s = a.s;
   const int tid = threadIdx.x, acap = a.lanes, R = a.R, nt = fd_tiles(acap);
-  const int gthread = blockIdx.x * FD_THREADS + tid;
-  const int gstride = gridDim.x * FD_THREADS;
+  const long long items = (long long)a.batch * nt;
+  const long long gthread = (long long)blockIdx.x * FD_THREADS + tid;
+  const long long gstride = (long long)gridDim.x * FD_THREADS;
   const int n32 = a.prefE32[R];
   const float Lam = a.massE[R];
 
   // 1. Arrivals: Exp(1) gaps, summed — a unit-rate Poisson process on
   // [0, Lam). Tile-local prefixes first.
-  uint32_t s0, s1;
-  rt_fold(a.k0, a.k1, 0u, s0, s1);
   fd_stamp(a.stamps, 0);
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  int kb = -1;
+  uint32_t s0 = 0, s1 = 0;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    if (b != kb) {
+      fd_fold(a, b, 0u, s0, s1);
+      kb = b;
+    }
+    const FdScratch s = fd_slab(a, b);
     const long long base = (long long)t * FD_TILE;
     float pre[FD_ITEMS];
     const float total = sc_tile<FD_THREADS, FD_ITEMS>(
@@ -399,25 +462,30 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
       s.pmax[t] = m;
     }
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 1);
 
-  // 2. One block: the tile carries, then the running max before each tile
-  // (round-to-nearest is monotone, so carry + the largest local prefix is
-  // the tile's largest running sum).
-  if (blockIdx.x == 0) {
+  // 2. One block a key: the tile carries, then the running max before each
+  // tile (round-to-nearest is monotone, so carry + the largest local prefix
+  // is the tile's largest running sum).
+  for (int b = blockIdx.x; b < a.batch; b += gridDim.x) {
+    const FdScratch s = fd_slab(a, b);
     sc_carries<FD_THREADS, FD_ITEMS>(LoadPtr<float>{s.tot}, nt, 0.0f, AddF(),
                                      s.carry, smf, shf);
     __syncthreads();
     sc_carries<FD_THREADS, FD_ITEMS>(LoadTileMax{s.carry, s.pmax}, nt,
                                      -CUDART_INF_F, MaxF(), s.cmax, smf, shf);
+    __syncthreads();
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 2);
 
   // 3. Arrivals = running max of the running sum; cell placement: inverse
   // CDF into the mass prefix.
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    const FdScratch s = fd_slab(a, b);
     const long long base = (long long)t * FD_TILE;
     const float cm = s.cmax[t];
     float pre[FD_ITEMS];
@@ -437,13 +505,16 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
       s.gid[idx] = vi < Lam ? a.prefE32[r] + cell : n32;
     }
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 3);
 
   // 4. Dedupe (>= 1 arrival in a cell is one success or failure), segment
   // of each unique arrival in the root prefix, tile scans of the unsigned
   // and signed counts.
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    const FdScratch s = fd_slab(a, b);
     const long long base = (long long)t * FD_TILE;
 #pragma unroll
     for (int k = 0; k < FD_ITEMS; ++k) {
@@ -470,11 +541,14 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
       s.totS[t] = ts;
     }
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 4);
 
   // 5. The counts of the tiles before each tile.
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    const FdScratch s = fd_slab(a, b);
     const int cu = fd_before(s.totU, t, 0, AddI(), shi);
     const int cs = fd_before(s.totS, t, 0, AddI(), shi);
 #pragma unroll
@@ -486,33 +560,42 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
       }
     }
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 5);
 
   // 6. Per-root output prefix (outE) and hit prefix (hitsE) via boundary
-  // counts.
-  for (int j = gthread; j <= R; j += gstride) {
+  // counts, over the batch's B x (R + 1) root lanes.
+  const long long roots = (long long)a.batch * (R + 1);
+  for (long long g = gthread; g < roots; g += gstride) {
+    const int b = (int)(g / (R + 1)), j = (int)(g - (long long)b * (R + 1));
+    const FdScratch s = fd_slab(a, b);
     const int B = fd_count_le(s.gid, acap, a.prefE32[j] - 1);
     s.outE[j] = a.cwE[j] + (B > 0 ? s.S[B - 1] : 0);
     s.hitsE[j] = B > 0 ? s.U[B - 1] : 0;
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 6);
 
   // 7-8. Complement support: carry-forward g-values, kept ascending by a
   // running max (tile by tile, then the tiles before).
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    const FdScratch s = fd_slab(a, b);
     const long long base = (long long)t * FD_TILE;
     int pre[FD_ITEMS];
-    const int gm = sc_tile<FD_THREADS, FD_ITEMS>(LoadGc{&a, n32}, base, acap,
-                                                 INT_MIN, MaxI(), smi, shi,
-                                                 pre);
+    const int gm = sc_tile<FD_THREADS, FD_ITEMS>(
+        LoadGc{s.gid, s.seg, s.U, s.hitsE, a.prefE32, a.offE, n32}, base,
+        acap, INT_MIN, MaxI(), smi, shi, pre);
     fd_put(s.gc, base, acap, pre);
     if (tid == 0) s.gmax[t] = gm;
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 7);
-  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    int b, t;
+    fd_item(w, nt, b, t);
+    const FdScratch s = fd_slab(a, b);
     const int m = fd_before(s.gmax, t, INT_MIN, MaxI(), shi);
 #pragma unroll
     for (int k = 0; k < FD_ITEMS; ++k) {
@@ -520,14 +603,18 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
       if (i < acap) s.gc[i] = max(s.gc[i], m);
     }
   }
-  fd_grid_sync(s.bar);
+  fd_grid_sync(a.bar);
   fd_stamp(a.stamps, 8);
 
-  // 9. Output slots (gather-only compaction), then the walk of each
-  // position.
-  const int K = s.outE[R];
-  const int count = min(K, a.cap);
-  for (int tt = gthread; tt < a.cap; tt += gstride) {
+  // 9. Output slots (gather-only compaction) over the batch's B x cap
+  // lanes, then the walk of each position; lane 0 of a key writes its count
+  // and overflow.
+  const long long lanes = (long long)a.batch * a.cap;
+  for (long long g = gthread; g < lanes; g += gstride) {
+    const int b = (int)(g / a.cap), tt = (int)(g - (long long)b * a.cap);
+    const FdScratch s = fd_slab(a, b);
+    const int K = s.outE[R];
+    const int count = min(K, a.cap);
     const int rO = min(max(fd_count_le(s.outE, R + 1, tt) - 1, 0), R - 1);
     const int l = tt - s.outE[rO];
     const int wm1 = max(a.w32[rO] - 1, 0);
@@ -539,20 +626,21 @@ __global__ void __launch_bounds__(FD_THREADS) fused_draw_kernel(
     const int comp_pos = l + min(max(c, 0), wm1 - l + 1);
     const int local_out = a.sign[rO] < 0 ? comp_pos : direct_local;
     const int pos = a.prefE32[rO] + min(max(local_out, 0), wm1);
-    fd_emit<WALK>(a, L, tt, tt < count ? pos : n32, n32);
-  }
-  if (blockIdx.x == 0 && tid == 0) {
-    a.scalars[0] = count;
-    a.scalars[1] = (s.v[acap - 1] < Lam || K > a.cap) ? 1 : 0;
+    fd_emit<WALK>(a, L, b, tt, tt < count ? pos : n32, n32);
+    if (tt == 0) {
+      a.scalars[2 * b] = count;
+      a.scalars[2 * b + 1] = (s.v[acap - 1] < Lam || K > a.cap) ? 1 : 0;
+    }
   }
   fd_stamp_end(a.stamps, 9);
 }
 
 // The grid of one launch: the occupancy limit (blocks a multiprocessor
 // holds x multiprocessors, asked once per instance), cut to the blocks the
-// lanes can use (the tiles, the output lanes, the R + 1 root lanes).
+// batch's lanes can use (its tiles, its output lanes, its root lanes).
 template <bool WALK>
-static cudaError_t fd_grid(int lanes, int cap, int R, int grid[3]) {
+static cudaError_t fd_grid(int lanes, int cap, int R, int batch,
+                           int grid[3]) {
   static int per_sm = 0, sms = 0;
   if (per_sm == 0) {
     int dev = 0;
@@ -568,21 +656,24 @@ static cudaError_t fd_grid(int lanes, int cap, int R, int grid[3]) {
     }
     if (per_sm == 0) return cudaErrorCooperativeLaunchTooLarge;
   }
-  const int wide = max(cap, R + 1);
-  const int need = max(fd_tiles(lanes), (wide + FD_THREADS - 1) / FD_THREADS);
+  const long long wide = (long long)batch * (cap > R + 1 ? cap : R + 1);
+  const long long tiles = (long long)batch * fd_tiles(lanes);
+  const long long rows = (wide + FD_THREADS - 1) / FD_THREADS;
+  const long long need = tiles > rows ? tiles : rows;
+  const long long most = (long long)per_sm * sms;
   grid[0] = per_sm;
   grid[1] = sms;
-  grid[2] = min(per_sm * sms, max(need, 1));
+  grid[2] = (int)(need < 1 ? 1 : need > most ? most : need);
   return cudaSuccess;
 }
 
 template <bool WALK>
 static int fd_launch(const FdArgs& a, const RtLayout& L, void* stream) {
   int grid[3];
-  cudaError_t e = fd_grid<WALK>(a.lanes, a.cap, a.R, grid);
+  cudaError_t e = fd_grid<WALK>(a.lanes, a.cap, a.R, a.batch, grid);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  e = cudaMemsetAsync(a.s.bar, 0, sizeof(unsigned), s);
+  e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return (int)e;
   void* params[] = {const_cast<FdArgs*>(&a), const_cast<RtLayout*>(&L)};
   e = cudaLaunchCooperativeKernel(
@@ -594,13 +685,14 @@ static int fd_launch(const FdArgs& a, const RtLayout& L, void* stream) {
 
 // Blocks a multiprocessor holds, multiprocessors, and the grid of a launch
 // at these sizes (walk: the fused_draw instance, else fused_sample's).
-extern "C" int fused_draw_grid(int walk, int lanes, int cap, int R,
+extern "C" int fused_draw_grid(int walk, int lanes, int cap, int R, int batch,
                                int* out) {
-  return (int)(walk ? fd_grid<true>(lanes, cap, R, out)
-                    : fd_grid<false>(lanes, cap, R, out));
+  return (int)(walk ? fd_grid<true>(lanes, cap, R, batch, out)
+                    : fd_grid<false>(lanes, cap, R, batch, out));
 }
 
-static FdArgs fd_args(const int* arena, unsigned k0, unsigned k1, int method,
+static FdArgs fd_args(const int* arena, const unsigned* keys, int batch,
+                      unsigned k0, unsigned k1, int method,
                       const float* massE, const float* lam, const int* sign,
                       const int* w32, const int* prefE32, const int* cwE,
                       const int* offE, const float* p32, int R, int lanes,
@@ -616,48 +708,57 @@ static FdArgs fd_args(const int* arena, unsigned k0, unsigned k1, int method,
   a.cwE = cwE;
   a.offE = offE;
   a.p32 = p32;
+  a.keys = keys;
   a.rows = rows;
   a.positions = positions;
   a.scalars = scalars;
   a.stamps = stamps;
-  a.s = fd_carve(scratch, lanes, R);
+  a.scratch = scratch;
+  a.slab = fd_slab_words(lanes, R);
+  a.bar = reinterpret_cast<unsigned*>(scratch + (long long)batch * a.slab);
   a.k0 = k0;
   a.k1 = k1;
   a.method = method;
+  a.batch = batch;
   a.R = R;
   a.lanes = lanes;
   a.cap = cap;
   return a;
 }
 
-// `lanes` is acap for EXPRACE and the join size n for flat PTBERN; scratch
-// holds fused_draw_scratch_words(lanes, R) int32 words. stamps: null, or
-// 10 zeroed words (EXPRACE; 4 for flat PTBERN) for the phase clock.
+// keys: null for one key given as k0, k1 (batch 1), else `batch` keys as
+// (batch, 2) uint32 words on the device. `lanes` is acap for EXPRACE and
+// the join size n for flat PTBERN; scratch holds
+// fused_draw_scratch_words(lanes, R, batch) int32 words. rows, positions
+// and scalars are (batch, slots, cap), (batch, cap) and (batch, 2). stamps:
+// null, or 10 zeroed words (EXPRACE; 4 for flat PTBERN) for the phase
+// clock.
 extern "C" int fused_draw_launch(
-    const int* arena, const int* table, unsigned k0, unsigned k1, int method,
-    const float* massE, const float* lam, const int* sign, const int* w32,
-    const int* prefE32, const int* cwE, const int* offE, const float* p32,
-    int R, int lanes, int cap, int* rows, int* positions, int* scalars,
-    int* scratch, unsigned long long* stamps, void* stream) {
+    const int* arena, const int* table, const unsigned* keys, int batch,
+    unsigned k0, unsigned k1, int method, const float* massE,
+    const float* lam, const int* sign, const int* w32, const int* prefE32,
+    const int* cwE, const int* offE, const float* p32, int R, int lanes,
+    int cap, int* rows, int* positions, int* scalars, int* scratch,
+    unsigned long long* stamps, void* stream) {
   const RtLayout L = rt_layout_from_table(table);
-  const FdArgs a = fd_args(arena, k0, k1, method, massE, lam, sign, w32,
-                           prefE32, cwE, offE, p32, R, lanes, cap, rows,
-                           positions, scalars, scratch, stamps);
+  const FdArgs a = fd_args(arena, keys, batch, k0, k1, method, massE, lam,
+                           sign, w32, prefE32, cwE, offE, p32, R, lanes, cap,
+                           rows, positions, scalars, scratch, stamps);
   return fd_launch<true>(a, L, stream);
 }
 
 // The draw without the walk: positions, count and overflow only. The
 // kernel reads no arena and no layout.
 extern "C" int fused_sample_launch(
-    unsigned k0, unsigned k1, int method, const float* massE,
-    const float* lam, const int* sign, const int* w32, const int* prefE32,
-    const int* cwE, const int* offE, const float* p32, int R, int lanes,
-    int cap, int* positions, int* scalars, int* scratch,
+    const unsigned* keys, int batch, unsigned k0, unsigned k1, int method,
+    const float* massE, const float* lam, const int* sign, const int* w32,
+    const int* prefE32, const int* cwE, const int* offE, const float* p32,
+    int R, int lanes, int cap, int* positions, int* scalars, int* scratch,
     unsigned long long* stamps, void* stream) {
   RtLayout L = {};
-  const FdArgs a = fd_args(nullptr, k0, k1, method, massE, lam, sign, w32,
-                           prefE32, cwE, offE, p32, R, lanes, cap, nullptr,
-                           positions, scalars, scratch, stamps);
+  const FdArgs a = fd_args(nullptr, keys, batch, k0, k1, method, massE, lam,
+                           sign, w32, prefE32, cwE, offE, p32, R, lanes, cap,
+                           nullptr, positions, scalars, scratch, stamps);
   return fd_launch<false>(a, L, stream);
 }
 

@@ -1,7 +1,8 @@
 // Inclusive prefix sums and fused GEO positions.
 //
 // Replaces two TPU kernels of src/repro/kernels/:
-//   prefix_sum.py prefix_sum_tiles -> scan_i32_launch, scan_f32_launch;
+//   prefix_sum.py prefix_sum_tiles -> scan_i32_launch, scan_f32_launch,
+//                                     scan_f64_launch;
 //   geo_gaps.py   geo_gaps_tiles   -> geo_gaps_launch.
 // The TPU kernels carry the running total from one grid step to the next in
 // an SMEM scalar. Hopper blocks run in no order, so the carry crosses blocks
@@ -45,17 +46,18 @@
 // a small scan still spreads over every SM. The choice depends on n and the
 // card alone (lb_tile) and changes no sum.
 //
-// float32: three passes in a fixed order (scan.cuh): every block reduces
-// its tile of SC_TILE elements to one total; one block scans the totals
-// into carries; every block scans its tile again and adds its carry. A
-// look-back sums in an order that changes from run to run, so it could not
-// be held bit for bit against a plain version; float32 keeps this order,
-// which prefix_sum.py scan_order_f32 repeats.
+// float32 and float64: three passes in a fixed order (scan.cuh): every
+// block reduces its tile of SC_TILE elements to one total; one block scans
+// the totals into carries; every block scans its tile again and adds its
+// carry. A look-back sums in an order that changes from run to run, so it
+// could not be held bit for bit against a plain version, and a sum that
+// feeds a draw would give one key two samples; the floats keep this order,
+// which prefix_sum.py scan_order repeats.
 //
 // Bound on the card: bytes. Each element is read once and written once
-// (8 bytes for int32 and float32, 8 for a GEO lane: its uniform and its
-// position). The look-back reaches that; the float32 passes read the
-// input twice (12 bytes an element).
+// (8 bytes for int32 and float32, 16 for float64, 8 for a GEO lane: its
+// uniform and its position). The look-back reaches that; the float passes
+// read the input twice (12 bytes an element in float32, 24 in float64).
 //
 // GEO keeps the reference's divide (geo_gaps.py:31-34): floor() turns a
 // last-ulp difference of a reciprocal multiply into an off-by-one position.
@@ -400,22 +402,37 @@ extern "C" int geo_gaps_launch(const float* u, float p_clipped, int* out,
   return lb_launch(load, n, MinusOne(), out, words, capacity, state, stream);
 }
 
-// totals and carries: scratch of ceil(n / SC_TILE) floats each.
-extern "C" int scan_f32_launch(const float* x, float* out, long long n,
-                               float* totals, float* carries, void* stream) {
+// The three passes over n elements; totals and carries: scratch of
+// ceil(n / SC_TILE) elements each.
+template <typename T, class Op>
+static int sc_three_pass(const T* x, T* out, long long n, T* totals,
+                         T* carries, Op op, void* stream) {
   if (n == 0) return (int)cudaGetLastError();
   const long long ntiles = (n + SC_TILE - 1) / SC_TILE;
   cudaStream_t s = (cudaStream_t)stream;
-  const LoadPtr<float> load{x};
-  sc_totals_kernel<float><<<(unsigned)ntiles, SC_THREADS, 0, s>>>(
-      load, n, 0.0f, AddF(), totals);
+  const LoadPtr<T> load{x};
+  sc_totals_kernel<T><<<(unsigned)ntiles, SC_THREADS, 0, s>>>(
+      load, n, T(0), op, totals);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  sc_carries_kernel<float><<<1, SC_THREADS, 0, s>>>(totals, (int)ntiles, 0.0f,
-                                                    AddF(), carries);
+  sc_carries_kernel<T><<<1, SC_THREADS, 0, s>>>(totals, (int)ntiles, T(0), op,
+                                                carries);
   err = (int)cudaGetLastError();
   if (err) return err;
-  sc_scan_kernel<float><<<(unsigned)ntiles, SC_THREADS, 0, s>>>(
-      load, n, 0.0f, AddF(), carries, out);
+  sc_scan_kernel<T><<<(unsigned)ntiles, SC_THREADS, 0, s>>>(load, n, T(0), op,
+                                                            carries, out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int scan_f32_launch(const float* x, float* out, long long n,
+                               float* totals, float* carries, void* stream) {
+  return sc_three_pass(x, out, n, totals, carries, AddF(), stream);
+}
+
+// The float64 instance: the engine's mass prefixes (sampling.py), which a
+// look-back would sum in a run-dependent order.
+extern "C" int scan_f64_launch(const double* x, double* out, long long n,
+                               double* totals, double* carries,
+                               void* stream) {
+  return sc_three_pass(x, out, n, totals, carries, AddD(), stream);
 }

@@ -5,9 +5,9 @@
 // them in sequence; the thread totals are scanned across the block; an
 // element is (exclusive thread prefix) op (its local prefix).
 //
-// The float32 sum is order-sensitive, so its order is fixed and repeated by
-// the plain version (prefix_sum.py scan_order_f32, which both plain versions
-// call): the thread totals are scanned Hillis-Steele in shared memory
+// The float32 and float64 sums are order-sensitive, so their order is fixed
+// and repeated by the plain version (prefix_sum.py scan_order, which every
+// plain version calls): the thread totals are scanned Hillis-Steele in shared memory
 // (distance 1, 2, 4, ...), thread 0 takes its local prefixes as they are,
 // and across tiles the carries are the same tile function run over the tile
 // totals in chunks of one tile, the carry chained from chunk to chunk
@@ -39,6 +39,12 @@ struct AddI {
 struct AddF {
   static constexpr bool kExact = false;
   __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
+};
+struct AddD {
+  static constexpr bool kExact = false;
+  __device__ double operator()(double a, double b) const {
+    return __dadd_rn(a, b);
+  }
 };
 struct MaxF {
   static constexpr bool kExact = true;

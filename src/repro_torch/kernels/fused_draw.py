@@ -5,8 +5,12 @@ over the whole card) for CUDA tensors; for CPU tensors it runs
 ``fused_draw_plain``: ``draw_core`` (the sort-free EXPRACE) plus
 ``tree_walk``. ``fused_sample`` is the same launch without the walk (the
 paged draw's front end; its plain version is ``draw_core``): one kernel
-body serves both, so their positions are bit-equal under one key. Each
-wrapper's ``launches`` counts its kernel launches.
+body serves both, so their positions are bit-equal under one key.
+``fused_draw_batch`` and ``fused_sample_batch`` run the same kernel for B
+keys in one launch (the reference vmaps its launch over the keys); no
+step mixes two keys, so lane b is bit-equal to the single launch under
+key b, and their plain versions are the single plain versions per key.
+Each wrapper's ``launches`` counts its kernel launches.
 
 EXPRACE, sort-free: iid Exp(1) gaps are prefix-summed, so the running sum
 is a unit-rate Poisson process on [0, Lam) and arrivals come out already
@@ -16,7 +20,7 @@ searches (``_count_le``) over sorted vectors. The stages mirror the
 reference's ``_exprace_core`` step for step.
 
 The float32 arrival sum is the one order-sensitive step. Its order is
-``prefix_sum.scan_order_f32`` at tiles of ``THREADS * ITEMS`` (a thread's
+``prefix_sum.scan_order`` at tiles of ``THREADS * ITEMS`` (a thread's
 items in sequence; thread totals Hillis-Steele; tile carries the same
 scan over the tile totals), fixed constants that do not depend on the
 kernel's grid, so the kernel and the plain version agree bit for bit on
@@ -33,15 +37,18 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import threefry
-from .prefix_sum import scan_order_f32
+from .prefix_sum import scan_order
 from .tree_probe import layout_table, tree_walk
 
 __all__ = ["PARAM_ORDER", "THREADS", "ITEMS", "draw_core", "arrivals",
            "fused_draw_plain", "fused_draw", "fused_sample_plain",
-           "fused_sample", "grid", "PHASES", "phase_ms"]
+           "fused_sample", "fused_draw_batch_plain", "fused_draw_batch",
+           "fused_sample_batch_plain", "fused_sample_batch", "grid", "PHASES",
+           "phase_ms"]
 
 I32 = torch.int32
 F32 = torch.float32
@@ -74,7 +81,7 @@ def arrivals(key, acap: int, device) -> torch.Tensor:
     any order."""
     u = threefry.uniforms_plain(key, acap, stream=0, device=device)
     gaps = -torch.log1p(-u)
-    return torch.cummax(scan_order_f32(gaps, THREADS, ITEMS), 0).values
+    return torch.cummax(scan_order(gaps, THREADS, ITEMS), 0).values
 
 
 def _exprace_core(key, params, acap: int, cap: int):
@@ -183,6 +190,24 @@ def fused_draw_plain(arena, key, params, *, layout, method: str, cap: int,
     return rows, positions, count, overflow
 
 
+def fused_draw_batch_plain(arena, keys, params, *, layout, method: str,
+                           cap: int, acap: int = 0, n: int = 0):
+    """``fused_draw_plain`` under each key, stacked: the batched kernel's
+    plain version."""
+    out = [fused_draw_plain(arena, k, params, layout=layout, method=method,
+                            cap=cap, acap=acap, n=n)
+           for k in threefry.key_batch(keys)]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+def fused_sample_batch_plain(keys, params, *, method: str, cap: int,
+                             acap: int = 0, n: int = 0):
+    """``draw_core`` under each key, stacked."""
+    out = [draw_core(k, params, method=method, cap=cap, acap=acap, n=n)
+           for k in threefry.key_batch(keys)]
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
 _METHODS = {"exprace": 0, "ptbern_flat": 1}  # FD_EXPRACE / FD_PTBERN
 _ENTRIES = {}
 
@@ -196,12 +221,12 @@ def _entry(name: str):
 
         fn = getattr(build.library("fused_draw"), name)
         vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        draw = ([u32, u32, i32] + [vp] * 8 + [i32] * 3)
+        draw = [vp, i32, u32, u32, i32] + [vp] * 8 + [i32] * 3
         fn.argtypes = {
             "fused_draw_launch": [vp, vp] + draw + [vp] * 6,
             "fused_sample_launch": draw + [vp] * 5,
-            "fused_draw_scratch_words": [i32, i32],
-            "fused_draw_grid": [i32] * 4 + [vp],
+            "fused_draw_scratch_words": [i32] * 3,
+            "fused_draw_grid": [i32] * 5 + [vp],
         }[name]
         fn.restype = (ctypes.c_longlong if name == "fused_draw_scratch_words"
                       else ctypes.c_int)
@@ -209,26 +234,35 @@ def _entry(name: str):
     return fn
 
 
-def grid(walk: bool, lanes: int, cap: int, R: int):
+def grid(walk: bool, lanes: int, cap: int, R: int, batch: int = 1):
     """``(blocks a multiprocessor holds, multiprocessors, blocks of the
     launch)`` of the cooperative draw at these sizes on the current card
     (``walk``: the ``fused_draw`` instance, else ``fused_sample``'s)."""
     from . import build
 
     out = (ctypes.c_int * 3)()
-    build.check(_entry("fused_draw_grid")(int(walk), lanes, cap, R, out),
-                "fused_draw_grid")
+    build.check(_entry("fused_draw_grid")(int(walk), lanes, cap, R, batch,
+                                          out), "fused_draw_grid")
     return tuple(out)
 
 
+def _device_keys(keys, dev) -> torch.Tensor:
+    """(B, 2) key words as an int32 tensor on ``dev`` (the bits of the
+    uint32 words), copied from the host."""
+    words = threefry.key_batch(keys)
+    return torch.from_numpy(words.view(np.int32)).to(dev)
+
+
 def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
-            acap: int, n: int, stamps=None):
+            acap: int, n: int, keys=None, stamps=None):
     """Launch ``fused_draw_launch`` (with ``arena``) or
     ``fused_sample_launch`` (``arena`` None) on the params' device: one
-    cooperative launch over the card, its scratch one allocation.
-    ``stamps`` (zeroed int64, or None) takes the kernel's phase clock.
-    Returns ``(rows or None, positions, scalars)``; raises if the kernel
-    cannot be built or launched (a refused cooperative launch included)."""
+    cooperative launch over the card for the one ``key``, or for the (B, 2)
+    ``keys`` (``key`` None), its scratch one allocation. ``stamps``
+    (zeroed int64, or None) takes the kernel's phase clock. Returns ``(rows
+    (B, slots, cap) or None, positions (B, cap), scalars (B, 2))``, B = 1
+    for one key; raises if the kernel cannot be built or launched (a
+    refused cooperative launch included)."""
     dev = params["prefE32"].device
     if dev.type != "cuda":
         raise ValueError(f"{entry}: unsupported device {dev}")
@@ -247,22 +281,31 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
 
     fn = _entry(f"{entry}_launch")
     R = ops[3].shape[0]
-    k0, k1 = threefry.key_words(key)
+    if keys is None:
+        batch, kptr = 1, None
+        k0, k1 = threefry.key_words(key)
+    else:
+        kdev = _device_keys(keys, dev)
+        batch, kptr, k0, k1 = kdev.shape[0], kdev.data_ptr(), 0, 0
+        if batch < 1:
+            raise ValueError(f"{entry}: a batch needs at least one key")
     rows = None
     args = []
     if arena is not None:
         if arena.device != dev:
             raise ValueError(f"arena on {arena.device}, params on {dev}")
         table = layout_table(layout)
-        rows = torch.empty((layout.num_slots, cap), dtype=I32, device=dev)
+        rows = torch.empty((batch, layout.num_slots, cap), dtype=I32,
+                           device=dev)
         args = [arena.contiguous().data_ptr(),
                 (ctypes.c_int * len(table))(*table)]
-    positions = torch.empty((cap,), dtype=I32, device=dev)
-    scalars = torch.empty((2,), dtype=I32, device=dev)
-    scratch = torch.empty((_entry("fused_draw_scratch_words")(lanes, R),),
-                          dtype=I32, device=dev)
-    args += [k0, k1, _METHODS[method], *[t.data_ptr() for t in ops], R,
-             lanes, cap]
+    positions = torch.empty((batch, cap), dtype=I32, device=dev)
+    scalars = torch.empty((batch, 2), dtype=I32, device=dev)
+    scratch = torch.empty(
+        (_entry("fused_draw_scratch_words")(lanes, R, batch),),
+        dtype=I32, device=dev)
+    args += [kptr, batch, k0, k1, _METHODS[method],
+             *[t.data_ptr() for t in ops], R, lanes, cap]
     if rows is not None:
         args.append(rows.data_ptr())
     args += [positions.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
@@ -275,7 +318,7 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
 
 # The kernel's phases, in order (csrc/fused_draw.cu), for phase_ms.
 PHASES = {
-    "exprace": ("gaps and tile sums", "tile carries (one block)",
+    "exprace": ("gaps and tile sums", "tile carries (one block a key)",
                 "arrivals and cells", "dedupe and tile counts",
                 "count carries", "root prefixes", "complement tile max",
                 "complement carries", "output slots and walk"),
@@ -285,17 +328,17 @@ PHASES = {
 
 
 def phase_ms(arena, key, params, *, layout=None, method: str, cap: int,
-             acap: int = 0, n: int = 0) -> dict:
+             acap: int = 0, n: int = 0, keys=None) -> dict:
     """Milliseconds of each phase of one launch on the card, by the global
     clock: block 0 reads it at the start and after each grid barrier, and
     the last phase ends when the last block does. ``arena`` None times the
-    ``fused_sample`` instance. A measurement: it is not counted in
-    ``launches``."""
+    ``fused_sample`` instance; ``keys`` (B, 2), with ``key`` None, times
+    the batched launch. A measurement: it is not counted in ``launches``."""
     dev = params["prefE32"].device
     stamps = torch.zeros((len(PHASES[method]) + 1,), dtype=torch.int64,
                          device=dev)
     _launch("fused_sample" if arena is None else "fused_draw", arena, key,
-            params, layout, method, cap, acap, n, stamps=stamps)
+            params, layout, method, cap, acap, n, keys=keys, stamps=stamps)
     t = stamps.cpu().tolist()
     return {name: (b - a) / 1e6
             for name, a, b in zip(PHASES[method], t, t[1:])}
@@ -314,10 +357,29 @@ def fused_draw(arena, key, params, *, layout, method: str, cap: int,
     rows, positions, scalars = _launch("fused_draw", arena, key, params,
                                        layout, method, cap, acap, n)
     fused_draw.launches += 1
-    return rows, positions, scalars[0], scalars[1].to(torch.bool)
+    return rows[0], positions[0], scalars[0, 0], scalars[0, 1].to(torch.bool)
 
 
 fused_draw.launches = 0
+
+
+def fused_draw_batch(arena, keys, params, *, layout, method: str, cap: int,
+                     acap: int = 0, n: int = 0):
+    """``fused_draw`` under B keys in one launch. keys: (B, 2) uint32 words
+    (``threefry.keys``, a numpy array or a tensor). Returns ``(rows (B,
+    num_slots, cap) i32, positions (B, cap) i32, count (B,) i32, overflow
+    (B,) bool)``; lane b equals ``fused_draw`` under ``keys[b]``."""
+    if arena.device.type == "cpu":
+        return fused_draw_batch_plain(arena, keys, params, layout=layout,
+                                      method=method, cap=cap, acap=acap, n=n)
+    rows, positions, scalars = _launch("fused_draw", arena, None, params,
+                                       layout, method, cap, acap, n,
+                                       keys=keys)
+    fused_draw_batch.launches += 1
+    return rows, positions, scalars[:, 0], scalars[:, 1].to(torch.bool)
+
+
+fused_draw_batch.launches = 0
 
 
 def fused_sample_plain(key, params, *, method: str, cap: int, acap: int = 0,
@@ -338,7 +400,24 @@ def fused_sample(key, params, *, method: str, cap: int, acap: int = 0,
     _, positions, scalars = _launch("fused_sample", None, key, params, None,
                                     method, cap, acap, n)
     fused_sample.launches += 1
-    return positions, scalars[0], scalars[1].to(torch.bool)
+    return positions[0], scalars[0, 0], scalars[0, 1].to(torch.bool)
 
 
 fused_sample.launches = 0
+
+
+def fused_sample_batch(keys, params, *, method: str, cap: int, acap: int = 0,
+                       n: int = 0):
+    """``fused_sample`` under B keys in one launch: ``(positions (B, cap)
+    i32, count (B,) i32, overflow (B,) bool)``; lane b equals
+    ``fused_sample`` under ``keys[b]``."""
+    if params["prefE32"].device.type == "cpu":
+        return fused_sample_batch_plain(keys, params, method=method, cap=cap,
+                                        acap=acap, n=n)
+    _, positions, scalars = _launch("fused_sample", None, None, params, None,
+                                    method, cap, acap, n, keys=keys)
+    fused_sample_batch.launches += 1
+    return positions, scalars[:, 0], scalars[:, 1].to(torch.bool)
+
+
+fused_sample_batch.launches = 0

@@ -7,20 +7,23 @@ sequential grid. On the card, int32 takes a single-pass decoupled
 look-back scan (one kernel that reads the input once; its status words
 live in a scratch kept per device and stream, tagged by the launch's
 epoch, so a call needs no reset and no allocation beyond its output);
-float32 takes a reduce-then-scan in three launches
-(tile totals, one block scanning them into carries, the tiles scanned
-again with their carries), so that its order is fixed. Both are described
-in the source.
+float32 and float64 take a reduce-then-scan in three launches (tile
+totals, one block scanning them into carries, the tiles scanned again
+with their carries), so that their order is fixed. Both are described in
+the source.
 
 The kernel masks its own ragged edge, so it takes any shape (the
 reference's ``(R, 128)`` tiles or a flat vector) with no padding.
 
 int32 sums wrap as XLA's int32 cumsum wraps (the kernel adds in uint32;
 the plain version sums in int64 and wraps to 32 bits, which any order
-gives alike). float32 is order-sensitive: ``scan_order_f32`` spells out
-the kernel's order for any tile shape, so the two agree bit for bit on the
-card; the fused draw's arrival sum (``fused_draw.arrivals``) runs the same
-order at its own tile shape.
+gives alike). The floats are order-sensitive: ``scan_order`` spells out
+the kernel's order for any tile shape and either float type, so the two
+agree bit for bit on the card; the fused draw's arrival sum
+(``fused_draw.arrivals``) runs the same order at its own tile shape. The
+float64 instance sums the engine's mass prefixes (``core/sampling.py``): a
+library scan there (``torch.cumsum`` on the card) sums in an order that
+changes from run to run, so one key could draw two samples.
 """
 from __future__ import annotations
 
@@ -34,11 +37,11 @@ from . import build
 
 __all__ = ["THREADS", "ITEMS", "TILE", "LOOK_BACK_TILE",
            "LOOK_BACK_SMALL_TILE", "prefix_sum_plain", "prefix_sum_tiles",
-           "scan_order_f32", "wrap_i32", "scan_launch", "look_back_tile"]
+           "scan_order", "wrap_i32", "scan_launch", "look_back_tile"]
 
-THREADS = 256           # SC_THREADS in csrc/scan.cu: the float32 order
+THREADS = 256           # SC_THREADS in csrc/scan.cu: the floats' order
 ITEMS = 16              # SC_ITEMS
-TILE = THREADS * ITEMS  # SC_TILE: elements per block of the float32 passes
+TILE = THREADS * ITEMS  # SC_TILE: elements per block of the float passes
 LOOK_BACK_TILE = 8192   # LB_TILE: elements per block of the int32 scan
 LOOK_BACK_SMALL_TILE = 2048  # LB_SMALL_TILE: its tile below one wave
 
@@ -49,7 +52,7 @@ def wrap_i32(s: torch.Tensor) -> torch.Tensor:
 
 
 def _tiles(x: torch.Tensor, threads: int, items: int):
-    """One block's order over each tile of ``x`` (1-D float32) of
+    """One block's order over each tile of ``x`` (1-D float32 or float64) of
     ``threads * items`` elements: the tile-local inclusive prefixes
     ``(ntiles, tile)`` and the tile totals."""
     tile = threads * items
@@ -68,9 +71,9 @@ def _tiles(x: torch.Tensor, threads: int, items: int):
     return pre.reshape(nt, tile), incl[:, threads - 1]
 
 
-def scan_order_f32(x: torch.Tensor, threads: int, items: int) -> torch.Tensor:
-    """Inclusive float32 sum of the 1-D ``x`` in ``csrc/scan.cuh``'s order
-    at tiles of ``threads * items``: each tile scanned by ``_tiles``; the
+def scan_order(x: torch.Tensor, threads: int, items: int) -> torch.Tensor:
+    """Inclusive sum of the 1-D float32 or float64 ``x``, in its type, in
+    ``csrc/scan.cuh``'s order at tiles of ``threads * items``: each tile scanned by ``_tiles``; the
     tile totals scanned the same way in chunks of one tile, the carry
     chained from chunk to chunk; an element is its tile's carry + its
     tile-local prefix."""
@@ -87,21 +90,24 @@ def scan_order_f32(x: torch.Tensor, threads: int, items: int) -> torch.Tensor:
 
 
 def prefix_sum_plain(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's sums as torch ops: int32 wraps, float32 in its order."""
+    """The kernel's sums as torch ops: int32 wraps, the floats in their
+    order."""
     flat = x.reshape(-1)
     if flat.numel() == 0:
         return x.clone()
     if x.dtype == torch.int32:
         return wrap_i32(torch.cumsum(flat.to(torch.int64), 0)).reshape(x.shape)
-    return scan_order_f32(flat, THREADS, ITEMS).reshape(x.shape)
+    return scan_order(flat, THREADS, ITEMS).reshape(x.shape)
 
 
 _VP, _LL = ctypes.c_void_p, ctypes.c_longlong
+_FLOAT_ENTRIES = {torch.float32: "scan_f32", torch.float64: "scan_f64"}
 # csrc/scan.cu's <entry>_launch: (input, [scalars], output, n, scratch...,
 # stream); the look-back's scratch is (words, capacity, host state).
 _ARGTYPES = {"scan_i32": [_VP, _VP, _LL, _VP, _LL, _VP, _VP],
              "geo_gaps": [_VP, ctypes.c_float, _VP, _LL, _VP, _LL, _VP, _VP],
-             "scan_f32": [_VP, _VP, _LL, _VP, _VP, _VP]}
+             "scan_f32": [_VP, _VP, _LL, _VP, _VP, _VP],
+             "scan_f64": [_VP, _VP, _LL, _VP, _VP, _VP]}
 
 
 class _LookBack:
@@ -136,17 +142,17 @@ def scan_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
                 *scalars) -> None:
     """Launch one entry of ``csrc/scan.cu`` over the flat ``x`` into
     ``out``: ``scan_i32`` and ``geo_gaps`` on the look-back's cached
-    scratch (no allocation and no reset in steady state); ``scan_f32``
-    with the tile totals and carries it allocates. ``scalars`` go between
+    scratch (no allocation and no reset in steady state); ``scan_f32`` and
+    ``scan_f64`` with the tile totals and carries they allocate. ``scalars`` go between
     ``x`` and ``out`` (GEO's clipped p)."""
     fn = build.entry("scan", f"{entry}_launch", _ARGTYPES[entry])
     n = x.numel()
     dev = x.device
     with build.on_device(dev):
         stream = build.current_stream(dev)
-        if entry == "scan_f32":
+        if entry in _FLOAT_ENTRIES.values():
             nt = max(1, -(-n // TILE))
-            scratch = torch.empty((2, nt), dtype=torch.float32, device=dev)
+            scratch = torch.empty((2, nt), dtype=x.dtype, device=dev)
             build.check(fn(x.data_ptr(), out.data_ptr(), n,
                            scratch[0].data_ptr(), scratch[1].data_ptr(),
                            stream), entry)
@@ -176,11 +182,12 @@ def look_back_tile(n: int, device=None) -> int:
 
 
 def prefix_sum_tiles(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of an int32 or float32 tensor in flat
+    """Inclusive prefix sum of an int32, float32 or float64 tensor in flat
     row-major order, in ``x``'s shape (the reference takes ``(R, 128)``
-    tiles; any shape is taken here)."""
-    if x.dtype not in (torch.int32, torch.float32):
-        raise TypeError(f"prefix_sum_tiles takes int32 or float32, got {x.dtype}")
+    tiles of any type; any shape is taken here)."""
+    if x.dtype != torch.int32 and x.dtype not in _FLOAT_ENTRIES:
+        raise TypeError("prefix_sum_tiles takes int32, float32 or float64, "
+                        f"got {x.dtype}")
     if x.device.type == "cpu":
         return prefix_sum_plain(x)
     if x.device.type != "cuda":
@@ -189,7 +196,7 @@ def prefix_sum_tiles(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(xc)
     if xc.numel() == 0:
         return out
-    scan_launch("scan_i32" if x.dtype == torch.int32 else "scan_f32", xc, out)
+    scan_launch(_FLOAT_ENTRIES.get(x.dtype, "scan_i32"), xc, out)
     prefix_sum_tiles.launches += 1
     return out
 

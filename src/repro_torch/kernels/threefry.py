@@ -8,8 +8,12 @@ int64 tensors alike.
 
 ``key(seed)`` gives the (2,) uint32 words that
 ``jax.random.key_data(jax.random.key(seed))`` gives, so one seed drives
-the same fused stream in both packages. The stream is the reference's own
-self-defined one: ``fold``/``uniforms`` are not ``jax.random``'s.
+the same fused stream in both packages; ``split(key, num)`` gives the
+words of ``jax.random.split(key, num)`` (the partitionable, fold-like
+split: key i is the cipher of the 64-bit counter i), and ``keys(seed,
+num)`` those of ``split(key(seed), num)``, the canonical keys of a batch.
+The stream is the reference's own self-defined one: ``fold``/``uniforms``
+are not ``jax.random``'s.
 
 ``uniforms`` is the wrapper around the device cipher (``fused_draw.cu``'s
 ``threefry_uniforms_kernel``): it has no place on the draw path, where the
@@ -25,8 +29,8 @@ import torch
 
 from repro_torch.config import resolve_device
 
-__all__ = ["key", "key_words", "threefry2x32", "fold", "bits_to_uniform",
-           "uniforms_plain", "uniforms"]
+__all__ = ["key", "key_words", "key_batch", "split", "keys", "threefry2x32",
+           "fold", "bits_to_uniform", "uniforms_plain", "uniforms"]
 
 M32 = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
@@ -47,6 +51,33 @@ def key_words(k) -> tuple:
     if a.shape != (2,):
         raise ValueError(f"a key is two uint32 words, got shape {a.shape}")
     return int(a[0]) & M32, int(a[1]) & M32
+
+
+def key_batch(ks) -> np.ndarray:
+    """A batch of keys (anything holding (B, 2) uint32 words: a numpy
+    array, a tensor of any integer type, a list of keys) as a (B, 2)
+    uint32 array on the host."""
+    a = np.asarray(ks.cpu() if isinstance(ks, torch.Tensor) else ks)
+    a = a.astype(np.int64)
+    if a.ndim != 2 or a.shape[1] != 2:
+        raise ValueError(f"a batch of keys is (B, 2) words, got {a.shape}")
+    return (a & M32).astype(np.uint32)
+
+
+def split(k, num: int) -> np.ndarray:
+    """The (num, 2) uint32 words of ``jax.random.split(k, num)``: key i is
+    the cipher of the counter (0, i) under ``k`` (jax's partitionable
+    split)."""
+    k0, k1 = key_words(k)
+    ctr = torch.arange(int(num), dtype=torch.int64)
+    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
+    return torch.stack([x0, x1], dim=1).numpy().astype(np.uint32)
+
+
+def keys(seed: int, num: int) -> np.ndarray:
+    """The canonical keys of a batch of ``num`` draws from ``seed``:
+    ``split(key(seed), num)``."""
+    return split(key(seed), num)
 
 
 def _rotl(x, d: int):

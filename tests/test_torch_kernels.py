@@ -279,7 +279,7 @@ def test_scan_order_helpers():
         want = np.cumsum(f.numpy().astype(np.float64))
         for threads, items in ((t_fd.THREADS, t_fd.ITEMS),
                                (t_ps.THREADS, t_ps.ITEMS)):
-            got = t_ps.scan_order_f32(f, threads, items).numpy()
+            got = t_ps.scan_order(f, threads, items).numpy()
             assert got.dtype == np.float32 and got.shape == (n,)
             err = np.abs(got.astype(np.float64) - want).max()
             assert err <= 1e-5 * max(want[-1], 1.0), (n, threads, items)
@@ -292,7 +292,7 @@ def test_arrivals_ascend():
     positions rest on."""
     key = t_threefry.key(3020)
     u = t_threefry.uniforms_plain(key, 171_776, stream=0)
-    raw = t_ps.scan_order_f32(-torch.log1p(-u), t_fd.THREADS, t_fd.ITEMS)
+    raw = t_ps.scan_order(-torch.log1p(-u), t_fd.THREADS, t_fd.ITEMS)
     assert bool((raw[1:] < raw[:-1]).any())
     v = t_fd.arrivals(key, 171_776, "cpu")
     assert bool((v[1:] >= v[:-1]).all())

@@ -13,7 +13,7 @@
   * The wrapper's scratch on a fake library: one per (device, stream),
     made once and grown, never allocated in steady state; a refused
     launch drops it.
-  * The one float32 order function (``prefix_sum.scan_order_f32``) at tiny
+  * The one float32 order function (``prefix_sum.scan_order``) at tiny
     tile constants, for both of its users: the float32 prefix sum and the
     fused draw's arrivals. Each is held bit for bit against a scalar numpy
     emulation of ``csrc/scan.cuh``'s tile function and chunked carries.
@@ -268,7 +268,7 @@ def emulate_order_f32(x: np.ndarray, threads: int, items: int) -> np.ndarray:
 @pytest.mark.parametrize("n", [1, 9, 64, 200, 777])
 def test_order_f32_at_tiny_tiles(threads, items, n):
     x = np.random.default_rng(n).normal(size=n).astype(np.float32) * 1000
-    got = t_ps.scan_order_f32(torch.from_numpy(x), threads, items).numpy()
+    got = t_ps.scan_order(torch.from_numpy(x), threads, items).numpy()
     np.testing.assert_array_equal(got, emulate_order_f32(x, threads, items))
 
 
@@ -373,3 +373,106 @@ def test_a_refused_launch_drops_the_scratch(monkeypatch):
     with pytest.raises(RuntimeError, match="scan_i32: CUDA error 700"):
         t_ps.scan_launch("scan_i32", x, torch.empty_like(x))
     assert t_ps._SCRATCH == {}
+
+
+# --- the float64 order: the engine's mass prefix --------------------------------
+
+def emulate_order_vectorized(x: np.ndarray, threads: int,
+                             items: int) -> np.ndarray:
+    """``csrc/scan.cuh``'s order in x's own type, vectorized over tiles and
+    threads with numpy: each thread's items in sequence, the thread totals
+    Hillis-Steele, the tile totals the same in chunks of one tile with the
+    carry chained, an element its tile's carry + its tile-local prefix."""
+    tile = threads * items
+    dt = x.dtype.type
+
+    def tiles(v):
+        nt = max(1, -(-len(v) // tile))
+        xs = np.concatenate([v, np.zeros(nt * tile - len(v), v.dtype)])
+        xs = xs.reshape(nt, threads, items)
+        loc = np.empty_like(xs)
+        loc[:, :, 0] = xs[:, :, 0]
+        for i in range(1, items):
+            loc[:, :, i] = loc[:, :, i - 1] + xs[:, :, i]
+        incl = loc[:, :, -1].copy()
+        d = 1
+        while d < threads:
+            nxt = incl.copy()
+            nxt[:, d:] = incl[:, d:] + incl[:, :-d]
+            incl, d = nxt, d * 2
+        pre = loc.copy()
+        pre[:, 1:, :] = incl[:, :-1, None] + loc[:, 1:, :]
+        return pre.reshape(nt, tile), incl[:, -1]
+
+    pre, tot = tiles(x)
+    carry, carries = dt(0), [np.zeros(1, x.dtype)]
+    for c in range(0, len(tot), tile):
+        pre2, tot2 = tiles(tot[c:c + tile])
+        carries.append(carry + pre2.reshape(-1)[:len(tot[c:c + tile])])
+        carry = dt(carry + tot2[0])
+    carries = np.concatenate(carries)[:len(tot)]
+    return (carries[:, None] + pre).reshape(-1)[:len(x)]
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 2_528_313])
+def test_float64_scan_takes_the_fixed_order(n):
+    """The float64 instance's plain version (what the kernel is held to on
+    the card) sums in the kernel's order at 256 x 16, bit for bit, at one
+    element, around one tile and at A's R + 1 (2,528,313: many tiles, one
+    chunk of carries); and stays within rounding of a float64 cumsum."""
+    x = np.random.default_rng(n).random(n) * np.random.default_rng(
+        n + 1).integers(1, 50, n)
+    want = emulate_order_vectorized(x, t_ps.THREADS, t_ps.ITEMS)
+    got = t_ps.prefix_sum_tiles(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        t_ps.scan_order(torch.from_numpy(x), t_ps.THREADS, t_ps.ITEMS).numpy(),
+        want)
+    assert np.abs(want - np.cumsum(x)).max() <= 1e-12 * np.cumsum(x)[-1]
+
+
+@pytest.mark.parametrize("n", [9, 200, 777])
+def test_float64_order_at_tiny_tiles(n):
+    x = np.random.default_rng(n).normal(size=n) * 1000
+    got = t_ps.scan_order(torch.from_numpy(x), 4, 2).numpy()
+    np.testing.assert_array_equal(got, emulate_order_vectorized(x, 4, 2))
+    # the vectorized emulation is the scalar one's order
+    x32 = x.astype(np.float32)
+    np.testing.assert_array_equal(emulate_order_vectorized(x32, 4, 2),
+                                  emulate_order_f32(x32, 4, 2))
+
+
+def test_mass_prefix_is_the_fixed_order_either_way():
+    from repro_torch.config import KernelPolicy
+    from repro_torch.core import sampling as t_sampling
+
+    x = torch.from_numpy(np.random.default_rng(3).random(10_000))
+    want = torch.cat([torch.zeros(1, dtype=torch.float64),
+                      t_ps.scan_order(x, t_ps.THREADS, t_ps.ITEMS)])
+    for policy in (KernelPolicy(), KernelPolicy(enabled=False)):
+        got = t_sampling.mass_prefix(x, policy)
+        assert torch.equal(got, want)
+
+
+def test_pernode_draws_repeat_under_a_key():
+    """Two per-node draws of one key, and two plans' fused-draw tables, are
+    equal (on the card the library scan they used to take was not)."""
+    from repro_torch.core import sampling as t_sampling
+    from test_torch_engine import PREFER, engines
+    from test_torch_kernels import star_chain
+
+    tables, q = star_chain(5, n_t=60)
+    _, port, tq = engines(tables, q)
+    assert port.compile(tq).route == "pernode"
+    for seed in range(3):
+        a = port.sample(tq, t_threefry.key(seed))
+        b = port.sample(tq, t_threefry.key(seed))
+        assert torch.equal(a.positions, b.positions)
+        assert int(a.count) == int(b.count)
+        for v in a.columns:
+            assert torch.equal(a.columns[v], b.columns[v])
+    plan = port.compile(tq)
+    one = t_sampling.fused_draw_params(plan.w, plan.p, plan.prefE)
+    two = t_sampling.fused_draw_params(plan.w, plan.p, plan.prefE, PREFER)
+    assert all(torch.equal(one[k], two[k]) for k in one)
