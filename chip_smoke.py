@@ -14,7 +14,11 @@ the repeats of one key; then (phase D) the kernel-ops
 entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 ``geo_positions_fused``, ``decode_attention`` and ``prefill_attention``
 (the ``scan``, ``flash_decode``, ``flash_prefill`` and
-``flash_prefill_tc`` kernels). It builds
+``flash_prefill_tc`` kernels); then (phase F) updates: deltas through
+``QueryEngine.apply_delta`` on A's, B's and C's warm engines (the index
+merged by ``reshred_incremental`` and held against a rebuild, then the
+full join and draws through the upgraded index's kernels, against a
+fresh engine), a route flip at B, and the CSR index at A. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -51,6 +55,16 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        (p = 0.05 and 0.7) and BINOM at B; the facades at B;
                        five per-node draws of one key at A; the float64
                        mass prefix at A against ``torch.cumsum``.
+  F  updates           at A, B and C: a churn of 0.5% of Cast each way
+                       (``bench_updates.py``'s ``_churn_delta``; 181,221
+                       rows each way at A), then new p for 0.5% of the
+                       titles with a churn of Comp; at B the fewest Cast
+                       inserts that take the arena over ``draw_limit`` and
+                       their delete; at A ``full_join`` and ``csr_get_rows``
+                       of the CSR index against the USR GET; times of
+                       ``reshred_incremental`` against ``build_shred`` and
+                       of ``apply_delta`` + a draw against ``rebind`` + a
+                       draw.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32); GEO positions at
                        p = 0.05 over A's join from device Threefry uniforms
@@ -124,23 +138,32 @@ def expand_numpy(tables):
     """The full join in the canonical flatten order, by numpy alone: titles
     in row order; per title its Cast rows in stable key order; per Cast row
     its Comp rows in stable key order (the join tree is Title -> Cast ->
-    Comp). Title's ``t`` is its row id."""
+    Comp). Keys are non-negative integers; a title row joins by its ``t``
+    value, wherever the row stands."""
     import numpy as np
 
     title, cast, comp = tables["Title"], tables["Cast"], tables["Comp"]
-    n_t = title["t"].shape[0]
-    cast_ord = np.argsort(cast["t"], kind="stable")
-    comp_ord = np.argsort(comp["t"], kind="stable")
-    b = np.bincount(comp["t"], minlength=n_t)
-    comp_start = np.cumsum(b) - b
-    ct = cast["t"][cast_ord]
-    bt = b[ct]
-    rep_t = np.repeat(ct, bt)
-    cast_rows = np.repeat(cast_ord, bt)
-    j = np.arange(rep_t.shape[0]) - np.repeat(np.cumsum(bt) - bt, bt)
-    comp_rows = comp_ord[comp_start[rep_t] + j]
-    return {"t": title["t"][rep_t], "kind": title["kind"][rep_t],
-            "p": title["p"][rep_t], "person": cast["person"][cast_rows],
+    n_key = 1 + max(int(title["t"].max(initial=0)),
+                    int(cast["t"].max(initial=0)),
+                    int(comp["t"].max(initial=0)))
+
+    def runs(parent_keys, child_keys):
+        """(parent index, child row) of every pair, parents in order and
+        each parent's child rows in stable key order."""
+        order = np.argsort(child_keys, kind="stable")
+        count = np.bincount(child_keys, minlength=n_key)
+        start = np.cumsum(count) - count
+        reps = count[parent_keys]
+        parent = np.repeat(np.arange(parent_keys.shape[0]), reps)
+        j = np.arange(parent.shape[0]) - np.repeat(np.cumsum(reps) - reps,
+                                                   reps)
+        return parent, order[start[parent_keys[parent]] + j]
+
+    title_rows, cast_rows = runs(title["t"], cast["t"])
+    pair, comp_rows = runs(cast["t"][cast_rows], comp["t"])
+    title_rows, cast_rows = title_rows[pair], cast_rows[pair]
+    return {"t": title["t"][title_rows], "kind": title["kind"][title_rows],
+            "p": title["p"][title_rows], "person": cast["person"][cast_rows],
             "comp": comp["comp"][comp_rows]}
 
 
@@ -766,10 +789,18 @@ def run_ops(args, device, kernels, n_join: int):
     f32_pre_lib = library_timed(lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True, enable_gqa=True), reps, device,
         "flash_prefill float32")
+    # their bounds: float32 bytes, operations at the float32 rate outside
+    # the tensor cores (the kernels' own)
+    f32_dec_bound = bound(4 * (kf.numel() + vf.numel() + 2 * qf.numel()
+                               + bf.numel()), 4 * qf.numel() * kf.shape[2])
+    f32_pre_bound = bound(4 * (2 * qs.numel() + ks.numel() + vs.numel()),
+                          2 * qs.numel() * qs.shape[2])
     log(f"[time] flash_decode float32 (CUDA cores) B=2 H=8 KV=2 D=128 "
-        f"S={Sf}: {f32_dec_ms:.4f} ms (library {f32_dec_lib}); "
+        f"S={Sf}: {f32_dec_ms:.4f} ms (library {f32_dec_lib}, bound "
+        f"{f32_dec_bound[0]:.4f} by {f32_dec_bound[1]}); "
         f"flash_prefill float32 (CUDA cores) smollm-135m B=2 S=1000 causal: "
-        f"{f32_pre_ms:.4f} ms (library {f32_pre_lib})")
+        f"{f32_pre_ms:.4f} ms (library {f32_pre_lib}, bound "
+        f"{f32_pre_bound[0]:.4f} by {f32_pre_bound[1]})")
     sizes = {"scan_n": n, "geo_join": n_join, "geo_lanes": lanes,
              "decode": list(dec_cases), "prefill": list(pre_cases),
              "prefill_32k": {"S": S32, "ms": ms32, "library_ms": lib32,
@@ -777,7 +808,9 @@ def run_ops(args, device, kernels, n_join: int):
              "float32_ms": {"flash_decode": f32_dec_ms,
                             "flash_prefill": f32_pre_ms,
                             "flash_decode_library": f32_dec_lib,
-                            "flash_prefill_library": f32_pre_lib}}
+                            "flash_prefill_library": f32_pre_lib,
+                            "flash_decode_bound": f32_dec_bound,
+                            "flash_prefill_bound": f32_pre_bound}}
     # device time of each row's call, after every timing of the phase
     sizes["device_ms"] = {name: device_ms(fn) for name, fn in call.items()} \
         if device.type == "cuda" else {}
@@ -1128,6 +1161,318 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
     }
     phases = (planB.shred.packed.arena, keysB, planB.draw_params, kwB)
     return launches, rows, call, e2e, windows, phases
+
+
+def churn_spec(tables, relation: str, frac: float, rng):
+    """``benchmarks/bench_updates.py`` ``_churn_delta`` as ``DeltaBatch.of``
+    keywords: ``frac`` of the relation's rows deleted and as many inserted,
+    the inserts resampled from the relation itself (keys stay in
+    distribution, the row count is kept)."""
+    n = next(iter(tables[relation].values())).shape[0]
+    k = max(1, int(frac * n))
+    cols = {c: v[rng.integers(0, n, k)] for c, v in tables[relation].items()}
+    return {relation: {"insert": cols,
+                       "delete": rng.choice(n, k, replace=False)}}
+
+
+def reprice_spec(tables, frac: float, rng):
+    """A delta of Title and Comp together: ``frac`` of the titles get a new
+    ``p`` (each row deleted and inserted again with a fresh p ~ Beta(2,
+    10), so it moves to the end), and ``frac`` of Comp churns."""
+    title = tables["Title"]
+    n = title["t"].shape[0]
+    k = max(1, int(frac * n))
+    rows = rng.choice(n, k, replace=False)
+    spec = {"Title": {"delete": rows, "insert": {
+        "t": title["t"][rows], "kind": title["kind"][rows],
+        "p": rng.beta(2, 10, k)}}}
+    spec.update(churn_spec(tables, "Comp", frac, rng))
+    return spec
+
+
+def applied_tables(tables, spec):
+    """The host tables after the delta ``spec``: survivors, then inserts
+    cast to the column's dtype."""
+    import numpy as np
+
+    out = dict(tables)
+    for name, s in spec.items():
+        cols = tables[name]
+        keep = np.ones(next(iter(cols.values())).shape[0], bool)
+        keep[np.asarray(s.get("delete", []), dtype=np.int64)] = False
+        out[name] = {c: np.concatenate(
+            [v[keep], np.asarray(s.get("insert", {}).get(c, v[:0]))
+             .astype(v.dtype)]) for c, v in cols.items()}
+    return out
+
+
+def shred_arrays(shred):
+    """(path, value) of every array, name and layout of an index."""
+    out = [("rep", shred.rep), ("root_prefE", shred.root_prefE)]
+
+    def node(nd, path):
+        out.append((path, (nd.name, nd.variables, nd.owned)))
+        out.extend((f"{path}.data.{c}", v) for c, v in nd.data.columns.items())
+        out.extend((f"{path}.{f}", getattr(nd, f))
+                   for f in ("weight", "nxt", "perm", "cumw_excl"))
+        for f in ("child_hd", "child_start", "child_len", "child_w"):
+            out.extend((f"{path}.{f}[{i}]", a)
+                       for i, a in enumerate(getattr(nd, f)))
+        for c in nd.children:
+            node(c, f"{path}.{c.name}")
+
+    node(shred.root, shred.root.name)
+    for attr, form in (("arena", shred.packed), ("buffer", shred.paged)):
+        out.append((attr, None if form is None else getattr(form, attr)))
+        out.append((attr + ".layout", None if form is None else form.layout))
+    return out
+
+
+def assert_same_shred(got, want, label) -> int:
+    """Two indexes equal array for array (dtypes and shapes included) and
+    layout for layout; returns the number of entries compared."""
+    import torch
+
+    a, b = shred_arrays(got), shred_arrays(want)
+    assert [p for p, _ in a] == [p for p, _ in b], label
+    for (path, x), (_, y) in zip(a, b):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            assert isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+            assert x.dtype == y.dtype and x.shape == y.shape, (label, path)
+            assert torch.equal(x, y), (label, path)
+        else:
+            assert x == y, (label, path, x, y)
+    return len(a)
+
+
+def run_updates(args, device, q, configs, kernels):
+    """Phase F: updates on the card, at A, B and C on their own tables.
+
+    At each configuration two deltas in turn: a churn of Cast
+    (``bench_updates.py``'s 0.5% each way), then Title's p and rows with a
+    churn of Comp. For each: ``reshred_incremental`` of the warm index
+    equals ``build_shred`` of the new snapshot array for array (arena or
+    pages included); the main path (counts zeroed just before, read just
+    after) is ``apply_delta`` on the warm engine, a full join and draws;
+    the join equals the numpy expansion of the new tables, each draw equals
+    a fresh engine's under the same key and caps, and the cache shows
+    upgrades and no builds. At B a route flip (the fewest Cast inserts
+    that take the arena over ``draw_limit``, then their delete). At A the
+    CSR index: its full join and one draw's rows against the USR GET's.
+    Then the times. Returns the launches of each main path and the times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (DeltaBatch, build_shred, probe,
+                                  reshred_incremental)
+    from repro_torch.engine import QueryEngine
+    from repro_torch.kernels import threefry
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(args.seed + 19)
+    launches, e2e = {}, {}
+
+    def main_path(label, fn):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        launches[label] = {k: f.launches for k, f in kernels.items()}
+        log(f"[{label}] launches " + str({k: v for k, v in
+                                          launches[label].items() if v}))
+        return out
+
+    def step(label, tables, eng, spec, keys):
+        """One delta at one configuration; returns the new host tables
+        and the draws of its main path."""
+        plan = eng.compile(q)
+        pol = eng.kernel_policy
+        delta = DeltaBatch.of(**spec)
+        db0, base = eng.db, plan.shred
+        t0 = time.perf_counter()
+        inc = reshred_incremental(base, db0, q, delta, pol)
+        fresh = build_shred(db0.apply(delta), q, rep=base.rep, policy=pol)
+        n = assert_same_shred(inc, fresh, label)
+        log(f"[{label}] delta of {delta.size()} rows "
+            f"({', '.join(delta.touched())}): reshred_incremental equals "
+            f"build_shred of the new snapshot in all {n} arrays and layouts "
+            f"(arena {'packed' if inc.packed is not None else 'paged'}, "
+            f"{(inc.packed or inc.paged).layout.size} int32; "
+            f"{time.perf_counter() - t0:.1f} s with the checks)")
+        del inc, fresh
+        st0 = eng.stats.snapshot()
+
+        def drive():
+            eng.apply_delta(delta)
+            return eng.full_join(q), [eng.sample(q, k) for k in keys]
+
+        full, smps = main_path(label, drive)
+        st1 = eng.stats
+        assert st1.shred_builds == st0.shred_builds, (label, st1)
+        assert st1.plan_misses == st0.plan_misses, (label, st1)
+        assert st1.shred_upgrades > st0.shred_upgrades, (label, st1)
+        assert st1.plan_upgrades > st0.plan_upgrades, (label, st1)
+        assert eng.compile(q) is plan and eng.db.version == db0.version + 1
+        tables = applied_tables(tables, spec)
+        check_join(full, tables, label)
+        for smp in smps:
+            check_sample(smp, full, label)
+        del full
+        fresh_eng = QueryEngine(eng.db, device=device, kernel_policy=pol)
+        fplan = fresh_eng.compile(q)
+        # the engine's own upgrade (given the new snapshot) against a build
+        assert_same_shred(plan.shred, fplan.shred, (label, "engine"))
+        assert plan.route == fplan.route, (label, plan.route, fplan.route)
+        assert plan.rep_default == fplan.rep_default, label
+        for key, smp in zip(keys, smps):
+            assert_same_sample(smp, fresh_eng.sample(
+                q, key, cap=plan.default_capacity(),
+                acap=plan.arrival_capacity()), (label, "fresh engine"))
+        log(f"[{label}] apply_delta: version {eng.db.version}, route "
+            f"{plan.route}, GET {plan.rep_default}; the full join equals the "
+            f"numpy expansion of the new tables; {len(keys)} draws equal a "
+            f"fresh engine's bit for bit; cache {st1}")
+        return tables, smps
+
+    current = {}
+    for label in "ABC":
+        tables, eng, plan = configs[label]
+        keys = [threefry.key(19_000 + s)
+                for s in range(args.keys if label == "A" else 4)]
+        spec1 = churn_spec(tables, "Cast", 0.005, rng)
+        tables, smps = step(f"F.{label}", tables, eng, spec1, keys)
+        assert plan.route == {"A": "pernode", "B": "fused",
+                              "C": "paged"}[label], (label, plan.route)
+        if on_card:
+            lf = launches[f"F.{label}"]
+            if label == "A":
+                assert lf["tree_probe"] == 1 + len(keys), lf
+                assert lf["bsearch_probe"] > 0 and lf["prefix_sum"] > 0, lf
+            elif label == "B":
+                assert lf["fused_draw"] == len(keys), lf
+                assert lf["tree_probe"] == 1, lf
+            else:
+                assert lf["fused_sample"] == len(keys), lf
+                assert lf["tree_probe_paged"] == len(keys), lf
+        if label == "A":
+            smpA = smps[0]
+        del smps
+        tables, _ = step(f"F.{label}2", tables, eng,
+                         reprice_spec(tables, 0.005, rng), keys)
+        current[label] = tables
+
+    # -- the route flip at B -----------------------------------------------
+    _, engB, planB = configs["B"]
+    lay = planB.shred.packed.layout
+    limit = engB.kernel_policy.draw_limit
+    # Words one Cast row adds: cumw_excl and perm where Cast is a child,
+    # child_start and child_w on each edge where it is the parent.
+    per_row = 2 * sum((lay.names[e.slot] == "Cast") + (lay.names[e.parent]
+                                                        == "Cast")
+                      for e in lay.edges)
+    count = (limit - lay.size) // per_row + 1
+    assert lay.size + per_row * (count - 1) <= limit < lay.size + per_row * count
+    n_cast = current["B"]["Cast"]["t"].shape[0]
+    rows = rng.integers(0, n_cast, count)
+    grow = {"Cast": {"insert": {c: v[rows]
+                                for c, v in current["B"]["Cast"].items()}}}
+    keysF = [threefry.key(19_100 + s) for s in range(2)]
+    tabB, _ = step("F.B flip", current["B"], engB, grow, keysF)
+    grown = planB.shred.packed.layout.size
+    assert planB.route == "paged" and grown == lay.size + per_row * count
+    log(f"[F.B flip] {count} Cast inserts ({per_row} int32 words a row) take "
+        f"B's arena from {lay.size} to {grown} int32, over draw_limit "
+        f"{limit}: route fused -> {planB.route}, as a fresh plan's")
+    back = {"Cast": {"delete": np.arange(n_cast, n_cast + count)}}
+    current["B"], _ = step("F.B back", tabB, engB, back, keysF)
+    assert planB.route == "fused" and planB.shred.packed.layout.size == lay.size
+    log(f"[F.B back] deleting them: arena {lay.size} int32, route "
+        f"{planB.route}, as a fresh plan's")
+    e2e["route_flip_B"] = {"inserts": count, "words_a_row": per_row,
+                           "arena": [lay.size, grown], "draw_limit": limit}
+    if on_card:
+        assert launches["F.B flip"]["fused_sample"] == len(keysF)
+        assert launches["F.B flip"]["fused_draw"] == 0
+        assert launches["F.B back"]["fused_draw"] == len(keysF)
+
+    # -- the CSR index at A (an engine of rep 'csr' on A's snapshot) ----------
+    _, engA, planA = configs["A"]
+    engCSR = QueryEngine(engA.db, rep="csr", device=device,
+                         kernel_policy=engA.kernel_policy)
+    fullA = engA.full_join(q)
+    fullA_csr = main_path("F.CSR", lambda: engCSR.full_join(q))
+    for v, col in fullA.items():
+        assert torch.equal(fullA_csr[v], col), ("F.CSR", v)
+    del fullA, fullA_csr
+    csr_shred = engCSR.compile(q).shred
+    assert csr_shred.rep == "csr" and engCSR.compile(q).rep_default == "csr"
+    # One per-node draw's positions (of an earlier snapshot: positions of
+    # the current join all the same), through both GETs of this snapshot.
+    c = int(smpA.count)
+    pos = torch.clamp(smpA.positions[:c], max=planA.join_size - 1)
+    got = probe.csr_get_rows(csr_shred, pos, engA.kernel_policy)
+    want = probe.usr_get_rows(planA.shred, pos, engA.kernel_policy)
+    for name, rows in want.items():
+        assert torch.equal(got[name], rows), ("F.CSR", name)
+    log(f"[F.CSR] full_join(rep='csr') at A equals the USR full join bit for "
+        f"bit ({planA.join_size} rows); csr_get_rows on one per-node draw's "
+        f"{c} positions equals usr_get_rows; the walk's steps by edge "
+        f"{probe._run_bounds(csr_shred)}")
+    del got, want, pos
+    if on_card:
+        assert launches["F.CSR"]["bsearch_probe"] == 1
+        assert launches["F.CSR"]["tree_probe"] == 0
+
+    # -- times -----------------------------------------------------------------
+    # CUDA events around warm calls (each ends in host reads). A fresh churn
+    # of Cast a configuration: it keeps the row counts, so it applies again
+    # on every snapshot it produces.
+    e2e["full_join_csr_A_ms"] = timed(lambda: engCSR.full_join(q), args.reps,
+                                      device)
+    e2e["full_join_usr_A_ms"] = timed(lambda: engA.full_join(q), args.reps,
+                                      device)
+    log(f"[time] F.CSR: full_join(rep='csr') at A "
+        f"{e2e['full_join_csr_A_ms']:.3f} ms, USR "
+        f"{e2e['full_join_usr_A_ms']:.3f} ms")
+    del engCSR, csr_shred
+    for label in "ABC":
+        _, eng, _ = configs[label]
+        plan = eng.compile(q)
+        pol = eng.kernel_policy
+        reps = 3 if label == "A" else args.reps
+        delta = DeltaBatch.of(**churn_spec(current[label], "Cast", 0.005,
+                                           rng))
+        db0, base = eng.db, plan.shred
+        db1 = db0.apply(delta)
+        key = threefry.key(19_200)
+        t = {"delta_rows": delta.size()}
+        # both paths given the new snapshot, as apply_delta gives them
+        t["reshred_incremental_ms"] = timed(
+            lambda: reshred_incremental(base, db0, q, delta, pol, db1), reps,
+            device)
+        t["build_shred_ms"] = timed(
+            lambda: build_shred(db1, q, rep=base.rep, policy=pol), reps,
+            device)
+        if on_card and args.profile and label == "A":
+            e2e["profile_reshred_A"] = profile_window(
+                lambda: reshred_incremental(base, db0, q, delta, pol, db1),
+                "reshred_incremental(A)", t["reshred_incremental_ms"])
+            e2e["profile_build_A"] = profile_window(
+                lambda: build_shred(db1, q, rep=base.rep, policy=pol),
+                "build_shred(A)", t["build_shred_ms"])
+        del db1, base
+        t["apply_delta_draw_ms"] = timed(
+            lambda: (eng.apply_delta(delta), eng.sample(q, key).count),
+            reps, device)
+        t["rebind_draw_ms"] = timed(
+            lambda: (eng.rebind(eng.db.apply(delta)),
+                     eng.sample(q, key).count), reps, device)
+        e2e[f"updates_{label}"] = t
+        log(f"[time] F.{label} (delta of {t['delta_rows']} rows, Cast): "
+            f"reshred_incremental {t['reshred_incremental_ms']:.3f} ms, "
+            f"build_shred {t['build_shred_ms']:.3f} ms; apply_delta + draw "
+            f"{t['apply_delta_draw_ms']:.3f} ms, rebind + draw "
+            f"{t['rebind_draw_ms']:.3f} ms")
+    return launches, e2e
 
 
 def run(args, device, kernel_policy=None) -> dict:
@@ -1680,13 +2025,23 @@ def run(args, device, kernel_policy=None) -> dict:
     errs["threefry_uniforms"] = max(errs["threefry_uniforms"],
                                     errsD.pop("threefry_uniforms"))
     errs.update(errsD)
+    # -- 7c. phase F: updates on the card, last (it advances A-C's engines)
+    launchesF, e2eF = run_updates(args, device, q, configs, kernels)
+    e2e["updates"] = e2eF
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
-                       + sum(lp[k] for lp in launchesE.values()))
-    # the float64 scans of the main path: the per-node draws' mass prefixes
+                       + sum(lp[k] for lp in launchesE.values())
+                       + sum(lp[k] for lp in launchesF.values()))
+    # the float64 scans of the main path (the one counter counts both
+    # dtypes): the per-node draws' mass prefixes and those of the plans
+    # bound in C's second engine and in phase F; phase D's are int32
     launches["prefix_sum_f64"] = (launchesA["prefix_sum"]
-                                  + launchesE["E.A"]["prefix_sum"])
+                                  + launchesR["prefix_sum"]
+                                  + launchesE["E.A"]["prefix_sum"]
+                                  + sum(lp["prefix_sum"]
+                                        for lp in launchesF.values()))
+    launches["prefix_sum"] -= launches["prefix_sum_f64"]
 
     # -- 8. the kernels' rows ---------------------------------------------------
     sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",
@@ -1721,6 +2076,7 @@ def run(args, device, kernel_policy=None) -> dict:
     return {"kernels": table, "end_to_end": e2e, "ops_sizes": sizesD,
             "draw_grids": grids, "device_ms": dev_ms,
             "bsearch_tiles_A": tiles_bs, "phase_e_launches": launchesE,
+            "phase_f_launches": launchesF,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),

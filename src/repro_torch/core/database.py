@@ -1,6 +1,11 @@
 """A tiny schema-aware database: named relations with ordered columns, all
-on one device. Snapshots are immutable; deltas (``apply``) are not ported
-yet (ROADMAP queue A)."""
+on one device.
+
+Snapshots are immutable and versioned: the only way to change data is
+``Database.apply(delta)``, which returns a new snapshot with
+``version + 1``. Untouched relations are shared by reference, so a delta
+over one relation costs O(|that relation| + |delta|) on the device and
+nothing for the rest of the database."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +16,7 @@ import torch
 
 from repro_torch.config import resolve_device
 
+from .delta import apply_relation_delta
 from .jointree import Atom
 from .relations import Relation
 
@@ -23,7 +29,8 @@ class Database:
 
     Atom variables bind positionally to the schema order, which is what
     makes self-joins (one relation, several aliases) work. ``version`` is
-    the snapshot version the engine keys its caches by.
+    the snapshot version the engine keys its caches by; it increases along
+    an ``apply`` chain (per lineage, not globally).
     """
 
     relations: Dict[str, Relation]
@@ -56,3 +63,25 @@ class Database:
             )
         return Relation({v: rel.columns[c]
                          for c, v in zip(schema, atom.variables)})
+
+    def size(self) -> int:
+        """|db| = total number of tuples."""
+        return sum(r.num_rows for r in self.relations.values())
+
+    def apply(self, delta) -> "Database":
+        """The next snapshot: ``delta`` (a ``core.delta.DeltaBatch``)
+        applied to this one, on this database's device. Touched relations
+        become "survivors then inserts" (``rows[~delete_mask] ++
+        inserts``); untouched relations are shared by reference. Never
+        mutates ``self``."""
+        unknown = set(delta.relations) - set(self.relations)
+        if unknown:
+            raise KeyError(f"delta touches unknown relations {sorted(unknown)}")
+        delta = delta.checked({n: r.num_rows
+                               for n, r in self.relations.items()})
+        rels = dict(self.relations)
+        for name, d in delta.relations.items():
+            d.validate(name, self.relations[name].num_rows, self.schemas[name])
+            rels[name] = Relation(
+                apply_relation_delta(self.relations[name].columns, d))
+        return Database(rels, self.schemas, self.device, self.version + 1)

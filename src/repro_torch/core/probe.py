@@ -23,8 +23,12 @@ the GET kernel over the pages' buffer on the card; ``draw_paged_batch`` is one b
 ``fused_sample`` launch and one GET launch over all B x cap lanes. The
 GET's budget is ``KernelPolicy.arena_limit``, the draw's ``draw_limit``.
 
-Not ported yet (ROADMAP queue A): the CSR GET, which comes with the
-updates that rebuild its chains.
+CSR-GET (rep 'csr'): the paper's linked-list walk, every probe lane at
+once: each step moves the lanes still walking one link along their
+same-key chain, skipping weight-0 rows, for as many steps as the edge's
+longest run (one host read a GET for all edges). Pointer chasing has no
+kernel here: it is the paper-faithful baseline, and its rows equal the
+USR GET's on the same index.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from repro_torch.kernels.tree_probe import tree_probe, tree_probe_paged
 from .sampling import PositionSample
 from .shred import PagedArena, Shred, ShredNode
 
-__all__ = ["get", "get_rows", "gather_columns", "usr_get_rows",
+__all__ = ["get", "get_rows", "gather_columns", "csr_get_rows", "usr_get_rows",
            "usr_get_rows_fused", "usr_get_rows_paged", "fused_available",
            "paged_view", "paged_available", "select_rep",
            "draw_fused_available", "draw_paged_available", "select_draw",
@@ -369,18 +373,77 @@ def draw_paged_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
     return node_rows, PositionSample(pos.to(I64), cnt.to(I64), ovf)
 
 
+# ---------------------------------------------------------------------------
+# CSR
+# ---------------------------------------------------------------------------
+
+def _csr_walk(child_weight: torch.Tensor, nxt: torch.Tensor,
+              hd: torch.Tensor, idx: torch.Tensor, steps: int):
+    """Walk each lane's same-key chain from its head ``hd`` until the
+    cumulative weight covers ``idx`` (paper Fig. 4 lines 11-15, weight-0
+    rows skipped). ``steps`` bounds every lane's walk (the edge's longest
+    run); a lane stops where the reference's loop stops, and one that runs
+    off its chain ends at row -1 with what is left of its offset."""
+    row = hd.to(I64)
+    rem = idx
+    for _ in range(steps):
+        at = torch.clamp(row, min=0)
+        w = child_weight[at]
+        go = (row >= 0) & (rem >= w)
+        row = torch.where(go, nxt[at].to(I64), row)
+        rem = torch.where(go, rem - w, rem)
+    return row, rem
+
+
+def _csr_sub(node: ShredNode, rows, local, steps, out: Dict[str, torch.Tensor]):
+    out[node.name] = rows
+    for ci, child in enumerate(node.children):
+        w_safe = torch.clamp(node.child_w[ci][rows], min=1)
+        idx = torch.remainder(local, w_safe)
+        local = torch.div(local, w_safe, rounding_mode="floor")
+        hd = node.child_hd[ci][rows]
+        crows, clocal = _csr_walk(child.weight, child.nxt, hd, idx,
+                                  steps.pop(0))
+        crows = torch.clamp(crows, min=0).to(I32)  # clamp sentinel lanes
+        _csr_sub(child, crows, clocal.to(I64), steps, out)
+
+
+def _run_bounds(shred: Shred):
+    """Each edge's longest run (``child_len.max()``), in the order
+    ``_csr_sub`` walks the edges, with one host read for all of them."""
+    def edges(node):
+        for ci, child in enumerate(node.children):
+            yield node.child_len[ci]
+            yield from edges(child)
+
+    maxes = [ln.max() if ln.numel() else
+             torch.zeros((), dtype=I32, device=shred.device)
+             for ln in edges(shred.root)]
+    return torch.stack(maxes).tolist() if maxes else []
+
+
+def csr_get_rows(shred: Shred, pos: torch.Tensor,
+                 policy: KernelPolicy = DEFAULT_POLICY) -> Dict[str, torch.Tensor]:
+    """Resolve probe positions to per-node row indices (CSR). The root is
+    located as the USR GET locates it (the bsearch kernel over an int32
+    index)."""
+    assert shred.rep in ("csr", "both"), "index was not built with CSR columns"
+    rows, local = _root_locate(shred, pos, policy)
+    out: Dict[str, torch.Tensor] = {}
+    _csr_sub(shred.root, rows, local, _run_bounds(shred), out)
+    return out
+
+
 def get_rows(shred: Shred, pos: torch.Tensor, rep: str = None,
              policy: KernelPolicy = DEFAULT_POLICY) -> Dict[str, torch.Tensor]:
-    rep = rep or "usr"
+    rep = rep or ("usr" if shred.rep in ("usr", "both") else "csr")
     if rep == "usr_fused":
         return usr_get_rows_fused(shred, pos, policy)
     if rep == "usr":
         return usr_get_rows(shred, pos, policy)
     if rep == "usr_paged":
         return usr_get_rows_paged(shred, pos)
-    raise NotImplementedError(
-        f"rep={rep!r} is not ported yet (ROADMAP queue A: the CSR GET, with "
-        "updates)")
+    return csr_get_rows(shred, pos, policy)
 
 
 def gather_columns(shred: Shred, node_rows: Dict[str, torch.Tensor]

@@ -4,11 +4,11 @@ The same index that backs Poisson sampling computes full joins by probing
 every position — the paper's "single engine basis" point (§6.3).
 
 Baselines (paper §6 "Baseline"):
-  M-USYA : build the USR index, flatten, per-tuple Bernoulli
-           (``materialize_and_scan``; the CSR index is not ported yet,
-           ROADMAP queue A).
-  M-BJ   : pairwise materializing sort-merge joins (``binary_join``), as
-           in the reference, every intermediate materialized.
+  M-CSYA / M-USYA : build the CSR / USR index, flatten, per-tuple
+                    Bernoulli (``materialize_and_scan``, ``rep=``).
+  M-BJ            : pairwise materializing sort-merge joins
+                    (``binary_join``), as in the reference, every
+                    intermediate materialized.
 """
 from __future__ import annotations
 
@@ -73,7 +73,8 @@ def materialize_and_scan(
     un-compacted so callers can compare against I&P samples exactly.
     """
     shred = build_shred(db, query, rep=rep, policy=policy)
-    get_rep, _ = probe.select_rep(shred, "usr", policy)
+    get_rep, _ = probe.select_rep(shred, "csr" if rep == "csr" else "usr",
+                                  policy)
     cols = flatten(shred, rep=get_rep, policy=policy)
     n = int(shred.join_size)
     if uniform_p is not None:

@@ -8,8 +8,12 @@ fingerprint skip GYO and the index build; both caches are LRU-bounded.
 Single draws, batches of draws (``sample_batch``), uniform samples and
 full joins of one query share one plan-cache entry.
 
-Not ported yet (ROADMAP queue A): the CSR index, ``apply_delta``/``rebind``
-(deltas), meshes and sharded plans.
+The bound database is a versioned snapshot: cache keys carry its version,
+and ``apply_delta`` advances the binding while upgrading warm entries in
+place through ``reshred_incremental`` (zero rebuilds); ``rebind`` drops
+everything.
+
+Not ported yet (ROADMAP queue A): meshes and sharded plans.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from repro_torch.config import KernelPolicy, device_name, resolve_device
 from repro_torch.core.database import Database
 from repro_torch.core.jointree import JoinQuery
 from repro_torch.core.poisson import JoinSample
-from repro_torch.core.shred import Shred, build_plan, build_shred
+from repro_torch.core.shred import (Shred, build_plan, build_shred,
+                                    reshred_incremental)
 from repro_torch.core import yannakakis
 
 from .capacity import CapacityPolicy, DEFAULT_POLICY
@@ -37,12 +42,44 @@ __all__ = ["QueryEngine", "CacheStats"]
 
 @dataclasses.dataclass
 class CacheStats:
-    """Observable cache behavior (asserted in tests)."""
+    """Observable cache behavior (asserted in tests).
+
+    ``apply_delta`` reports its work apart: ``shred_upgrades`` /
+    ``plan_upgrades`` count warm entries advanced incrementally (never
+    through ``shred_builds``: upgrading is not rebuilding).
+    ``shards_reused`` / ``shards_rebuilt`` are the reference's per-shard
+    counts of stacked indexes; they stay 0 until sharding is ported.
+
+    Stats add across engines: a fleet reports
+    ``CacheStats.aggregate(r.engine.stats for r in replicas)``."""
 
     shred_builds: int = 0
     shred_hits: int = 0
     plan_hits: int = 0
     plan_misses: int = 0
+    shred_upgrades: int = 0
+    plan_upgrades: int = 0
+    shards_reused: int = 0
+    shards_rebuilt: int = 0
+
+    def snapshot(self) -> "CacheStats":
+        return dataclasses.replace(self)
+
+    def __add__(self, other: "CacheStats") -> "CacheStats":
+        if not isinstance(other, CacheStats):
+            return NotImplemented
+        return CacheStats(**{
+            f.name: getattr(self, f.name) + getattr(other, f.name)
+            for f in dataclasses.fields(CacheStats)})
+
+    @classmethod
+    def aggregate(cls, stats) -> "CacheStats":
+        """The field-wise sum over an iterable of per-engine stats (an
+        empty iterable gives all-zero stats)."""
+        total = cls()
+        for s in stats:
+            total = total + s
+        return total
 
 
 @dataclasses.dataclass
@@ -71,8 +108,8 @@ class QueryEngine:
                  policy: Optional[CapacityPolicy] = None,
                  kernel_policy: Optional[KernelPolicy] = None,
                  max_plans: int = 64, device=None):
-        if rep not in ("usr", "both"):
-            raise ValueError(f"rep must be usr|both, got {rep!r}")
+        if rep not in ("csr", "usr", "both"):
+            raise ValueError(f"rep must be csr|usr|both, got {rep!r}")
         self.device = resolve_device(device)
         if db.device != self.device:
             raise ValueError(f"database on {db.device}, engine on {self.device}")
@@ -133,6 +170,65 @@ class QueryEngine:
         while len(self._plans) > self.max_plans:
             self._plans.popitem(last=False)
         return plan
+
+    def rebind(self, db: Database) -> "QueryEngine":
+        """Bind a new database, dropping both caches. Always invalidates —
+        an identical schema can carry different values, and indexes depend
+        on values. For derived snapshots ``apply_delta`` keeps the caches
+        warm instead."""
+        if db.device != self.device:
+            raise ValueError(f"database on {db.device}, engine on {self.device}")
+        self.db = db
+        self._shreds.clear()
+        self._plans.clear()
+        return self
+
+    def apply_delta(self, delta) -> "QueryEngine":
+        """Advance the bound snapshot to ``self.db.apply(delta)`` and
+        upgrade every warm cache entry instead of dropping it.
+
+        Indexes of queries the delta touches are merged forward through
+        ``reshred_incremental`` (equal to a rebuild, at the delta's cost)
+        under the engine's ``KernelPolicy``; their plans are bound to the
+        upgraded index in place. Entries of queries the delta does not
+        touch are re-keyed to the new version for free. A plan whose index
+        fell out of the cache upgrades from its own index."""
+        old_db = self.db
+        new_db = old_db.apply(delta)
+        new_v = new_db.version
+        touched = set(delta.touched())
+
+        upgraded: Dict[Tuple, Shred] = {}  # key less version -> new index
+        new_shreds: "collections.OrderedDict[Tuple, _IndexEntry]" = \
+            collections.OrderedDict()
+        for key, entry in self._shreds.items():
+            if touched & {a.relation for a in entry.query.atoms}:
+                shred = reshred_incremental(entry.index, old_db, entry.query,
+                                            delta, self.kernel_policy, new_db)
+                self.stats.shred_upgrades += 1
+                entry = _IndexEntry(shred, entry.query, new_v)
+            else:
+                entry = dataclasses.replace(entry, version=new_v)
+            upgraded[key[:-1]] = entry.index
+            new_shreds[key[:-1] + (new_v,)] = entry
+        self._shreds = new_shreds
+
+        new_plans: "collections.OrderedDict[Tuple, CompiledPlan]" = \
+            collections.OrderedDict()
+        for key, plan in self._plans.items():
+            if touched & {a.relation for a in plan.query.atoms}:
+                shred = upgraded.get(plan_key(plan.query, key[1])[:-1])
+                if shred is None:  # orphan: upgrade from its own index
+                    shred = reshred_incremental(plan.shred, old_db,
+                                                plan.query, delta,
+                                                self.kernel_policy, new_db)
+                    self.stats.shred_upgrades += 1
+                plan.rebind_shred(shred)
+                self.stats.plan_upgrades += 1
+            new_plans[key[:-1] + (new_v,)] = plan
+        self._plans = new_plans
+        self.db = new_db
+        return self
 
     # -- entry points --------------------------------------------------------
     def full_join(self, query: JoinQuery, spec: Optional[DrawSpec] = None, *,
@@ -239,7 +335,9 @@ class QueryEngine:
             f"  db version={info['db_version']}  "
             f"entry versions={entry_vs or [info['db_version']]}",
             f"  cached shreds={len(self._shreds)} plans={len(self._plans)} "
-            f"(hits: shred={self.stats.shred_hits} plan={self.stats.plan_hits})",
+            f"(hits: shred={self.stats.shred_hits} plan={self.stats.plan_hits}"
+            f"; upgrades: shred={self.stats.shred_upgrades} "
+            f"plan={self.stats.plan_upgrades})",
         ]
         return "\n".join(lines)
 

@@ -5,7 +5,9 @@ been run, the shred index built, the GET rep and the draw route chosen,
 and the fused draw's operand vectors bound. Everything data-dependent (the
 key, per-call capacity overrides) stays a call argument, so one plan
 serves any number of independent draws, batches of draws, uniform
-samples and full-join flattens without rebuilding anything.
+samples and full-join flattens without rebuilding anything. A delta
+upgrades the plan in place (``rebind_shred``): the route, GET rep and
+draw tables are bound again for the new index; the capacities only grow.
 """
 from __future__ import annotations
 
@@ -71,6 +73,8 @@ class CompiledPlan:
         return self.spec.project
 
     def __post_init__(self):
+        self._default_cap = None
+        self._arrival_cap = None
         self._bind_shred(self.shred)
         self._run = executors.sample_executor(self.method, self.project)
         self._run_batch = executors.batched_sample_executor(self.method,
@@ -88,6 +92,9 @@ class CompiledPlan:
         return self.spec.narrow
 
     def _bind_shred(self, shred: Shred) -> None:
+        """Bind an index: route, GET rep, narrowing and draw tables are
+        chosen again on every bind (a delta can move an arena across
+        ``draw_limit`` or cost it its int32 form)."""
         root = shred.root
         self.shred = shred
         self.w = root.weight
@@ -102,8 +109,13 @@ class CompiledPlan:
             if self.query.prob_var not in root.variables:
                 raise AssertionError("build_plan must reroot prob_var to the root")
             self.p = root.data.column(self.query.prob_var)
-            self._default_cap = self.policy.sample_capacity(self.w, self.p)
-            self._arrival_cap = self.policy.arrival_capacity(self.w, self.p)
+            # Sticky capacities: recomputed from the new (w, p) but never
+            # below what the plan already used, so a delta that lowers
+            # E[k] keeps the buffers' shapes.
+            self._default_cap = max(self._default_cap or 0,
+                                    self.policy.sample_capacity(self.w, self.p))
+            self._arrival_cap = max(self._arrival_cap or 0,
+                                    self.policy.arrival_capacity(self.w, self.p))
             dparams = sampling.fused_draw_params(self.w, self.p, self.prefE,
                                                  self.kernel_policy)
             self._route = probe.select_draw(
@@ -112,10 +124,14 @@ class CompiledPlan:
             self._dparams = dparams if self._route != "pernode" else None
         else:
             self.p = None
-            self._default_cap = None
-            self._arrival_cap = None
             self._route = "pernode"
             self._dparams = None
+
+    def rebind_shred(self, shred: Shred) -> "CompiledPlan":
+        """Swap in an (incrementally upgraded) index for a newer snapshot,
+        keeping the plan and its executors."""
+        self._bind_shred(shred)
+        return self
 
     def _lanes(self) -> int:
         """Flat PTBERN's trial count (the join size); 0 for EXPRACE."""

@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 __all__ = ["DrawSpec", "merge_spec"]
 
-_REPS = (None, "usr", "both")
+_REPS = (None, "csr", "usr", "both")
 _METHODS = ("exprace", "ptbern_flat")
 _KERNELS = ("auto", "fused", "paged", "pernode", "reference")
 
@@ -27,9 +27,9 @@ class DrawSpec:
     """How a draw (or full join) executes. All fields optional; ``None``
     means "inherit the engine/plan default".
 
-    rep      index representation (``usr``/``both``); None lets the plan
-             pick (the engine default, upgraded to the fused GET kernel
-             when available — an explicit rep always wins).
+    rep      index representation (``csr``/``usr``/``both``); None lets
+             the plan pick (the engine default, upgraded to the fused GET
+             kernel when available — an explicit rep always wins).
     method   position-sampling method for Poisson draws (``exprace`` or
              ``ptbern_flat``; default exprace).
     project  bag-projection attributes A for beta_y(pi_A(Q^)) queries.
@@ -61,7 +61,8 @@ class DrawSpec:
         if self.project is not None and not isinstance(self.project, tuple):
             object.__setattr__(self, "project", tuple(self.project))
         if self.rep not in _REPS:
-            raise ValueError(f"rep must be usr|both|None, got {self.rep!r}")
+            raise ValueError(
+                f"rep must be csr|usr|both|None, got {self.rep!r}")
         if self.method not in _METHODS:
             raise ValueError(
                 f"method must be one of {_METHODS}, got {self.method!r}")

@@ -257,7 +257,8 @@ def test_ptbern_fused_route_matches_reference_exactly():
 
 
 def test_paged_and_unported_routes_raise():
-    """The paged rung runs (where the index pages); CSR still raises."""
+    """The paged rung runs (where the index pages); a CSR GET of an index
+    built without CSR columns raises."""
     tables, q = star_chain(0)
     _, port, tq = engines(tables, q, PREFER)
     shred = port.compile(tq).shred
@@ -275,7 +276,7 @@ def test_paged_and_unported_routes_raise():
     for name, rows in t_probe.get_rows(shred, pos, rep="usr").items():
         assert torch.equal(t_probe.get_rows(shred, pos, rep="usr_paged")[name],
                            rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(AssertionError, match="CSR"):
         t_probe.get_rows(shred, torch.arange(4), rep="csr")
 
 

@@ -156,7 +156,7 @@ def shapes():
 CASES = shapes()
 
 
-@pytest.mark.parametrize("rep", ["usr", "both"])
+@pytest.mark.parametrize("rep", ["usr", "both", "csr"])
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_build_shred_matches_reference(case, rep):
     tables, atoms, prob_var = CASES[case]
@@ -202,8 +202,16 @@ def test_arena_limit_refuses_packing():
 
 
 def test_csr_is_not_ported():
+    """The name is historical: rep 'csr' is ported now. A CSR index carries
+    the successor chains and the USR arrays the arena packs (as in the
+    reference), and an unknown rep still raises."""
     tables, atoms, prob_var = CASES[0]
     _, tdb = both_dbs(tables)
     _, tq = both_queries(atoms, prob_var)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build_shred(tdb, tq, rep="csr")
+    shred = t_build_shred(tdb, tq, rep="csr")
+    child = shred.root.children[0]
+    assert child.nxt is not None and child.nxt.dtype == torch.int32
+    assert child.perm is not None and shred.packed is not None
+    assert t_build_shred(tdb, tq, rep="usr").root.children[0].nxt is None
+    with pytest.raises(ValueError, match="csr"):
+        t_build_shred(tdb, tq, rep="chained")
