@@ -18,7 +18,10 @@ entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 ``QueryEngine.apply_delta`` on A's, B's and C's warm engines (the index
 merged by ``reshred_incremental`` and held against a rebuild, then the
 full join and draws through the upgraded index's kernels, against a
-fresh engine), a route flip at B, and the CSR index at A. It builds
+fresh engine), a route flip at B, and the CSR index at A; then (phase
+G) the serving path and the data plane: the micro-batcher, a fleet of
+four replicas with one crashed, ``serve --mode join`` and the Poisson-join
+training-data source over a million-document corpus. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -65,6 +68,24 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        ``reshred_incremental`` against ``build_shred`` and
                        of ``apply_delta`` + a draw against ``rebind`` + a
                        draw.
+  G  serving           at B's tables (fresh) a stream of 256 draws over
+                       three shapes (Title, Title |><| Cast, the three-way
+                       join) with four Cast churns: ``serve_join_samples``
+                       (max_batch 32, max_wait 2 ms), then
+                       ``Fleet(replicas=4, clock='real')`` with the main
+                       shape's home crashed mid-stream, each draw against
+                       the batcher's per (seed, version); at C 64 draws and
+                       at A 16 (max_batch 8, one churn), each against the
+                       single draw; ``make_corpus_db`` at 1,000,000
+                       documents x 1,024 tokens (4,096 clusters, vocabulary
+                       32,000; 8.2 GB of int64 tokens on the card) through
+                       ``PoissonJoinSource(batch=32, window=32)`` with two
+                       ``corpus_delta`` barriers (1,000 in, 1,000 out at
+                       steps 40 and 80), batches 0-127 against a fresh
+                       source's in shuffled order and a ``Prefetcher``'s;
+                       ``serve.main`` in join mode with 4 replicas. Shrink
+                       it with ``--serve-requests``, ``--corpus-docs`` and
+                       ``--corpus-seq``.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32); GEO positions at
                        p = 0.05 over A's join from device Threefry uniforms
@@ -1475,6 +1496,457 @@ def run_updates(args, device, q, configs, kernels):
     return launches, e2e
 
 
+def serve_stream(shapes, n: int, updates: int, spec_fn, seed0: int):
+    """``n`` draws over ``shapes`` in turn (seeds from ``seed0``) with
+    ``updates`` update requests (each a fresh ``spec_fn()`` delta) spread
+    evenly through them."""
+    from repro_torch.core import DeltaBatch
+    from repro_torch.launch.fleet import JoinSampleRequest, UpdateRequest
+
+    reqs = [JoinSampleRequest(query=shapes[i % len(shapes)], seed=seed0 + i)
+            for i in range(n)]
+    every = n // (updates + 1)
+    for u in range(updates, 0, -1):
+        reqs.insert(u * every, UpdateRequest(DeltaBatch.of(**spec_fn())))
+    return reqs
+
+
+def served_draws(done) -> list:
+    from repro_torch.launch.fleet import JoinSampleRequest
+
+    return [r for r in done if isinstance(r, JoinSampleRequest)]
+
+
+def serving_profiles(args) -> dict:
+    """Phase G's ``--profile`` windows, in a fresh process of this script
+    (``--serving-profiles``): run after phases A-F in the same process,
+    the profiler recorded no event of the draw kernels' library (their
+    launches, key uploads and memsets), which a fresh process records.
+    Returns the windows."""
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           "--serving-profiles", "--seed", str(args.seed),
+           "--serving-title-rows", str(args.serving_title_rows),
+           "--corpus-docs", str(args.corpus_docs),
+           "--corpus-seq", str(args.corpus_seq)]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        if not line.startswith("PROFILES "):
+            log(line)
+    if out.returncode:
+        raise RuntimeError(f"serving profiles failed: {out.stderr[-2000:]}")
+    line = next(x for x in out.stdout.splitlines()
+                if x.startswith("PROFILES "))
+    return json.loads(line[len("PROFILES "):])
+
+
+def run_serving_profiles(args, device) -> dict:
+    """The windows of ``serving_profiles``: a batcher flush of 32 draws of
+    the three-way join at B, and a steady window of 32 pipeline steps
+    (its first step dispatching the next window) over the corpus, after
+    128 steps."""
+    from repro_torch.core import Atom, Database, JoinQuery
+    from repro_torch.data import PoissonJoinSource, make_corpus_db
+    from repro_torch.engine import QueryEngine
+    from repro_torch.kernels import build
+    from repro_torch.launch.fleet import JoinSampleRequest, MicroBatcher
+
+    build.build_all()
+    q = JoinQuery((Atom.of("Title", "t", "kind", "p"),
+                   Atom.of("Cast", "t", "person"),
+                   Atom.of("Comp", "t", "comp")), prob_var="p")
+    eng = QueryEngine(Database.from_columns(
+        make_tables(args.seed + 1, args.serving_title_rows), device=device),
+        device=device)
+
+    def flush():
+        mb = MicroBatcher(eng, max_batch=32, max_wait_ms=1e9)
+        for i in range(32):
+            mb.submit(JoinSampleRequest(query=q, seed=7000 + i))
+    out = {"flush_B": profile_window(
+        flush, "G.B batcher flush of 32 (Title |><| Cast |><| Comp)",
+        wall_ms(flush, device))}
+    del eng
+    corpus = make_corpus_db(args.corpus_docs, 4096, args.corpus_seq, 32_000,
+                            seed=args.seed, device=device)
+    src = PoissonJoinSource(corpus, args.corpus_seq, 32, seed=args.seed,
+                            window=32, depth=2)
+    state = {"s": 0}
+
+    def window():
+        for t in range(state["s"], state["s"] + 32):
+            src.batch_at(t)
+        state["s"] += 32
+    for _ in range(4):
+        window()
+    out["pipeline"] = profile_window(
+        window, "G.pipeline steady window of 32 steps",
+        wall_ms(window, device))
+    return out
+
+
+def run_serving(args, device, q, configs, kernels, kernel_policy):
+    """Phase G: the serving path and the data plane on the card.
+
+    G.B: a stream of ``--serve-requests`` draws over three shapes (Title,
+    Title |><| Cast, Title |><| Cast |><| Comp) at B's tables with four
+    Cast churns (phase F's) spread through it, ``max_batch`` 32 and
+    ``max_wait_ms`` 2: through ``serve_join_samples`` on one engine (the
+    baseline), then through ``Fleet(replicas=4, clock='real')`` with the
+    main shape's home replica crashed mid-stream. Every fleet draw's
+    (count, overflow) per (seed, version) equals the baseline's, nothing
+    is lost or served twice; 8 requests a shape, served with
+    ``collect_rows=True``, equal ``engine.sample`` row for row; the cache
+    shows upgrades and no build after warm-up. G.C and G.A: the paged and
+    per-node routes through one engine's batcher (``max_batch`` 8; one
+    update at A), each request against the single draw at its version.
+    G.pipeline: ``make_corpus_db`` (``--corpus-docs`` documents, 4,096
+    clusters, ``--corpus-seq`` tokens each, vocabulary 32,000) through
+    ``PoissonJoinSource(batch=32, window=32, depth=2)`` with two
+    ``corpus_delta`` barriers (1,000 documents in and 1,000 out, at steps
+    40 and 80): the route, the versions, batches 0-127 against a fresh
+    source's taken in shuffled order within each snapshot, the counters,
+    and a ``Prefetcher``'s batches. G.cli: ``serve.main`` in join mode
+    with 4 replicas and 4 updates. Each main path counts its launches
+    (zeroed just before, read just after). Returns the launches and the
+    times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Atom, Database, JoinQuery
+    from repro_torch.data import (PoissonJoinSource, Prefetcher,
+                                  corpus_delta, make_corpus_db)
+    from repro_torch.engine import QueryEngine, query_fingerprint
+    from repro_torch.kernels import threefry
+    from repro_torch.launch import metrics, serve
+    from repro_torch.launch.fleet import (DOWN, Fleet, JoinSampleRequest,
+                                          serve_join_samples)
+
+    on_card = device.type == "cuda"
+    launches, e2e = {}, {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def main_path(label, fn):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        sync()
+        launches[label] = {k: f.launches for k, f in kernels.items()}
+        log(f"[{label}] launches " + str({k: v for k, v in
+                                          launches[label].items() if v}))
+        return out
+
+    def engine(db):
+        return QueryEngine(db, device=device, kernel_policy=kernel_policy)
+
+    def latency(label, draws, wall_s):
+        out = dict(metrics.latency_summary([r.latency_s for r in draws]),
+                   draws=len(draws), wall_ms=wall_s * 1e3,
+                   draws_per_s=len(draws) / wall_s)
+        log(f"[time] {label}: {len(draws)} draws in {wall_s * 1e3:.1f} ms: "
+            f"{out['draws_per_s']:.1f} draws/s, latency p50 "
+            f"{out['p50_ms']:.3f} ms, p99 {out['p99_ms']:.3f} ms, max "
+            f"{out['max_ms']:.3f} ms (metrics.percentile, nearest rank); "
+            f"slowest (seed, ms): " + ", ".join(
+                f"({r.seed}, {r.latency_s * 1e3:.3f})" for r in sorted(
+                    draws, key=lambda r: -r.latency_s)[:3]))
+        return out
+
+    def check_single(label, eng, reqs, rows=False):
+        """Each request against ``eng.sample`` under its key, ``eng`` at
+        the requests' version."""
+        for r in reqs:
+            want = eng.sample(r.query, threefry.key(r.seed))
+            assert (r.count, r.overflow) == (int(want.count),
+                                             bool(want.overflow)), \
+                (label, r.seed, r.count, int(want.count))
+            if rows:
+                assert set(r.rows) == set(want.columns), label
+                for c, col in want.columns.items():
+                    assert np.array_equal(r.rows[c],
+                                          col[: r.count].cpu().numpy()), \
+                        (label, r.seed, c)
+
+    title = JoinQuery((Atom.of("Title", "t", "kind", "p"),), prob_var="p")
+    title_cast = JoinQuery((Atom.of("Title", "t", "kind", "p"),
+                            Atom.of("Cast", "t", "person")), prob_var="p")
+    shapes = (title, title_cast, q)
+
+    # -- G.B: the batcher, then the fleet ----------------------------------------
+    tabB = make_tables(args.seed + 1, args.serving_title_rows)
+    dbB = Database.from_columns(tabB, device=device)
+    n = args.serve_requests
+
+    def stream():
+        churn = np.random.default_rng(args.seed + 21)
+        return serve_stream(shapes, n, 4,
+                            lambda: churn_spec(tabB, "Cast", 0.005, churn),
+                            5000)
+
+    engB = engine(dbB)
+    routes = [engB.compile(s).route for s in shapes]
+    for s in shapes:  # warm-up: one index and one plan a shape
+        engB.sample(s, threefry.key(0))
+    st0 = engB.stats.snapshot()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    done = main_path("G.B batcher", lambda: serve_join_samples(
+        engB, stream(), max_batch=32, max_wait_ms=2.0))
+    e2e["batcher_B"] = latency("G.B batcher", served_draws(done),
+                               time.perf_counter() - t0)
+    base = {(r.seed, r.db_version): (r.count, r.overflow)
+            for r in served_draws(done)}
+    assert len(base) == n and engB.db.version == 4, (len(base), engB.db.version)
+    st = engB.stats
+    assert (st.shred_builds, st.plan_misses) == (st0.shred_builds,
+                                                 st0.plan_misses), st
+    assert st.shred_upgrades >= 4 and st.plan_upgrades >= 4, st
+    log(f"[G.B batcher] {n} draws over {len(shapes)} shapes (routes "
+        f"{routes}) and 4 updates: after warm-up {st.shred_upgrades - st0.shred_upgrades} "
+        f"shred and {st.plan_upgrades - st0.plan_upgrades} plan upgrades, "
+        f"0 builds, 0 plan misses ({st})")
+    if on_card:
+        assert launches["G.B batcher"]["fused_draw_batch"] > 0
+        assert launches["G.B batcher"]["fused_draw"] == 0
+    # 8 requests a shape, their rows to the host, at the engine's version
+    reqs = [JoinSampleRequest(query=shapes[i % 3], seed=9000 + i)
+            for i in range(24)]
+    serve_join_samples(engB, reqs, max_batch=32, collect_rows=True)
+    check_single("G.B rows", engB, reqs, rows=True)
+    log("[G.B batcher] 24 requests (8 a shape) with collect_rows: rows "
+        "equal engine.sample row for row")
+
+    fleet = Fleet(dbB, replicas=4, max_batch=32, max_wait_ms=2.0,
+                  max_inflight=4 * n, clock="real", retry_timeout_s=30.0,
+                  kernel_policy=kernel_policy)
+    victim = fleet.router._route(query_fingerprint(q))
+    for i, s in enumerate(shapes):  # warm-up: each shape on its home
+        assert fleet.submit(JoinSampleRequest(query=s, seed=i)) is None
+    while fleet.router.inflight:
+        fleet.pump()
+    fleet.take_completed()
+    stf0 = fleet.stats()
+
+    def serve_fleet_stream():
+        done = []
+        for i, r in enumerate(stream()):
+            assert fleet.submit(r) is None, "rejected"
+            done += fleet.take_completed()
+            if i + 1 == (n + 4) // 2:
+                fleet.crash(victim)
+                done += fleet.take_completed()
+        return done + fleet.drain()
+
+    t0 = time.perf_counter()
+    done = main_path("G.B fleet", serve_fleet_stream)
+    draws = served_draws(done)
+    e2e["fleet_B"] = latency("G.B fleet", draws, time.perf_counter() - t0)
+    assert len(draws) == n and len({id(r) for r in draws}) == n, \
+        "a request lost or served twice"
+    bad = [r.seed for r in draws
+           if base.get((r.seed, r.db_version)) != (r.count, r.overflow)]
+    assert not bad, f"fleet != single engine for seeds {bad[:8]}"
+    rep = next(r for r in fleet.replicas if r.name == victim)
+    assert rep.state == DOWN and victim not in fleet.router.drained
+    stf = fleet.stats()
+    assert stf.shred_upgrades > stf0.shred_upgrades, stf
+    e2e["fleet_B"].update(retries=fleet.router.retries, crashed=victim,
+                          stats=dataclasses.asdict(stf))
+    log(f"[G.B fleet] 4 replicas, {victim} (home of the 3-way join) crashed "
+        f"after request {(n + 4) // 2}: {n} draws equal the batcher's per "
+        f"(seed, version), none lost or served twice; retries "
+        f"{fleet.router.retries}; log head {fleet.log.head}; builds after "
+        f"warm-up {stf.shred_builds - stf0.shred_builds} (the crashed "
+        f"replica's shapes on their next home), upgrades "
+        f"{stf.shred_upgrades - stf0.shred_upgrades} ({stf})")
+    if on_card:
+        peak = torch.cuda.max_memory_allocated(device)
+        e2e["peak_device_bytes_serving_B"] = int(peak - held)
+        log(f"[memory] G.B batcher and fleet (4 replicas' snapshots and "
+            f"engines on one card): peak {peak / 2**30:.3f} GiB, of which "
+            f"{held / 2**30:.3f} GiB held by earlier phases before it: "
+            f"{(peak - held) / 2**30:.3f} GiB its own")
+        assert launches["G.B fleet"]["fused_draw_batch"] > 0
+    del fleet, engB
+
+    # -- G.C and G.A: the paged and per-node routes, one engine each ----------
+    tabC = make_tables(args.seed + 2, args.paged_title_rows)
+    engC = engine(Database.from_columns(tabC, device=device))
+    assert engC.compile(q).route == "paged"
+    # warm-up: the stream once (indexes, plans, each batch size's buffers)
+    serve_join_samples(engC, serve_stream(shapes, 64, 0, None, 6000),
+                       max_batch=8, max_wait_ms=2.0)
+    reqsC = serve_stream(shapes, 64, 0, None, 6000)
+    t0 = time.perf_counter()
+    main_path("G.C batcher", lambda: serve_join_samples(
+        engC, reqsC, max_batch=8, max_wait_ms=2.0, collect_rows=True))
+    e2e["batcher_C"] = latency("G.C batcher", reqsC, time.perf_counter() - t0)
+    check_single("G.C", engC, reqsC, rows=True)
+    log(f"[G.C batcher] 64 draws over {len(shapes)} shapes (routes "
+        f"{[engC.compile(s).route for s in shapes]}): count, overflow and "
+        f"rows equal engine.sample")
+    if on_card:
+        assert launches["G.C batcher"]["fused_sample_batch"] > 0
+        assert launches["G.C batcher"]["tree_probe_paged"] > 0
+    del engC
+
+    tabA, engA, _ = configs["A"]
+    assert engA.compile(q).route == "pernode"
+    churnA = np.random.default_rng(args.seed + 22)
+    reqsA = serve_stream((q,), 16, 1,
+                         lambda: churn_spec(tabA, "Cast", 0.005, churnA),
+                         7000)
+    before = reqsA[:8]
+    want0 = []
+    for r in before:
+        w = engA.sample(q, threefry.key(r.seed))
+        want0.append((int(w.count), bool(w.overflow)))
+    del w
+    v0 = engA.db.version
+    t0 = time.perf_counter()
+    main_path("G.A batcher", lambda: serve_join_samples(
+        engA, reqsA, max_batch=8, max_wait_ms=2.0))
+    drawsA = served_draws(reqsA)
+    e2e["batcher_A"] = latency("G.A batcher", drawsA,
+                               time.perf_counter() - t0)
+    assert [(r.count, r.overflow) for r in before] == want0
+    assert all(r.db_version == v0 for r in before)
+    after = drawsA[8:]
+    assert all(r.db_version == v0 + 1 for r in after)
+    check_single("G.A", engA, after)
+    log(f"[G.A batcher] 16 per-node draws, 8 at version {v0} and 8 after a "
+        f"Cast churn at {v0 + 1}: count and overflow equal engine.sample")
+    if on_card:
+        assert launches["G.A batcher"]["tree_probe"] > 0
+        assert launches["G.A batcher"]["bsearch_probe"] > 0
+
+    # -- G.pipeline: the Poisson-join training-data source --------------------
+    nd, seq = args.corpus_docs, args.corpus_seq
+    t0 = time.perf_counter()
+    corpus = make_corpus_db(nd, 4096, seq, 32_000, seed=args.seed,
+                            device=device)
+    sync()
+    e2e["corpus_s"] = time.perf_counter() - t0
+    log(f"[G.pipeline] corpus: {nd} documents x {seq} tokens "
+        f"({nd * seq} int64, {nd * seq * 8 / 1e9:.2f} GB on the device), "
+        f"4,096 clusters: numpy generation and upload {e2e['corpus_s']:.1f} s")
+    pick = np.random.default_rng(args.seed + 23)
+    snap, deltas = corpus, []
+    for i, at in enumerate((40, 80)):
+        d = corpus_delta(snap, seq, 32_000, insert=1000, seed=300 + i,
+                         retire=pick.choice(snap.relations["Doc"].num_rows,
+                                            1000, replace=False))
+        deltas.append((at, d))
+        if i == 0:
+            snap = snap.apply(d)
+    del snap
+
+    def source(depth=2):
+        return PoissonJoinSource(corpus, seq, 32, seed=args.seed, window=32,
+                                 depth=depth, deltas=deltas,
+                                 kernel_policy=kernel_policy)
+
+    t0 = time.perf_counter()
+    src = source()
+    sync()
+    plan = src.engine.compile(src.query, src._spec)
+    lay = plan.shred.packed.layout
+    log(f"[G.pipeline] index of Doc |><| ClusterQuality in "
+        f"{time.perf_counter() - t0:.2f} s: arena {lay.size} int32, route "
+        f"{plan.route}, cap {src.cap}, E[k] {plan.expected_k():.1f}")
+    if lay.size <= src.engine.kernel_policy.draw_limit:
+        assert plan.route == "fused", plan.route
+    if nd == 1_000_000:
+        assert lay.size == 2_012_290 and plan.route == "fused", lay.size
+    steps = 128
+
+    def consume(s, k):
+        return [src.batch_at(t) for t in range(s, s + k)]
+
+    batches = main_path("G.pipeline", lambda: consume(0, steps))
+    versions = [b["db_version"] for b in batches]
+    assert versions == [0] * 40 + [1] * 40 + [2] * 48, versions
+    assert versions == [src.version_at(s) for s in range(steps)]
+    wrapped, overflows = src.wrapped, src.overflows
+    log(f"[G.pipeline] {steps} batches of 32 x {seq - 1} tokens: versions "
+        f"step at 40 and 80; wrapped {wrapped}, overflows {overflows}")
+    if on_card:
+        assert launches["G.pipeline"]["fused_draw_batch"] > 0
+
+    # steady state, after the barriers: one window (its first step
+    # dispatches the next window) and the rest of its steps
+    per = {"dispatch_ms": [], "dispatch_host_ms": [], "step_ms": []}
+    s = steps
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        src.batch_at(s)
+        th = time.perf_counter()  # the host returns: what it waited for
+        sync()
+        t1 = time.perf_counter()
+        consume(s + 1, 31)
+        sync()
+        t2 = time.perf_counter()
+        per["dispatch_host_ms"].append((th - t0) * 1e3)
+        per["dispatch_ms"].append((t1 - t0) * 1e3)
+        per["step_ms"].append((t2 - t0) * 1e3 / 32)
+        s += 32
+    e2e["pipeline"] = {"window_dispatch_ms": per["dispatch_ms"],
+                       "window_dispatch_host_ms": per["dispatch_host_ms"],
+                       "steady_step_ms": per["step_ms"],
+                       "wrapped": wrapped, "overflows": overflows,
+                       "arena": lay.size, "cap": src.cap}
+    fmt = lambda xs: ", ".join(f"{x:.4f}" for x in xs)  # noqa: E731
+    log(f"[time] G.pipeline steady window (32 steps, its first step "
+        f"dispatching the next window of 32 draws), synchronized at its "
+        f"end: {fmt(per['step_ms'])} ms a step; the dispatching step "
+        f"{fmt(per['dispatch_ms'])} ms to the device's end, of which the "
+        f"host is held {fmt(per['dispatch_host_ms'])} ms")
+
+    # a fresh source, each snapshot's steps in shuffled order (without the
+    # eager dispatch: at depth 2 a window before a barrier applies it)
+    src2 = source(depth=1)
+    order = np.concatenate([pick.permutation(np.arange(lo, hi))
+                            for lo, hi in ((0, 40), (40, 80), (80, steps))])
+    for t in order:
+        a, b = batches[t], src2.batch_at(int(t))
+        assert a["db_version"] == b["db_version"], t
+        for k in ("tokens", "targets", "doc_ids", "sampled_k"):
+            assert torch.equal(a[k], b[k]), (t, k)
+    del src2
+    log(f"[G.pipeline] a fresh source's batches 0-{steps - 1}, shuffled "
+        f"within each snapshot: equal (tokens, targets, doc ids, sampled_k, "
+        f"db_version)")
+    pf = Prefetcher(source(), start_step=0, depth=2)
+    try:
+        for want in range(48):
+            t, b = next(pf)
+            assert t == want
+            for k in ("tokens", "targets", "doc_ids", "sampled_k"):
+                assert torch.equal(batches[t][k], b[k]), (t, k)
+    finally:
+        pf.stop()
+    log("[G.pipeline] Prefetcher (a second thread, on the device's current "
+        "stream there: the default stream) yields batches 0-47 equal")
+    del pf, src, batches, corpus, deltas
+
+    if on_card and args.profile:
+        e2e["profile"] = serving_profiles(args)
+
+    # -- G.cli ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    main_path("G.cli", lambda: serve.main(
+        ["--mode", "join", "--replicas", "4", "--updates", "4",
+         "--device", str(device)], kernel_policy=kernel_policy))
+    log(f"[G.cli] serve.main --mode join --replicas 4 --updates 4: "
+        f"{time.perf_counter() - t0:.1f} s, its checks held")
+    return launches, e2e
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -2025,22 +2497,29 @@ def run(args, device, kernel_policy=None) -> dict:
     errs["threefry_uniforms"] = max(errs["threefry_uniforms"],
                                     errsD.pop("threefry_uniforms"))
     errs.update(errsD)
-    # -- 7c. phase F: updates on the card, last (it advances A-C's engines)
+    # -- 7c. phase F: updates on the card (it advances A-C's engines)
     launchesF, e2eF = run_updates(args, device, q, configs, kernels)
     e2e["updates"] = e2eF
+    # -- 7d. phase G: serving and the data plane, last
+    launchesG, e2eG = run_serving(args, device, q, configs, kernels,
+                                  kernel_policy)
+    e2e["serving"] = e2eG
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
                        + sum(lp[k] for lp in launchesE.values())
-                       + sum(lp[k] for lp in launchesF.values()))
+                       + sum(lp[k] for lp in launchesF.values())
+                       + sum(lp[k] for lp in launchesG.values()))
     # the float64 scans of the main path (the one counter counts both
     # dtypes): the per-node draws' mass prefixes and those of the plans
-    # bound in C's second engine and in phase F; phase D's are int32
+    # bound in C's second engine and in phases F and G; phase D's are int32
     launches["prefix_sum_f64"] = (launchesA["prefix_sum"]
                                   + launchesR["prefix_sum"]
                                   + launchesE["E.A"]["prefix_sum"]
                                   + sum(lp["prefix_sum"]
-                                        for lp in launchesF.values()))
+                                        for lp in launchesF.values())
+                                  + sum(lp["prefix_sum"]
+                                        for lp in launchesG.values()))
     launches["prefix_sum"] -= launches["prefix_sum_f64"]
 
     # -- 8. the kernels' rows ---------------------------------------------------
@@ -2077,6 +2556,7 @@ def run(args, device, kernel_policy=None) -> dict:
             "draw_grids": grids, "device_ms": dev_ms,
             "bsearch_tiles_A": tiles_bs, "phase_e_launches": launchesE,
             "phase_f_launches": launchesF,
+            "phase_g_launches": launchesG,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),
@@ -2107,6 +2587,14 @@ def main(argv=None) -> int:
                     help="sequence of phase D's llama3-405b prefill")
     ap.add_argument("--prefill-long-seq", type=int, default=32_768,
                     help="sequence of phase D's prefill_32k case")
+    ap.add_argument("--serve-requests", type=int, default=256,
+                    help="draws of phase G's serving stream at B")
+    ap.add_argument("--corpus-docs", type=int, default=1_000_000,
+                    help="documents of phase G's training corpus")
+    ap.add_argument("--corpus-seq", type=int, default=1024,
+                    help="tokens a document of phase G's corpus")
+    ap.add_argument("--serving-profiles", action="store_true",
+                    help=argparse.SUPPRESS)  # phase G's windows, a child
     ap.add_argument("--reps", type=int, default=5, help="timed kernel calls")
     ap.add_argument("--profile", action="store_true",
                     help="also break the warm calls down by device kernel")
@@ -2127,6 +2615,11 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(src))
 
+    if args.serving_profiles:
+        torch.cuda.set_device(0)
+        print("PROFILES " + json.dumps(run_serving_profiles(
+            args, torch.device("cuda", 0))))
+        return 0
     smi = nvidia_smi_line()
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "

@@ -11,9 +11,12 @@ int64 tensors alike.
 the same fused stream in both packages; ``split(key, num)`` gives the
 words of ``jax.random.split(key, num)`` (the partitionable, fold-like
 split: key i is the cipher of the 64-bit counter i), and ``keys(seed,
-num)`` those of ``split(key(seed), num)``, the canonical keys of a batch.
-The stream is the reference's own self-defined one: ``fold``/``uniforms``
-are not ``jax.random``'s.
+num)`` those of ``split(key(seed), num)``, the canonical keys of a batch,
+and ``fold_in(key, data)`` / ``fold_in_batch(key, steps)`` those of
+``jax.random.fold_in`` (the cipher of the counter (0, data)): the data
+pipeline's per-step keys. ``fold`` is another function: the draw
+kernels' in-kernel stream fold, the cipher of (data, 0), and the streams
+of ``uniforms`` depend on it.
 
 ``uniforms`` is the wrapper around the device cipher (``fused_draw.cu``'s
 ``threefry_uniforms_kernel``): it has no place on the draw path, where the
@@ -29,8 +32,9 @@ import torch
 
 from repro_torch.config import resolve_device
 
-__all__ = ["key", "key_words", "key_batch", "split", "keys", "threefry2x32",
-           "fold", "bits_to_uniform", "uniforms_plain", "uniforms"]
+__all__ = ["key", "key_words", "key_batch", "split", "keys", "fold_in",
+           "fold_in_batch", "threefry2x32", "fold", "bits_to_uniform",
+           "uniforms_plain", "uniforms"]
 
 M32 = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
@@ -80,6 +84,22 @@ def keys(seed: int, num: int) -> np.ndarray:
     return split(key(seed), num)
 
 
+def fold_in(k, data: int) -> np.ndarray:
+    """The (2,) uint32 words of ``jax.random.fold_in(k, data)``: the
+    cipher of the counter (0, data) under ``k``, ``data`` taken mod 2^32
+    as jax takes it. Not ``fold``, which ciphers (data, 0)."""
+    return fold_in_batch(k, [data])[0]
+
+
+def fold_in_batch(k, steps) -> np.ndarray:
+    """The (B, 2) uint32 words of ``fold_in(k, s)`` for each of ``steps``
+    (a sequence of ints), in one vectorized cipher on the host."""
+    k0, k1 = key_words(k)
+    ctr = torch.as_tensor(np.asarray(steps, np.int64).reshape(-1) & M32)
+    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
+    return torch.stack([x0, x1], dim=1).numpy().astype(np.uint32)
+
+
 def _rotl(x, d: int):
     return ((x << d) | (x >> (32 - d))) & M32
 
@@ -100,7 +120,9 @@ def threefry2x32(k0: int, k1: int, x0, x1):
 
 
 def fold(k, data: int) -> tuple:
-    """Subkey of stream ``data``: the stream id encrypted under ``k``."""
+    """Subkey of stream ``data``: the stream id encrypted under ``k`` as
+    the counter (data, 0), as the reference's kernels fold it in-kernel.
+    Not ``jax.random.fold_in`` (that is ``fold_in``)."""
     k0, k1 = key_words(k)
     return threefry2x32(k0, k1, int(data) & M32, 0)
 
