@@ -18,10 +18,12 @@ entry point ``repro_torch.kernels.ops``: ``prefix_sum``,
 ``QueryEngine.apply_delta`` on A's, B's and C's warm engines (the index
 merged by ``reshred_incremental`` and held against a rebuild, then the
 full join and draws through the upgraded index's kernels, against a
-fresh engine), a route flip at B, and the CSR index at A; then (phase
-G) the serving path and the data plane: the micro-batcher, a fleet of
-four replicas with one crashed, ``serve --mode join`` and the Poisson-join
-training-data source over a million-document corpus. It builds
+fresh engine), a route flip at B, and the CSR index at A (the
+``csr_walk`` kernel in both modes); then (phase G) the serving path and
+the data plane: the micro-batcher, a fleet of four replicas with one
+crashed, ``serve --mode join`` and the Poisson-join training-data source
+over a million-document corpus; then (phase H) sharded sampling on a mesh
+of four entries on the card. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -64,7 +66,10 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        titles with a churn of Comp; at B the fewest Cast
                        inserts that take the arena over ``draw_limit`` and
                        their delete; at A ``full_join`` and ``csr_get_rows``
-                       of the CSR index against the USR GET; times of
+                       of the CSR index against the USR GET,
+                       ``csr_get_rows_cached`` on every position against
+                       ``csr_get_rows``, both walk kernels against their
+                       plain versions on each edge's operands; times of
                        ``reshred_incremental`` against ``build_shred`` and
                        of ``apply_delta`` + a draw against ``rebind`` + a
                        draw.
@@ -86,6 +91,19 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        ``serve.main`` in join mode with 4 replicas. Shrink
                        it with ``--serve-requests``, ``--corpus-docs`` and
                        ``--corpus-seq``.
+  H  sharding          a mesh of four entries on the card (four shards of
+                       the root): at A (every title) ``full_join(mesh=)``
+                       against the single-device join in order, draws
+                       against the join and ``expected_k``, warm calls
+                       without builds, peak memory; ``apply_delta`` on the
+                       sharded plan (a Cast churn, new p for the last
+                       block's titles) against a fresh ``build_stacked``;
+                       at B (32,000 titles) each shard's draw against one
+                       engine's over that shard's database under
+                       ``fold_in(key, s)``, a batch of 32 against sharded
+                       single draws, ``MicroBatcher(mesh=)`` over phase G's
+                       stream, ``serve.main --devices 4``; times beside
+                       single-device.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32); GEO positions at
                        p = 0.05 over A's join from device Threefry uniforms
@@ -794,15 +812,28 @@ def run_ops(args, device, kernels, n_join: int):
         "flash_prefill 32k")
     b32 = bound(2 * (2 * q32.numel() + k32.numel() + v32.numel()),
                 2 * q32.numel() * S32, BF16_TC_OPS_PER_S)
+    # its plain version on one head of 128 (a dense head is (S, S) scores)
+    plain32_ms = timed(lambda: pre_mod.flash_prefill_plain(
+        q32[:, :1], k32[:, :1], v32[:, :1], True), 1, device)
+    call["flash_prefill_32k"] = lambda: ops.prefill_attention(
+        q32, k32, v32, causal=True)
     log(f"[time] flash_prefill llama3-405b bf16 S={S32} causal (tensor "
         f"cores): {ms32:.4f} ms (bound {b32[0]:.4f} by {b32[1]}"
-        + (f", library {lib32:.4f}" if lib32 is not None else "") + ")")
+        + (f", library {lib32:.4f}" if lib32 is not None else "")
+        + f"; plain on one head of {Hl} {plain32_ms:.3f})")
     # the float32 instances, on the CUDA cores
     qf, kf, vf, bf, _ = list(dec_cases.values())[2]
     f32_dec_ms = timed(lambda: ops.decode_attention(qf, kf, vf, bf), reps,
                        device)
     f32_pre_ms = timed(lambda: ops.prefill_attention(qs, ks, vs, causal=True),
                        reps, device)
+    f32_dec_plain = timed(lambda: dec_mod.flash_decode_plain(qf, kf, vf, bf),
+                          1, device)
+    f32_pre_plain = timed(lambda: pre_mod.flash_prefill_plain(qs, ks, vs,
+                                                              True), 1, device)
+    call["flash_decode_f32"] = lambda: ops.decode_attention(qf, kf, vf, bf)
+    call["flash_prefill_f32"] = lambda: ops.prefill_attention(qs, ks, vs,
+                                                              causal=True)
     maskf = (bf == 0)[:, None, None, :]
     f32_dec_lib = library_timed(lambda: F.scaled_dot_product_attention(
         qf[:, :, None], kf, vf, attn_mask=maskf, enable_gqa=True), reps,
@@ -817,17 +848,21 @@ def run_ops(args, device, kernels, n_join: int):
     f32_pre_bound = bound(4 * (2 * qs.numel() + ks.numel() + vs.numel()),
                           2 * qs.numel() * qs.shape[2])
     log(f"[time] flash_decode float32 (CUDA cores) B=2 H=8 KV=2 D=128 "
-        f"S={Sf}: {f32_dec_ms:.4f} ms (library {f32_dec_lib}, bound "
-        f"{f32_dec_bound[0]:.4f} by {f32_dec_bound[1]}); "
-        f"flash_prefill float32 (CUDA cores) smollm-135m B=2 S=1000 causal: "
-        f"{f32_pre_ms:.4f} ms (library {f32_pre_lib}, bound "
+        f"S={Sf}: {f32_dec_ms:.4f} ms (plain {f32_dec_plain:.3f}, library "
+        f"{f32_dec_lib}, bound {f32_dec_bound[0]:.4f} by "
+        f"{f32_dec_bound[1]}); flash_prefill float32 (CUDA cores) "
+        f"smollm-135m B=2 S=1000 causal: {f32_pre_ms:.4f} ms (plain "
+        f"{f32_pre_plain:.3f}, library {f32_pre_lib}, bound "
         f"{f32_pre_bound[0]:.4f} by {f32_pre_bound[1]})")
     sizes = {"scan_n": n, "geo_join": n_join, "geo_lanes": lanes,
              "decode": list(dec_cases), "prefill": list(pre_cases),
              "prefill_32k": {"S": S32, "ms": ms32, "library_ms": lib32,
-                             "bound_ms": b32[0], "bound_by": b32[1]},
+                             "bound_ms": b32[0], "bound_by": b32[1],
+                             "plain_one_head_ms": plain32_ms},
              "float32_ms": {"flash_decode": f32_dec_ms,
                             "flash_prefill": f32_pre_ms,
+                            "flash_decode_plain": f32_dec_plain,
+                            "flash_prefill_plain": f32_pre_plain,
                             "flash_decode_library": f32_dec_lib,
                             "flash_prefill_library": f32_pre_lib,
                             "flash_decode_bound": f32_dec_bound,
@@ -1266,7 +1301,7 @@ def assert_same_shred(got, want, label) -> int:
     return len(a)
 
 
-def run_updates(args, device, q, configs, kernels):
+def run_updates(args, device, q, configs, kernels, errs, dev_ms):
     """Phase F: updates on the card, at A, B and C on their own tables.
 
     At each configuration two deltas in turn: a churn of Cast
@@ -1279,19 +1314,25 @@ def run_updates(args, device, q, configs, kernels):
     a fresh engine's under the same key and caps, and the cache shows
     upgrades and no builds. At B a route flip (the fewest Cast inserts
     that take the arena over ``draw_limit``, then their delete). At A the
-    CSR index: its full join and one draw's rows against the USR GET's.
-    Then the times. Returns the launches of each main path and the times."""
+    CSR index: its full join (the ``csr_walk`` kernel, an edge a launch)
+    and one draw's rows against the USR GET's, ``csr_get_rows_cached`` over
+    every position (``csr_walk_cached``) against ``csr_get_rows``, and both
+    walk kernels on each edge's operands against their plain versions.
+    Then the times. Returns the launches of each main path, the times and
+    the walk kernels' rows (their errors into ``errs``, their device times
+    into ``dev_ms``)."""
     import numpy as np
     import torch
 
     from repro_torch.core import (DeltaBatch, build_shred, probe,
                                   reshred_incremental)
     from repro_torch.engine import QueryEngine
+    from repro_torch.kernels import csr_walk as cw_mod
     from repro_torch.kernels import threefry
 
     on_card = device.type == "cuda"
     rng = np.random.default_rng(args.seed + 19)
-    launches, e2e = {}, {}
+    launches, e2e, krows, call = {}, {}, [], {}
 
     def main_path(label, fn):
         for f in kernels.values():
@@ -1417,8 +1458,9 @@ def run_updates(args, device, q, configs, kernels):
 
     # -- the CSR index at A (an engine of rep 'csr' on A's snapshot) ----------
     _, engA, planA = configs["A"]
+    pol = engA.kernel_policy
     engCSR = QueryEngine(engA.db, rep="csr", device=device,
-                         kernel_policy=engA.kernel_policy)
+                         kernel_policy=pol)
     fullA = engA.full_join(q)
     fullA_csr = main_path("F.CSR", lambda: engCSR.full_join(q))
     for v, col in fullA.items():
@@ -1426,23 +1468,116 @@ def run_updates(args, device, q, configs, kernels):
     del fullA, fullA_csr
     csr_shred = engCSR.compile(q).shred
     assert csr_shred.rep == "csr" and engCSR.compile(q).rep_default == "csr"
+    n_edges = len(csr_shred.root.nodes()) - 1
+    nA = planA.join_size
+    posA = torch.arange(nA, dtype=torch.int64, device=device)
+    # every ascending position through the caching walk
+    cached = main_path("F.CSR cached", lambda: probe.csr_get_rows_cached(
+        csr_shred, posA, pol))
+    for name, rows in probe.csr_get_rows(csr_shred, posA, pol).items():
+        assert torch.equal(cached[name], rows), ("F.CSR cached", name)
+    del cached
     # One per-node draw's positions (of an earlier snapshot: positions of
     # the current join all the same), through both GETs of this snapshot.
     c = int(smpA.count)
-    pos = torch.clamp(smpA.positions[:c], max=planA.join_size - 1)
-    got = probe.csr_get_rows(csr_shred, pos, engA.kernel_policy)
-    want = probe.usr_get_rows(planA.shred, pos, engA.kernel_policy)
+    posD = torch.clamp(smpA.positions[:c], max=nA - 1)
+    got = probe.csr_get_rows(csr_shred, posD, pol)
+    want = probe.usr_get_rows(planA.shred, posD, pol)
     for name, rows in want.items():
         assert torch.equal(got[name], rows), ("F.CSR", name)
-    log(f"[F.CSR] full_join(rep='csr') at A equals the USR full join bit for "
-        f"bit ({planA.join_size} rows); csr_get_rows on one per-node draw's "
-        f"{c} positions equals usr_get_rows; the walk's steps by edge "
-        f"{probe._run_bounds(csr_shred)}")
-    del got, want, pos
+    del got, want
     if on_card:
         assert launches["F.CSR"]["bsearch_probe"] == 1
         assert launches["F.CSR"]["tree_probe"] == 0
+        assert launches["F.CSR"]["csr_walk"] == n_edges
+        assert launches["F.CSR cached"]["csr_walk_cached"] == n_edges
+        assert launches["F.CSR cached"]["csr_walk"] == 0
 
+    # The walk kernel against its plain versions on each edge's operands as
+    # the GET computes them: the full join's positions and the draw's.
+    edges_full = csr_walks(probe, cw_mod, csr_shred, posA, pol)
+    edges_draw = csr_walks(probe, cw_mod, csr_shred, posD, pol)
+    errs["csr_walk"] = errs["csr_walk_cached"] = 0.0
+    walks = {}
+    for label, edges in (("full join", edges_full), ("draw", edges_draw)):
+        for e in edges:
+            plain = cw_mod.csr_walk_plain(e.child.weight, e.child.nxt, e.hd,
+                                          e.idx)
+            crow, crem = cw_mod.csr_walk_cached(e.child.weight, e.child.nxt,
+                                                e.hd, e.idx)
+            for a, b, k in ((e.row, plain[0], "csr_walk"),
+                            (e.rem, plain[1], "csr_walk"),
+                            (crow, e.row, "csr_walk_cached"),
+                            (crem, e.rem, "csr_walk_cached")):
+                errs[k] = max(errs[k], max_abs_err(a, b))
+            steps = csr_steps(e, cached=False)
+            csteps = csr_steps(e, cached=True)
+            walks[(label, e.name)] = {
+                "probes": e.hd.numel(), "longest_chain": e.longest_chain,
+                "longest_run": longest_run(e.hd),
+                "steps": int(steps.sum()), "cached_steps": int(csteps.sum())}
+            del plain, crow, crem, steps, csteps
+    assert errs["csr_walk"] == 0.0 and errs["csr_walk_cached"] == 0.0, errs
+    # the cached plain version (a host loop) on the draw's positions
+    t0 = time.perf_counter()
+    plain_c = [cw_mod.csr_walk_cached_plain(e.child.weight, e.child.nxt,
+                                            e.hd, e.idx) for e in edges_draw]
+    cached_plain_ms = (time.perf_counter() - t0) * 1e3
+    for e, (r, m) in zip(edges_draw, plain_c):
+        errs["csr_walk_cached"] = max(errs["csr_walk_cached"],
+                                      max_abs_err(r, e.row),
+                                      max_abs_err(m, e.rem))
+    assert errs["csr_walk_cached"] == 0.0, errs
+    del plain_c
+    e2e["csr_walks"] = {f"{k[0]}: {k[1]}": v for k, v in walks.items()}
+    log(f"[F.CSR] full_join(rep='csr') at A equals the USR full join bit for "
+        f"bit ({nA} rows); csr_get_rows_cached on all {nA} positions equals "
+        f"csr_get_rows; csr_get_rows on one per-node draw's {c} positions "
+        f"equals usr_get_rows; csr_walk equals csr_walk_plain, and "
+        f"csr_walk_cached equals csr_walk (and csr_walk_cached_plain on the "
+        f"draw's), bit for bit on every edge of both: "
+        + "; ".join(f"{k[0]} {k[1]}: {v}" for k, v in walks.items()))
+
+    # -- times -----------------------------------------------------------------
+    # The walk kernels by CUDA events: csr_walk at the full join (the
+    # engine's CSR GET), csr_walk_cached at the draw's sorted positions (its
+    # caller's use: the paper's caching GET of a sample); each edge's
+    # launch, a call all edges. Bound: each probe's operands read and
+    # results written once, 12 bytes a chain link its walk passes and the
+    # weight of the row it stops at, at 3.35 TB/s.
+    def walk_call(fn, edges):
+        return lambda: [fn(e.child.weight, e.child.nxt, e.hd, e.idx)
+                        for e in edges]
+
+    for name, fn, plain_fn, edges, cached_flag in (
+            ("csr_walk", cw_mod.csr_walk, cw_mod.csr_walk_plain, edges_full,
+             False),
+            ("csr_walk_cached", cw_mod.csr_walk_cached, None, edges_draw,
+             True)):
+        call[name] = walk_call(fn, edges)
+        ms = timed(call[name], args.reps, device)
+        plain_ms = (timed(walk_call(plain_fn, edges), 1, device)
+                    if plain_fn is not None else cached_plain_ms)
+        nbytes = sum(24 * e.hd.numel() + 12 * int(csr_steps(e, cached_flag)
+                                                  .sum())
+                     + 8 * int((e.row >= 0).sum()) for e in edges)
+        b_ms, b_by = bound(nbytes, 0)
+        krows.append((name, ("src/repro/core/probe.py:403" if not cached_flag
+                            else "src/repro/core/probe.py:434"),
+                     ms, plain_ms, b_ms, b_by, None))
+        if on_card:
+            dev_ms[name] = device_ms(call[name])
+    e2e["csr_walk_cached_full_join_ms"] = timed(
+        walk_call(cw_mod.csr_walk_cached, edges_full), args.reps, device)
+    del edges_full, edges_draw
+    e2e["csr_get_rows_A_ms"] = timed(
+        lambda: probe.csr_get_rows(csr_shred, posA, pol), args.reps, device)
+    e2e["csr_get_rows_cached_A_ms"] = timed(
+        lambda: probe.csr_get_rows_cached(csr_shred, posA, pol), args.reps,
+        device)
+    e2e["usr_get_rows_A_ms"] = timed(
+        lambda: probe.get_rows(planA.shred, posA, planA.rep_default, pol),
+        args.reps, device)
     # -- times -----------------------------------------------------------------
     # CUDA events around warm calls (each ends in host reads). A fresh churn
     # of Cast a configuration: it keeps the row counts, so it applies again
@@ -1453,8 +1588,16 @@ def run_updates(args, device, q, configs, kernels):
                                       device)
     log(f"[time] F.CSR: full_join(rep='csr') at A "
         f"{e2e['full_join_csr_A_ms']:.3f} ms, USR "
-        f"{e2e['full_join_usr_A_ms']:.3f} ms")
-    del engCSR, csr_shred
+        f"{e2e['full_join_usr_A_ms']:.3f} ms; the GET of all {nA} "
+        f"positions: csr_get_rows {e2e['csr_get_rows_A_ms']:.3f} ms, "
+        f"csr_get_rows_cached {e2e['csr_get_rows_cached_A_ms']:.3f} ms, "
+        f"USR ({planA.rep_default}) {e2e['usr_get_rows_A_ms']:.3f} ms; "
+        f"csr_walk_cached over the full join's edges "
+        f"{e2e['csr_walk_cached_full_join_ms']:.3f} ms; longest chain and "
+        f"longest run of equal heads by edge: "
+        + "; ".join(f"{k}: chain {v['longest_chain']}, run "
+                    f"{v['longest_run']}" for k, v in e2e["csr_walks"].items()))
+    del engCSR, csr_shred, posA, posD
     for label in "ABC":
         _, eng, _ = configs[label]
         plan = eng.compile(q)
@@ -1493,7 +1636,89 @@ def run_updates(args, device, q, configs, kernels):
             f"build_shred {t['build_shred_ms']:.3f} ms; apply_delta + draw "
             f"{t['apply_delta_draw_ms']:.3f} ms, rebind + draw "
             f"{t['rebind_draw_ms']:.3f} ms")
-    return launches, e2e
+    return launches, e2e, krows
+
+
+@dataclasses.dataclass
+class CsrEdge:
+    """One edge's walk of the CSR GET: its operands as ``csr_get_rows``
+    computes them (heads ``hd``, offsets ``idx``, and the parents' run
+    ``start`` and ``length`` in the child's sorted order) and the walk
+    kernel's ``row`` and ``rem``."""
+
+    name: str
+    child: object
+    hd: object
+    idx: object
+    start: object
+    length: object
+    row: object
+    rem: object
+
+    @property
+    def longest_chain(self) -> int:
+        return int(self.length.max()) if self.length.numel() else 0
+
+
+def csr_walks(probe, cw_mod, shred, pos, policy) -> list:
+    """Every edge's walk of ``csr_get_rows(shred, pos)``, in its order."""
+    import torch
+
+    rows, local = probe._root_locate(shred, pos, policy)
+    out = []
+
+    def sub(node, rows, local):
+        for ci, child in enumerate(node.children):
+            w_safe = torch.clamp(node.child_w[ci][rows], min=1)
+            idx = torch.remainder(local, w_safe)
+            local = torch.div(local, w_safe, rounding_mode="floor")
+            hd = node.child_hd[ci][rows]
+            row, rem = cw_mod.csr_walk(child.weight, child.nxt, hd, idx)
+            out.append(CsrEdge(f"{node.name} -> {child.name}", child, hd, idx,
+                               node.child_start[ci][rows],
+                               node.child_len[ci][rows], row, rem))
+            sub(child, torch.clamp(row, min=0), rem)
+
+    sub(shred.root, rows, local)
+    return out
+
+
+def csr_steps(e: CsrEdge, cached: bool):
+    """The chain links each probe's walk passes: the rank of the row it
+    stops at within its run (the chain is the run's sorted order; a walk
+    off the chain passed the whole run), less, for the caching walk, the
+    rank where the previous probe of the same head stopped when it
+    resumes from there (its offset at least what that walk consumed)."""
+    import torch
+
+    perm = e.child.perm.long()
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    at = torch.clamp(e.row, min=0).long()
+    rank = torch.where(e.row >= 0, inv[at] - e.start, e.length.long())
+    if not cached:
+        return rank
+    used = e.idx - e.rem
+    same = torch.zeros_like(e.hd, dtype=torch.bool)
+    same[1:] = (e.hd[1:] == e.hd[:-1]) & (e.idx[1:] >= used[:-1])
+    prev = torch.zeros_like(rank)
+    prev[1:] = rank[:-1]
+    return rank - torch.where(same, prev, 0)
+
+
+def longest_run(hd) -> int:
+    """The longest run of equal heads: the most probes one thread of the
+    caching walk serves."""
+    import torch
+
+    if hd.numel() == 0:
+        return 0
+    starts = torch.nonzero(torch.cat([
+        torch.ones(1, dtype=torch.bool, device=hd.device),
+        hd[1:] != hd[:-1]])).reshape(-1)
+    ends = torch.cat([starts[1:], torch.tensor([hd.numel()],
+                                               device=hd.device)])
+    return int((ends - starts).max())
 
 
 def serve_stream(shapes, n: int, updates: int, spec_fn, seed0: int):
@@ -1947,6 +2172,303 @@ def run_serving(args, device, q, configs, kernels, kernel_policy):
     return launches, e2e
 
 
+def run_sharding(args, device, q, configs, kernels, kernel_policy):
+    """Phase H: sharded sampling, one process driving a mesh of four
+    entries on the one card (``make_mesh((4,), ('data',))``): four real
+    shards of the root, each drawn by the shard's own plan on the card
+    under ``fold_in(key, s)``.
+
+    H.A at A's snapshot (JOB-IMDB, every title): ``full_join(mesh=)``
+    equals the single-device full join in order; the shards' join sizes
+    sum to the join; ``--keys`` sharded draws (per-node route a shard) are
+    rows of the join at their positions and pass the mean-count z-test
+    against ``expected_k``; warm calls build nothing; peak device memory
+    (children are replicated a shard). H.F at A: a Cast churn (0.5% each
+    way; every shard rebuilt) and new p for titles of the last block only
+    (one shard rebuilt, three reused), each through ``apply_delta`` on the
+    warm sharded plan, whose shards then equal a fresh ``build_stacked``
+    array for array. H.B at B's tables (fresh; the fused draw a shard):
+    each shard's draw equals one engine's over that shard's database under
+    ``fold_in(key, s)``, bit for bit; ``sample_batch`` of 32 keys equals
+    32 sharded draws lane by lane; ``MicroBatcher(mesh=)`` over phase G's
+    stream equals sharded single draws per (seed, version); ``serve.main
+    --devices 4``. Then the times, sharded beside single-device. Each main
+    path counts its launches (zeroed just before, read just after).
+    Returns the launches and the times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Atom, Database, DeltaBatch, JoinQuery
+    from repro_torch.core import estimate
+    from repro_torch.core.distributed import (build_stacked, partition_root,
+                                              semijoin_filter)
+    from repro_torch.engine import QueryEngine, ShardedPlan
+    from repro_torch.kernels import threefry
+    from repro_torch.launch import serve
+    from repro_torch.launch.fleet import UpdateRequest, serve_join_samples
+    from repro_torch.launch.mesh import make_mesh
+
+    on_card = device.type == "cuda"
+    launches, e2e = {}, {}
+    smi = nvidia_smi_line() if on_card else "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def main_path(label, fn):
+        for f in kernels.values():
+            f.launches = 0
+        out = fn()
+        sync()
+        launches[label] = {k: f.launches for k, f in kernels.items()}
+        log(f"[{label}] launches " + str({k: v for k, v in
+                                          launches[label].items() if v}))
+        return out
+
+    def engine(db):
+        return QueryEngine(db, device=device, kernel_policy=kernel_policy)
+
+    mesh = make_mesh((4,), ("data",), devices=[device] * 4)
+
+    # -- H.A: JOB-IMDB on four shards -------------------------------------------
+    engA = configs["A"][1]
+    planA = engA.compile(q)  # phase F's times rebound A's engine
+    fullA = engA.full_join(q)
+    keysA = [threefry.key(21_000 + s) for s in range(args.keys)]
+    st0 = engA.stats.snapshot()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    full, smps = main_path("H.A", lambda: (
+        engA.full_join(q, mesh=mesh),
+        [engA.sample(q, k, mesh=mesh) for k in keysA]))
+    cold_s = time.perf_counter() - t0
+    plan = engA.compile_sharded(q, mesh)
+    assert isinstance(plan, ShardedPlan) and plan.num_shards == 4, plan
+    assert plan.route == "pernode", plan.route
+    st = engA.stats
+    assert (st.shred_builds, st.plan_misses) == (st0.shred_builds + 1,
+                                                 st0.plan_misses + 1), st
+    for v, col in fullA.items():
+        assert torch.equal(full[v], col), ("H.A", v)
+    del full
+    assert sum(plan.join_sizes) == plan.join_size == planA.join_size
+    counts = [check_sample(smp, fullA, "H.A") for smp in smps]
+    del smps
+    mean = planA.expected_k()
+    sd = float(estimate.sample_std(planA.w, planA.p))
+    zA = (float(np.mean(counts)) - mean) / (sd / math.sqrt(len(counts)))
+    assert abs(zA) < Z_LIMIT, zA
+    assert abs(plan.expected_k() - mean) <= 1e-9 * mean
+    st1 = engA.stats.snapshot()
+    engA.sample(q, keysA[0], mesh=mesh)
+    engA.full_join(q, mesh=mesh)
+    assert (engA.stats.shred_builds, engA.stats.plan_misses) == \
+        (st1.shred_builds, st1.plan_misses), engA.stats
+    e2e["A"] = {"join_sizes": list(plan.join_sizes), "cap": plan.cap,
+                "acap": plan.acap, "counts": counts, "z": zA,
+                "first_calls_s": cold_s}
+    if on_card:
+        peak = torch.cuda.max_memory_allocated(device)
+        e2e["A"]["peak_device_bytes"] = int(peak)
+        e2e["A"]["own_peak_device_bytes"] = int(peak - held)
+        log(f"[memory] H.A: peak {peak / 2**30:.3f} GiB, "
+            f"{(peak - held) / 2**30:.3f} GiB over what earlier phases held "
+            f"(four shards' indexes, each with every child relation)")
+        la = launches["H.A"]
+        assert la["tree_probe"] == 4 * (1 + len(keysA)), la
+        assert la["bsearch_probe"] > 0 and la["fused_draw"] == 0, la
+    log(f"[H.A] {plan.num_shards} shards of {plan.stacked.valid} titles, "
+        f"join sizes {plan.join_sizes} (sum {plan.join_size}), route "
+        f"{plan.route}, GET {plan.rep}, cap {plan.cap} a shard, acap "
+        f"{plan.acap}: full_join(mesh=) equals the single-device join in "
+        f"order; {len(counts)} sharded draws are rows of the join at their "
+        f"positions, counts {counts} z {zA:+.2f} against E[k] {mean:.1f}; "
+        f"warm calls build nothing; first calls (the stacked build "
+        f"included) {cold_s:.2f} s")
+
+    # -- H.F: deltas through apply_delta on the warm sharded plan -------------
+    pol = engA.kernel_policy
+    rng = np.random.default_rng(args.seed + 29)
+    title = {c: v.cpu().numpy()
+             for c, v in engA.db.relations["Title"].columns.items()}
+    n_t = title["t"].shape[0]
+    per = -(-n_t // 4)
+    k = max(1, int(0.005 * (n_t - 3 * per)))
+    last = rng.choice(np.arange(3 * per, n_t), k, replace=False)
+    reprice = {"Title": {"delete": last, "insert": {
+        "t": title["t"][last], "kind": title["kind"][last],
+        "p": rng.beta(2, 10, k)}}}
+    cast_churn = churn_spec(configs["A"][0], "Cast", 0.005, rng)
+    e2e["F"] = {}
+    for label, spec, want in (("H.F Cast churn", cast_churn, (0, 4)),
+                              ("H.F last block", reprice, (3, 1))):
+        delta = DeltaBatch.of(**spec)
+        before = engA.stats.snapshot()
+        t0 = time.perf_counter()
+        smp = main_path(label, lambda: (engA.apply_delta(delta),
+                                        engA.sample(q, keysA[0],
+                                                    mesh=mesh))[1])
+        wall = time.perf_counter() - t0
+        after = engA.stats
+        got = (after.shards_reused - before.shards_reused,
+               after.shards_rebuilt - before.shards_rebuilt)
+        assert got == want, (label, got)
+        assert after.shred_builds == before.shred_builds, after
+        assert engA.compile_sharded(q, mesh) is plan
+        fresh, _ = build_stacked(engA.db, q, 4, rep=plan.stacked.shreds[0].rep,
+                                 policy=pol, devices=[device] * 4)
+        assert fresh.join_sizes == plan.join_sizes
+        assert fresh.valid == plan.stacked.valid
+        n_arr = sum(assert_same_shred(a, b, (label, s)) for s, (a, b) in
+                    enumerate(zip(plan.stacked.shreds, fresh.shreds)))
+        del fresh
+        fullA = engA.full_join(q)
+        check_sample(smp, fullA, label)
+        e2e["F"][label] = {"delta_rows": delta.size(), "reused": got[0],
+                           "rebuilt": got[1], "apply_and_draw_s": wall}
+        log(f"[{label}] delta of {delta.size()} rows: apply_delta on the "
+            f"sharded plan reused {got[0]} shards and rebuilt {got[1]} "
+            f"(as predicted); its 4 shards equal a fresh build_stacked in "
+            f"all {n_arr} arrays; a draw after it is rows of the new join; "
+            f"{wall * 1e3:.1f} ms for apply_delta and the draw")
+    del fullA
+
+    # -- H.B: the fused draw a shard, batches, the batcher, the CLI -----------
+    tabB = make_tables(args.seed + 1, args.serving_title_rows)
+    dbB = Database.from_columns(tabB, device=device)
+    engB = engine(dbB)
+    planB = engB.compile(q)
+    fullB = engB.full_join(q)
+    keysB = [threefry.key(22_000 + s) for s in range(8)]
+    smps = main_path("H.B", lambda: [engB.sample(q, k, mesh=mesh)
+                                     for k in keysB])
+    planS = engB.compile_sharded(q, mesh)
+    assert planS.route == "fused" and planS.num_shards == 4, planS.route
+    counts = [check_sample(smp, fullB, "H.B") for smp in smps]
+    if on_card:
+        assert launches["H.B"]["fused_draw"] == 4 * len(keysB)
+    part = partition_root(semijoin_filter(dbB, q), q, 4)
+    shard_engines = [engine(sdb) for sdb in part.shards]
+    for k, smp in zip(keysB, smps):
+        shards, total = planS.sample_step(k)
+        assert int(total) == int(smp.count)
+        for s, (got, eng) in enumerate(zip(shards, shard_engines)):
+            want = eng.sample(q, threefry.fold_in(k, s), cap=planS.cap,
+                              acap=planS.acap)
+            assert_same_sample(got, want, ("H.B shard", s))
+    del shard_engines, smps
+    keys32 = threefry.keys(args.seed + 30, 32)
+    batch = main_path("H.B batch", lambda: engB.sample_batch(q, keys32,
+                                                             mesh=mesh))
+    for b in range(32):
+        assert_same_sample(lane(batch, b), engB.sample(q, keys32[b],
+                                                       mesh=mesh),
+                           ("H.B batch", b))
+    if on_card:
+        assert launches["H.B batch"]["fused_draw_batch"] == 4
+    del batch
+    log(f"[H.B] {planS.num_shards} shards (join sizes {planS.join_sizes}), "
+        f"route {planS.route}: {len(keysB)} sharded draws are rows of the "
+        f"join (counts {counts}), and each shard's draw equals one engine's "
+        f"over that shard's database under fold_in(key, s) bit for bit; "
+        f"sample_batch of 32 keys equals 32 sharded draws lane by lane")
+
+    title_q = JoinQuery((Atom.of("Title", "t", "kind", "p"),), prob_var="p")
+    title_cast = JoinQuery((Atom.of("Title", "t", "kind", "p"),
+                            Atom.of("Cast", "t", "person")), prob_var="p")
+    shapes = (title_q, title_cast, q)
+    n = args.serve_requests
+
+    def stream():
+        churn = np.random.default_rng(args.seed + 21)
+        return serve_stream(shapes, n, 4,
+                            lambda: churn_spec(tabB, "Cast", 0.005, churn),
+                            5000)
+
+    engS = engine(Database.from_columns(tabB, device=device))
+    for sh in shapes:  # warm-up: one stack and one plan a shape
+        engS.sample(sh, threefry.key(0), mesh=mesh)
+    reqs = stream()
+    t0 = time.perf_counter()
+    main_path("H.B batcher", lambda: serve_join_samples(
+        engS, reqs, mesh=mesh, max_batch=32, max_wait_ms=2.0))
+    draws = served_draws(reqs)
+    wall = time.perf_counter() - t0
+    e2e["batcher_B"] = dict(draws=len(draws), wall_ms=wall * 1e3,
+                            draws_per_s=len(draws) / wall)
+    engR = engine(Database.from_columns(tabB, device=device))
+    for r in reqs:
+        if isinstance(r, UpdateRequest):
+            engR.apply_delta(r.delta)
+            continue
+        want = engR.sample(r.query, threefry.key(r.seed), mesh=mesh)
+        assert r.db_version == engR.db.version, (r.seed, r.db_version)
+        assert (r.count, r.overflow) == (int(want.count),
+                                         bool(want.overflow)), r.seed
+    st = engS.stats
+    log(f"[H.B batcher] MicroBatcher(mesh=) over phase G's stream ({n} "
+        f"draws, 3 shapes, 4 Cast churns): {len(draws)} draws in "
+        f"{wall * 1e3:.1f} ms ({len(draws) / wall:.1f} draws/s), each equal "
+        f"to the sharded single draw at its version; shards reused "
+        f"{st.shards_reused}, rebuilt {st.shards_rebuilt} ({st})")
+    if on_card:
+        assert launches["H.B batcher"]["fused_draw_batch"] > 0
+    del engS, engR
+    t0 = time.perf_counter()
+    main_path("H.cli", lambda: serve.main(
+        ["--mode", "join", "--devices", "4", "--device", str(device)],
+        kernel_policy=kernel_policy))
+    log(f"[H.cli] serve.main --mode join --devices 4: "
+        f"{time.perf_counter() - t0:.1f} s, its checks held")
+
+    # -- times ------------------------------------------------------------------
+    # CUDA events around warm calls (each ends in a host read of the
+    # count), sharded beside single-device, at A and B.
+    t = {}
+    keyT = threefry.key(7)
+    for label, eng, reps, nb in (("A", engA, 3, 4), ("B", engB, args.reps,
+                                                     32)):
+        kb = threefry.keys(args.seed + 31, nb)
+        t[label] = {
+            "sample_sharded_ms": timed(
+                lambda: int(eng.sample(q, keyT, mesh=mesh).count), reps,
+                device),
+            "sample_single_ms": timed(
+                lambda: int(eng.sample(q, keyT).count), reps, device),
+            f"batch{nb}_sharded_ms": timed(
+                lambda: eng.sample_batch(q, kb, mesh=mesh).count.tolist(),
+                reps, device),
+            f"batch{nb}_single_ms": timed(
+                lambda: eng.sample_batch(q, kb).count.tolist(), reps,
+                device)}
+        log(f"[time] H.{label} ({smi}): sample on 4 shards "
+            f"{t[label]['sample_sharded_ms']:.3f} ms, single-device "
+            f"{t[label]['sample_single_ms']:.3f} ms; sample_batch of {nb} on "
+            f"4 shards {t[label][f'batch{nb}_sharded_ms']:.3f} ms, "
+            f"single-device {t[label][f'batch{nb}_single_ms']:.3f} ms")
+    if on_card and args.profile:
+        kb = threefry.keys(args.seed + 31, 32)
+        t["profile"] = {
+            label: profile_window(fn, label, wall_ms(fn, device))
+            for label, fn in (
+                ("H.B sample on 4 shards",
+                 lambda: int(engB.sample(q, keyT, mesh=mesh).count)),
+                ("H.B sample_batch of 32 on 4 shards",
+                 lambda: engB.sample_batch(q, kb,
+                                           mesh=mesh).count.tolist()))}
+    t["full_join_A_sharded_ms"] = timed(
+        lambda: engA.full_join(q, mesh=mesh), 3, device)
+    t["full_join_A_single_ms"] = timed(lambda: engA.full_join(q), 3, device)
+    log(f"[time] H.A ({smi}): full_join on 4 shards "
+        f"{t['full_join_A_sharded_ms']:.3f} ms, single-device "
+        f"{t['full_join_A_single_ms']:.3f} ms")
+    e2e["times"] = t
+    return launches, e2e
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -1960,6 +2482,7 @@ def run(args, device, kernel_policy=None) -> dict:
     from repro_torch.engine import QueryEngine
     from repro_torch.kernels import bsearch_probe as bp_mod
     from repro_torch.kernels import build, fused_draw as fd_mod
+    from repro_torch.kernels import csr_walk as cw_mod
     from repro_torch.kernels import flash_decode as dec_mod
     from repro_torch.kernels import flash_prefill as pre_mod
     from repro_torch.kernels import geo_gaps as geo_mod
@@ -1982,7 +2505,9 @@ def run(args, device, kernel_policy=None) -> dict:
                "geo_gaps": geo_mod.geo_gaps_tiles,
                "threefry_uniforms": threefry.uniforms,
                "flash_decode": dec_mod.flash_decode,
-               "flash_prefill": pre_mod.flash_prefill}
+               "flash_prefill": pre_mod.flash_prefill,
+               "csr_walk": cw_mod.csr_walk,
+               "csr_walk_cached": cw_mod.csr_walk_cached}
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
 
@@ -2498,18 +3023,25 @@ def run(args, device, kernel_policy=None) -> dict:
                                     errsD.pop("threefry_uniforms"))
     errs.update(errsD)
     # -- 7c. phase F: updates on the card (it advances A-C's engines)
-    launchesF, e2eF = run_updates(args, device, q, configs, kernels)
+    launchesF, e2eF, rowsF = run_updates(args, device, q, configs, kernels,
+                                         errs, dev_ms)
+    rows += rowsF
     e2e["updates"] = e2eF
     # -- 7d. phase G: serving and the data plane, last
     launchesG, e2eG = run_serving(args, device, q, configs, kernels,
                                   kernel_policy)
     e2e["serving"] = e2eG
+    # -- 7e. phase H: sharded sampling, last
+    launchesH, e2eH = run_sharding(args, device, q, configs, kernels,
+                                   kernel_policy)
+    e2e["sharding"] = e2eH
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
                        + sum(lp[k] for lp in launchesE.values())
                        + sum(lp[k] for lp in launchesF.values())
-                       + sum(lp[k] for lp in launchesG.values()))
+                       + sum(lp[k] for lp in launchesG.values())
+                       + sum(lp[k] for lp in launchesH.values()))
     # the float64 scans of the main path (the one counter counts both
     # dtypes): the per-node draws' mass prefixes and those of the plans
     # bound in C's second engine and in phases F and G; phase D's are int32
@@ -2519,7 +3051,9 @@ def run(args, device, kernel_policy=None) -> dict:
                                   + sum(lp["prefix_sum"]
                                         for lp in launchesF.values())
                                   + sum(lp["prefix_sum"]
-                                        for lp in launchesG.values()))
+                                        for lp in launchesG.values())
+                                  + sum(lp["prefix_sum"]
+                                        for lp in launchesH.values()))
     launches["prefix_sum"] -= launches["prefix_sum_f64"]
 
     # -- 8. the kernels' rows ---------------------------------------------------
@@ -2529,7 +3063,8 @@ def run(args, device, kernel_policy=None) -> dict:
                "prefix_sum_f64": "scan.cu",
                "tree_probe_paged": "tree_get.cu",
                "tree_probe_paged_dma": "tree_get.cu",
-               "tree_probe_paged_pages": "tree_probe_paged.cu"}
+               "tree_probe_paged_pages": "tree_probe_paged.cu",
+               "csr_walk_cached": "csr_walk.cu"}
     rows = [r[:2] + (sources.get(r[0], f"{r[0]}.cu"),) + r[2:] for r in rows]
     table = []
     for name, replaces, source, ms, plain_ms, b_ms, b_by, lib_ms in rows + rowsD:
@@ -2546,6 +3081,10 @@ def run(args, device, kernel_policy=None) -> dict:
             f"{b_ms:.4f} by {b_by}"
             + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
             + f"){dms}")
+    for name in ("flash_decode_f32", "flash_prefill_f32", "flash_prefill_32k"):
+        if name in dev_ms:
+            log(f"[time] {name}: device {dev_ms[name][0]:.4f} ms in "
+                f"{dev_ms[name][1]:g} operations a call")
 
     if on_card:
         e2e["peak_device_bytes"] = int(torch.cuda.max_memory_allocated(device))
@@ -2557,6 +3096,7 @@ def run(args, device, kernel_policy=None) -> dict:
             "bsearch_tiles_A": tiles_bs, "phase_e_launches": launchesE,
             "phase_f_launches": launchesF,
             "phase_g_launches": launchesG,
+            "phase_h_launches": launchesH,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),

@@ -23,12 +23,12 @@ the GET kernel over the pages' buffer on the card; ``draw_paged_batch`` is one b
 ``fused_sample`` launch and one GET launch over all B x cap lanes. The
 GET's budget is ``KernelPolicy.arena_limit``, the draw's ``draw_limit``.
 
-CSR-GET (rep 'csr'): the paper's linked-list walk, every probe lane at
-once: each step moves the lanes still walking one link along their
-same-key chain, skipping weight-0 rows, for as many steps as the edge's
-longest run (one host read a GET for all edges). Pointer chasing has no
-kernel here: it is the paper-faithful baseline, and its rows equal the
-USR GET's on the same index.
+CSR-GET (rep 'csr'): the paper's linked-list walk, one launch of the
+``csr_walk`` kernel an edge: each probe walks its same-key chain from its
+head, passing weight-0 rows. ``csr_get_rows_cached`` is the paper's
+caching walk (Fig. 11) over ascending probes: along a run of equal heads
+a probe resumes where the previous one stopped (``csr_walk_cached``, one
+thread a run). Both give the USR GET's rows on the same index.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels import ops
+from repro_torch.kernels.csr_walk import csr_walk, csr_walk_cached
 from repro_torch.kernels.fused_draw import (fused_draw, fused_draw_batch,
                                             fused_draw_batch_plain,
                                             fused_draw_plain, fused_sample,
@@ -47,7 +48,8 @@ from repro_torch.kernels.tree_probe import tree_probe, tree_probe_paged
 from .sampling import PositionSample
 from .shred import PagedArena, Shred, ShredNode
 
-__all__ = ["get", "get_rows", "gather_columns", "csr_get_rows", "usr_get_rows",
+__all__ = ["get", "get_rows", "gather_columns", "csr_get_rows",
+           "csr_get_rows_cached", "usr_get_rows",
            "usr_get_rows_fused", "usr_get_rows_paged", "fused_available",
            "paged_view", "paged_available", "select_rep",
            "draw_fused_available", "draw_paged_available", "select_draw",
@@ -377,60 +379,41 @@ def draw_paged_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
 # CSR
 # ---------------------------------------------------------------------------
 
-def _csr_walk(child_weight: torch.Tensor, nxt: torch.Tensor,
-              hd: torch.Tensor, idx: torch.Tensor, steps: int):
-    """Walk each lane's same-key chain from its head ``hd`` until the
-    cumulative weight covers ``idx`` (paper Fig. 4 lines 11-15, weight-0
-    rows skipped). ``steps`` bounds every lane's walk (the edge's longest
-    run); a lane stops where the reference's loop stops, and one that runs
-    off its chain ends at row -1 with what is left of its offset."""
-    row = hd.to(I64)
-    rem = idx
-    for _ in range(steps):
-        at = torch.clamp(row, min=0)
-        w = child_weight[at]
-        go = (row >= 0) & (rem >= w)
-        row = torch.where(go, nxt[at].to(I64), row)
-        rem = torch.where(go, rem - w, rem)
-    return row, rem
-
-
-def _csr_sub(node: ShredNode, rows, local, steps, out: Dict[str, torch.Tensor]):
+def _csr_sub(node: ShredNode, rows, local, walk, out: Dict[str, torch.Tensor]):
     out[node.name] = rows
     for ci, child in enumerate(node.children):
         w_safe = torch.clamp(node.child_w[ci][rows], min=1)
         idx = torch.remainder(local, w_safe)
         local = torch.div(local, w_safe, rounding_mode="floor")
         hd = node.child_hd[ci][rows]
-        crows, clocal = _csr_walk(child.weight, child.nxt, hd, idx,
-                                  steps.pop(0))
-        crows = torch.clamp(crows, min=0).to(I32)  # clamp sentinel lanes
-        _csr_sub(child, crows, clocal.to(I64), steps, out)
-
-
-def _run_bounds(shred: Shred):
-    """Each edge's longest run (``child_len.max()``), in the order
-    ``_csr_sub`` walks the edges, with one host read for all of them."""
-    def edges(node):
-        for ci, child in enumerate(node.children):
-            yield node.child_len[ci]
-            yield from edges(child)
-
-    maxes = [ln.max() if ln.numel() else
-             torch.zeros((), dtype=I32, device=shred.device)
-             for ln in edges(shred.root)]
-    return torch.stack(maxes).tolist() if maxes else []
+        crows, clocal = walk(child.weight, child.nxt, hd, idx)
+        crows = torch.clamp(crows, min=0)  # clamp sentinel lanes
+        _csr_sub(child, crows, clocal, walk, out)
 
 
 def csr_get_rows(shred: Shred, pos: torch.Tensor,
                  policy: KernelPolicy = DEFAULT_POLICY) -> Dict[str, torch.Tensor]:
-    """Resolve probe positions to per-node row indices (CSR). The root is
-    located as the USR GET locates it (the bsearch kernel over an int32
-    index)."""
+    """Resolve probe positions to per-node row indices (CSR): each edge's
+    chain walk from the probes' heads (``csr_walk``). The root is located
+    as the USR GET locates it (the bsearch kernel over an int32 index)."""
     assert shred.rep in ("csr", "both"), "index was not built with CSR columns"
     rows, local = _root_locate(shred, pos, policy)
     out: Dict[str, torch.Tensor] = {}
-    _csr_sub(shred.root, rows, local, _run_bounds(shred), out)
+    _csr_sub(shred.root, rows, local, csr_walk, out)
+    return out
+
+
+def csr_get_rows_cached(shred: Shred, pos: torch.Tensor,
+                        policy: KernelPolicy = DEFAULT_POLICY
+                        ) -> Dict[str, torch.Tensor]:
+    """``csr_get_rows`` with the paper's caching walk (Fig. 11,
+    ``csr_walk_cached``): a probe resumes the walk of the previous probe
+    on the same chain. Expects ascending ``pos`` (samplers emit sorted
+    positions); the rows are ``csr_get_rows``'s."""
+    assert shred.rep in ("csr", "both"), "index was not built with CSR columns"
+    rows, local = _root_locate(shred, pos, policy)
+    out: Dict[str, torch.Tensor] = {}
+    _csr_sub(shred.root, rows, local, csr_walk_cached, out)
     return out
 
 

@@ -12,7 +12,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-__all__ = ["Relation", "dense_keys"]
+__all__ = ["Relation", "pack_keys", "dense_keys"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +41,18 @@ class Relation:
         if len(lens) > 1:
             raise ValueError(
                 f"ragged columns: { {a: tuple(v.shape) for a, v in self.columns.items()} }")
+
+
+def pack_keys(cols: Sequence[torch.Tensor], radices: Sequence[int]
+              ) -> torch.Tensor:
+    """Pack multi-attribute integer keys into one int64 via mixed radix
+    (the first column most significant). ``radices[i]`` must strictly
+    exceed every value of ``cols[i]``."""
+    assert len(cols) == len(radices) and cols
+    key = cols[0].to(torch.int64)
+    for c, r in zip(cols[1:], radices[1:]):
+        key = key * int(r) + c.to(torch.int64)
+    return key
 
 
 def dense_keys(left: Sequence[torch.Tensor], right: Sequence[torch.Tensor]

@@ -49,8 +49,8 @@ from .jointree import JoinQuery, JoinTreeNode, gyo_join_tree, reroot_for
 from .relations import Relation, dense_keys
 
 __all__ = ["ShredNode", "Shred", "build_shred", "build_plan", "PackedShred",
-           "PagedArena", "ArenaLayout", "ArenaEdge", "pack_index",
-           "reshred_incremental", "shred_from_arrays"]
+           "PagedArena", "ArenaLayout", "ArenaEdge", "pack_arena",
+           "pack_index", "reshred_incremental", "shred_from_arrays"]
 
 I64 = torch.int64
 I32 = torch.int32
@@ -233,6 +233,21 @@ def _arena_pieces(root: ShredNode, root_prefE: torch.Tensor):
     layout = ArenaLayout(tuple(names), root.num_rows, root_prefE.shape[0],
                          tuple(edges), off)
     return pieces, layout
+
+
+def pack_arena(root: ShredNode, root_prefE: torch.Tensor,
+               policy: KernelPolicy = DEFAULT_POLICY) -> Optional[PackedShred]:
+    """The monolithic arena alone, or ``None`` where the one-launch draw
+    could not take it: narrowing refused, or the arena over
+    ``policy.draw_limit``. The reference's monolith-only entry point;
+    index builds go through ``pack_index``, which pages too."""
+    got = _arena_pieces(root, root_prefE)
+    if got is None:
+        return None
+    pieces, layout = got
+    if layout.size > policy.draw_limit:
+        return None
+    return PackedShred(torch.cat([p.to(I32) for p in pieces]), layout)
 
 
 def pack_index(root: ShredNode, root_prefE: torch.Tensor,

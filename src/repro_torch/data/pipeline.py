@@ -29,7 +29,7 @@ mid-epoch exactly (a checkpoint stores the step counter and the data
 version).
 
 Not ported: ``SyntheticLMSource``, which feeds only the model trainer
-(ROADMAP A.7).
+(ROADMAP A.5).
 """
 from __future__ import annotations
 

@@ -23,12 +23,16 @@ class CapacityPolicy:
     slack:          additive lane slack on top of the sigma headroom.
     lane_multiple:  round capacities up to this multiple.
     max_doublings:  redraw attempts in auto mode before giving up.
+    min_shard_rows: the shard planner never splits the root relation below
+                    this many rows a shard: finer splits are all padding
+                    and no work.
     """
 
     sigmas: float = 6.0
     slack: int = 64
     lane_multiple: int = 128
     max_doublings: int = 8
+    min_shard_rows: int = 8
 
     def plan(self, mean: float, std: float) -> int:
         return estimate.plan_capacity(

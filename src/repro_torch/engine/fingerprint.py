@@ -3,8 +3,8 @@
 The compiled-plan cache is keyed by *structure*, never by data values: a
 query fingerprint covers the atoms (relation, alias, variables) and
 ``prob_var``. Cache keys carry the bound snapshot's ``version`` as their
-last element. Meshes are not ported yet (ROADMAP queue A): the draw
-fingerprint keeps the reference's shape with ``None`` in their places.
+last element. A mesh enters a key by its shape only (axis names and
+sizes), never by its devices.
 """
 from __future__ import annotations
 
@@ -15,7 +15,8 @@ from repro_torch.core.database import Database
 from repro_torch.core.jointree import JoinQuery
 
 __all__ = ["query_fingerprint", "schema_fingerprint", "plan_key",
-           "executor_key", "draw_fingerprint"]
+           "executor_key", "mesh_fingerprint", "sharded_plan_key",
+           "sharded_executor_key", "draw_fingerprint"]
 
 
 def _digest(payload: str) -> str:
@@ -61,9 +62,37 @@ def executor_key(
             version)
 
 
+def mesh_fingerprint(mesh) -> Tuple[Tuple[str, int], ...]:
+    """Shape-only fingerprint of a device mesh: ordered (axis, size) pairs.
+    Two meshes with the same axis names and sizes share stacked indexes
+    and sharded plans; a cached plan keeps running on the devices of the
+    mesh it was built for."""
+    return tuple((a, int(mesh.shape[a])) for a in mesh.axis_names)
+
+
+def sharded_plan_key(query: JoinQuery, rep: str, mesh,
+                     num_shards: int, version: int = 0) -> Tuple:
+    """Cache key of a stacked index: the shred key extended with the mesh
+    shape and the shard count (version last)."""
+    return (query_fingerprint(query), rep, mesh_fingerprint(mesh),
+            num_shards, version)
+
+
+def sharded_executor_key(
+    query: JoinQuery, rep: str, method: str,
+    project: Optional[Tuple[str, ...]], mesh, axes: Tuple[str, ...],
+    version: int = 0, narrow: Optional[bool] = None, kernels: str = "auto",
+) -> Tuple:
+    """Cache key of a sharded plan: ``executor_key``'s fields plus the
+    mesh shape and the partition axes (version last)."""
+    return (query_fingerprint(query), rep, method, project, narrow, kernels,
+            mesh_fingerprint(mesh), tuple(axes), version)
+
+
 def draw_fingerprint(spec) -> Tuple:
-    """Structure-only fingerprint of a ``DrawSpec``: hashable and stable.
-    The last two places are the reference's mesh shape and axes, ``None``
-    until meshes are ported."""
+    """Structure-only fingerprint of a ``DrawSpec``: hashable, stable and
+    free of device identity (the mesh enters by its shape)."""
     return (spec.rep, spec.method, spec.project, spec.narrow, spec.kernels,
-            spec.cap, spec.acap, None, None)
+            spec.cap, spec.acap,
+            mesh_fingerprint(spec.mesh) if spec.mesh is not None else None,
+            spec.axes)

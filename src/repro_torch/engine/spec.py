@@ -4,11 +4,10 @@
     plan-cache keys;
   * **structure vs runtime** — ``rep``/``method``/``project``/``narrow``/
     ``kernels`` are *plan identity* (part of the plan cache key via
-    ``fingerprint.executor_key``); ``cap``/``acap`` are runtime values;
+    ``fingerprint.executor_key``); ``cap``/``acap`` are runtime values and
+    ``mesh``/``axes`` route to the sharded plan;
   * **None = inherit** — every field defaults to "use the engine/plan
     default", so ``DrawSpec()`` is the no-kwargs call.
-
-Meshes and sharded execution are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -46,6 +45,9 @@ class DrawSpec:
              is in the paged regime); ``reference`` = the fused pipeline
              as plain torch ops; ``pernode`` = always the float64
              per-node route.
+    mesh     device mesh (``launch.mesh.Mesh``): route through the sharded
+             plan.
+    axes     mesh axes to partition the root over (None = shard planner).
     """
 
     rep: Optional[str] = None
@@ -55,11 +57,15 @@ class DrawSpec:
     acap: Optional[int] = None
     narrow: Optional[bool] = None
     kernels: str = "auto"
+    mesh: Optional[object] = None
+    axes: Optional[Tuple[str, ...]] = None
 
     def __post_init__(self):
         # Normalize sequence-typed fields so equal specs hash equal.
         if self.project is not None and not isinstance(self.project, tuple):
             object.__setattr__(self, "project", tuple(self.project))
+        if self.axes is not None and not isinstance(self.axes, tuple):
+            object.__setattr__(self, "axes", tuple(self.axes))
         if self.rep not in _REPS:
             raise ValueError(
                 f"rep must be csr|usr|both|None, got {self.rep!r}")
@@ -74,7 +80,8 @@ class DrawSpec:
     def plan_view(self, rep: str) -> "DrawSpec":
         """The spec a ``CompiledPlan`` stores: plan-identity fields only,
         with ``rep`` pinned to the concrete representation the index was
-        built with. Runtime fields (cap/acap) are stripped."""
+        built with. Runtime fields (cap/acap) and routing fields
+        (mesh/axes) are stripped."""
         return DrawSpec(rep=rep, method=self.method, project=self.project,
                         narrow=self.narrow, kernels=self.kernels)
 

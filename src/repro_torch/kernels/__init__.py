@@ -16,6 +16,8 @@ for CUDA tensors and runs the plain version for CPU tensors.
                       prologue)
     flash_decode      split-S decode attention with GQA and a bias
     flash_prefill     causal or full flash attention with GQA
+    csr_walk          the CSR GET's chain walk over one tree edge, from
+                      each head or resuming along runs of equal heads
 
 ``ops`` holds the public wrappers with the reference's signatures and
 ``ref`` the oracles under the reference's names; ``ab`` times the search

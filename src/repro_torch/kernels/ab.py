@@ -2,7 +2,7 @@
 one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab --parent DIR \\
-        [--reps N] [--json-out FILE]
+        [--reps N] [--smoke] [--json-out FILE]
 
 DIR is a second checkout of the repository, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory. Each checkout
@@ -28,6 +28,12 @@ D's inputs from the same seeds, and calls its own wrappers on them:
     the float32 tables come from a float64 mass prefix whose summation
     order may differ between checkouts.
 
+With ``--smoke`` the tool times the whole of each checkout's
+``python3 chip_smoke.py`` instead (run from the checkout's root, kernel
+builds included, wall seconds from start to exit, in the same order), and
+writes each run's output to ``--json-out``'s directory as
+``smoke_<n>_<label>.log``; a run that fails stops the tool.
+
 Every result is held against the plain version first, and its checksum
 against the other runs'. Each checkout's ``-Xptxas -v`` lines of
 ``bsearch_probe``, ``scan``, ``tree_get`` and ``fused_draw`` are printed
@@ -44,6 +50,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
@@ -166,12 +173,35 @@ def child(tree: Path, reps: int) -> dict:
                  for src in PTXAS}
 
 
+def smoke(other: Path, log_dir: Path) -> list:
+    """Wall seconds of each checkout's whole ``chip_smoke.py`` run, in
+    the order DIR, this, this, DIR."""
+    log_dir.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for n, (label, tree) in enumerate((("parent", other), ("this", ROOT),
+                                       ("this", ROOT), ("parent", other))):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
+                           capture_output=True, text=True, timeout=1200)
+        seconds = time.perf_counter() - t0
+        (log_dir / f"smoke_{n}_{label}.log").write_text(r.stdout + r.stderr)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(r.returncode)
+        print(f"[smoke] {label} ({tree}): chip_smoke.py {seconds:.1f} s; "
+              f"last line {r.stdout.strip().splitlines()[-1]}", flush=True)
+        runs.append((label, seconds))
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
                     help="the other checkout's root")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--json-out", default=None)
+    ap.add_argument("--smoke", action="store_true",
+                    help="time each checkout's whole chip_smoke.py")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
@@ -186,6 +216,12 @@ def main(argv=None) -> int:
 
     smi = chip_smoke.nvidia_smi_line()
     print(smi, flush=True)
+    if args.smoke:
+        out = Path(args.json_out or "chiprun_out/smoke.json").resolve()
+        runs = smoke(other, out.parent)
+        out.write_text(json.dumps({"device": smi, "smoke_s": runs},
+                                  indent=1))
+        return 0
     runs, reports = [], {}
     for label, tree in (("parent", other), ("this", ROOT), ("this", ROOT),
                         ("parent", other)):

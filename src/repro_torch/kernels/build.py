@@ -34,7 +34,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "library_path",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
-           "scan", "flash_decode", "flash_prefill", "flash_prefill_tc")
+           "scan", "flash_decode", "flash_prefill", "flash_prefill_tc",
+           "csr_walk")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -3,8 +3,8 @@
 The fused draw generates its randomness in-kernel (``csrc/threefry.cuh``);
 this module is its plain PyTorch version, the same 20-round cipher on
 uint32 words held in int64 lanes masked with ``0xFFFFFFFF`` (torch has
-little uint32 arithmetic on the CPU). One function serves Python ints and
-int64 tensors alike.
+little uint32 arithmetic on the CPU). One function serves Python ints,
+int64 numpy arrays and int64 tensors alike.
 
 ``key(seed)`` gives the (2,) uint32 words that
 ``jax.random.key_data(jax.random.key(seed))`` gives, so one seed drives
@@ -12,9 +12,11 @@ the same fused stream in both packages; ``split(key, num)`` gives the
 words of ``jax.random.split(key, num)`` (the partitionable, fold-like
 split: key i is the cipher of the 64-bit counter i), and ``keys(seed,
 num)`` those of ``split(key(seed), num)``, the canonical keys of a batch,
-and ``fold_in(key, data)`` / ``fold_in_batch(key, steps)`` those of
-``jax.random.fold_in`` (the cipher of the counter (0, data)): the data
-pipeline's per-step keys. ``fold`` is another function: the draw
+and ``fold_in(key, data)`` those of ``jax.random.fold_in`` (the cipher
+of the counter (0, data)). ``fold_in_keys(keys, data)`` folds every datum
+into every key of a batch in one numpy cipher; ``fold_in_batch`` (the
+data pipeline's per-step keys), ``split`` and the shard keys go through
+it. ``fold`` is another function: the draw
 kernels' in-kernel stream fold, the cipher of (data, 0), and the streams
 of ``uniforms`` depend on it.
 
@@ -33,8 +35,8 @@ import torch
 from repro_torch.config import resolve_device
 
 __all__ = ["key", "key_words", "key_batch", "split", "keys", "fold_in",
-           "fold_in_batch", "threefry2x32", "fold", "bits_to_uniform",
-           "uniforms_plain", "uniforms"]
+           "fold_in_batch", "fold_in_keys", "threefry2x32", "fold",
+           "bits_to_uniform", "uniforms_plain", "uniforms"]
 
 M32 = 0xFFFFFFFF
 _ROT_A = (13, 15, 26, 6)
@@ -71,11 +73,8 @@ def key_batch(ks) -> np.ndarray:
 def split(k, num: int) -> np.ndarray:
     """The (num, 2) uint32 words of ``jax.random.split(k, num)``: key i is
     the cipher of the counter (0, i) under ``k`` (jax's partitionable
-    split)."""
-    k0, k1 = key_words(k)
-    ctr = torch.arange(int(num), dtype=torch.int64)
-    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
-    return torch.stack([x0, x1], dim=1).numpy().astype(np.uint32)
+    split), which is ``fold_in(k, i)``."""
+    return fold_in_batch(k, range(int(num)))
 
 
 def keys(seed: int, num: int) -> np.ndarray:
@@ -88,16 +87,29 @@ def fold_in(k, data: int) -> np.ndarray:
     """The (2,) uint32 words of ``jax.random.fold_in(k, data)``: the
     cipher of the counter (0, data) under ``k``, ``data`` taken mod 2^32
     as jax takes it. Not ``fold``, which ciphers (data, 0)."""
-    return fold_in_batch(k, [data])[0]
+    k0, k1 = key_words(k)
+    return np.array(threefry2x32(k0, k1, 0, int(data) & M32), np.uint32)
 
 
 def fold_in_batch(k, steps) -> np.ndarray:
     """The (B, 2) uint32 words of ``fold_in(k, s)`` for each of ``steps``
-    (a sequence of ints), in one vectorized cipher on the host."""
-    k0, k1 = key_words(k)
-    ctr = torch.as_tensor(np.asarray(steps, np.int64).reshape(-1) & M32)
-    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
-    return torch.stack([x0, x1], dim=1).numpy().astype(np.uint32)
+    (a sequence of ints): ``fold_in_keys`` of the one key."""
+    return fold_in_keys([key_words(k)], steps)[:, 0]
+
+
+def fold_in_keys(ks, data) -> np.ndarray:
+    """The (D, B, 2) uint32 words of ``fold_in(ks[b], data[d])`` for each
+    of ``data`` (a sequence of ints) and each key of a batch
+    (``key_batch``'s forms), in one vectorized cipher on the host (numpy:
+    a cipher of a few words costs microseconds, not the milliseconds of
+    tensor ops)."""
+    w = key_batch(ks).astype(np.int64)
+    d = np.asarray(data, np.int64).reshape(-1, 1) & M32
+    shape = (d.shape[0], w.shape[0])
+    x0, x1 = threefry2x32(np.broadcast_to(w[:, 0], shape),
+                          np.broadcast_to(w[:, 1], shape),
+                          np.zeros(shape, np.int64), np.broadcast_to(d, shape))
+    return np.stack([x0, x1], axis=-1).astype(np.uint32)
 
 
 def _rotl(x, d: int):

@@ -19,8 +19,9 @@ an injectable clock and a fault-injection hook, which is what makes the
 crash/drop/delay tests and the determinism harness deterministic.
 
 Every replica's engine lives on the database's device under the fleet's
-``kernel_policy`` (``None``: the default ``KernelPolicy``). Meshes are
-not ported (ROADMAP A.5).
+``kernel_policy`` (``None``: the default ``KernelPolicy``). A replica
+serves on one engine without a mesh, as in the reference; the
+micro-batcher takes one (``MicroBatcher(mesh=)``).
 
 Public API:
     Fleet              router + replicas + log behind one facade

@@ -73,8 +73,8 @@ class MicroBatcher:
     which the fleet's determinism checks compare bit for bit. Off by
     default: it moves every column of a flush to the host.
 
-    Meshes are not ported (ROADMAP A.5): passing ``mesh`` or ``axes``
-    raises.
+    ``mesh`` / ``axes`` pass to every ``sample_batch``: the engine's
+    sharded plan serves the flush (``launch.mesh``).
     """
 
     def __init__(self, engine, *, max_batch: int = 64,
@@ -82,11 +82,9 @@ class MicroBatcher:
                  clock=time.perf_counter, collect_rows: bool = False):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if mesh is not None or axes is not None:
-            raise NotImplementedError(
-                "MicroBatcher: meshes wait for sharding (ROADMAP A.5); "
-                "serve on one engine")
         self.engine = engine
+        self.mesh = mesh
+        self.axes = axes
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
         self.clock = clock
@@ -139,7 +137,8 @@ class MicroBatcher:
         version = self.engine.db.version
         for reqs in groups.values():
             keys = np.stack([threefry.key(r.seed) for r in reqs])
-            smp = self.engine.sample_batch(reqs[0].query, keys)
+            smp = self.engine.sample_batch(reqs[0].query, keys,
+                                           mesh=self.mesh, axes=self.axes)
             # The host read waits for the device: the stamp below covers
             # the draw's work on the card.
             counts = smp.count.cpu().numpy()

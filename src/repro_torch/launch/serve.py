@@ -1,16 +1,19 @@
-"""The join-sampling service demo: single-engine micro-batching, or, with
-``--replicas N``, a replicated fleet behind a router with log-shipped
-deltas and an injected replica crash.
+"""The join-sampling service demo: single-engine micro-batching (with
+``--devices N``, through the engine's sharded plan over a mesh of N
+entries), or, with ``--replicas N``, a replicated fleet behind a router
+with log-shipped deltas and an injected replica crash.
 
-    python -m repro_torch.launch.serve --mode join [--replicas 4] [--updates 4]
+    python -m repro_torch.launch.serve --mode join [--devices 4]
+    python -m repro_torch.launch.serve --mode join --replicas 4 [--updates 4]
 
 The serving *library* lives in ``repro_torch.launch.fleet`` (router,
 replica, transport, log, micro-batcher); this module is a thin demo over
 it and re-exports the single-engine names (``MicroBatcher`` & co.). It
-runs on the card; ``--device cpu`` runs it on the CPU.
+runs on the card (a mesh round-robin over the visible cards);
+``--device cpu`` runs it on the CPU.
 
 Not ported: ``--mode lm`` and ``serve_batch`` (the model half, ROADMAP
-A.7) and ``--devices`` (sharding, ROADMAP A.5); both refuse with a message.
+A.5), which refuse with a message.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.config import resolve_device
 from repro_torch.launch.fleet import (  # noqa: F401  (re-exported public API)
@@ -65,16 +69,26 @@ def _demo_db(device):
     return make_corpus_db(**DEMO_CORPUS, device=device)
 
 
-def _join_demo(n_requests: int, max_batch: int = 64,
+def _join_demo(n_requests: int, devices: int = 1, max_batch: int = 64,
                max_wait_ms: float = 2.0, updates: int = 0, *,
                device=None, kernel_policy=None) -> None:
-    """Serve the demo stream through one engine's micro-batcher."""
-    from repro_torch.engine import QueryEngine
+    """Serve the demo stream through one engine's micro-batcher; with
+    ``devices > 1`` through its sharded plan over a mesh of that many
+    entries: round-robin over the visible cards when ``device`` is a
+    card, else every entry on ``device``."""
+    from repro_torch.engine import QueryEngine, ShardedPlan
+    from repro_torch.launch.mesh import make_mesh
 
+    mesh = None
+    if devices > 1:
+        on_card = device is None or torch.device(device).type == "cuda"
+        mesh = make_mesh((devices,), ("data",),
+                         devices=None if on_card else device)
     db = _demo_db(device)
-    reqs, _ = _demo_stream(db, n_requests, updates)
+    reqs, (q_qual, _) = _demo_stream(db, n_requests, updates)
     engine = QueryEngine(db, device=db.device, kernel_policy=kernel_policy)
-    mb = MicroBatcher(engine, max_batch=max_batch, max_wait_ms=max_wait_ms)
+    mb = MicroBatcher(engine, max_batch=max_batch, max_wait_ms=max_wait_ms,
+                      mesh=mesh)
     t0 = time.perf_counter()
     done: List = []
     for r in reqs:
@@ -86,8 +100,13 @@ def _join_demo(n_requests: int, max_batch: int = 64,
     draws = [r for r in done if isinstance(r, JoinSampleRequest)]
     lats = [r.latency_s * 1e3 for r in draws]
     st = engine.stats
+    shards = ""
+    if mesh is not None:  # the planner may fall back to the single plan
+        plan = engine.compile_sharded(q_qual, mesh)
+        shards = (f"  shards={plan.num_shards}"
+                  if isinstance(plan, ShardedPlan) else "  shards=1")
     print(f"[serve-join] {n_requests} requests in {mb.flushes} flushes "
-          f"({mb.dispatches} dispatches)  max_batch={max_batch} "
+          f"({mb.dispatches} dispatches){shards}  max_batch={max_batch} "
           f"max_wait={max_wait_ms}ms  device={engine.device}")
     print(f"  draws/sec={n_requests/wall:,.0f}  "
           f"latency p50={percentile(lats, .5):.1f}ms "
@@ -169,10 +188,10 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=("lm", "join"), default="join",
                     help="join: the join-sampling service; lm waits for "
-                         "the model half (ROADMAP A.7)")
+                         "the model half (ROADMAP A.5)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="join mode: sharded serving waits for sharding "
-                         "(ROADMAP A.5); only 1 is accepted")
+                    help="join mode: serve through the engine's sharded "
+                         "plan over a mesh of this many entries")
     ap.add_argument("--replicas", type=int, default=1,
                     help="join mode: serve through a replicated fleet of "
                          "this many engine replicas")
@@ -195,10 +214,9 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
     args = ap.parse_args(argv)
     if args.mode == "lm":
         ap.error("--mode lm is not ported: it waits for the model half "
-                 "(ROADMAP A.7)")
-    if args.devices != 1:
-        ap.error("--devices is not ported: sharded serving waits for "
-                 "sharding (ROADMAP A.5)")
+                 "(ROADMAP A.5)")
+    if args.devices < 1:
+        ap.error(f"--devices must be >= 1, got {args.devices}")
     device = resolve_device(args.device)
     if args.replicas > 1:
         _fleet_demo(args.requests, args.replicas, max_batch=args.max_batch,
@@ -206,7 +224,8 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
                     crash=not args.no_crash, device=device,
                     kernel_policy=kernel_policy)
     else:
-        _join_demo(args.requests, max_batch=args.max_batch,
+        _join_demo(args.requests, devices=args.devices,
+                   max_batch=args.max_batch,
                    max_wait_ms=args.max_wait_ms, updates=args.updates,
                    device=device, kernel_policy=kernel_policy)
     return 0

@@ -15,8 +15,11 @@
   * The reference's batcher tests, on the port: flush triggers, routing by
     fingerprint, the update barrier, zero rebuilds after an update.
   * ``serve.main`` in join mode on the CPU (an explicit device and
-    policy), single-engine and fleet; ``--mode lm`` and ``--devices``
-    refuse with a message; the default device is the card.
+    policy), single-engine, sharded over a mesh of four (``--devices 4``)
+    and fleet; ``--mode lm`` and ``--devices 0`` refuse with a message;
+    the default device is the card.
+  * ``MicroBatcher(mesh=)`` and ``serve_join_samples(mesh=)`` serve each
+    draw as the engine's sharded ``sample`` under the same key.
 """
 import numpy as np
 import pytest
@@ -391,13 +394,29 @@ def test_serve_join_samples_drains_everything(port_db, q3, q2):
     assert all(r.count is not None for r in reqs)
 
 
-def test_max_batch_validation_and_no_mesh(port_db):
+def test_max_batch_validation_and_no_mesh(port_db, q3):
+    """``max_batch`` is checked; a mesh is no longer refused: the batcher
+    and ``serve_join_samples`` serve every draw through the sharded plan,
+    each equal to the engine's sharded ``sample`` under its key."""
+    from repro_torch.launch.mesh import make_mesh
+
     with pytest.raises(ValueError, match="max_batch"):
         MicroBatcher(port_engine(port_db), max_batch=0)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        MicroBatcher(port_engine(port_db), mesh=object())
-    with pytest.raises(NotImplementedError, match="A.5"):
-        serve_join_samples(port_engine(port_db), [], mesh=object())
+    mesh = make_mesh((4,), ("data",), devices="cpu")
+    engine = port_engine(port_db)
+    mb = MicroBatcher(engine, max_batch=3, max_wait_ms=1e9,
+                      clock=FakeClock(), mesh=mesh, collect_rows=True)
+    reqs = [JoinSampleRequest(query=q3, seed=i) for i in range(3)]
+    done = sum((mb.submit(r) for r in reqs), [])
+    assert len(done) == 3 and mb.dispatches == 1
+    done += serve_join_samples(engine, [JoinSampleRequest(query=q3, seed=7)],
+                               mesh=mesh, collect_rows=True)
+    assert engine.compile_sharded(q3, mesh).num_shards == 4
+    for r in done:
+        want = engine.sample(q3, threefry.key(r.seed), mesh=mesh)
+        assert (r.count, r.overflow) == (int(want.count), bool(want.overflow))
+        for c, col in r.rows.items():
+            np.testing.assert_array_equal(col, want.columns[c][:r.count])
 
 
 def _delta():
@@ -477,19 +496,23 @@ def test_serve_join_samples_with_interleaved_updates(port_db, q3, q2):
 @pytest.mark.parametrize("argv", [
     ["--mode", "join", "--requests", "24", "--max-batch", "8"],
     ["--mode", "join", "--requests", "24", "--max-batch", "8",
+     "--devices", "4", "--updates", "2"],
+    ["--mode", "join", "--requests", "24", "--max-batch", "8",
      "--updates", "2", "--replicas", "3"],
-], ids=["single", "fleet"])
+], ids=["single", "sharded", "fleet"])
 def test_serve_main_join_on_cpu(argv, capsys):
     assert serve.main(argv + ["--device", "cpu"], kernel_policy=PREFER) == 0
     out = capsys.readouterr().out
     assert "draws/sec=" in out
+    if "--devices" in argv:
+        assert "shards=4" in out
     if "--replicas" in argv:
         assert "bit-identical to single-engine baseline: OK" in out
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "lm"], "A.7"),
-    (["--mode", "join", "--devices", "2"], "A.5"),
+    (["--mode", "lm"], "A.5"),
+    (["--mode", "join", "--devices", "0"], "--devices must be >= 1"),
 ])
 def test_serve_main_refuses_unported_modes(argv, match, capsys):
     with pytest.raises(SystemExit) as e:
