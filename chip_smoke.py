@@ -120,7 +120,9 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        ones (timed too).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It needs one CUDA card and exits non-zero without one. The last line is
+It needs one CUDA card and exits non-zero without one. ``--every-card``
+instead holds the batched draws on each visible card in turn against their
+plain versions (a machine with several cards) and prints ``CARDS {...}``. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
 launches, agreement and times; the line before that is the card's name and
 power limit as ``nvidia-smi`` reports them.
@@ -939,7 +941,9 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
     import numpy as np
     import torch
 
-    from repro_torch.core import PoissonSampler, estimate, sampling, yannakakis
+    from repro_torch.core import (Atom, Database, JoinQuery, PoissonSampler,
+                                  estimate, sampling, yannakakis)
+    from repro_torch.engine import QueryEngine
     from repro_torch.kernels import fused_draw as fd_mod
     from repro_torch.kernels import prefix_sum as ps_mod
     from repro_torch.kernels import threefry
@@ -1041,14 +1045,43 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
         "twice at A and at B equal, and equal the plan's")
 
     # -- the batched kernels against their plain versions ------------------------
+    # Every search of the kernel goes by tiles, staged in shared memory or
+    # falling back lane by lane; the sparse plan (B's tables at p = 0.01)
+    # spreads an output tile over many roots, so its tiles fall back. Each
+    # check's staged and fallback tile searches are the kernel's own
+    # (``tile_stats``, both instances) and must equal the plain model's
+    # (``fused_draw_batch_tiled``). Title |><| Cast (2 slots) and a join of
+    # five relations (Cast and Comp twice: the walk's 16-slot instance) take
+    # other layouts and shared memory sizes.
     errs["fused_draw_batch"] = errs["fused_sample_batch"] = 0.0
     keys64 = threefry.keys(4000, 64)
+
+    def plan_of(tables, query):
+        return QueryEngine(Database.from_columns(tables, device=device),
+                           device=device,
+                           kernel_policy=engB.kernel_policy).compile(query)
+
+    planS = plan_of(dict(tabB, Title=dict(tabB["Title"], p=np.full_like(
+        tabB["Title"]["p"], 0.01))), q)
+    assert planS.route == "fused"
+    planTC = engB.compile(JoinQuery(q.atoms[:2], prob_var="p"))
+    tab5 = make_tables(args.seed + 5, max(args.serving_title_rows // 8, 100))
+    tab5["Cast2"] = {"t": tab5["Cast"]["t"], "person2": tab5["Cast"]["person"]}
+    tab5["Comp2"] = {"t": tab5["Comp"]["t"], "comp2": tab5["Comp"]["comp"]}
+    plan5 = plan_of(tab5, JoinQuery(q.atoms + (
+        Atom.of("Cast2", "t", "person2"), Atom.of("Comp2", "t", "comp2")),
+        prob_var="p"))
+    assert plan5.shred.packed.layout.num_slots == 5
+    tiles = {"staged": 0, "fallback": 0}
     for label, plan, keys, method in (
             ("B", planB, keysB, "exprace"),
             ("B, flat PTBERN", planB, keysB, "ptbern_flat"),
             ("B, one key", planB, keysB[:1], "exprace"),
             ("C", planC, keysC, "exprace"),
-            ("C, a bucket of 64", planC, keys64, "exprace")):
+            ("C, a bucket of 64", planC, keys64, "exprace"),
+            ("B at p = 0.01", planS, keysB, "exprace"),
+            ("B, Title |><| Cast", planTC, keysB, "exprace"),
+            ("five relations", plan5, keysB[:4], "exprace")):
         pk = plan.shred.packed
         kw = dict(method=method, cap=plan.default_capacity(),
                   acap=plan.arrival_capacity() if method == "exprace" else 0,
@@ -1063,20 +1096,44 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
         errs["fused_draw_batch"] = max(errs["fused_draw_batch"], e_draw)
         errs["fused_sample_batch"] = max(errs["fused_sample_batch"], e_sample)
         assert not bool(want[3].any()), label
+        model = {}
+        fd_mod.fused_draw_batch_tiled(None, keys, plan.draw_params,
+                                      stats=model, **kw)
+        counts = {"model": {k: model.get(k, 0) for k in tiles}}
+        if on_card:
+            counts["fused_draw_batch"] = fd_mod.tile_stats(
+                pk.arena, None, plan.draw_params, layout=pk.layout,
+                keys=keys, **kw)
+            counts["fused_sample_batch"] = fd_mod.tile_stats(
+                None, None, plan.draw_params, keys=keys, **kw)
+            assert all(c == counts["model"] for c in counts.values()), counts
+        for k in tiles:
+            tiles[k] += counts["model"][k]
         log(f"[check] fused_draw_batch / fused_sample_batch at {label} "
             f"({len(keys)} keys, {method}): vs plain max_abs_err {e_draw} / "
-            f"{e_sample}")
+            f"{e_sample}; tile searches staged / fallback " + "; ".join(
+                f"{k} {c['staged']} / {c['fallback']}"
+                for k, c in counts.items()))
         del got, want, pos
+    log(f"[check] the batched draw's tile searches over the checks: "
+        f"{tiles['staged']} staged, {tiles['fallback']} fell back")
+    assert tiles["staged"] > 0 and tiles["fallback"] > 0, tiles
+    del planS, planTC, plan5
     if on_card:
         for label, walk, plan, nkeys in (("B", True, planB, args.draws),
                                          ("C", False, planC, args.draws),
                                          ("C", False, planC, 64)):
-            per_sm, sms, blocks = fd_mod.grid(
+            per_sm, sms, blocks, smem = fd_mod.grid(
                 walk, plan.arrival_capacity(), plan.default_capacity(),
-                plan.w.numel(), nkeys)
+                plan.w.numel(), nkeys, layout=plan.shred.packed.layout)
+            lanes, R = plan.arrival_capacity(), plan.w.numel()
+            slab = (fd_mod.scratch_bytes(lanes, R, 2)
+                    - fd_mod.scratch_bytes(lanes, R, 1))
             log(f"[build] {'fused_draw' if walk else 'fused_sample'} batch of "
                 f"{nkeys} at {label}: occupancy {per_sm} x {sms}; {blocks} "
-                "blocks launched")
+                f"blocks launched; {smem} bytes of dynamic shared memory; "
+                f"scratch {slab} bytes a key, "
+                f"{fd_mod.scratch_bytes(lanes, R, nkeys)} for the batch")
     assert errs["fused_draw_batch"] == 0.0
     assert errs["fused_sample_batch"] == 0.0
 
@@ -1215,7 +1272,8 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
         "uniform_sample_A": (lambda: engA.uniform_sample(
             q, threefry.key(5000), 0.05), e2e["uniform_sample_A_p0.05_ms"]),
     }
-    phases = (planB.shred.packed.arena, keysB, planB.draw_params, kwB)
+    phases = ((planB.shred.packed.arena, keysB, planB.draw_params, kwB),
+              (None, keysC, planC.draw_params, kwC))
     return launches, rows, call, e2e, windows, phases
 
 
@@ -1806,6 +1864,65 @@ def run_serving_profiles(args, device) -> dict:
     out["pipeline"] = profile_window(
         window, "G.pipeline steady window of 32 steps",
         wall_ms(window, device))
+    return out
+
+
+def run_every_card(args) -> dict:
+    """``--every-card``: the batched draws on each visible card in turn,
+    card 0 first, each held bit for bit against its plain version on that
+    card: ``fused_draw_batch`` of Title |><| Cast and of the three-way join
+    at B (two shared memory sizes) and ``fused_sample_batch`` at C, 32 keys
+    each. A card's first launch comes after other cards' launches, so a
+    dynamic shared memory limit set in one card's context only cannot pass
+    for another's. Returns each card's check."""
+    import torch
+
+    from repro_torch.core import Atom, Database, JoinQuery
+    from repro_torch.engine import QueryEngine
+    from repro_torch.kernels import build, threefry
+    from repro_torch.kernels import fused_draw as fd
+
+    build.build_all()
+    q = JoinQuery((Atom.of("Title", "t", "kind", "p"),
+                   Atom.of("Cast", "t", "person"),
+                   Atom.of("Comp", "t", "comp")), prob_var="p")
+    tabB = make_tables(args.seed + 1, args.serving_title_rows)
+    tabC = make_tables(args.seed + 2, args.paged_title_rows)
+    keys = threefry.keys(2000, args.draws)
+    out = {}
+    for c in range(torch.cuda.device_count()):
+        device = torch.device("cuda", c)
+        torch.cuda.set_device(device)
+        checks = []
+        for label, tables, query, walk in (
+                ("B, Title |><| Cast", tabB,
+                 JoinQuery(q.atoms[:2], prob_var="p"), True),
+                ("B", tabB, q, True), ("C", tabC, q, False)):
+            plan = QueryEngine(Database.from_columns(tables, device=device),
+                               device=device).compile(query)
+            pk = plan.shred.packed
+            kw = dict(method="exprace", cap=plan.default_capacity(),
+                      acap=plan.arrival_capacity())
+            if walk:
+                got = fd.fused_draw_batch(pk.arena, keys, plan.draw_params,
+                                          layout=pk.layout, **kw)
+                want = fd.fused_draw_batch_plain(
+                    pk.arena, keys, plan.draw_params, layout=pk.layout, **kw)
+            else:
+                got = fd.fused_sample_batch(keys, plan.draw_params, **kw)
+                want = fd.fused_sample_batch_plain(keys, plan.draw_params,
+                                                   **kw)
+            assert got[-2].device == device
+            err = max(max_abs_err(g, w) for g, w in zip(got, want))
+            smem = fd.grid(walk, kw["acap"], kw["cap"], plan.w.numel(),
+                           len(keys), layout=pk.layout)[3]
+            log(f"[cards] cuda:{c} "
+                f"{'fused_draw_batch' if walk else 'fused_sample_batch'} at "
+                f"{label} ({len(keys)} keys, {smem} bytes of dynamic shared "
+                f"memory): vs plain max_abs_err {err}")
+            assert err == 0.0, (c, label)
+            checks.append({"label": label, "smem": smem, "max_abs_err": err})
+        out[f"cuda:{c}"] = checks
     return out
 
 
@@ -2526,6 +2643,15 @@ def run(args, device, kernel_policy=None) -> dict:
             if "stack frame" in line]
         log(f"[build] tree_get: {len(frames)} instances; stack frames and "
             f"spills: {sorted(set(frames))}")
+        # the draw's instances keep rows and locals in registers
+        frames = [line for entry, line in ptxas_lines(
+            reports.get("fused_draw") or build.ptxas_report("fused_draw"))
+            if "fused_draw_kernel" in entry and "stack frame" in line]
+        log(f"[build] fused_draw: {len(frames)} instances; stack frames and "
+            f"spills: {sorted(set(frames))}")
+        assert frames and all(line == "0 bytes stack frame, 0 bytes spill "
+                              "stores, 0 bytes spill loads"
+                              for line in frames), frames
         # the bf16 attention kernels' tensor-core instructions in the SASS
         for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
             log(f"[build] {name}: {sass_count(build, name, op)}")
@@ -2692,9 +2818,9 @@ def run(args, device, kernel_policy=None) -> dict:
     grids = {}
     if on_card:
         for label, walk, plan in (("B", True, planB), ("C", False, planC)):
-            per_sm, sms, blocks = fd_mod.grid(
+            per_sm, sms, blocks, _ = fd_mod.grid(
                 walk, plan.arrival_capacity(), plan.default_capacity(),
-                plan.w.numel())
+                plan.w.numel(), layout=plan.shred.packed.layout)
             grids[label] = {"blocks_per_sm": per_sm, "sms": sms,
                             "blocks": blocks}
             log(f"[build] {'fused_draw' if walk else 'fused_sample'} "
@@ -3005,13 +3131,15 @@ def run(args, device, kernel_policy=None) -> dict:
             e2e["profile"][label] = profile_window(fn, label, wall)
         # The draw kernel's own phases (its global clock after each grid
         # barrier), the mean of 10 launches after one.
-        arenaE, keysE, paramsE, kwE = phasesE
+        (arenaE, keysE, paramsE, kwE), (_, keysEC, paramsEC, kwEC) = phasesE
         for label, arena, key, params, kwx in (
                 ("fused_draw at B", packB.arena, keyB, planB.draw_params, kw),
                 ("fused_sample at C", None, keyC, planC.draw_params,
                  dict(kwC, layout=None)),
                 (f"fused_draw_batch of {len(keysE)} at B", arenaE, None,
-                 paramsE, dict(kwE, keys=keysE))):
+                 paramsE, dict(kwE, keys=keysE)),
+                (f"fused_sample_batch of {len(keysEC)} at C", None, None,
+                 paramsEC, dict(kwEC, keys=keysEC))):
             runs = [fd_mod.phase_ms(arena, key, params, **kwx)
                     for _ in range(11)][1:]
             mean = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0]}
@@ -3135,6 +3263,9 @@ def main(argv=None) -> int:
                     help="tokens a document of phase G's corpus")
     ap.add_argument("--serving-profiles", action="store_true",
                     help=argparse.SUPPRESS)  # phase G's windows, a child
+    ap.add_argument("--every-card", action="store_true",
+                    help="only hold the batched draws on every visible card "
+                         "against their plain versions")
     ap.add_argument("--reps", type=int, default=5, help="timed kernel calls")
     ap.add_argument("--profile", action="store_true",
                     help="also break the warm calls down by device kernel")
@@ -3159,6 +3290,9 @@ def main(argv=None) -> int:
         torch.cuda.set_device(0)
         print("PROFILES " + json.dumps(run_serving_profiles(
             args, torch.device("cuda", 0))))
+        return 0
+    if args.every_card:
+        print("CARDS " + json.dumps(run_every_card(args)))
         return 0
     smi = nvidia_smi_line()
     log(f"[device] {smi}")

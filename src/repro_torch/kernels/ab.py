@@ -23,10 +23,20 @@ D's inputs from the same seeds, and calls its own wrappers on them:
     reported per run, with whether five draws of one key in one process
     agree, and not held across runs;
   * ``fused_draw`` at B's shapes and ``fused_sample`` at C's (32,000 and
-    60,000 titles), one key each: single launches of the draw kernel.
-    Their checksums are reported per run and not held across runs either:
-    the float32 tables come from a float64 mass prefix whose summation
-    order may differ between checkouts.
+    60,000 titles), one key each, and ``fused_draw_batch`` at B and
+    ``fused_sample_batch`` at C with 32 keys each: single and batched
+    launches of the draw kernel, each held against its plain version, with
+    the kernel's phase clock (``fused_draw.phase_ms``, the mean of 10
+    launches). Their checksums are reported per run and not held across
+    runs either: the float32 tables come from a float64 mass prefix whose
+    summation order may differ between checkouts;
+  * the upload of the 32 keys of the batched draw (``fused_draw.
+    _device_keys``), and a ``MicroBatcher`` flush of 32 draws of the
+    three-way join at B (``chip_smoke.py``'s serving profile, 32 requests
+    at ``max_batch`` 32): their ``ms`` is host time, the mean of ``--reps``
+    calls, each started on an idle card after a synchronize (a flush ends
+    in its host read of the counts), so the flush's draws a second are
+    32,000 / ms.
 
 With ``--smoke`` the tool times the whole of each checkout's
 ``python3 chip_smoke.py`` instead (run from the checkout's root, kernel
@@ -57,6 +67,7 @@ ROOT = Path(__file__).resolve().parents[3]
 SEED = 0
 GEO_P, GEO_KEY, Z_LIMIT = 0.05, 4000, 6.0  # chip_smoke.py's phase D
 SCAN_N = 36_244_344
+BATCH = 32  # keys of the batched draws (a batcher flush)
 PTXAS = ("bsearch_probe", "scan", "tree_get", "fused_draw")
 
 
@@ -141,34 +152,91 @@ def child(tree: Path, reps: int) -> dict:
     del smp, again
     from repro_torch.kernels import fused_draw as fd
 
-    for name, seed, titles, walk in (("fused_draw B", SEED + 1, 32_000, True),
-                                     ("fused_sample C", SEED + 2, 60_000,
-                                      False)):
+    keys = threefry.keys(2000, BATCH)
+    for label, seed, titles, walk in (("B", SEED + 1, 32_000, True),
+                                      ("C", SEED + 2, 60_000, False)):
         eng = QueryEngine(Database.from_columns(
             chip_smoke.make_tables(seed, titles), device=device),
             device=device)
         pl = eng.compile(q)
         kw = dict(method="exprace", cap=pl.default_capacity(),
                   acap=pl.arrival_capacity())
+        prm = pl.draw_params
         arena, layout = pl.shred.packed.arena, pl.shred.packed.layout
+        # defaults bind this configuration's operands: the calls run again
+        # after the loop, for their device times
         if walk:
-            fn = (lambda a=arena, lay=layout, p=pl.draw_params, k=kw:
-                  fd.fused_draw(a, key, p, layout=lay, **k))
-            want = fd.fused_draw_plain(arena, key, pl.draw_params,
-                                       layout=layout, **kw)
+            runs = {
+                f"fused_draw {label}": (
+                    lambda a=arena, p=prm, lay=layout, k=kw:
+                    fd.fused_draw(a, key, p, layout=lay, **k),
+                    lambda a=arena, p=prm, lay=layout, k=kw:
+                    fd.fused_draw_plain(a, key, p, layout=lay, **k),
+                    dict(arena=arena, key=key, layout=layout)),
+                f"fused_draw_batch {label} {BATCH}": (
+                    lambda a=arena, p=prm, lay=layout, k=kw:
+                    fd.fused_draw_batch(a, keys, p, layout=lay, **k),
+                    lambda a=arena, p=prm, lay=layout, k=kw:
+                    fd.fused_draw_batch_plain(a, keys, p, layout=lay, **k),
+                    dict(arena=arena, key=None, layout=layout, keys=keys))}
         else:
-            fn = (lambda p=pl.draw_params, k=kw: fd.fused_sample(key, p, **k))
-            want = fd.fused_sample_plain(key, pl.draw_params, **kw)
-        got = fn()
-        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+            runs = {
+                f"fused_sample {label}": (
+                    lambda p=prm, k=kw: fd.fused_sample(key, p, **k),
+                    lambda p=prm, k=kw: fd.fused_sample_plain(key, p, **k),
+                    dict(arena=None, key=key)),
+                f"fused_sample_batch {label} {BATCH}": (
+                    lambda p=prm, k=kw: fd.fused_sample_batch(keys, p, **k),
+                    lambda p=prm, k=kw: fd.fused_sample_batch_plain(keys, p,
+                                                                    **k),
+                    dict(arena=None, key=None, keys=keys))}
+        if walk:
+            engB = eng
+        for name, (fn, plain, pk) in runs.items():
+            got = fn()
+            assert all(torch.equal(g, w) for g, w in zip(got, plain())), name
+            cases[name] = (None, fn, None)
+            clock = [fd.phase_ms(params=prm, **pk, **kw)
+                     for _ in range(11)][1:]
+            out[name] = {"inputs": kw["acap"], "input_sum": 0,
+                         "output_sum": int(got[-3].sum(dtype=torch.int64)),
+                         "count": int(got[-2].sum()),
+                         "ms": chip_smoke.timed(fn, reps, device),
+                         "phases": {k: sum(c[k] for c in clock) / len(clock)
+                                    for k in clock[0]}}
+    from repro_torch.launch.fleet import JoinSampleRequest, MicroBatcher
+
+    def host_ms(fn):
+        fn()
+        total = 0.0
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return total * 1e3 / reps
+
+    def flush():
+        mb = MicroBatcher(engB, max_batch=BATCH, max_wait_ms=1e9)
+        done = []
+        for i in range(BATCH):
+            done += mb.submit(JoinSampleRequest(query=q, seed=7000 + i))
+        return done
+    served = [r.count for r in flush()]
+    assert len(served) == BATCH
+    uploads = {
+        f"key upload {BATCH}": lambda: fd._device_keys(keys, device),
+        f"batcher flush B {BATCH}": flush}
+    for name, fn in uploads.items():
         cases[name] = (None, fn, None)
-        out[name] = {"inputs": kw["acap"], "input_sum": 0,
-                     "output_sum": int(got[-3].sum(dtype=torch.int64)),
-                     "count": int(got[-2]),
-                     "ms": chip_smoke.timed(fn, reps, device)}
+        out[name] = {"inputs": BATCH, "input_sum": 0, "output_sum": 0,
+                     "ms": host_ms(fn)}
+    out[f"batcher flush B {BATCH}"].update(
+        count=int(sum(served)), output_sum=int(sum(served)))
     for name, (_, fn, _) in cases.items():
         out[name]["device_ms"], out[name]["ops"] = chip_smoke.device_ms(
-            fn, 5 if name == "sample A" else 20)
+            fn, 5 if name.startswith(("sample A", "batcher")) else 20)
     return out, {src: chip_smoke.ptxas_lines(build.ptxas_report(src))
                  for src in PTXAS}
 
@@ -265,6 +333,18 @@ def main(argv=None) -> int:
         print(f"{name} ({runs[0][1][name]['inputs']} inputs): ms "
               f"{row('ms', '.4f')}; device ms {row('device_ms', '.4f')}; "
               f"device operations a call {row('ops', 'g')}", flush=True)
+        if name.startswith("batcher"):
+            print("  draws a second " + " | ".join(
+                f"{lb} {BATCH * 1e3 / r[name]['ms']:.1f}" for lb, r in runs)
+                + "; device idle share of the flush " + " | ".join(
+                f"{lb} {1 - r[name]['device_ms'] / r[name]['ms']:.3f}"
+                for lb, r in runs), flush=True)
+        for lb, r in runs:
+            if "phases" in r[name]:
+                ph = r[name]["phases"]
+                print(f"  {lb} phases (ms, mean of 10): total "
+                      f"{sum(ph.values()):.4f}; " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in ph.items()), flush=True)
     if args.json_out:
         out = Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -12,6 +12,15 @@ step mixes two keys, so lane b is bit-equal to the single launch under
 key b, and their plain versions are the single plain versions per key.
 Each wrapper's ``launches`` counts its kernel launches.
 
+The kernel runs every search of the draw by tiles of ascending queries
+(the design is in ``csrc/fused_draw.cu``): a tile brackets its used
+queries' counts, stages the slice in shared memory when it is at most
+``SPAN`` words wide and otherwise descends lane by lane within the
+bracket, and walks its output positions with the GET's tile walk.
+``fused_draw_tiled`` spells that logic out as torch ops (the tests run it
+at small tiles and spans), and ``tile_stats`` returns the kernel's own
+count of staged and fallback tile searches, which equals the model's.
+
 EXPRACE, sort-free: iid Exp(1) gaps are prefix-summed, so the running sum
 is a unit-rate Poisson process on [0, Lam) and arrivals come out already
 ascending. Cell placement, dedupe, per-root success counts and the
@@ -36,19 +45,21 @@ integer after the uniform, so it matches the reference exactly.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import threefry
 from .prefix_sum import scan_order
-from .tree_probe import layout_table, tree_walk
+from .tree_probe import _ctable, tree_walk, tree_walk_tiled
 
 __all__ = ["PARAM_ORDER", "THREADS", "ITEMS", "draw_core", "arrivals",
            "fused_draw_plain", "fused_draw", "fused_sample_plain",
            "fused_sample", "fused_draw_batch_plain", "fused_draw_batch",
-           "fused_sample_batch_plain", "fused_sample_batch", "grid", "PHASES",
-           "phase_ms"]
+           "fused_sample_batch_plain", "fused_sample_batch", "TILE", "SPAN",
+           "fused_draw_tiled", "fused_draw_batch_tiled", "grid", "PHASES",
+           "phase_ms", "tile_stats", "scratch_bytes"]
 
 I32 = torch.int32
 F32 = torch.float32
@@ -208,6 +219,201 @@ def fused_sample_batch_plain(keys, params, *, method: str, cap: int,
     return tuple(torch.stack(x) for x in zip(*out))
 
 
+# ---------------------------------------------------------------------------
+# The kernel's tile searches as torch ops (the plain model of
+# csrc/fused_draw.cu's searches): every search of the draw runs by tiles of
+# ``tile`` consecutive lanes of one key. A tile brackets the counts of its
+# used queries' min and max; where the slice x[max(lo - 1, 0), hi) is at
+# most ``span`` wide it is staged and searched there, else each used lane
+# descends within [lo, hi] in device memory. Unused lanes (padding, the
+# other kind of root) are left out of the bracket. Equal to the plain
+# searches for any queries.
+# ---------------------------------------------------------------------------
+
+TILE = THREADS * ITEMS  # FD_TILE: lanes of a work item
+SPAN = 3584             # FD_SPAN: the widest slice a tile search stages
+
+
+def _count_tiled(vec, q, use, tile: int, span: int, stats) -> torch.Tensor:
+    """count_le(vec, q) (``_count_le``) for every used lane of ``q``, tile
+    by tile as the kernel searches; an unused lane gets its tile's low
+    bracket end. ``stats`` counts tiles that staged or fell back."""
+    L, n = vec.shape[0], q.shape[0]
+    nt = -(-n // tile)
+    fl = vec.is_floating_point()
+    qt = torch.cat([q if fl else q.long(),
+                    q.new_zeros(nt * tile - n, dtype=q.dtype if fl else
+                                torch.int64)]).reshape(nt, tile)
+    ut = torch.cat([use, use.new_zeros(nt * tile - n)]).reshape(nt, tile)
+    top = float("inf") if fl else 1 << 62
+    qlo = torch.where(ut, qt, top).min(1).values
+    qhi = torch.where(ut, qt, -top).max(1).values
+    some = ut.any(1)
+    zero = torch.zeros(nt, dtype=torch.int64, device=q.device)
+    lo = torch.where(some, _count_le(vec, qlo).long(), zero)
+    hi = torch.where(some, _count_le(vec, qhi).long(), zero)
+    s0 = torch.clamp(lo - 1, min=0)
+    staged = some & (hi - s0 <= span)
+    out = lo[:, None].expand(nt, tile).clone()
+    width = (hi - lo)[:, None]
+    for mask, local in ((staged, True), (some & ~staged, False)):
+        if not bool(mask.any()):
+            continue
+        lo_m, w_m, q_m = lo[mask, None], width[mask], qt[mask]
+        if local:  # the staged slice x[s0, s0 + span], searched in place
+            sl = vec[torch.clamp(s0[mask, None] + torch.arange(
+                span + 1, device=q.device), max=L - 1)]
+            off = lo_m - s0[mask, None]
+        p = torch.zeros_like(q_m, dtype=torch.int64)
+        for k in range(max(int(w_m.max()), 1).bit_length() - 1, -1, -1):
+            cand = p + (1 << k)
+            at = torch.clamp(torch.minimum(cand, w_m) - 1, min=0)
+            val = (torch.gather(sl, 1, off + at) if local
+                   else vec[torch.clamp(lo_m + at, max=L - 1)])
+            p = torch.where((cand <= w_m) & (val <= q_m), cand, p)
+        out[mask] = lo_m + p
+    if stats is not None:
+        stats["staged"] = stats.get("staged", 0) + int(staged.sum())
+        stats["fallback"] = stats.get("fallback", 0) + int(
+            (some & ~staged).sum())
+    out = torch.where(ut, out, lo[:, None])
+    return out.reshape(-1)[:n].to(I32)
+
+
+def _exprace_tiled(key, params, acap: int, cap: int, tile: int, span: int,
+                   stats):
+    """``_exprace_core`` with every search by tiles, in the kernel's
+    phases: cells (the mass prefix; a unique arrival's root segment is the
+    root its cell was placed in, so no search of the root prefix), root
+    boundaries (the cells), the output prefix, then hit ranks (U) and
+    complement ranks (gc)."""
+    massE, lam, sign = params["massE"], params["lam"], params["sign"]
+    w32, prefE32 = params["w32"], params["prefE32"]
+    cwE, offE = params["cwE"], params["offE"]
+    dev = massE.device
+    R = w32.shape[0]
+    n32 = prefE32[R]
+
+    def count(vec, qv, use):
+        return _count_tiled(vec, qv, use, tile, span, stats)
+
+    v = arrivals(key, acap, dev)
+    Lam = massE[R]
+    avalid = v < Lam
+    every = torch.ones(acap, dtype=torch.bool, device=dev)
+    r = torch.clamp(count(massE, v, every) - 1, 0, R - 1)
+    x = (v - massE[r]) / torch.clamp(lam[r], min=_TINY)
+    cell = torch.minimum(torch.clamp(torch.floor(x).to(I32), min=0),
+                         torch.clamp(w32[r] - 1, min=0))
+    gid = torch.where(avalid, prefE32[r] + cell, n32)
+    prev = torch.cat([torch.full((1,), -1, dtype=I32, device=dev), gid[:-1]])
+    uniq = (gid < n32) & (gid != prev)
+    U = torch.cumsum(uniq.to(I32), 0, dtype=I32)
+    S = torch.cumsum(torch.where(uniq, sign[r], 0).to(I32), 0, dtype=I32)
+    B = count(gid, prefE32 - 1, torch.ones(R + 1, dtype=torch.bool,
+                                           device=dev))
+    Bm1 = torch.clamp(B - 1, min=0)
+    outE = (cwE + torch.where(B > 0, S[Bm1], 0)).to(I32)
+    hitsE = torch.where(B > 0, U[Bm1], 0).to(I32)
+    K = outE[R]
+    gval = (gid - prefE32[r]) - ((U - 1) - hitsE[r]) + offE[r]
+    gc = torch.cummax(torch.where(uniq, gval, -(1 << 30)).to(I32), 0).values
+    t = torch.arange(cap, dtype=I32, device=dev)
+    valid = t < torch.clamp(K, max=cap)
+    rO = torch.clamp(count(outE, t, valid) - 1, 0, R - 1)
+    l = t - outE[rO]
+    wm1 = torch.clamp(w32[rO] - 1, min=0)
+    hO = hitsE[rO]
+    comp = sign[rO] < 0
+    i_star = torch.clamp(count(U, hO + l, valid & ~comp), max=acap - 1)
+    Lq = count(gc, l + offE[rO], valid & comp)
+    direct_local = gid[i_star] - prefE32[rO]
+    c = torch.where(Lq > 0, U[torch.clamp(Lq - 1, min=0)], 0) - hO
+    comp_pos = l + torch.minimum(torch.clamp(c, min=0), wm1 - l + 1)
+    local_out = torch.where(comp, comp_pos, direct_local)
+    pos = prefE32[rO] + torch.minimum(torch.clamp(local_out, min=0), wm1)
+    count_k = torch.clamp(K, max=cap)
+    positions = torch.where(valid, pos, n32).to(I32)
+    return positions, count_k.to(I32), avalid[acap - 1] | (K > cap)
+
+
+def _ptbern_tiled(key, params, n: int, cap: int, tile: int, span: int,
+                  stats):
+    """``_ptbern_core`` with its two searches by tiles: the root prefix of
+    every flat position, then the output lanes into the running count."""
+    prefE32, p32 = params["prefE32"], params["p32"]
+    dev = p32.device
+    R = p32.shape[0]
+    n32 = prefE32[R]
+    u = threefry.uniforms_plain(key, n, stream=1, device=dev)
+    flat = torch.arange(n, dtype=I32, device=dev)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    r = torch.clamp(_count_tiled(prefE32, flat, every, tile, span, stats) - 1,
+                    0, R - 1)
+    C = torch.cumsum((u < p32[r]).to(I32), 0, dtype=I32)
+    total = C[n - 1]
+    t = torch.arange(cap, dtype=I32, device=dev)
+    count = torch.clamp(total, max=cap)
+    pos = torch.clamp(_count_tiled(C, t, t < count, tile, span, stats),
+                      max=n - 1)
+    return torch.where(t < count, pos, n32).to(I32), count.to(I32), total > cap
+
+
+def fused_draw_tiled(arena, key, params, *, layout=None, method: str,
+                     cap: int, acap: int = 0, n: int = 0, tile: int = TILE,
+                     span: int = SPAN, stats: Optional[dict] = None):
+    """``csrc/fused_draw.cu``'s searches and walk as torch ops, tile by
+    tile: equal to ``fused_draw_plain`` (``arena`` None: to ``draw_core``,
+    the ``fused_sample`` instance). ``tile`` and ``span`` are the kernel's
+    unless given (the tests shrink them). The walk goes by output tiles as
+    the kernel's does: valid lanes walk their positions, the padding lanes
+    of a tile its largest valid position, and then take the rows of
+    position n32 - 1; it is ``tree_probe.tree_walk_tiled`` on those
+    queries. ``stats``, when given, takes the draw's tile searches that
+    staged and fell back (the kernel's ``tile_stats``)."""
+    if method == "exprace":
+        out = _exprace_tiled(key, params, acap, cap, tile, span, stats)
+    elif method == "ptbern_flat":
+        out = _ptbern_tiled(key, params, n, cap, tile, span, stats)
+    else:
+        raise ValueError(f"unknown fused draw method {method!r}")
+    if arena is None:
+        return out
+    positions, count, _ = out
+    n32 = params["prefE32"][-1]
+    nt = -(-cap // tile)
+    pt = torch.cat([positions, positions.new_full((nt * tile - cap,), n32)])
+    pt = pt.reshape(nt, tile)
+    valid = (torch.arange(nt * tile, device=pt.device) < count).reshape(nt,
+                                                                        tile)
+    top = torch.where(valid, pt, -1).max(1, keepdim=True).values
+    q = torch.where(valid, torch.clamp(pt, max=n32 - 1),
+                    torch.where(top >= 0, top, n32 - 1))
+    rows = torch.stack(tree_walk_tiled(arena, q.reshape(-1)[:cap], layout))
+    pad = torch.stack(tree_walk(arena, (n32 - 1).reshape(1), layout))
+    rows = torch.where(valid.reshape(-1)[:cap], rows, pad)
+    return (rows, *out)
+
+
+def fused_draw_batch_tiled(arena, keys, params, *, layout=None, method: str,
+                           cap: int, acap: int = 0, n: int = 0,
+                           tile: int = TILE, span: int = SPAN,
+                           stats: Optional[dict] = None):
+    """``fused_draw_tiled`` under each of the (B, 2) ``keys``, stacked (the
+    batched kernels' model: no search mixes two keys); ``stats`` sums the
+    keys' tile searches."""
+    out = []
+    for k in threefry.key_batch(keys):
+        st = {} if stats is not None else None
+        out.append(fused_draw_tiled(arena, k, params, layout=layout,
+                                    method=method, cap=cap, acap=acap, n=n,
+                                    tile=tile, span=span, stats=st))
+        if st is not None:
+            for name in ("staged", "fallback"):
+                stats[name] = stats.get(name, 0) + st.get(name, 0)
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
 _METHODS = {"exprace": 0, "ptbern_flat": 1}  # FD_EXPRACE / FD_PTBERN
 _ENTRIES = {}
 
@@ -223,10 +429,10 @@ def _entry(name: str):
         vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         draw = [vp, i32, u32, u32, i32] + [vp] * 8 + [i32] * 3
         fn.argtypes = {
-            "fused_draw_launch": [vp, vp] + draw + [vp] * 6,
-            "fused_sample_launch": draw + [vp] * 5,
+            "fused_draw_launch": [vp, vp] + draw + [vp] * 7,
+            "fused_sample_launch": draw + [vp] * 6,
             "fused_draw_scratch_words": [i32] * 3,
-            "fused_draw_grid": [i32] * 5 + [vp],
+            "fused_draw_grid": [i32] * 5 + [vp, vp],
         }[name]
         fn.restype = (ctypes.c_longlong if name == "fused_draw_scratch_words"
                       else ctypes.c_int)
@@ -234,34 +440,50 @@ def _entry(name: str):
     return fn
 
 
-def grid(walk: bool, lanes: int, cap: int, R: int, batch: int = 1):
+def scratch_bytes(lanes: int, R: int, batch: int = 1) -> int:
+    """Bytes of one launch's scratch on the card: ``batch`` slabs of
+    ``lanes`` lanes and ``R`` roots, the look-back words and the barrier
+    counter (``fused_draw_scratch_words``)."""
+    return 4 * int(_entry("fused_draw_scratch_words")(lanes, R, batch))
+
+
+def grid(walk: bool, lanes: int, cap: int, R: int, batch: int = 1,
+         layout=None):
     """``(blocks a multiprocessor holds, multiprocessors, blocks of the
-    launch)`` of the cooperative draw at these sizes on the current card
-    (``walk``: the ``fused_draw`` instance, else ``fused_sample``'s)."""
+    launch, dynamic shared memory bytes)`` of the cooperative draw at these
+    sizes on the current card (``walk``: the ``fused_draw`` instance for
+    ``layout``, else ``fused_sample``'s)."""
     from . import build
 
-    out = (ctypes.c_int * 3)()
+    if walk and layout is None:
+        raise ValueError("the walk's grid needs its layout")
+    table = _ctable(layout, None) if walk else None
+    out = (ctypes.c_int * 4)()
     build.check(_entry("fused_draw_grid")(int(walk), lanes, cap, R, batch,
-                                          out), "fused_draw_grid")
+                                          table, out), "fused_draw_grid")
     return tuple(out)
 
 
 def _device_keys(keys, dev) -> torch.Tensor:
     """(B, 2) key words as an int32 tensor on ``dev`` (the bits of the
-    uint32 words), copied from the host."""
+    uint32 words), copied from page-locked host memory without a wait: a
+    copy from pageable memory would hold the host until the card had
+    finished the work before it."""
     words = threefry.key_batch(keys)
-    return torch.from_numpy(words.view(np.int32)).to(dev)
+    return torch.from_numpy(words.view(np.int32)).pin_memory().to(
+        dev, non_blocking=True)
 
 
 def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
-            acap: int, n: int, keys=None, stamps=None):
+            acap: int, n: int, keys=None, stamps=None, stats=None):
     """Launch ``fused_draw_launch`` (with ``arena``) or
     ``fused_sample_launch`` (``arena`` None) on the params' device: one
     cooperative launch over the card for the one ``key``, or for the (B, 2)
     ``keys`` (``key`` None), its scratch one allocation. ``stamps``
-    (zeroed int64, or None) takes the kernel's phase clock. Returns ``(rows
-    (B, slots, cap) or None, positions (B, cap), scalars (B, 2))``, B = 1
-    for one key; raises if the kernel cannot be built or launched (a
+    (zeroed int64, or None) takes the kernel's phase clock, ``stats`` (two
+    zeroed int64, or None) its staged and fallback tile searches. Returns
+    ``(rows (B, slots, cap) or None, positions (B, cap), scalars (B, 2))``,
+    B = 1 for one key; raises if the kernel cannot be built or launched (a
     refused cooperative launch included)."""
     dev = params["prefE32"].device
     if dev.type != "cuda":
@@ -294,11 +516,9 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
     if arena is not None:
         if arena.device != dev:
             raise ValueError(f"arena on {arena.device}, params on {dev}")
-        table = layout_table(layout)
         rows = torch.empty((batch, layout.num_slots, cap), dtype=I32,
                            device=dev)
-        args = [arena.contiguous().data_ptr(),
-                (ctypes.c_int * len(table))(*table)]
+        args = [arena.contiguous().data_ptr(), _ctable(layout, None)]
     positions = torch.empty((batch, cap), dtype=I32, device=dev)
     scalars = torch.empty((batch, 2), dtype=I32, device=dev)
     scratch = torch.empty(
@@ -309,21 +529,22 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
     if rows is not None:
         args.append(rows.data_ptr())
     args += [positions.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
-             None if stamps is None else stamps.data_ptr()]
+             None if stamps is None else stamps.data_ptr(),
+             None if stats is None else stats.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(fn(*args, stream), entry)
     return rows, positions, scalars
 
 
-# The kernel's phases, in order (csrc/fused_draw.cu), for phase_ms.
+# The kernel's phases, in order (csrc/fused_draw.cu), for phase_ms; the
+# fused_sample instance has no walk.
 PHASES = {
     "exprace": ("gaps and tile sums", "tile carries (one block a key)",
-                "arrivals and cells", "dedupe and tile counts",
-                "count carries", "root prefixes", "complement tile max",
-                "complement carries", "output slots and walk"),
-    "ptbern_flat": ("trials and tile counts", "count carries",
-                    "output slots and walk"),
+                "arrivals, cells and counts (look-back)", "root prefixes",
+                "complement max (look-back)",
+                "output slots", "walk"),
+    "ptbern_flat": ("trials and counts (look-back)", "output slots", "walk"),
 }
 
 
@@ -335,13 +556,27 @@ def phase_ms(arena, key, params, *, layout=None, method: str, cap: int,
     ``fused_sample`` instance; ``keys`` (B, 2), with ``key`` None, times
     the batched launch. A measurement: it is not counted in ``launches``."""
     dev = params["prefE32"].device
-    stamps = torch.zeros((len(PHASES[method]) + 1,), dtype=torch.int64,
-                         device=dev)
+    names = PHASES[method][:-1] if arena is None else PHASES[method]
+    stamps = torch.zeros((len(names) + 1,), dtype=torch.int64, device=dev)
     _launch("fused_sample" if arena is None else "fused_draw", arena, key,
             params, layout, method, cap, acap, n, keys=keys, stamps=stamps)
     t = stamps.cpu().tolist()
-    return {name: (b - a) / 1e6
-            for name, a, b in zip(PHASES[method], t, t[1:])}
+    return {name: (b - a) / 1e6 for name, a, b in zip(names, t, t[1:])}
+
+
+def tile_stats(arena, key, params, *, layout=None, method: str, cap: int,
+               acap: int = 0, n: int = 0, keys=None) -> dict:
+    """The tile searches of one launch on the card: ``{"staged": ...,
+    "fallback": ...}``, searches whose bracket fit ``SPAN`` and was staged
+    in shared memory, and those that fell back to a per-lane descent (the
+    draw's own searches; the walk's are ``tree_get``'s). Arguments as
+    ``phase_ms``. A measurement: it is not counted in ``launches``."""
+    dev = params["prefE32"].device
+    stats = torch.zeros((2,), dtype=torch.int64, device=dev)
+    _launch("fused_sample" if arena is None else "fused_draw", arena, key,
+            params, layout, method, cap, acap, n, keys=keys, stats=stats)
+    staged, fallback = stats.cpu().tolist()
+    return {"staged": staged, "fallback": fallback}
 
 
 def fused_draw(arena, key, params, *, layout, method: str, cap: int,
