@@ -31,8 +31,9 @@ bsearch kernel on A's sorted and shuffled queries, the searches of one
 per-node draw, one query, a ragged tile, equal queries and queries past
 the prefix, its staged tiles against its plain model's; the paged GET's
 three forms at C; the int32 and GEO look-back at each tile size, across
-its switch of tile, 100 calls of both in turn on one scratch and on a
-second stream), checks the join against an independent numpy expansion
+its switch of tile, 150 calls of both and the float64 scan in turn on
+one scratch and on a second stream; the float scans bit for bit against
+``scan_order``), checks the join against an independent numpy expansion
 and the samples against the join and their expected size, and times each
 kernel beside its bound: its wrapper by CUDA events, then, after every
 timing, its device time by ``torch.profiler``.
@@ -69,7 +70,11 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        of the CSR index against the USR GET,
                        ``csr_get_rows_cached`` on every position against
                        ``csr_get_rows``, both walk kernels against their
-                       plain versions on each edge's operands; times of
+                       plain versions on each edge's operands (the full
+                       join's and one draw's) and on a skewed edge (one
+                       head of 6,000 rows, its run over many tiles), the
+                       caching kernel's staged, fallen-back and one-probe
+                       runs against its tile model's; times of
                        ``reshred_incremental`` against ``build_shred`` and
                        of ``apply_delta`` + a draw against ``rebind`` + a
                        draw.
@@ -105,7 +110,9 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        stream, ``serve.main --devices 4``; times beside
                        single-device.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
-                       inclusive and exclusive; float32); GEO positions at
+                       inclusive and exclusive; float32; float64), the
+                       float scans bit for bit against ``scan_order`` at
+                       their tile edges and in five repeats; GEO positions at
                        p = 0.05 over A's join from device Threefry uniforms
                        (8 keys); decode attention at llama3-405b widths
                        (H 128, KV 8, D 128, bf16; decode_32k's S = 32,768,
@@ -532,6 +539,8 @@ def run_ops(args, device, kernels, n_join: int):
     w_f32 = (torch.randint(0, 4, (n,), generator=gen, device=device)
              == 0).to(f32)                            # sum < 2^24
     w_rand = torch.rand((n,), generator=gen, device=device)
+    w_rand64 = torch.rand((n,), generator=gen, device=device,
+                          dtype=torch.float64) * 1e3
     geo_mean = n_join * GEO_P
     geo_sd = math.sqrt(geo_mean * (1 - GEO_P))
     lanes = math.ceil((geo_mean + Z_LIMIT * geo_sd) / 128) * 128
@@ -586,7 +595,8 @@ def run_ops(args, device, kernels, n_join: int):
     ps = {"int32": ops.prefix_sum(w_i32),
           "int32 exclusive": ops.prefix_sum(w_i32, exclusive=True),
           "float32 integer-valued": ops.prefix_sum(w_f32),
-          "float32 random": ops.prefix_sum(w_rand)}
+          "float32 random": ops.prefix_sum(w_rand),
+          "float64 random": ops.prefix_sum(w_rand64)}
     geo = []
     for key in keys:
         u = threefry.uniforms(key, lanes, 0, device)
@@ -601,13 +611,15 @@ def run_ops(args, device, kernels, n_join: int):
     launches = {k: fn.launches for k, fn in kernels.items()}
     log(f"[D] launches {launches}")
     if device.type == "cuda":
-        assert launches["prefix_sum"] == len(ps)
+        assert launches["prefix_sum"] == 2
+        assert launches["prefix_sum_f32"] == 2
+        assert launches["prefix_sum_f64"] == 1
         assert launches["geo_gaps"] == launches["threefry_uniforms"] == GEO_KEYS
         assert launches["flash_decode"] == len(dec_cases)
         assert launches["flash_prefill"] == len(pre_cases) + 1
         assert all(launches[k] == 0 for k in kernels if k not in (
-            "prefix_sum", "geo_gaps", "threefry_uniforms", "flash_decode",
-            "flash_prefill"))
+            "prefix_sum", "prefix_sum_f32", "prefix_sum_f64", "geo_gaps",
+            "threefry_uniforms", "flash_decode", "flash_prefill"))
 
     # -- each kernel against its plain version ---------------------------------
     errs = {}
@@ -616,18 +628,47 @@ def run_ops(args, device, kernels, n_join: int):
     want_f32 = ps_mod.prefix_sum_plain(w_f32)
     assert torch.equal(want_f32.double(), torch.cumsum(w_f32.double(), 0))
     want_rand = ps_mod.prefix_sum_plain(w_rand)
+    want_rand64 = ps_mod.prefix_sum_plain(w_rand64)
     want_ex = torch.cat([want_i32.new_zeros(1), want_i32[:-1]])
     errs["prefix_sum"] = max(
         max_abs_err(ps["int32"], want_i32),
-        max_abs_err(ps["int32 exclusive"], want_ex),
+        max_abs_err(ps["int32 exclusive"], want_ex))
+    errs["prefix_sum_f32"] = max(
         max_abs_err(ps["float32 integer-valued"], want_f32),
         max_abs_err(ps["float32 random"], want_rand))
+    err64 = max_abs_err(ps["float64 random"], want_rand64)
     drift = max_abs_err(ps["float32 random"], torch.cumsum(w_rand.double(), 0))
     log(f"[check] prefix_sum: n {n}, int32 (sum {int(want_i32[-1])}) and "
         f"exclusive, float32 integer-valued (sum {int(want_f32[-1])}) and "
-        f"random: kernel vs plain max_abs_err {errs['prefix_sum']} (random "
+        f"random, float64 random: kernel vs plain max_abs_err "
+        f"{errs['prefix_sum']} / {errs['prefix_sum_f32']} / {err64} (random "
         f"float32 against a float64 cumsum: {drift:.4g})")
-    assert errs["prefix_sum"] == 0.0
+    assert errs["prefix_sum"] == errs["prefix_sum_f32"] == err64 == 0.0
+    # The floats' one launch in its fixed order, bit for bit against
+    # scan_order: at one element, around one tile, around one chunk of tile
+    # totals (TILE tiles) and over several chunks, and five repeats of one
+    # input of each type (the fixed order repeats; the tiles finish in
+    # another order each time).
+    Tf = ps_mod.TILE
+    float_err, repeats_differ = 0.0, 0
+    sizes = sorted(m for m in {1, Tf - 1, Tf, Tf + 1, Tf * Tf, Tf * Tf + 1,
+                               n} if m <= n)
+    for m in sizes:
+        for dt in (torch.float32, torch.float64):
+            xm = torch.rand((m,), generator=gen, device=device, dtype=dt)
+            float_err = max(float_err, max_abs_err(
+                ps_mod.prefix_sum_tiles(xm),
+                ps_mod.scan_order(xm, ps_mod.THREADS, ps_mod.ITEMS)))
+            del xm
+    for x0, want in ((w_rand, want_rand), (w_rand64, want_rand64)):
+        for _ in range(5):
+            repeats_differ += int(not torch.equal(ps_mod.prefix_sum_tiles(x0),
+                                                  want))
+    log(f"[check] prefix_sum float32 and float64 (one launch) against "
+        f"scan_order at n {sizes} ({-(-n // Tf)} tiles, {-(-n // Tf ** 2)} "
+        f"chunks of totals at the last): max_abs_err {float_err}; "
+        f"five repeats of each type at n {n}: {repeats_differ} differ")
+    assert float_err == 0.0 and repeats_differ == 0
     # The int32 and GEO look-back at its edges: one element, each tile
     # size less one, itself and one more, 33 tiles and 7 (the look-back
     # crosses windows), the first n that takes the large tile (one wave of
@@ -678,12 +719,16 @@ def run_ops(args, device, kernels, n_join: int):
     first_geo = geo_mod.geo_gaps_tiles(u0, GEO_P)
     wrong_ps = torch.zeros((), dtype=torch.int64, device=device)
     wrong_geo = torch.zeros((), dtype=torch.int64, device=device)
-    for i in range(100):
-        if i % 2:
+    wrong_f64 = torch.zeros((), dtype=torch.int64, device=device)
+    for i in range(150):
+        if i % 3 == 1:
             wrong_geo += (geo_mod.geo_gaps_tiles(u0, GEO_P) != first_geo).sum()
+        elif i % 3 == 2:
+            wrong_f64 += (ps_mod.prefix_sum_tiles(w_rand64)
+                          != want_rand64).sum()
         else:
             wrong_ps += (ps_mod.prefix_sum_tiles(w_i32) != first).sum()
-    assert int(wrong_ps) == 0 and int(wrong_geo) == 0
+    assert int(wrong_ps) == 0 and int(wrong_geo) == 0 and int(wrong_f64) == 0
     assert torch.equal(first_geo, geo_mod.geo_gaps_plain(u0, GEO_P))
     side_note = "no second stream off the card"
     if device.type == "cuda":
@@ -692,14 +737,17 @@ def run_ops(args, device, kernels, n_join: int):
         with torch.cuda.stream(side):
             side_ps = ps_mod.prefix_sum_tiles(w_i32)
             side_geo = geo_mod.geo_gaps_tiles(u0, GEO_P)
+            side_f64 = ps_mod.prefix_sum_tiles(w_rand64)
         torch.cuda.current_stream(device).wait_stream(side)
         assert torch.equal(side_ps, first) and torch.equal(side_geo, first_geo)
+        assert torch.equal(side_f64, want_rand64)
         side_note = (f"a second stream equal too ({len(ps_mod._SCRATCH)} "
                      "scratches, one a stream)")
-        del side_ps, side_geo
-    log(f"[check] prefix_sum and geo_gaps in turn, 100 calls back to back "
-        f"on one scratch: {int(wrong_ps)} / {int(wrong_geo)} elements differ "
-        f"from the first calls; {side_note}")
+        del side_ps, side_geo, side_f64
+    log(f"[check] prefix_sum int32, geo_gaps and prefix_sum float64 in turn, "
+        f"150 calls back to back on one scratch: {int(wrong_ps)} / "
+        f"{int(wrong_geo)} / {int(wrong_f64)} elements differ from the first "
+        f"calls (float64: from scan_order); {side_note}")
     del first, first_geo
 
     errs["geo_gaps"] = errs["threefry_uniforms"] = 0.0
@@ -766,6 +814,14 @@ def run_ops(args, device, kernels, n_join: int):
                            reps_short, device, "prefix_sum")
     rows.append(("prefix_sum", "src/repro/kernels/prefix_sum.py:42", "scan.cu",
                  ms, plain_ms, *bound(8 * n, n), lib_ms))
+    # the float32 instance (one launch in the fixed order) at the same n
+    call["prefix_sum_f32"] = lambda: ops.prefix_sum(w_rand)
+    ms = timed(call["prefix_sum_f32"], reps_short, device)
+    plain_ms = timed(lambda: ps_mod.prefix_sum_plain(w_rand), 1, device)
+    lib_ms = library_timed(lambda: torch.cumsum(w_rand, 0), reps_short,
+                           device, "prefix_sum float32")
+    rows.append(("prefix_sum_f32", "src/repro/kernels/prefix_sum.py:42",
+                 "scan.cu", ms, plain_ms, *bound(8 * n, n), lib_ms))
     ms = timed(call["geo_gaps"], reps_short, device)
     plain_ms = timed(lambda: geo_mod.geo_gaps_plain(u0, GEO_P), 1, device)
     # ~40 operations a lane: two logarithms, a divide, floor, clamp, a scan add
@@ -1020,7 +1076,8 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
     if on_card:
         la = launches["E.A"]
         assert la["tree_probe"] == 1 and la["bsearch_probe"] == 2 * len(keysA)
-        assert la["prefix_sum"] == len(keysA) and la["fused_draw_batch"] == 0
+        assert la["prefix_sum_f64"] == len(keysA) and la["prefix_sum"] == 0
+        assert la["fused_draw_batch"] == 0
     countsA = check_lanes("E.A", engA, fullA, smpA, keysA)
     zA = count_z(planA, countsA)
     log(f"[E.A] sample_batch of {len(keysA)} keys on the per-node route: "
@@ -1466,7 +1523,8 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
             lf = launches[f"F.{label}"]
             if label == "A":
                 assert lf["tree_probe"] == 1 + len(keys), lf
-                assert lf["bsearch_probe"] > 0 and lf["prefix_sum"] > 0, lf
+                assert lf["bsearch_probe"] > 0, lf
+                assert lf["prefix_sum_f64"] > 0, lf
             elif label == "B":
                 assert lf["fused_draw"] == len(keys), lf
                 assert lf["tree_probe"] == 1, lf
@@ -1561,21 +1619,51 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
         for e in edges:
             plain = cw_mod.csr_walk_plain(e.child.weight, e.child.nxt, e.hd,
                                           e.idx)
+            tiles, model = {}, {}
             crow, crem = cw_mod.csr_walk_cached(e.child.weight, e.child.nxt,
-                                                e.hd, e.idx)
+                                                e.hd, e.idx, stats=tiles)
+            mrow, mrem = cw_mod.csr_walk_cached_tiled(
+                e.child.weight, e.child.nxt, e.hd, e.idx, stats=model)
             for a, b, k in ((e.row, plain[0], "csr_walk"),
                             (e.rem, plain[1], "csr_walk"),
                             (crow, e.row, "csr_walk_cached"),
-                            (crem, e.rem, "csr_walk_cached")):
+                            (crem, e.rem, "csr_walk_cached"),
+                            (mrow, e.row, "csr_walk_cached"),
+                            (mrem, e.rem, "csr_walk_cached")):
                 errs[k] = max(errs[k], max_abs_err(a, b))
+            assert tiles == model, (label, e.name, tiles, model)
             steps = csr_steps(e, cached=False)
             csteps = csr_steps(e, cached=True)
             walks[(label, e.name)] = {
                 "probes": e.hd.numel(), "longest_chain": e.longest_chain,
                 "longest_run": longest_run(e.hd),
-                "steps": int(steps.sum()), "cached_steps": int(csteps.sum())}
-            del plain, crow, crem, steps, csteps
+                "steps": int(steps.sum()), "cached_steps": int(csteps.sum()),
+                "runs": tiles}
+            del plain, crow, crem, mrow, mrem, steps, csteps
     assert errs["csr_walk"] == 0.0 and errs["csr_walk_cached"] == 0.0, errs
+    # A skewed edge: one head of SKEW_ROWS rows (a key a few thousand child
+    # rows share) among A-like chains, probed at every offset of its chain
+    # in ascending order, so that its run spans many tiles, each restarting
+    # from the head; both kernels against the plain walk, the caching
+    # kernel's runs against the tile model's.
+    skew = skewed_edge(device, args.seed + 23)
+    plain = cw_mod.csr_walk_plain(*skew)
+    tiles, model = {}, {}
+    crow, crem = cw_mod.csr_walk_cached(*skew, stats=tiles)
+    mrow, mrem = cw_mod.csr_walk_cached_tiled(*skew, stats=model)
+    wrow, wrem = cw_mod.csr_walk(*skew)
+    for a, b, k in ((wrow, plain[0], "csr_walk"), (wrem, plain[1], "csr_walk"),
+                    (crow, plain[0], "csr_walk_cached"),
+                    (crem, plain[1], "csr_walk_cached"),
+                    (mrow, plain[0], "csr_walk_cached"),
+                    (mrem, plain[1], "csr_walk_cached")):
+        errs[k] = max(errs[k], max_abs_err(a, b))
+    assert tiles == model, ("skewed edge", tiles, model)
+    walks[("skewed", f"one head of {SKEW_ROWS} rows")] = {
+        "probes": skew[2].numel(), "longest_chain": SKEW_ROWS,
+        "longest_run": longest_run(skew[2]), "runs": tiles}
+    assert errs["csr_walk"] == 0.0 and errs["csr_walk_cached"] == 0.0, errs
+    del plain, crow, crem, mrow, mrem, wrow, wrem
     # the cached plain version (a host loop) on the draw's positions
     t0 = time.perf_counter()
     plain_c = [cw_mod.csr_walk_cached_plain(e.child.weight, e.child.nxt,
@@ -1592,8 +1680,10 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
         f"bit ({nA} rows); csr_get_rows_cached on all {nA} positions equals "
         f"csr_get_rows; csr_get_rows on one per-node draw's {c} positions "
         f"equals usr_get_rows; csr_walk equals csr_walk_plain, and "
-        f"csr_walk_cached equals csr_walk (and csr_walk_cached_plain on the "
-        f"draw's), bit for bit on every edge of both: "
+        f"csr_walk_cached and csr_walk_cached_tiled equal csr_walk (and "
+        f"csr_walk_cached_plain on the draw's), bit for bit on every edge of "
+        f"both and on the skewed edge; the kernel's runs (staged, fallen "
+        f"back, of one probe) equal the tile model's: "
         + "; ".join(f"{k[0]} {k[1]}: {v}" for k, v in walks.items()))
 
     # -- times -----------------------------------------------------------------
@@ -1627,7 +1717,19 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
             dev_ms[name] = device_ms(call[name])
     e2e["csr_walk_cached_full_join_ms"] = timed(
         walk_call(cw_mod.csr_walk_cached, edges_full), args.reps, device)
-    del edges_full, edges_draw
+    # the plain walk at the draw's positions: what the cache has to beat;
+    # and a yardstick for both: one torch gather of `weight` and `nxt` at
+    # the chain rows the reference's caching scan passes there, the random
+    # row fetches that no walk of these probes avoids
+    e2e["csr_walk_draw_ms"] = timed(walk_call(cw_mod.csr_walk, edges_draw),
+                                    args.reps, device)
+    e2e["csr_walk_cached_draw_ms"] = krows[-1][2]
+    walked = [(e.child, walked_rows(e)) for e in edges_draw]
+    e2e["csr_walked_rows"] = sum(int(r.numel()) for _, r in walked)
+    e2e["csr_walked_rows_gather_ms"] = timed(
+        lambda: [(ch.weight[r], ch.nxt[r]) for ch, r in walked], args.reps,
+        device)
+    del edges_full, edges_draw, walked
     e2e["csr_get_rows_A_ms"] = timed(
         lambda: probe.csr_get_rows(csr_shred, posA, pol), args.reps, device)
     e2e["csr_get_rows_cached_A_ms"] = timed(
@@ -1651,7 +1753,11 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
         f"csr_get_rows_cached {e2e['csr_get_rows_cached_A_ms']:.3f} ms, "
         f"USR ({planA.rep_default}) {e2e['usr_get_rows_A_ms']:.3f} ms; "
         f"csr_walk_cached over the full join's edges "
-        f"{e2e['csr_walk_cached_full_join_ms']:.3f} ms; longest chain and "
+        f"{e2e['csr_walk_cached_full_join_ms']:.3f} ms; at the draw's "
+        f"positions csr_walk_cached {e2e['csr_walk_cached_draw_ms']:.4f} ms, "
+        f"csr_walk {e2e['csr_walk_draw_ms']:.4f} ms, a gather of the "
+        f"{e2e['csr_walked_rows']} chain rows the caching scan passes "
+        f"{e2e['csr_walked_rows_gather_ms']:.4f} ms; longest chain and "
         f"longest run of equal heads by edge: "
         + "; ".join(f"{k}: chain {v['longest_chain']}, run "
                     f"{v['longest_run']}" for k, v in e2e["csr_walks"].items()))
@@ -1762,6 +1868,63 @@ def csr_steps(e: CsrEdge, cached: bool):
     prev = torch.zeros_like(rank)
     prev[1:] = rank[:-1]
     return rank - torch.where(same, prev, 0)
+
+
+def walked_rows(e: CsrEdge):
+    """The child rows the reference's caching scan passes on edge ``e``,
+    link after link: a probe walks its run's chain (the run's sorted
+    order) from the rank where the previous probe of its head stopped,
+    when it resumes, else from the head, to the rank where it stops."""
+    import torch
+
+    passed = csr_steps(e, cached=True)
+    stop = csr_steps(e, cached=False)
+    first = stop - passed
+    at = torch.repeat_interleave(torch.arange(passed.numel(),
+                                              device=passed.device), passed)
+    offs = torch.cumsum(passed, 0) - passed
+    k = torch.arange(at.numel(), device=at.device) - offs[at]
+    return e.child.perm.long()[e.start[at].long() + first[at] + k]
+
+
+SKEW_ROWS = 6000  # the skewed edge's rows on one head
+
+
+def skewed_edge(device, seed: int):
+    """A CSR edge with a skewed key: 400,000 child rows (weights 0-3, a
+    tenth 0) in same-key chains over 30,000 keys, SKEW_ROWS of them on key
+    0; probes in ascending order: a run at every offset of key 0's chain
+    (one run over many tiles), then one to three probes on each of 20,000
+    other keys and empty heads. Returns (weight, nxt, hd, idx)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rows, keys = 400_000, 30_000
+    key = rng.integers(1, keys, rows)
+    key[rng.choice(rows, SKEW_ROWS, replace=False)] = 0
+    weight = rng.integers(0, 4, rows) * (rng.random(rows) >= 0.1)
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    nxt = np.full(rows, -1, np.int32)
+    same = ks[1:] == ks[:-1]
+    nxt[order[:-1][same]] = order[1:][same]
+    first = np.r_[True, ~same]
+    heads = np.full(keys, -1, np.int32)
+    heads[ks[first]] = order[first]
+    total = np.bincount(key, weights=weight, minlength=keys).astype(np.int64)
+    hd = [np.full(int(total[0]) + 1, heads[0], np.int32)]
+    idx = [np.arange(int(total[0]) + 1, dtype=np.int64)]
+    for k in np.sort(rng.choice(np.arange(1, keys + 500), 20_000,
+                                replace=False)):
+        m = int(rng.integers(1, 4))
+        h = heads[k] if k < keys else -1
+        top = int(total[k]) + 1 if k < keys else 1
+        hd.append(np.full(m, h, np.int32))
+        idx.append(np.sort(rng.integers(0, top, m)))
+    to = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return (to(weight.astype(np.int64)), to(nxt), to(np.concatenate(hd)),
+            to(np.concatenate(idx)))
 
 
 def longest_run(hd) -> int:
@@ -2619,6 +2782,8 @@ def run(args, device, kernel_policy=None) -> dict:
                "tree_probe_paged_dma": tp_mod.tree_probe_paged_dma,
                "tree_probe_paged_pages": tp_mod.tree_probe_paged_pages,
                "prefix_sum": ps_mod.prefix_sum_tiles,
+               "prefix_sum_f32": ps_mod.prefix_sum_tiles.float32,
+               "prefix_sum_f64": ps_mod.prefix_sum_tiles.float64,
                "geo_gaps": geo_mod.geo_gaps_tiles,
                "threefry_uniforms": threefry.uniforms,
                "flash_decode": dec_mod.flash_decode,
@@ -2652,6 +2817,17 @@ def run(args, device, kernel_policy=None) -> dict:
         assert frames and all(line == "0 bytes stack frame, 0 bytes spill "
                               "stores, 0 bytes spill loads"
                               for line in frames), frames
+        # the float scans' one launch and the caching walk: no frame either
+        for name, kernel in (("scan", "sc_fixed_kernel"),
+                             ("csr_walk", "csr_walk_cached_kernel")):
+            frames = [line for entry, line in ptxas_lines(
+                reports.get(name) or build.ptxas_report(name))
+                if kernel in entry and "stack frame" in line]
+            log(f"[build] {name}: {len(frames)} {kernel} instances; stack "
+                f"frames and spills: {sorted(set(frames))}")
+            assert frames and all(line == "0 bytes stack frame, 0 bytes "
+                                  "spill stores, 0 bytes spill loads"
+                                  for line in frames), (kernel, frames)
         # the bf16 attention kernels' tensor-core instructions in the SASS
         for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
             log(f"[build] {name}: {sass_count(build, name, op)}")
@@ -3170,19 +3346,6 @@ def run(args, device, kernel_policy=None) -> dict:
                        + sum(lp[k] for lp in launchesF.values())
                        + sum(lp[k] for lp in launchesG.values())
                        + sum(lp[k] for lp in launchesH.values()))
-    # the float64 scans of the main path (the one counter counts both
-    # dtypes): the per-node draws' mass prefixes and those of the plans
-    # bound in C's second engine and in phases F and G; phase D's are int32
-    launches["prefix_sum_f64"] = (launchesA["prefix_sum"]
-                                  + launchesR["prefix_sum"]
-                                  + launchesE["E.A"]["prefix_sum"]
-                                  + sum(lp["prefix_sum"]
-                                        for lp in launchesF.values())
-                                  + sum(lp["prefix_sum"]
-                                        for lp in launchesG.values())
-                                  + sum(lp["prefix_sum"]
-                                        for lp in launchesH.values()))
-    launches["prefix_sum"] -= launches["prefix_sum_f64"]
 
     # -- 8. the kernels' rows ---------------------------------------------------
     sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",

@@ -18,6 +18,10 @@ D's inputs from the same seeds, and calls its own wrappers on them:
   * ``ops.prefix_sum`` of phase D's int32 weights (Cast's 36,244,344
     rows);
   * ``tree_probe`` over A's arena at every position of the join;
+  * ``prefix_sum_tiles`` over A's 2,528,312 float64 masses (the per-node
+    draw's mass prefix) and over 36,244,344 float32 uniforms (phase D's
+    float32 scan at Cast's rows), with ``torch.cumsum`` of the same input
+    beside each;
   * A's warm Poisson draw through the engine (the per-node route, whose
     int32 searches take ``bsearch_probe``), 10 calls. Its checksum is
     reported per run, with whether five draws of one key in one process
@@ -27,7 +31,11 @@ D's inputs from the same seeds, and calls its own wrappers on them:
     ``fused_sample_batch`` at C with 32 keys each: single and batched
     launches of the draw kernel, each held against its plain version, with
     the kernel's phase clock (``fused_draw.phase_ms``, the mean of 10
-    launches). Their checksums are reported per run and not held across
+    launches).
+  * ``csr_walk_cached`` and ``csr_walk`` over the CSR index of A on both
+    edges, at the sorted positions of the draw above and at every
+    position of the join (``chip_smoke.csr_walks``'s operands), each
+    held against the uncached walk's rows and offsets. Their checksums are reported per run and not held across
     runs either: the float32 tables come from a float64 mass prefix whose
     summation order may differ between checkouts;
   * the upload of the 32 keys of the batched draw (``fused_draw.
@@ -46,8 +54,8 @@ writes each run's output to ``--json-out``'s directory as
 
 Every result is held against the plain version first, and its checksum
 against the other runs'. Each checkout's ``-Xptxas -v`` lines of
-``bsearch_probe``, ``scan``, ``tree_get`` and ``fused_draw`` are printed
-once. ``ms`` is the mean of ``--reps`` warm wrapper
+``bsearch_probe``, ``scan``, ``tree_get``, ``fused_draw`` and
+``csr_walk`` are printed once. ``ms`` is the mean of ``--reps`` warm wrapper
 calls by CUDA events (timed before any profiler session of the process);
 ``device_ms`` and ``ops`` are the device busy time and the device
 operations (kernels, memsets) of a call by ``torch.profiler``. Needs one
@@ -68,7 +76,7 @@ SEED = 0
 GEO_P, GEO_KEY, Z_LIMIT = 0.05, 4000, 6.0  # chip_smoke.py's phase D
 SCAN_N = 36_244_344
 BATCH = 32  # keys of the batched draws (a batcher flush)
-PTXAS = ("bsearch_probe", "scan", "tree_get", "fused_draw")
+PTXAS = ("bsearch_probe", "scan", "tree_get", "fused_draw", "csr_walk")
 
 
 def child(tree: Path, reps: int) -> dict:
@@ -138,10 +146,61 @@ def child(tree: Path, reps: int) -> dict:
                      "output_sum": int(got.sum(dtype=torch.int64)),
                      "ms": chip_smoke.timed(fn, reps, device)}
         del got
+    # A's mass prefix (sampling.mass_prefix's float64 masses, as
+    # chip_smoke.py phase E makes them), and phase D's float32 scan at
+    # Cast's rows (uniforms, as its "float32 random"), with torch.cumsum
+    # beside each
+    pA = torch.clamp(plan.p.double(), 0.0, 1.0)
+    xA = plan.w.double() * -torch.log1p(-torch.clamp(
+        torch.where(pA > 0.5, 1.0 - pA, pA), max=0.5))
+    genf = torch.Generator(device=device)
+    genf.manual_seed(SEED + 1)
+    wf = torch.rand((SCAN_N,), generator=genf, device=device)
+    for label, x in (("float64 A", xA), ("float32 D", wf)):
+        got = ps.prefix_sum_tiles(x)
+        assert torch.equal(got, ps.prefix_sum_plain(x)), label
+        for name, fn in (
+                (f"prefix_sum {label}", lambda x=x: ps.prefix_sum_tiles(x)),
+                (f"torch.cumsum {label}", lambda x=x: torch.cumsum(x, 0))):
+            cases[name] = (None, fn, None)
+            out[name] = {"inputs": x.numel(), "input_sum": 0,
+                         "output_sum": int(got[-1]) if "prefix" in name
+                         else 0,
+                         "ms": chip_smoke.timed(fn, reps, device)}
+        del got
     key = threefry.key(7)
     cases["sample A"] = (None, lambda: engine.sample(q, key), None)
     smp, *again = (engine.sample(q, key) for _ in range(5))
     assert plan.route == "pernode" and not bool(smp.overflow)
+    # The CSR walks at A: both kernels at the sorted positions of this
+    # draw (both edges) and over the full join, each held against the
+    # other on every edge
+    from repro_torch.core import probe
+    from repro_torch.kernels import csr_walk as cw
+
+    shred = QueryEngine(engine.db, rep="csr", device=device).compile(q).shred
+    pol = engine.kernel_policy
+    every = torch.arange(n, dtype=torch.int64, device=device)
+    drawn = torch.clamp(smp.positions[:int(smp.count)], max=n - 1)
+    walks = {"draw": chip_smoke.csr_walks(probe, cw, shred, drawn, pol),
+             "full join": chip_smoke.csr_walks(probe, cw, shred, every, pol)}
+    for label, edges in walks.items():
+        for wname, fn in (("csr_walk_cached", cw.csr_walk_cached),
+                          ("csr_walk", cw.csr_walk)):
+            def call(fn=fn, edges=edges):
+                return [fn(e.child.weight, e.child.nxt, e.hd, e.idx)
+                        for e in edges]
+            got = call()
+            for e, (row, rem) in zip(edges, got):
+                assert torch.equal(row, e.row) and torch.equal(rem, e.rem)
+            name = f"{wname} A {label} (both edges)"
+            cases[name] = (None, call, None)
+            out[name] = {"inputs": sum(e.hd.numel() for e in edges),
+                         "input_sum": int(sum(e.idx.sum() for e in edges)),
+                         "output_sum": int(sum(r.sum(dtype=torch.int64)
+                                               for r, _ in got)),
+                         "ms": chip_smoke.timed(call, reps, device)}
+            del got
     out["sample A"] = {
         "inputs": plan.arrival_capacity(), "input_sum": 0,
         "output_sum": int(smp.positions[:int(smp.count)].sum()),
@@ -236,7 +295,8 @@ def child(tree: Path, reps: int) -> dict:
         count=int(sum(served)), output_sum=int(sum(served)))
     for name, (_, fn, _) in cases.items():
         out[name]["device_ms"], out[name]["ops"] = chip_smoke.device_ms(
-            fn, 5 if name.startswith(("sample A", "batcher")) else 20)
+            fn, 5 if name.startswith(("sample A", "batcher", "csr_walk"))
+            else 20)
     return out, {src: chip_smoke.ptxas_lines(build.ptxas_report(src))
                  for src in PTXAS}
 

@@ -3,14 +3,16 @@
 ``prefix_sum_tiles`` launches ``csrc/scan.cu`` for CUDA tensors and runs
 ``prefix_sum_plain`` for CPU tensors; ``launches`` counts its calls that
 launch the kernel. The reference's kernel carries its total through a
-sequential grid. On the card, int32 takes a single-pass decoupled
-look-back scan (one kernel that reads the input once; its status words
-live in a scratch kept per device and stream, tagged by the launch's
-epoch, so a call needs no reset and no allocation beyond its output);
-float32 and float64 take a reduce-then-scan in three launches (tile
-totals, one block scanning them into carries, the tiles scanned again
-with their carries), so that their order is fixed. Both are described in
-the source.
+sequential grid. On the card every type is one kernel that reads the
+input once, its tiles taken by ticket, its status words in a scratch
+kept per device and stream and tagged by the launch's epoch, so a call
+needs no reset and no allocation beyond its output. int32 takes a
+decoupled look-back; float32 and float64 keep a fixed order, the order of
+a reduce-then-scan (tile totals, the totals scanned in chunks of one
+tile, the tiles with their carries): the tiles publish their totals, the
+last tile of each group of ``ITEMS`` publishes the group's sum, and each
+tile computes its carry from those before it. Both are described in the
+source.
 
 The kernel masks its own ragged edge, so it takes any shape (the
 reference's ``(R, 128)`` tiles or a flat vector) with no padding.
@@ -28,6 +30,7 @@ changes from run to run, so one key could draw two samples.
 from __future__ import annotations
 
 import ctypes
+import types
 from typing import Dict, Tuple
 
 import torch
@@ -106,15 +109,17 @@ _FLOAT_ENTRIES = {torch.float32: "scan_f32", torch.float64: "scan_f64"}
 # stream); the look-back's scratch is (words, capacity, host state).
 _ARGTYPES = {"scan_i32": [_VP, _VP, _LL, _VP, _LL, _VP, _VP],
              "geo_gaps": [_VP, ctypes.c_float, _VP, _LL, _VP, _LL, _VP, _VP],
-             "scan_f32": [_VP, _VP, _LL, _VP, _VP, _VP],
-             "scan_f64": [_VP, _VP, _LL, _VP, _VP, _VP]}
+             "scan_f32": [_VP, _VP, _LL, _VP, _LL, _VP, _VP],
+             "scan_f64": [_VP, _VP, _LL, _VP, _LL, _VP, _VP]}
+# status words a tile of the float scans: 32 bits of the total a word
+_FLOAT_WORDS = {"scan_f32": 1, "scan_f64": 2}
 
 
 class _LookBack:
     """The look-back's scratch on one (device, stream): ``words`` (the
-    ticket, then a status word a tile; zero when made) and the host state
-    ``[epoch of the last launch, ticket base]`` that each launch advances
-    (``csrc/scan.cu`` ``lb_launch``)."""
+    ticket, then the tiles' status words; zero when made) and the host
+    state ``[epoch of the last launch, ticket base]`` that each launch of
+    any entry advances (``csrc/scan.cu`` ``lb_run``)."""
 
     def __init__(self, device: torch.device, capacity: int):
         self.words = torch.zeros(capacity, dtype=torch.int64, device=device)
@@ -125,12 +130,22 @@ class _LookBack:
 _SCRATCH: Dict[Tuple[int, int], _LookBack] = {}
 
 
+def _words_needed(entry: str, n: int) -> int:
+    """The scratch words a launch of ``entry`` over ``n`` elements may
+    use, the ticket's included: a word a tile of the look-back (the small
+    tile's count bounds either tile's); for the floats ``_FLOAT_WORDS``
+    for each tile of ``TILE`` (its total) and each group of ``ITEMS``
+    tiles (its sum)."""
+    if entry in _FLOAT_WORDS:
+        nt = -(-n // TILE)
+        return _FLOAT_WORDS[entry] * (nt + -(-nt // ITEMS)) + 1
+    return -(-n // LOOK_BACK_SMALL_TILE) + 1
+
+
 def _look_back_scratch(device: torch.device, stream: int,
-                       n: int) -> _LookBack:
+                       need: int) -> _LookBack:
     """The scratch of ``stream`` on ``device``, grown (to a power of two
-    words, zeroed) when a scan of ``n`` elements could take more tiles
-    than it holds: the small tile's count bounds either tile's."""
-    need = -(-n // LOOK_BACK_SMALL_TILE) + 1
+    words, zeroed) when a launch needs more than ``need`` words."""
     s = _SCRATCH.get((device.index, stream))
     if s is None or s.capacity < need:
         s = _SCRATCH[(device.index, stream)] = _LookBack(
@@ -141,23 +156,15 @@ def _look_back_scratch(device: torch.device, stream: int,
 def scan_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
                 *scalars) -> None:
     """Launch one entry of ``csrc/scan.cu`` over the flat ``x`` into
-    ``out``: ``scan_i32`` and ``geo_gaps`` on the look-back's cached
-    scratch (no allocation and no reset in steady state); ``scan_f32`` and
-    ``scan_f64`` with the tile totals and carries they allocate. ``scalars`` go between
-    ``x`` and ``out`` (GEO's clipped p)."""
+    ``out``, every entry on the cached scratch of the current stream (no
+    allocation and no reset in steady state). ``scalars`` go between ``x``
+    and ``out`` (GEO's clipped p)."""
     fn = build.entry("scan", f"{entry}_launch", _ARGTYPES[entry])
     n = x.numel()
     dev = x.device
     with build.on_device(dev):
         stream = build.current_stream(dev)
-        if entry in _FLOAT_ENTRIES.values():
-            nt = max(1, -(-n // TILE))
-            scratch = torch.empty((2, nt), dtype=x.dtype, device=dev)
-            build.check(fn(x.data_ptr(), out.data_ptr(), n,
-                           scratch[0].data_ptr(), scratch[1].data_ptr(),
-                           stream), entry)
-            return
-        s = _look_back_scratch(dev, stream, n)
+        s = _look_back_scratch(dev, stream, _words_needed(entry, n))
         err = fn(x.data_ptr(), *scalars, out.data_ptr(), n,
                  s.words.data_ptr(), s.capacity, s.state, stream)
         if err:
@@ -197,8 +204,15 @@ def prefix_sum_tiles(x: torch.Tensor) -> torch.Tensor:
     if xc.numel() == 0:
         return out
     scan_launch(_FLOAT_ENTRIES.get(x.dtype, "scan_i32"), xc, out)
-    prefix_sum_tiles.launches += 1
+    _COUNTERS.get(x.dtype, prefix_sum_tiles).launches += 1
     return out
 
 
+# launches of the int32 instance; float32.launches and float64.launches:
+# the float instances' (the float64 one is the engine's mass prefix), each
+# a kernel of its own
 prefix_sum_tiles.launches = 0
+prefix_sum_tiles.float32 = types.SimpleNamespace(launches=0)
+prefix_sum_tiles.float64 = types.SimpleNamespace(launches=0)
+_COUNTERS = {torch.float32: prefix_sum_tiles.float32,
+             torch.float64: prefix_sum_tiles.float64}

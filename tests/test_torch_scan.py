@@ -18,6 +18,12 @@
     fused draw's arrivals. Each is held bit for bit against a scalar numpy
     emulation of ``csrc/scan.cuh``'s tile function and chunked carries.
   * The Python tile constants are the CUDA sources' own.
+  * The floats' one-launch protocol: the tiles publish their totals, the
+    group sums follow, then each tile computes its carry from them in
+    ``sc_carries``' order (``csrc/scan.cu`` ``sc_carry_at``), modelled in
+    torch at tiny tiles over one and many chunks of totals; it equals
+    ``scan_order`` bit for bit in float32 and float64. The float entries
+    take the look-back's cached scratch, never one of their own a call.
 
 On the card ``chip_smoke.py`` holds the kernels themselves against these
 plain versions.
@@ -476,3 +482,172 @@ def test_pernode_draws_repeat_under_a_key():
     one = t_sampling.fused_draw_params(plan.w, plan.p, plan.prefE)
     two = t_sampling.fused_draw_params(plan.w, plan.p, plan.prefE, PREFER)
     assert all(torch.equal(one[k], two[k]) for k in one)
+
+
+# --- the floats in one launch: the carry from the published totals ----------------
+
+def hillis_steele(v: torch.Tensor) -> torch.Tensor:
+    """``sc_block_excl``'s inclusive scan of one value a thread."""
+    d = 1
+    while d < v.shape[0]:
+        v = torch.cat([v[:d], v[d:] + v[:-d]])
+        d *= 2
+    return v
+
+
+def sequential(v: torch.Tensor) -> torch.Tensor:
+    """A thread's items added in sequence: the last running sum."""
+    acc = v[0]
+    for x in v[1:]:
+        acc = acc + x
+    return acc
+
+
+def carry_at(published: torch.Tensor, threads: int, items: int):
+    """``csrc/scan.cu`` ``sc_carry_at`` as torch ops: the carry of tile
+    ``t = len(published)`` from the totals of tiles 0 .. t - 1. Total
+    t - 1 is item iq of thread q of chunk c (chunks of ``threads`` groups
+    of ``items`` totals). The group sums (each group's totals in sequence,
+    ``sc_publish_group``) before q go through one Hillis-Steele scan with
+    the sums from q on as 0; thread q adds its own items 0 .. iq in
+    sequence after that prefix; the chained carry of the earlier chunks
+    (each chunk's Hillis-Steele total of its group sums) goes in front."""
+    tile = threads * items
+    t = published.shape[0]
+    zero = torch.zeros((), dtype=published.dtype)
+    if t == 0:
+        return zero
+    groups = [sequential(published[g * items:(g + 1) * items])
+              for g in range(t // items)]  # the complete groups
+    last = t - 1
+    c, p = divmod(last, tile)
+    q, iq = divmod(p, items)
+    chained = zero
+    for k in range(c):
+        chained = chained + hillis_steele(
+            torch.stack(groups[k * threads:(k + 1) * threads]))[-1]
+    before = groups[c * threads:c * threads + q]
+    sums = torch.stack(before + [zero] * (threads - q))
+    loc = sequential(published[c * tile + q * items:t])
+    value = loc if q == 0 else hillis_steele(sums)[q - 1] + loc
+    return chained + value
+
+
+def one_launch(x: torch.Tensor, threads: int, items: int, order) -> torch.Tensor:
+    """The float scan as one launch: tiles finish their own scan in
+    ``order`` (any permutation) and publish their totals; a tile's carry
+    is computed from the totals before it alone (``carry_at``: in the
+    kernel from the group sums that the last tile of each group publishes,
+    the same values); an element is carry + its tile-local prefix."""
+    tile = threads * items
+    n = x.shape[0]
+    nt = -(-n // tile)
+    pre, tot = t_ps._tiles(x, threads, items)
+    published = {}
+    carries = {}
+    pending = list(order)
+    while pending:
+        t = pending.pop(0)
+        published[t] = tot[t]
+        # every tile whose predecessors have all published takes its carry
+        for u in range(nt):
+            if u not in carries and all(v in published for v in range(u)):
+                seen = torch.stack([published[v] for v in range(u)]) \
+                    if u else tot[:0]
+                carries[u] = carry_at(seen, threads, items)
+    out = torch.stack([carries[t] + pre[t] for t in range(nt)])
+    return out.reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("threads,items,n", [
+    (4, 2, 1), (4, 2, 63), (4, 2, 8 * 8),          # one chunk of totals
+    (4, 2, 8 * 8 + 1), (4, 2, 8 * 8 * 3 + 5),     # two and four chunks
+    (2, 4, 333), (8, 1, 200)])
+def test_one_launch_protocol_equals_the_order(dtype, threads, items, n):
+    """Tiles finishing in a random order, each carry recomputed from the
+    published totals before it: ``scan_order``'s bits."""
+    rng = np.random.default_rng(n + threads)
+    x = torch.from_numpy(rng.normal(size=n) * 1000).to(dtype)
+    nt = -(-n // (threads * items))
+    got = one_launch(x, threads, items, rng.permutation(nt).tolist())
+    want = t_ps.scan_order(x, threads, items)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want)
+
+
+def test_carry_at_is_the_chunked_scan_of_the_totals():
+    """Each tile's carry equals ``scan_order``'s carries: the exclusive
+    chunked scan of the tile totals, at every tile of four chunks."""
+    rng = np.random.default_rng(5)
+    tot = torch.from_numpy(rng.normal(size=8 * 4 + 3) * 1e6)
+    incl = t_ps.scan_order(tot, 4, 2)
+    for t in range(tot.shape[0] + 1):
+        want = incl[t - 1] if t else torch.zeros((), dtype=tot.dtype)
+        assert torch.equal(carry_at(tot[:t], 4, 2), want), t
+
+
+def _fake_float_scan(monkeypatch, calls):
+    """``csrc/scan.cu``'s four entries as a fake library that records the
+    scratch (pointer, capacity) of each launch and advances the host
+    state as ``lb_run`` does."""
+    def entry(name):
+        def launch(*args):
+            words, capacity, state = args[-4], args[-3], args[-2]
+            calls.append((name, words, capacity, args[-1]))
+            state[0] += 1
+            return 0
+        return launch
+
+    monkeypatch.setattr(build, "library", lambda name: types.SimpleNamespace(
+        **{f"{e}_launch": entry(e) for e in ("scan_i32", "geo_gaps",
+                                              "scan_f32", "scan_f64")}))
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    monkeypatch.setattr(t_ps, "_SCRATCH", {})
+    monkeypatch.setattr(build, "current_stream", lambda d: 5)
+
+
+def test_float_entries_take_the_cached_scratch(monkeypatch):
+    """The float scans allocate nothing per call: they share the
+    look-back's scratch of the stream, grown (a power of two words) only
+    when a launch needs more words than it holds: two a tile of
+    ``TILE`` for float64, one for float32, the ticket's word besides."""
+    calls, made = [], []
+    _fake_float_scan(monkeypatch, calls)
+    x64 = torch.rand(10_000, dtype=torch.float64)
+    x32 = x64.float()
+    x_i = torch.zeros(10_000, dtype=torch.int32)
+    outs = (torch.empty_like(x64), torch.empty_like(x32),
+            torch.empty_like(x_i))
+    real = {f: getattr(torch, f) for f in ("zeros", "empty", "empty_like")}
+    for f, fn in real.items():
+        monkeypatch.setattr(torch, f, lambda *a, _fn=fn, _f=f, **k:
+                            made.append(_f) or _fn(*a, **k))
+    for _ in range(20):
+        t_ps.scan_launch("scan_f64", x64, outs[0])
+        t_ps.scan_launch("scan_f32", x32, outs[1])
+        t_ps.scan_launch("scan_i32", x_i, outs[2])
+    assert made == ["zeros"]  # the one scratch, made by the first call
+    assert len({(c[1], c[2]) for c in calls}) == 1
+    need = max(t_ps._words_needed(e, 10_000)
+               for e in ("scan_f64", "scan_f32", "scan_i32"))
+    assert need == 2 * (3 + 1) + 1  # float64: 3 tiles' totals, a group sum
+    assert calls[0][2] == 1 << (need - 1).bit_length()
+    (scratch,) = t_ps._SCRATCH.values()
+    assert scratch.state[0] == 60  # one epoch a launch, any entry
+    big = torch.rand(5 * 2**20, dtype=torch.float64)
+    t_ps.scan_launch("scan_f64", big, torch.empty(0))
+    assert made.count("zeros") == 2
+    assert calls[-1][2] >= 2 * -(-big.numel() // t_ps.TILE) + 1
+
+
+@pytest.mark.parametrize("entry,n,want", [
+    ("scan_f64", 1, 2 * (1 + 1) + 1), ("scan_f64", 4096, 5),
+    ("scan_f64", 4097, 2 * (2 + 1) + 1), ("scan_f32", 4097, 4),
+    ("scan_i32", 4097, 4), ("geo_gaps", 2048, 2),
+    ("scan_f64", 2_528_312, 2 * (618 + 39) + 1),
+    ("scan_f32", 36_244_344, 8849 + 554 + 1)])
+def test_words_needed(entry, n, want):
+    """A word a 32 bits of each tile total and each group sum (``ITEMS``
+    totals), the ticket's word besides; a word a tile of the look-back."""
+    assert t_ps._words_needed(entry, n) == want
