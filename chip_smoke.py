@@ -585,6 +585,28 @@ def run_ops(args, device, kernels, n_join: int):
                                                 F32_PREFILL_TOL),
         f"gemma3-1b bf16 S={Sg} causal": (qg, kg, vg, True, BF16_TOL),
     }
+    # float32 at D 128 (G 16 over one KV head) and D 256 (gemma3-1b's
+    # widths), ragged S: a query tile of one row past 64, and 1,000
+    for Dw, Hw, KVw in ((128, 16, 1), (Dg, Hg, KVg)):
+        for Sw in (65, 1000):
+            qw, kw, vw = (randn((1, Hw, Sw, Dw), f32),
+                          randn((1, KVw, Sw, Dw), f32),
+                          randn((1, KVw, Sw, Dw), f32))
+            for causal in (True, False):
+                pre_cases[f"float32 H={Hw} KV={KVw} D={Dw} S={Sw} "
+                          f"{'causal' if causal else 'full'}"] = (
+                    qw, kw, vw, causal, F32_PREFILL_TOL)
+    # the float32 kernel's other paths: G 1, and G 16 (the wide accumulator
+    # instance) with a bias row masked everywhere (V's mean, not NaN)
+    masked = padding_bias(2, Sf)
+    masked[0] = -1e30
+    dec_cases.update({
+        f"float32 G=1 B=2 KV=2 D=128 S={Sf}": (
+            randn((2, 2, 128), f32), randn((2, 2, Sf, 128), f32),
+            randn((2, 2, Sf, 128), f32), padding_bias(2, Sf), F32_DECODE_TOL),
+        f"float32 G=16 B=2 KV=1 D=128 S={Sf}, row 0 masked everywhere": (
+            randn((2, 16, 128), f32), randn((2, 1, Sf, 128), f32),
+            randn((2, 1, Sf, 128), f32), masked, F32_DECODE_TOL)})
     keys = [threefry.key(4000 + s) for s in range(GEO_KEYS)]
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -928,6 +950,16 @@ def run_ops(args, device, kernels, n_join: int):
     # device time of each row's call, after every timing of the phase
     sizes["device_ms"] = {name: device_ms(fn) for name, fn in call.items()} \
         if device.type == "cuda" else {}
+    if device.type == "cuda":
+        # a float32 decode call is one device operation: ten calls under the
+        # profiler show the split kernel alone (no combine, no memset)
+        events = device_events(call["flash_decode_f32"], 10)
+        names = sorted({e.key for e in events})
+        count = sum(e.count for e in events)
+        log(f"[check] flash_decode float32: ten calls profiled, {count} "
+            f"device operations: {names}")
+        assert 0 < count <= 10 and all("flash_decode_f32_kernel" in n
+                                       for n in names), names
     if device.type == "cuda" and args.profile:
         # device time against the wrapper's: the host side of a call
         # (ctypes, allocations) shows where the kernels are short
@@ -2817,9 +2849,12 @@ def run(args, device, kernel_policy=None) -> dict:
         assert frames and all(line == "0 bytes stack frame, 0 bytes spill "
                               "stores, 0 bytes spill loads"
                               for line in frames), frames
-        # the float scans' one launch and the caching walk: no frame either
+        # the float scans' one launch, the caching walk and the float32
+        # attention kernels: no frame either
         for name, kernel in (("scan", "sc_fixed_kernel"),
-                             ("csr_walk", "csr_walk_cached_kernel")):
+                             ("csr_walk", "csr_walk_cached_kernel"),
+                             ("flash_prefill", "flash_prefill_kernel"),
+                             ("flash_decode", "flash_decode_f32_kernel")):
             frames = [line for entry, line in ptxas_lines(
                 reports.get(name) or build.ptxas_report(name))
                 if kernel in entry and "stack frame" in line]

@@ -2,7 +2,7 @@
 one card.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab --parent DIR \\
-        [--reps N] [--smoke] [--json-out FILE]
+        [--reps N] [--only attention] [--smoke] [--json-out FILE]
 
 DIR is a second checkout of the repository, for example the parent commit
 unpacked with ``git archive`` into a git-ignored directory. Each checkout
@@ -38,6 +38,16 @@ D's inputs from the same seeds, and calls its own wrappers on them:
     held against the uncached walk's rows and offsets. Their checksums are reported per run and not held across
     runs either: the float32 tables come from a float64 mass prefix whose
     summation order may differ between checkouts;
+  * the float32 attention kernels on phase D's float32 shapes:
+    ``ops.prefill_attention`` at smollm-135m's widths (B 2, H 9, KV 3,
+    S 1,000, D 64), causal and full, and causal at phase D's D 128 and
+    D 256 widths (S 1,000), and ``ops.decode_attention`` at B 2,
+    H 8, KV 2, D 128, S 4,096 with a padding bias, each held against its
+    plain version at ``chip_smoke.py``'s float32 tolerances, with PyTorch's
+    ``scaled_dot_product_attention`` in float32 on the same inputs beside
+    each; the decode also over four rotated copies of its cache (67 MB,
+    more than the 50 MB L2), so that its reading is of device memory.
+    ``--only attention`` times these alone;
   * the upload of the 32 keys of the batched draw (``fused_draw.
     _device_keys``), and a ``MicroBatcher`` flush of 32 draws of the
     three-way join at B (``chip_smoke.py``'s serving profile, 32 requests
@@ -53,9 +63,11 @@ writes each run's output to ``--json-out``'s directory as
 ``smoke_<n>_<label>.log``; a run that fails stops the tool.
 
 Every result is held against the plain version first, and its checksum
-against the other runs'. Each checkout's ``-Xptxas -v`` lines of
-``bsearch_probe``, ``scan``, ``tree_get``, ``fused_draw`` and
-``csr_walk`` are printed once. ``ms`` is the mean of ``--reps`` warm wrapper
+against the other runs' (the attention outputs, whose float32 sums differ
+in order between kernels, by the tolerance alone). Each checkout's
+``-Xptxas -v`` lines of ``bsearch_probe``, ``scan``, ``tree_get``,
+``fused_draw``, ``csr_walk``, ``flash_prefill`` and ``flash_decode`` are
+printed once. ``ms`` is the mean of ``--reps`` warm wrapper
 calls by CUDA events (timed before any profiler session of the process);
 ``device_ms`` and ``ops`` are the device busy time and the device
 operations (kernels, memsets) of a call by ``torch.profiler``. Needs one
@@ -76,12 +88,86 @@ SEED = 0
 GEO_P, GEO_KEY, Z_LIMIT = 0.05, 4000, 6.0  # chip_smoke.py's phase D
 SCAN_N = 36_244_344
 BATCH = 32  # keys of the batched draws (a batcher flush)
-PTXAS = ("bsearch_probe", "scan", "tree_get", "fused_draw", "csr_walk")
+PTXAS = ("bsearch_probe", "scan", "tree_get", "fused_draw", "csr_walk",
+         "flash_prefill", "flash_decode")
+# phase D's float32 attention: smollm-135m's prefill widths, the decode case
+SMOLLM_PREFILL = (2, 9, 3, 1000, 64)     # B, H, KV, S, D
+# phase D's other float32 prefill widths, causal: G 16 over one KV head at
+# D 128, gemma3-1b at D 256
+WIDE_PREFILL = ((1, 16, 1, 1000, 128), (1, 4, 1, 1000, 256))
+F32_DECODE = (2, 8, 2, 4096, 128)        # B, H, KV_H, S, D
+ROTATED = 4  # decode caches in turn: 4 x 16.8 MB, more than the L2
 
 
-def child(tree: Path, reps: int) -> dict:
+def attention(device) -> dict:
+    """The float32 attention rows: name -> call; each kernel call
+    held against its plain version first."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    B, H, KV, S, D = SMOLLM_PREFILL
+    q, k, v = randn(B, H, S, D), randn(B, KV, S, D), randn(B, KV, S, D)
+    Bd, Hd, KVd, Sd, Dd = F32_DECODE
+    qd = randn(Bd, Hd, Dd)
+    caches = [(randn(Bd, KVd, Sd, Dd), randn(Bd, KVd, Sd, Dd))
+              for _ in range(ROTATED)]
+    lens = torch.randint(Sd // 2, Sd + 1, (Bd, 1), generator=gen,
+                         device=device)
+    bias = torch.where(torch.arange(Sd, device=device)[None] < lens, 0.0,
+                       -1e30).float()
+    mask = (bias == 0)[:, None, None, :]
+    kd, vd = caches[0]
+    turn = [0]
+
+    def rotated():
+        kk, vv = caches[turn[0] % ROTATED]
+        turn[0] += 1
+        return ops.decode_attention(qd, kk, vv, bias)
+
+    rows = {}
+    for causal, label in ((True, "causal"), (False, "full")):
+        got = ops.prefill_attention(q, k, v, causal=causal)
+        chip_smoke.close(got, fp.flash_prefill_plain(q, k, v, causal),
+                         chip_smoke.F32_PREFILL_TOL)
+        rows[f"flash_prefill float32 smollm {label}"] = (
+            lambda c=causal: ops.prefill_attention(q, k, v, causal=c))
+        rows[f"sdpa float32 smollm {label}"] = (
+            lambda c=causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=True))
+    for Bw, Hw, KVw, Sw, Dw in WIDE_PREFILL:
+        qw, kw, vw = randn(Bw, Hw, Sw, Dw), randn(Bw, KVw, Sw, Dw), \
+            randn(Bw, KVw, Sw, Dw)
+        chip_smoke.close(ops.prefill_attention(qw, kw, vw, causal=True),
+                         fp.flash_prefill_plain(qw, kw, vw, True),
+                         chip_smoke.F32_PREFILL_TOL)
+        rows[f"flash_prefill float32 H {Hw} KV {KVw} D {Dw} causal"] = (
+            lambda a=(qw, kw, vw): ops.prefill_attention(*a, causal=True))
+    chip_smoke.close(ops.decode_attention(qd, kd, vd, bias),
+                     fd.flash_decode_plain(qd, kd, vd, bias),
+                     chip_smoke.F32_DECODE_TOL)
+    rows["flash_decode float32 D"] = lambda: ops.decode_attention(
+        qd, kd, vd, bias)
+    rows[f"flash_decode float32 D ({ROTATED} rotated caches)"] = rotated
+    rows["sdpa float32 decode D"] = lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True)
+    return rows
+
+
+def child(tree: Path, reps: int, only: str = None) -> dict:
     """One checkout's times, in this process (``tree``'s package; the
-    data from this checkout's ``chip_smoke.py``)."""
+    data from this checkout's ``chip_smoke.py``); ``only='attention'``:
+    the float32 attention rows alone."""
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import torch
 
@@ -98,6 +184,17 @@ def child(tree: Path, reps: int) -> dict:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     build.build_all()
+    out, rows = {}, attention(device)
+    for name, fn in rows.items():
+        out[name] = {"inputs": 0, "input_sum": 0, "output_sum": 0,
+                     "ms": chip_smoke.timed(fn, reps, device)}
+    ptxas = {src: chip_smoke.ptxas_lines(build.ptxas_report(src))
+             for src in PTXAS}
+    if only == "attention":
+        for name, fn in rows.items():
+            out[name]["device_ms"], out[name]["ops"] = chip_smoke.device_ms(
+                fn, 20)
+        return out, ptxas
     q = JoinQuery((Atom.of("Title", "t", "kind", "p"),
                    Atom.of("Cast", "t", "person"),
                    Atom.of("Comp", "t", "comp")), prob_var="p")
@@ -136,7 +233,6 @@ def child(tree: Path, reps: int) -> dict:
             pos, lambda: tp.tree_probe(pack.arena, pos, pack.layout),
             lambda: tp.tree_probe_plain(pack.arena, pos, pack.layout)),
     }
-    out = {}
     for name, (inp, fn, plain) in cases.items():
         got = fn()
         assert torch.equal(got, plain()), name
@@ -293,12 +389,12 @@ def child(tree: Path, reps: int) -> dict:
                      "ms": host_ms(fn)}
     out[f"batcher flush B {BATCH}"].update(
         count=int(sum(served)), output_sum=int(sum(served)))
+    cases.update((name, (None, fn, None)) for name, fn in rows.items())
     for name, (_, fn, _) in cases.items():
         out[name]["device_ms"], out[name]["ops"] = chip_smoke.device_ms(
             fn, 5 if name.startswith(("sample A", "batcher", "csr_walk"))
             else 20)
-    return out, {src: chip_smoke.ptxas_lines(build.ptxas_report(src))
-                 for src in PTXAS}
+    return out, ptxas
 
 
 def smoke(other: Path, log_dir: Path) -> list:
@@ -327,13 +423,15 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", required=True,
                     help="the other checkout's root")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--only", choices=["attention"], default=None,
+                    help="time the float32 attention rows alone")
     ap.add_argument("--json-out", default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="time each checkout's whole chip_smoke.py")
     ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
-        print(json.dumps(child(Path(args.child), args.reps)))
+        print(json.dumps(child(Path(args.child), args.reps, args.only)))
         return 0
     other = Path(args.parent).resolve()
     if not (other / "src" / "repro_torch").is_dir():
@@ -358,6 +456,7 @@ def main(argv=None) -> int:
         r = subprocess.run(
             [sys.executable, "-P", str(Path(__file__).resolve()),
              "--parent", str(other), "--reps", str(args.reps),
+             *(["--only", args.only] if args.only else []),
              "--child", str(tree)], capture_output=True, text=True,
             timeout=900)
         if r.returncode != 0:

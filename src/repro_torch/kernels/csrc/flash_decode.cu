@@ -2,12 +2,14 @@
 //
 // Replaces flash_decode of src/repro/kernels/flash_decode.py: for each batch
 // row b and query head h, softmax(q . K^T / sqrt(D) + bias[b]) . V over the
-// cache of KV head h / G (G = H / KV_H), out in q's dtype. Two kernels
-// compute the splits, one per dtype, and one combine kernel merges them:
-//   * bf16: flash_decode_tc_kernel, both products on the tensor cores;
-//   * float32: flash_decode_split_kernel on the CUDA cores, as the
-//     reference computes in float32 and the tensor cores' TF32 keeps ~3
-//     decimal digits, too few for the float32 tolerances.
+// cache of KV head h / G (G = H / KV_H), out in q's dtype. One kernel a
+// dtype computes the splits of the cache:
+//   * bf16: flash_decode_tc_kernel, both products on the tensor cores, and
+//     the combine kernel merges the splits (a second launch);
+//   * float32: flash_decode_f32_kernel on the CUDA cores, as the reference
+//     computes in float32 and the tensor cores' TF32 keeps ~3 decimal
+//     digits, too few for the float32 tolerances. It merges the splits in
+//     the same launch: one device operation a call.
 //
 // Bound on the card: bytes. Every K and V element is read once; the
 // arithmetic is 4 * B * H * S * D operations, 4 G of them a K/V element
@@ -17,159 +19,326 @@
 //     of its group, so each K/V tile is read once per group (the TPU grid
 //     (B, H, S / block_s) reads it G times);
 //   * the wrapper chooses the number of splits (flash_decode.py
-//     decode_splits) so that small batches still give enough blocks to fill
-//     the SMs (flash-decoding); split i covers keys [i S / n, (i + 1) S / n),
-//     and the combine kernel merges the splits' (m, l, acc) partials;
-//   * bf16: K, V and the bias slice stream through a ring of FDT_STAGES
-//     stages of FDT_TK keys filled by 16-byte cp.async, so two tiles are in
-//     flight while one is computed (64 KB a block at D = 128, two blocks an
-//     SM); the tiles stay bf16 in shared memory, rows swizzled so ldmatrix
-//     reads them without bank conflicts. The G heads are the 16 rows of
-//     mma.sync m16n8k16 (padded); each warp takes 16 keys of a tile with its
-//     own online softmax, and the four warps merge in shared memory at the
-//     end. P goes to the P . V product as hi + lo, two bf16 fragments, so it
-//     carries p to ~2^-16 (the bytes bound leaves the tensor cores idle);
-//   * float32: tiles of FD_TK keys load synchronously into shared memory;
-//     the arithmetic reads it as float4, each loaded K or V vector feeding
-//     two heads (scalar reads made a first version bound by shared-memory
-//     load instructions, not by bytes).
+//     decode_splits for bf16, decode_splits_f32 for float32) so that small
+//     batches still give enough blocks to fill the SMs (flash-decoding);
+//     split i covers keys [i S / n, (i + 1) S / n), and the splits' (m, l,
+//     acc) partials are merged in split order;
+//   * K, V and the bias slice stream through a ring filled by 16-byte
+//     cp.async, so the next tiles are in flight while one is computed; one
+//     block barrier a tile releases a stage. Each warp takes its own keys
+//     of every tile with its own online softmax for all G heads, and the
+//     warps merge once, at the end of the split, in shared memory;
+//   * bf16: stages of FDT_TK keys, FDT_STAGES deep (64 KB a block at D =
+//     128, two blocks an SM); the tiles stay bf16 in shared memory, rows
+//     swizzled so ldmatrix reads them without bank conflicts. The G heads
+//     are the 16 rows of mma.sync m16n8k16 (padded); each warp takes 16
+//     keys of a tile. P goes to the P . V product as hi + lo, two bf16
+//     fragments, so it carries p to ~2^-16 (the bytes bound leaves the
+//     tensor cores idle);
+//   * float32: stages of 32 KB of K and V (4096 / D keys), FD_STAGES deep,
+//     so that a split of phase D's shape (64 keys) is in flight at once and
+//     two blocks share an SM. A warp's quarter of a tile: in Q . K^T each
+//     key takes 32 / (keys a warp) lanes, which hold its K row in registers
+//     and sum their slices of each dot by shuffles; the softmax runs a lane
+//     a head over the warp's keys; in P . V a lane owns float4 columns of
+//     the group's G x D output. The last block of each (batch row, KV head)
+//     to finish, found by an atomic ticket after a __threadfence that
+//     publishes its partials, merges the splits as the combine kernel does
+//     and resets its counter. Partials and counters live in a scratch that
+//     the wrapper keeps per (device, stream).
 //
 // Online softmax as the reference: m starts at -1e30 (not -inf), so a row
 // whose every key carries the -1e30 mask averages V as the reference does
 // and is not NaN. Keys past S (the cache's ragged end) are left out, not
-// masked: no padding is needed. The bf16 kernel runs the softmax in base 2
+// masked: no padding is needed. Both kernels run the softmax in base 2
 // (logits times log2 e, the same -1e30 in base 2).
 #include <math_constants.h>
 
 #include "attention.cuh"
 #include "tensor_core.cuh"
 
-#define FD_THREADS 256
-#define FD_TK 32         // keys per tile: one warp lane per key
-#define FD_SLOTS 4       // float4 accumulators a thread owns: G * D <= 4096
 #define FD_NEG (-1e30f)  // the reference's initial running max
 #define FD_LN2 0.6931471805599453f
+#define FD_MAX_DEVICES 64
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o /= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o /= 2) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// -- float32: the CUDA-core split kernel, merged in the same launch ------------
 
-// Grid (nsplit, KV_H, B). Partials: acc (B, H, nsplit, D); m, l (B, H, nsplit).
-template <typename T, int D>
-__global__ void __launch_bounds__(FD_THREADS) flash_decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const float* __restrict__ bias, float* __restrict__ acc_part,
-    float* __restrict__ m_part, float* __restrict__ l_part, int H, int KVH,
-    int S, float scale) {
-  constexpr int KS = D + 4;               // k_s row stride: float4-aligned,
-                                          // and lanes' rows on distinct banks
-  constexpr int PS = FD_TK + 1;           // p_s row stride
-  constexpr int D4 = D / 4;               // float4 columns of a row
-  constexpr int GSTEP = FD_THREADS / D4;  // heads between a thread's slots
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  const int G = H / KVH;
-  float* q_s = smem;                  // [G][D]
-  float* k_s = q_s + G * D;           // [FD_TK][KS]
-  float* v_s = k_s + FD_TK * KS;      // [FD_TK][D]
-  float* p_s = v_s + FD_TK * D;       // [G][PS]
-  float* m_s = p_s + G * PS;          // [G]
-  float* l_s = m_s + G;               // [G]
-  float* a_s = l_s + G;               // [G]
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const long long head0 = (long long)b * H + (long long)kvh * G;
+#define FD_THREADS 128  // four warps: a quarter of every tile's keys each
+#define FD_WARPS 4
+#define FD_STAGES 3     // ring depth: two tiles in flight while one computes
+#define FD_SMALL 4      // float4 accumulators a lane when G * D <= 512
+#define FD_LARGE 32     // ... when G * D <= 4096 (MAX_GROUP_WIDTH)
+#define FD_MERGE_WORDS 8192  // most G * nsplit: the merge's e and l in the ring
 
-  load_rows<T, D>(q + head0 * D, 0, G, G, q_s, D);
-  for (int g = tid; g < G; g += FD_THREADS) {
-    m_s[g] = FD_NEG;
-    l_s[g] = 0.0f;
+template <int D>
+struct FdShape {
+  static constexpr int TK = 4096 / D;        // keys a stage: 32 KB of K and V
+  static constexpr int KPW = TK / FD_WARPS;  // keys a warp a tile
+  static constexpr int P = 32 / KPW;         // lanes a key in Q . K^T
+  static constexpr int D4 = D / 4;
+  static constexpr int KS4 = D4 + 1;    // K rows padded: a lane's float4s of
+                                        // one load lie on distinct bank groups
+  static constexpr int NK4 = D4 / P;    // float4s of a K row a lane holds
+  static constexpr int LS = KPW + 1;    // a head's logits in a warp's tile
+  static constexpr int STAGE4 = TK * KS4 + TK * D4 + TK / 4;  // K, V, bias
+  static constexpr int RING = 16 * FD_STAGES * STAGE4;
+  // bytes for G heads: the ring, q, and each warp's logits, m, l, alpha
+  static constexpr int smem(int G) {
+    return RING + 16 * G * D4 + 4 * FD_WARPS * G * (LS + 3);
   }
-  // Slot i of this thread: head g_first + i * GSTEP, columns [dcol, dcol + 4).
-  const int dcol = (tid % D4) * 4, g_first = tid / D4;
-  float4 acc[FD_SLOTS];
-#pragma unroll
-  for (int i = 0; i < FD_SLOTS; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the warps' accumulators meet in the ring at the end, then the merge's
+  // e and l
+  static_assert(FD_WARPS * 4096 * 4 <= RING, "merge area");
+  static_assert(2 * FD_MERGE_WORDS * 4 <= RING, "merge words");
+};
 
-  const long long kv_base = ((long long)b * KVH + kvh) * S;
+// Grid (nsplit, KV_H, B). Partials acc (B, H, nsplit, D), m (base 2) and l
+// (B, H, nsplit); counters (B, KV_H), 0 between launches. A: float4
+// accumulators a lane, G * D <= 128 A.
+template <int D, int A>
+__global__ void __launch_bounds__(FD_THREADS) flash_decode_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ bias,
+    float* __restrict__ out, float* __restrict__ acc_part,
+    float* __restrict__ m_part, float* __restrict__ l_part,
+    int* __restrict__ counters, int H, int KVH, int S, float scale) {
+  using Sh = FdShape<D>;
+  constexpr int TK = Sh::TK, KPW = Sh::KPW, P = Sh::P, D4 = Sh::D4,
+                KS4 = Sh::KS4, LS = Sh::LS;
+  constexpr float NEG_L2 = FD_NEG * TC_LOG2E;  // -1e30 in base 2
+  extern __shared__ float4 smem4[];
+  float4* ring = smem4;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x, G = H / KVH, GD4 = G * D4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* q_s = ring + FD_STAGES * Sh::STAGE4;  // [G][D4]
+  // warp w's logits [G][LS], then its m, l and alpha [G] each
+  float* w_all = reinterpret_cast<float*>(q_s + GD4);
+  const int WSZ = G * (LS + 3);
+  float* lg = w_all + warp * WSZ;
+  float* m_w = lg + G * LS;
+  float* l_w = m_w + G;
+  float* a_w = l_w + G;
+  const long long head0 = (long long)b * H + (long long)kvh * G;
   const int s_begin = (int)((long long)split * S / nsplit);
   const int s_end = (int)((long long)(split + 1) * S / nsplit);
-  for (int k0 = s_begin; k0 < s_end; k0 += FD_TK) {
-    const int nr = min(FD_TK, s_end - k0);
-    __syncthreads();  // the previous tile is consumed; q_s, m_s are set
-    load_rows<T, D>(k + kv_base * D, k0, nr, S, k_s, KS);
-    load_rows<T, D>(v + kv_base * D, k0, nr, S, v_s, D);
-    __syncthreads();
-    // logits: a lane per key; a warp takes heads g0 and g0 + 8 together
-    for (int g0 = warp; g0 < G; g0 += 16) {
-      const int g1 = min(g0 + 8, G - 1);
-      const float* kr = k_s + lane * KS;
-      float da = 0.0f, db = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-        da = dot4(*reinterpret_cast<const float4*>(q_s + g0 * D + d), k4, da);
-        db = dot4(*reinterpret_cast<const float4*>(q_s + g1 * D + d), k4, db);
-      }
-      float sa = -CUDART_INF_F, sb = -CUDART_INF_F;
-      if (lane < nr) {
-        const float bv = bias[(long long)b * S + k0 + lane];
-        sa = __fadd_rn(__fmul_rn(da, scale), bv);
-        sb = __fadd_rn(__fmul_rn(db, scale), bv);
-      }
-      p_s[g0 * PS + lane] = sa;
-      if (g0 + 8 < G) p_s[g1 * PS + lane] = sb;
-    }
-    __syncthreads();
-    // online softmax: one warp per head, one lane per key
-    for (int g = warp; g < G; g += FD_THREADS / 32) {
-      const float s = p_s[g * PS + lane];
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float pr = expf(s - m_new);
-      const float sum = warp_sum(pr);
-      p_s[g * PS + lane] = pr;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[g] = alpha;
-        l_s[g] = __fadd_rn(__fmul_rn(l_s[g], alpha), sum);
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc[g][dcol..] = acc * alpha[g] + sum_k p[g][k] * v[k][dcol..]
+  const int ntiles = (s_end - s_begin + TK - 1) / TK;
+  const long long kv0 = ((long long)b * KVH + kvh) * S;
+  const float* kg = k + kv0 * D;
+  const float* vg = v + kv0 * D;
+  const float* bg = bias + (long long)b * S;
+
+  for (int c = tid; c < GD4; c += FD_THREADS)
+    cp_async16(q_s + c, q + head0 * D + c * 4, 16);
+  // Tile t into stage t % FD_STAGES: K, V and the bias slice; keys past
+  // the split are zero-filled (and get -inf below)
+  auto load = [&](int t) {
+    float4* ks = ring + (t % FD_STAGES) * Sh::STAGE4;
+    float4* vs = ks + TK * KS4;
+    float* bs = reinterpret_cast<float*>(vs + TK * D4);
+    const int k0 = s_begin + t * TK;
 #pragma unroll
-    for (int i = 0; i < FD_SLOTS; ++i) {
-      const int g = g_first + i * GSTEP;
-      if (g < G) acc[i] = scale4(acc[i], a_s[g]);
+    for (int it = 0; it < TK * D4 / FD_THREADS; ++it) {
+      const int c = tid + it * FD_THREADS;
+      const int r = c / D4, c4 = c % D4, key = k0 + r;
+      const bool ok = key < s_end;
+      const long long off = (long long)(ok ? key : s_begin) * D + c4 * 4;
+      cp_async16(ks + r * KS4 + c4, kg + off, ok ? 16 : 0);
+      cp_async16(vs + r * D4 + c4, vg + off, ok ? 16 : 0);
     }
-    for (int kk = 0; kk < nr; ++kk) {
-      const float4 v4 = *reinterpret_cast<const float4*>(v_s + kk * D + dcol);
+    if (tid < TK) {
+      const int key = k0 + tid;
+      const bool ok = key < s_end;
+      cp_async4(bs + tid, bg + (ok ? key : s_begin), ok ? 4 : 0);
+    }
+  };
 #pragma unroll
-      for (int i = 0; i < FD_SLOTS; ++i) {
-        const int g = g_first + i * GSTEP;
-        if (g < G) acc[i] = axpy4(p_s[g * PS + kk], v4, acc[i]);
+  for (int t = 0; t < FD_STAGES - 1; ++t) {
+    if (t < ntiles) load(t);
+    cp_async_commit();
+  }
+  for (int g = lane; g < G; g += 32) {
+    m_w[g] = NEG_L2;
+    l_w[g] = 0.0f;
+  }
+  float4 acc[A];
+#pragma unroll
+  for (int s = 0; s < A; ++s) acc[s] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // Q . K^T: lane = key kk of the warp's slice x part; the part's float4
+  // columns are part + P i
+  const int kk = lane / P, part = lane % P;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<FD_STAGES - 2>();
+    __syncthreads();  // tile t is in; tile t - 1's stage is free
+    if (t + FD_STAGES - 1 < ntiles) load(t + FD_STAGES - 1);
+    cp_async_commit();
+    const float4* ks = ring + (t % FD_STAGES) * Sh::STAGE4;
+    const float4* vs = ks + TK * KS4;
+    const float* bs = reinterpret_cast<const float*>(vs + TK * D4);
+    const int kw0 = warp * KPW;  // this warp's keys in the tile
+    const int key_w = s_begin + t * TK + kw0;
+    if (key_w >= s_end) continue;  // none in this split
+    float4 kr[Sh::NK4];
+#pragma unroll
+    for (int i = 0; i < Sh::NK4; ++i) kr[i] = ks[(kw0 + kk) * KS4 + part + P * i];
+    const bool ok = key_w + kk < s_end;
+    const float bv = bs[kw0 + kk];
+    __syncwarp();  // the previous tile's P . V has read lg
+    // logits in base 2, (dot * scale + bias) * log2 e, as the reference
+    // orders them; keys past the split -inf
+    // (four heads at a time: four independent FMA chains)
+    for (int g0 = 0; g0 < G; g0 += 4) {
+      float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < Sh::NK4; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dot[u] = dot4(q_s[min(g0 + u, G - 1) * D4 + part + P * i], kr[i],
+                        dot[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int o = P / 2; o > 0; o >>= 1)
+          dot[u] = __fadd_rn(dot[u], __shfl_xor_sync(0xffffffffu, dot[u], o));
+        if (part == 0 && g0 + u < G)
+          lg[(g0 + u) * LS + kk] =
+              ok ? __fmul_rn(__fadd_rn(__fmul_rn(dot[u], scale), bv), TC_LOG2E)
+                 : -CUDART_INF_F;
       }
     }
+    __syncwarp();
+    // online softmax, a lane a head over the warp's KPW keys
+    for (int g = lane; g < G; g += 32) {
+      float* row = lg + g * LS;
+      const float mo = m_w[g];
+      float mx = mo;
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) mx = fmaxf(mx, row[j]);
+      const float al = ex2(__fsub_rn(mo, mx));
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KPW; ++j) {
+        const float pr = ex2(__fsub_rn(row[j], mx));
+        row[j] = pr;
+        sum = __fadd_rn(sum, pr);
+      }
+      l_w[g] = __fadd_rn(__fmul_rn(l_w[g], al), sum);
+      m_w[g] = mx;
+      a_w[g] = al;
+    }
+    __syncwarp();
+    // acc[s] (head f / D4, float4 column f % D4 of f = 32 s + lane) =
+    // acc * alpha + sum_j p[head][j] v[j]
+#pragma unroll
+    for (int s = 0; s < A; ++s) {
+      const int f = s * 32 + lane;
+      if (f < GD4) acc[s] = scale4(acc[s], a_w[f / D4]);
+    }
+#pragma unroll 4
+    for (int j = 0; j < KPW; ++j) {
+#pragma unroll
+      for (int s = 0; s < A; ++s) {
+        const int f = s * 32 + lane;
+        if (f < GD4)
+          acc[s] = axpy4(lg[(f / D4) * LS + j], vs[(kw0 + j) * D4 + f % D4],
+                         acc[s]);
+      }
+    }
+  }
+
+  // The four warps' (m, l, acc) -> this split's partial
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free; every warp's m and l are final
+#pragma unroll
+  for (int s = 0; s < A; ++s) {
+    const int f = s * 32 + lane;
+    if (f < GD4) ring[warp * GD4 + f] = acc[s];
   }
   __syncthreads();
+  for (int f = tid; f < GD4; f += FD_THREADS) {
+    const int g = f / D4;
+    float mw[FD_WARPS], mx = -CUDART_INF_F;
 #pragma unroll
-  for (int i = 0; i < FD_SLOTS; ++i) {
-    const int g = g_first + i * GSTEP;
-    if (g < G)
-      *reinterpret_cast<float4*>(
-          acc_part + ((head0 + g) * nsplit + split) * D + dcol) = acc[i];
+    for (int w = 0; w < FD_WARPS; ++w) {
+      mw[w] = w_all[w * WSZ + G * LS + g];
+      mx = fmaxf(mx, mw[w]);
+    }
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    float den = 0.0f;
+#pragma unroll
+    for (int w = 0; w < FD_WARPS; ++w) {
+      const float e = ex2(__fsub_rn(mw[w], mx));
+      num = axpy4(e, ring[w * GD4 + f], num);
+      den = __fmaf_rn(e, w_all[w * WSZ + G * LS + G + g], den);
+    }
+    const long long slot = (head0 + g) * nsplit + split;
+    reinterpret_cast<float4*>(acc_part + slot * D)[f % D4] = num;
+    if (f % D4 == 0) {
+      m_part[slot] = mx;
+      l_part[slot] = den;
+    }
   }
-  for (int g = tid; g < G; g += FD_THREADS) {
-    m_part[(head0 + g) * nsplit + split] = m_s[g];
-    l_part[(head0 + g) * nsplit + split] = l_s[g];
+
+  // The last split of this (batch row, KV head) to finish merges them all
+  __shared__ int last_s;
+  __threadfence();  // this block's partials are visible before its ticket
+  __syncthreads();
+  int* counter = counters + (long long)b * KVH + kvh;
+  if (tid == 0) last_s = atomicAdd(counter, 1) == nsplit - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  // out = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30), e_s = 2^(m_s - max
+  // m), in split order as flash_decode_combine_kernel. The partials of
+  // other blocks are read through L2. First a warp a head: the max of its
+  // m, l and the max of m, then e of every split, into shared memory (G
+  // nsplit <= FD_MERGE_WORDS each, in the spent ring); then each thread's
+  // sums, whose loads of acc do not wait for the sums before them
+  float* e_s = reinterpret_cast<float*>(ring);  // [G][nsplit]
+  float* l_s = e_s + G * nsplit;                // [G][nsplit]
+  for (int g = warp; g < G; g += FD_WARPS) {
+    const long long hs = (head0 + g) * nsplit;
+    float mx = -CUDART_INF_F;
+    for (int s = lane; s < nsplit; s += 32) {
+      const float ms = __ldcg(m_part + hs + s);
+      e_s[g * nsplit + s] = ms;
+      l_s[g * nsplit + s] = __ldcg(l_part + hs + s);
+      mx = fmaxf(mx, ms);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    for (int s = lane; s < nsplit; s += 32)  // the lane's own m, above
+      e_s[g * nsplit + s] = ex2(__fsub_rn(e_s[g * nsplit + s], mx));
   }
+  __syncthreads();
+  for (int f = tid; f < GD4; f += FD_THREADS) {
+    const int g = f / D4;
+    const float* ee = e_s + g * nsplit;
+    const float* ll = l_s + g * nsplit;
+    const float4* ap = reinterpret_cast<const float4*>(
+        acc_part + (head0 + g) * nsplit * D) + f % D4;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    float den = 0.0f;
+    auto add = [&](int s) {
+      num = axpy4(ee[s], __ldcg(ap + (long long)s * D4), num);
+      den = __fmaf_rn(ee[s], ll[s], den);
+    };
+    // (32 splits' loads in flight where the registers allow)
+    if constexpr (A == FD_SMALL) {
+#pragma unroll 32
+      for (int s = 0; s < nsplit; ++s) add(s);
+    } else {
+#pragma unroll 8
+      for (int s = 0; s < nsplit; ++s) add(s);
+    }
+    den = fmaxf(den, 1e-30f);
+    reinterpret_cast<float4*>(out + (head0 + g) * D)[f % D4] =
+        make_float4(__fdiv_rn(num.x, den), __fdiv_rn(num.y, den),
+                    __fdiv_rn(num.z, den), __fdiv_rn(num.w, den));
+  }
+  if (tid == 0) *counter = 0;
 }
 
 // Grid (H, B), D threads: out = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30)
@@ -418,26 +587,47 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
 
 // -- launchers ------------------------------------------------------------------
 
+template <int D, int A>
+static int fd_instance(const float* q, const float* k, const float* v,
+                     const float* bias, float* out, float* acc_part,
+                     float* m_part, float* l_part, int* counters, int B, int H,
+                     int KVH, int S, int nsplit, float scale, cudaStream_t s) {
+  // the shared memory limit is raised once a card, to the most G needs
+  static bool raised[FD_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= FD_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(flash_decode_f32_kernel<D, A>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               FdShape<D>::smem(128 * A / D));
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = true;
+  }
+  flash_decode_f32_kernel<D, A>
+      <<<dim3(nsplit, KVH, B), FD_THREADS, FdShape<D>::smem(H / KVH), s>>>(
+          q, k, v, bias, out, acc_part, m_part, l_part, counters, H, KVH, S,
+          scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 static int fd_launch(const float* q, const float* k, const float* v,
                      const float* bias, float* out, float* acc_part,
-                     float* m_part, float* l_part, int B, int H, int KVH,
-                     int S, int nsplit, float scale, cudaStream_t s) {
-  const int G = H / KVH;
-  const size_t smem = sizeof(float) * ((size_t)G * D + FD_TK * (D + 4) +
-                                       FD_TK * D + G * (FD_TK + 1) + 3 * G);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_split_kernel<float, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  flash_decode_split_kernel<float, D>
-      <<<dim3(nsplit, KVH, B), FD_THREADS, smem, s>>>(
-          q, k, v, bias, acc_part, m_part, l_part, H, KVH, S, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_decode_combine_kernel<float><<<dim3(H, B), D, 0, s>>>(
-      acc_part, m_part, l_part, out, H, nsplit, D);
-  return (int)cudaGetLastError();
+                     float* m_part, float* l_part, int* counters, int B, int H,
+                     int KVH, int S, int nsplit, float scale, cudaStream_t s) {
+  const int width = H / KVH * D;
+  if (H / KVH * nsplit > FD_MERGE_WORDS) return (int)cudaErrorInvalidValue;
+  if (width <= 128 * FD_SMALL)
+    return fd_instance<D, FD_SMALL>(q, k, v, bias, out, acc_part, m_part,
+                                  l_part, counters, B, H, KVH, S, nsplit,
+                                  scale, s);
+  if (width <= 128 * FD_LARGE)
+    return fd_instance<D, FD_LARGE>(q, k, v, bias, out, acc_part, m_part,
+                                  l_part, counters, B, H, KVH, S, nsplit,
+                                  scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -460,27 +650,30 @@ static int fdt_launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return (int)cudaGetLastError();
 }
 
+
 // The wrapper checks the shapes: H % KVH == 0, D in {64, 128, 256},
 // 1 <= nsplit <= S. Partials (16-byte aligned): acc B * H * nsplit * D
 // floats, then m and l B * H * nsplit floats each.
-// float32, CUDA cores: (H / KVH) * D <= 4 * FD_THREADS * FD_SLOTS.
+// float32, CUDA cores: (H / KVH) * D <= 128 * FD_LARGE, (H / KVH) * nsplit
+// <= FD_MERGE_WORDS; counters: B * KVH
+// ints, 0 between launches, used by one stream at a time.
 extern "C" int flash_decode_launch(const float* q, const float* k,
                                    const float* v, const float* bias,
                                    float* out, float* acc_part, float* m_part,
-                                   float* l_part, int B, int H, int KVH, int S,
-                                   int D, int nsplit, float scale,
-                                   void* stream) {
+                                   float* l_part, int* counters, int B, int H,
+                                   int KVH, int S, int D, int nsplit,
+                                   float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return fd_launch<64>(q, k, v, bias, out, acc_part, m_part, l_part, B, H,
-                           KVH, S, nsplit, scale, s);
+      return fd_launch<64>(q, k, v, bias, out, acc_part, m_part, l_part,
+                           counters, B, H, KVH, S, nsplit, scale, s);
     case 128:
-      return fd_launch<128>(q, k, v, bias, out, acc_part, m_part, l_part, B,
-                            H, KVH, S, nsplit, scale, s);
+      return fd_launch<128>(q, k, v, bias, out, acc_part, m_part, l_part,
+                            counters, B, H, KVH, S, nsplit, scale, s);
     case 256:
-      return fd_launch<256>(q, k, v, bias, out, acc_part, m_part, l_part, B,
-                            H, KVH, S, nsplit, scale, s);
+      return fd_launch<256>(q, k, v, bias, out, acc_part, m_part, l_part,
+                            counters, B, H, KVH, S, nsplit, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// Causal or full flash attention over whole sequences, with GQA.
+// Causal or full flash attention over whole sequences, with GQA, for
+// float32 operands on the CUDA cores.
 //
 // Replaces flash_prefill of src/repro/kernels/flash_prefill.py for float32
 // operands: for each (b, h) and query row i, softmax(q_i . K^T / sqrt(D),
@@ -10,218 +11,464 @@
 // the reference computes both products in float32: the tensor cores' TF32
 // keeps ~3 decimal digits, too few for the float32 tolerances.
 // What the design does:
-//   * one block of FP_THREADS per (query tile of FP_BQ rows, head, batch
-//     row); K and V stream through shared memory in tiles of BK keys with an
-//     online softmax (m, l in shared memory, the output tile in registers),
-//     so no S x S score matrix exists anywhere;
-//   * a thread owns 4 query rows x BK/16 keys of each score tile and 4 rows
-//     x D/16 columns of the output, and reads shared memory as float4: each
-//     load feeds 4 to 16 FMAs (a first version with scalar reads was bound
-//     by shared-memory load instructions);
-//   * causal: key tiles wholly above the diagonal are skipped. Once the
-//     first tile (which holds key 0, visible to every row) has set m, such a
-//     tile would add exp(-1e30 - m) = 0 to every sum, so the result is the
-//     same; keys above the diagonal inside a tile get the reference's -1e30;
-//   * keys past S (a ragged last tile) are left out, causal or not: a padded
-//     key never joins the softmax. Query rows past S are not written.
-// D = 256 needs more than 48 KB of shared memory: the launch raises the
-// limit with cudaFuncSetAttribute.
+//   * balanced work: a persistent grid (the blocks that fit on the card at
+//     once, by the occupancy of this instance) takes work items (query tile
+//     of FP_BQ rows, head, batch row) from a ticket counter, heaviest first
+//     (causal: the last query tile first; flash_prefill.py work_order is
+//     the same order). The tail is then one light item, not the blocks that
+//     the scheduler happened to give the heavy tiles. The counter lives in
+//     a scratch that the wrapper keeps per (device, stream); the last block
+//     to leave resets it;
+//   * a copy ring: K and V tiles of BK keys stream through FP_STAGES stages
+//     filled by 16-byte cp.async.cg, so the copy of tile t + 1 overlaps the
+//     products on tile t; one block barrier a tile releases a stage. The
+//     query tile loads once an item;
+//   * warps that work alone: a warp owns RW query rows and KW keys of every
+//     tile (the block's four warps split the rows, and at D = 64 also the
+//     keys: two warps a row set, each with its own online softmax, merged
+//     once at the end of the item in shared memory);
+//   * register tiles: in Q . K^T a thread owns TM rows x TN keys of scores
+//     (8 x 8 at D = 64; 4 x 8 at 128 and 4 x 4 at 256, where the output
+//     tile takes the registers) and reads Q and K as float4s, 16 FMAs a
+//     float4 at D = 64; it issues them component by component, so a
+//     score's four FMAs stand 2 TM apart. Q rows are stored with their
+//     float4 columns swizzled by row group, K rows padded, so each load
+//     reads distinct bank groups. In P . V it owns TM rows x D / 8 columns
+//     and reads P as float4s from its warp's key-major tile, V as float4s;
+//   * the softmax in registers: each score row stays in the 8 lanes that
+//     computed it, row max by shuffles, each lane's share of the row sum
+//     summed once at the end. In base 2, as flash_prefill_tc.cu: blocks
+//     that need a mask take x = s c (c = scale log2 e), the reference's
+//     -1e30 in base 2 above the diagonal and -inf past S, p = 2^(x - m);
+//     the others the raw max times c and p = 2^(s c - m) in one FFMA;
+//     m starts at -1e30 in base 2;
+//   * causal: key blocks wholly above a warp's rows are skipped. A warp that
+//     has already seen key 0 would add 2^(-1e30 log2 e - m) = 0 for them; one
+//     that has not (the second key warp of the first tile) keeps m = -1e30
+//     and l = 0 and weighs 0 in the merge, as the masked keys do in the
+//     reference. Keys above the diagonal inside a block get -1e30;
+//   * keys past S (a ragged last tile) are zero-filled and get -inf, causal
+//     or not: a padded key never joins the softmax. Query rows past S are
+//     not written.
+// Shared memory: 189 KB at D = 64, 187 KB at 128, 209 KB at 256: one block
+// of four warps an SM; the launch raises the limit with cudaFuncSetAttribute
+// once a card and sizes the grid by the occupancy it then reports.
 #include <math_constants.h>
 
 #include "attention.cuh"
+#include "tensor_core.cuh"
 
-#define FP_THREADS 256
-#define FP_BQ 64         // query rows per block: 16 thread rows x 4
-#define FP_NEG (-1e30f)  // the reference's mask value and initial max
+#define FP_BQ 64            // query rows an item
+#define FP_STAGES 2         // ring depth: one tile in flight while one computes
+#define FP_NEG (-1e30f)     // the reference's mask value and initial max
+#define FP_MAX_DEVICES 64
 
+// ROW_WARPS x KEY_WARPS warps; BK keys a tile.
 template <int D>
-struct FpShape {
-  static constexpr int BK = D >= 128 ? 32 : 64;  // keys per tile
-  static constexpr int KPT = BK / 16;            // score columns a thread owns
-  static constexpr int DPT = D / 64;             // output float4s a thread owns
-  // q_s and k_s rows: float4-aligned, and the 8 lanes of a float4 phase on
-  // distinct banks
-  static constexpr int KS = D + 4;
-  static constexpr int SMEM_FLOATS = FP_BQ * KS + BK * KS + BK * D +
-                                     FP_BQ * (BK + 1) + 3 * FP_BQ;
+struct FpShape;
+template <>
+struct FpShape<64> {
+  static constexpr int ROW_WARPS = 2, KEY_WARPS = 2, BK = 128;
+};
+template <>
+struct FpShape<128> {
+  static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 64;
+};
+template <>
+struct FpShape<256> {
+  static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 32;
 };
 
-// Grid (ceil(S / FP_BQ), H, B).
-template <typename T, int D>
-__global__ void __launch_bounds__(FP_THREADS) flash_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int H, int KV, int S, int causal, float scale) {
+template <int D>
+struct FpTile : FpShape<D> {
   using Sh = FpShape<D>;
-  constexpr int BK = Sh::BK, KPT = Sh::KPT, DPT = Sh::DPT, KS = Sh::KS;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem;                       // [FP_BQ][KS]
-  float* k_s = q_s + FP_BQ * KS;           // [BK][KS]
-  float* v_s = k_s + BK * KS;              // [BK][D]
-  float* s_s = v_s + BK * D;               // [FP_BQ][BK + 1]
-  float* m_s = s_s + FP_BQ * (BK + 1);     // [FP_BQ]
-  float* l_s = m_s + FP_BQ;                // [FP_BQ]
-  float* a_s = l_s + FP_BQ;                // [FP_BQ]
+  static constexpr int WARPS = Sh::ROW_WARPS * Sh::KEY_WARPS;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int RW = FP_BQ / Sh::ROW_WARPS;  // query rows a warp
+  static constexpr int KW = Sh::BK / Sh::KEY_WARPS;  // keys a warp a tile
+  static constexpr int TM = RW / 4;                  // rows a thread
+  static constexpr int TN = KW / 8;                  // keys a thread
+  static constexpr int TC = D / 32;                  // output float4s a row
+  static constexpr int D4 = D / 4;
+  // Q and K rows: D + 4 floats, so the 8 key lanes of a float4 load sit on
+  // distinct 16-byte bank groups; V rows are read one at a time (D floats)
+  static constexpr int KS4 = D4 + 1;
+  static constexpr int PS = RW + 4;  // P^T rows (a key's RW rows + pad)
+  static constexpr int STAGE4 = Sh::BK * KS4 + Sh::BK * D4;  // float4s
+  static constexpr int Q4 = FP_BQ * KS4;
+  static constexpr int P4 = WARPS * KW * PS / 4;
+  static constexpr int SMEM = 16 * (Q4 + FP_STAGES * STAGE4 + P4);
+  // the key warps' merge reuses the ring: [ROW_WARPS][RW][D + 4] floats
+  static_assert(Sh::KEY_WARPS == 1 ||
+                    FP_BQ * (D + 4) <= 4 * FP_STAGES * STAGE4, "merge area");
+  static_assert(TM % 4 == 0, "P^T float4s");
+};
 
-  const int q0 = blockIdx.x * FP_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const T* qm = q + ((long long)b * H + h) * S * D;
-  const T* km = k + ((long long)b * KV + kvh) * S * D;
-  const T* vm = v + ((long long)b * KV + kvh) * S * D;
+// Item n of the ticket order: query tile T - 1 - n / (H B), then batch row
+// and head (n % (H B) = b H + h). flash_prefill.py work_order repeats it.
+__device__ __forceinline__ void fp_item(int n, int T, int H, int B, int& tile,
+                                        int& h, int& b) {
+  const int per_tile = H * B;
+  tile = T - 1 - n / per_tile;
+  const int r = n % per_tile;
+  b = r / H;
+  h = r % H;
+}
 
-  load_rows<T, D>(qm, q0, FP_BQ, S, q_s, KS);
-  for (int r = tid; r < FP_BQ; r += FP_THREADS) {
-    m_s[r] = FP_NEG;
-    l_s[r] = 0.0f;
-  }
-  // rows ty*4 + i, float4 columns 4 tx + 64 j
-  float4 acc[4][DPT];
+// One tile's online softmax of a thread's TM rows x TN keys (keys key0 +
+// 8 j, rows row0 + i; a row's other keys in the lanes xor 1, 2, 4), in base
+// 2 with c = scale log2 e > 0. MASK: x = s c, -1e30 above the diagonal
+// (causal), -inf past S, p = 2^(x - m). Without a mask: the max of the raw
+// scores times c (the same value: rounding is monotonic), p = 2^(s c - m)
+// in one FFMA, as flash_prefill_tc.cu. Leaves p in sc, sets m, alpha (the
+// rescale of what came before) and this lane's share of l.
+template <int TM, int TN, bool MASK>
+__device__ __forceinline__ void fp_softmax(float (&sc)[TM][TN], float (&m)[TM],
+                                           float (&l)[TM], float (&alpha)[TM],
+                                           float c, int key0, int row0, int S,
+                                           int causal) {
+  constexpr float NEG_L2 = FP_NEG * TC_LOG2E;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < TM; ++i) {
+    float mx = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const int k_end = causal ? min(S, q0 + FP_BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_rows<T, D>(km, k0, BK, S, k_s, KS);
-    load_rows<T, D>(vm, k0, BK, S, v_s, D);
-    __syncthreads();
-    // scores of rows ty*4 + i, keys tx + 16 j
-    float sc[4][KPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) sc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[KPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_s + (ty * 4 + i) * KS + d);
-#pragma unroll
-      for (int j = 0; j < KPT; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * KS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KPT; ++j) sc[i][j] = dot4(qv[i], kv[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int kk = tx + 16 * j, kpos = k0 + kk;
-        float s = __fmul_rn(sc[i][j], scale);
-        if (kpos >= S) s = -CUDART_INF_F;
-        else if (causal && kpos > q0 + r) s = FP_NEG;
-        s_s[r * (BK + 1) + kk] = s;
+    for (int j = 0; j < TN; ++j) {
+      if (MASK) {
+        const int key = key0 + 8 * j;
+        float x = __fmul_rn(sc[i][j], c);
+        if (key >= S) x = -CUDART_INF_F;
+        else if (causal && key > row0 + i) x = NEG_L2;
+        sc[i][j] = x;
       }
+      mx = fmaxf(mx, sc[i][j]);
     }
-    __syncthreads();
-    // online softmax: a warp per row, BK / 32 keys a lane
-    for (int r = warp; r < FP_BQ; r += FP_THREADS / 32) {
-      float s[BK / 32];
-      float mx = -CUDART_INF_F;
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    if (!MASK) mx = __fmul_rn(mx, c);
+    mx = fmaxf(m[i], mx);
+    alpha[i] = ex2(__fsub_rn(m[i], mx));
+    m[i] = mx;
+    l[i] = __fmul_rn(l[i], alpha[i]);
 #pragma unroll
-      for (int c = 0; c < BK / 32; ++c) {
-        s[c] = s_s[r * (BK + 1) + lane + 32 * c];
-        mx = fmaxf(mx, s[c]);
-      }
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < BK / 32; ++c) {
-        const float p = expf(s[c] - m_new);
-        s_s[r * (BK + 1) + lane + 32 * c] = p;
-        sum = __fadd_rn(sum, p);
-      }
-      for (int off = 16; off > 0; off /= 2)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = __fadd_rn(__fmul_rn(l_s[r], alpha), sum);
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    // acc = acc * alpha + P . V for rows ty*4 + i, float4 columns 4 tx + 64 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] = scale4(acc[i][j], alpha);
-    }
-    const int nk = min(BK, S - k0);
-    for (int kk = 0; kk < nk; ++kk) {
-      float p[4];
-      float4 vv[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_s[(ty * 4 + i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j)
-        vv[j] = *reinterpret_cast<const float4*>(v_s + kk * D + 4 * tx + 64 * j);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = axpy4(p[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-  T* om = out + ((long long)b * H + h) * S * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= S) continue;
-    const float den = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      T* o = om + (long long)(q0 + r) * D + 4 * tx + 64 * j;
-      o[0] = from_f(__fdiv_rn(acc[i][j].x, den), (T*)nullptr);
-      o[1] = from_f(__fdiv_rn(acc[i][j].y, den), (T*)nullptr);
-      o[2] = from_f(__fdiv_rn(acc[i][j].z, den), (T*)nullptr);
-      o[3] = from_f(__fdiv_rn(acc[i][j].w, den), (T*)nullptr);
+    for (int j = 0; j < TN; ++j) {
+      sc[i][j] = MASK ? ex2(__fsub_rn(sc[i][j], mx))
+                      : ex2(__fmaf_rn(sc[i][j], c, -mx));
+      l[i] = __fadd_rn(l[i], sc[i][j]);
     }
   }
 }
 
-template <typename T, int D>
-static int fp_launch(const T* q, const T* k, const T* v, T* out, int B, int H,
-                     int KV, int S, int causal, float scale, void* stream) {
-  const size_t smem = sizeof(float) * FpShape<D>::SMEM_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// Persistent grid of FpTile<D>::THREADS-thread blocks; ticket[0] the next item,
+// ticket[1] the blocks that have left (both 0 between launches).
+template <int D>
+__global__ void __launch_bounds__(FpTile<D>::THREADS, 1) flash_prefill_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out,
+    int* __restrict__ ticket, int B, int H, int KV, int S, int causal,
+    float scale_log2) {
+  using Tl = FpTile<D>;
+  constexpr int BK = Tl::BK, KW = Tl::KW, RW = Tl::RW, TM = Tl::TM,
+                TN = Tl::TN, TC = Tl::TC, D4 = Tl::D4, KS4 = Tl::KS4,
+                PS = Tl::PS, ROW_WARPS = Tl::ROW_WARPS, NT = Tl::THREADS;
+  constexpr float NEG_L2 = FP_NEG * TC_LOG2E;  // -1e30 in base 2
+  extern __shared__ float4 smem4[];
+  float4* q_s = smem4;                         // [FP_BQ][KS4], swizzled
+  float4* ring = q_s + Tl::Q4;                 // stages of K [BK][KS4], V [BK][D4]
+  float* p_all = reinterpret_cast<float*>(ring + FP_STAGES * Tl::STAGE4);
+  __shared__ int item_s;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rw = warp % ROW_WARPS, kw = warp / ROW_WARPS;
+  const int rg = lane >> 3, cg = lane & 7;  // row group, key / column group
+  float* p_s = p_all + warp * KW * PS;      // this warp's P^T [KW][PS]
+  const int T = (S + FP_BQ - 1) / FP_BQ;
+  const int n_items = T * H * B;
+  const int G = H / KV;
+  // this thread's rows in the item: rw RW + rg TM + i; Q row r is stored
+  // with its float4 column c at c ^ ((r / TM) & 3) = c ^ rg, so the four
+  // row groups of a warp read four bank groups
+  const int row0 = rw * RW + rg * TM;
+
+  for (;;) {
+    __syncthreads();  // the previous item's shared memory is consumed
+    if (tid == 0) item_s = atomicAdd(ticket, 1);
+    __syncthreads();
+    const int item = item_s;
+    if (item >= n_items) break;
+    int tile, h, b;
+    fp_item(item, T, H, B, tile, h, b);
+    const int q0 = tile * FP_BQ;
+    const int kvh = h / G;
+    const float* qm = q + ((long long)b * H + h) * S * D;
+    const float* km = k + ((long long)b * KV + kvh) * S * D;
+    const float* vm = v + ((long long)b * KV + kvh) * S * D;
+    const int k_end = causal ? min(S, q0 + FP_BQ) : S;
+    const int ntiles = (k_end + BK - 1) / BK;
+
+    // Q (rows past S zero) with tile 0, then tile 1
+    for (int c = tid; c < FP_BQ * D4; c += NT) {
+      const int r = c / D4, c4 = c % D4;
+      const bool ok = q0 + r < S;
+      cp_async16(q_s + r * KS4 + (c4 ^ ((r / TM) & 3)),
+                 qm + (long long)(ok ? q0 + r : 0) * D + c4 * 4, ok ? 16 : 0);
+    }
+    auto load = [&](int t) {
+      float4* ks = ring + (t % FP_STAGES) * Tl::STAGE4;
+      float4* vs = ks + BK * KS4;
+      const int k0 = t * BK;
+      for (int c = tid; c < BK * D4; c += NT) {
+        const int r = c / D4, c4 = c % D4;
+        const bool ok = k0 + r < S;
+        const long long off = (long long)(ok ? k0 + r : 0) * D + c4 * 4;
+        cp_async16(ks + r * KS4 + c4, km + off, ok ? 16 : 0);
+        cp_async16(vs + r * D4 + c4, vm + off, ok ? 16 : 0);
+      }
+    };
+#pragma unroll
+    for (int t = 0; t < FP_STAGES - 1; ++t) {
+      if (t < ntiles) load(t);
+      cp_async_commit();
+    }
+
+    float4 acc[TM][TC];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < TC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    float m[TM], l[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      m[i] = NEG_L2;
+      l[i] = 0.0f;  // this lane's share: its keys' p
+    }
+    // the last query row of this warp, for the causal skip
+    const int warp_last_row = q0 + rw * RW + RW - 1;
+
+    for (int t = 0; t < ntiles; ++t) {
+      cp_async_wait<FP_STAGES - 2>();
+      __syncthreads();  // tile t is in; tile t - 1's stage is free
+      if (t + FP_STAGES - 1 < ntiles) load(t + FP_STAGES - 1);
+      cp_async_commit();
+      const float4* ks = ring + (t % FP_STAGES) * Tl::STAGE4;
+      const float4* vs = ks + BK * KS4;
+      const int kb = kw * KW;      // this warp's keys in the tile
+      const int key0 = t * BK + kb;
+      if (key0 >= S || (causal && key0 > warp_last_row)) continue;
+
+      // scores of rows row0 + i, keys kb + cg + 8 j
+      float sc[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) sc[i][j] = 0.0f;
+#pragma unroll 2
+      for (int d4 = 0; d4 < D4; ++d4) {
+        float4 qv[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) qv[i] = q_s[(row0 + i) * KS4 + (d4 ^ rg)];
+        // two keys at a time, component by component: a score's four
+        // FMAs (in dot4's order) stand 2 TM FMAs apart, past the latency
+#pragma unroll
+        for (int j = 0; j < TN; j += 2) {
+          const float4 k0 = ks[(kb + cg + 8 * j) * KS4 + d4];
+          const float4 k1 = ks[(kb + cg + 8 * j + 8) * KS4 + d4];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            sc[i][j] = __fmaf_rn(qv[i].x, k0.x, sc[i][j]);
+            sc[i][j + 1] = __fmaf_rn(qv[i].x, k1.x, sc[i][j + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            sc[i][j] = __fmaf_rn(qv[i].y, k0.y, sc[i][j]);
+            sc[i][j + 1] = __fmaf_rn(qv[i].y, k1.y, sc[i][j + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            sc[i][j] = __fmaf_rn(qv[i].z, k0.z, sc[i][j]);
+            sc[i][j + 1] = __fmaf_rn(qv[i].z, k1.z, sc[i][j + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            sc[i][j] = __fmaf_rn(qv[i].w, k0.w, sc[i][j]);
+            sc[i][j + 1] = __fmaf_rn(qv[i].w, k1.w, sc[i][j + 1]);
+          }
+        }
+      }
+      // the online softmax in base 2 over the warp's keys
+      float alpha[TM];
+      if (key0 + KW > S || (causal && key0 + KW - 1 > q0 + rw * RW))
+        fp_softmax<TM, TN, true>(sc, m, l, alpha, scale_log2, key0 + cg,
+                                 q0 + row0, S, causal);
+      else
+        fp_softmax<TM, TN, false>(sc, m, l, alpha, scale_log2, key0 + cg,
+                                  q0 + row0, S, causal);
+      // P^T: key kb' = cg + 8 j, rows rg TM + i as float4s
+      __syncwarp();  // the previous tile's P . V has read p_s
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+#pragma unroll
+        for (int i = 0; i < TM; i += 4)
+          *reinterpret_cast<float4*>(p_s + (cg + 8 * j) * PS + rg * TM + i) =
+              make_float4(sc[i][j], sc[i + 1][j], sc[i + 2][j], sc[i + 3][j]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) acc[i][c] = scale4(acc[i][c], alpha[i]);
+      __syncwarp();
+      // acc[i][c] += sum_key p[row i][key] v[key][float4 cg + 8 c]
+#pragma unroll 4
+      for (int kk = 0; kk < KW; ++kk) {
+        float p[TM];
+#pragma unroll
+        for (int i = 0; i < TM; i += 4) {
+          const float4 p4 =
+              *reinterpret_cast<const float4*>(p_s + kk * PS + rg * TM + i);
+          p[i] = p4.x;
+          p[i + 1] = p4.y;
+          p[i + 2] = p4.z;
+          p[i + 3] = p4.w;
+        }
+        float4 vv[TC];
+#pragma unroll
+        for (int c = 0; c < TC; ++c) vv[c] = vs[(kb + kk) * D4 + cg + 8 * c];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; ++c) acc[i][c] = axpy4(p[i], vv[c], acc[i][c]);
+      }
+    }
+
+    // the row sums: each lane holds its keys' share
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 1));
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 2));
+      l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 4));
+    }
+    float* om = out + ((long long)b * H + h) * S * D;
+    if constexpr (Tl::KEY_WARPS == 1) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int row = q0 + row0 + i;
+        if (row >= S) continue;
+        const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+          const float4 a = acc[i][c];
+          *reinterpret_cast<float4*>(om + (long long)row * D + (cg + 8 * c) * 4) =
+              make_float4(__fdiv_rn(a.x, den), __fdiv_rn(a.y, den),
+                          __fdiv_rn(a.z, den), __fdiv_rn(a.w, den));
+        }
+      }
+    } else {
+      // the second key warp of each row set hands (m, l, acc) to the first
+      // through the ring, which the first merges and writes
+      cp_async_wait<0>();
+      __syncthreads();  // the ring is free
+      float* red = reinterpret_cast<float*>(ring);  // [FP_BQ][D + 4]
+      if (kw == 1) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          float* rr = red + (row0 + i) * (D + 4);
+#pragma unroll
+          for (int c = 0; c < TC; ++c)
+            *reinterpret_cast<float4*>(rr + (cg + 8 * c) * 4) = acc[i][c];
+          if (cg == 0) {
+            rr[D] = m[i];
+            rr[D + 1] = l[i];
+          }
+        }
+      }
+      __syncthreads();
+      if (kw == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int row = q0 + row0 + i;
+          if (row >= S) continue;
+          const float* rr = red + (row0 + i) * (D + 4);
+          const float m1 = rr[D], l1 = rr[D + 1];
+          const float mm = fmaxf(m[i], m1);
+          const float f0 = ex2(__fsub_rn(m[i], mm));
+          const float f1 = ex2(__fsub_rn(m1, mm));
+          const float den = fmaxf(
+              __fadd_rn(__fmul_rn(f0, l[i]), __fmul_rn(f1, l1)), 1e-30f);
+#pragma unroll
+          for (int c = 0; c < TC; ++c) {
+            const float4 a = acc[i][c];
+            const float4 o = *reinterpret_cast<const float4*>(
+                rr + (cg + 8 * c) * 4);
+            *reinterpret_cast<float4*>(om + (long long)row * D +
+                                       (cg + 8 * c) * 4) = make_float4(
+                __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.x), __fmul_rn(f1, o.x)), den),
+                __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.y), __fmul_rn(f1, o.y)), den),
+                __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.z), __fmul_rn(f1, o.z)), den),
+                __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.w), __fmul_rn(f1, o.w)), den));
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  // the last block to leave resets the ticket for the next launch
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(ticket + 1, 1) == (int)gridDim.x - 1) {
+      atomicExch(ticket, 0);
+      atomicExch(ticket + 1, 0);
+    }
+  }
+}
+
+template <int D>
+static int fp_launch(const float* q, const float* k, const float* v,
+                     float* out, int* ticket, int B, int H, int KV, int S,
+                     int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = FpTile<D>::SMEM;
+  // blocks that fit on each card at once (0 until its first launch)
+  static int slots[FP_MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + FP_BQ - 1) / FP_BQ, H, B);
-  flash_prefill_kernel<T, D><<<grid, FP_THREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, out, H, KV, S, causal, scale);
+  if (dev < 0 || dev >= FP_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (slots[dev] == 0) {
+    err = cudaFuncSetAttribute(flash_prefill_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, flash_prefill_kernel<D>, FpTile<D>::THREADS, smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    slots[dev] = per_sm * sms;
+  }
+  const long long items = (long long)((S + FP_BQ - 1) / FP_BQ) * H * B;
+  const int grid = (int)(items < slots[dev] ? items : slots[dev]);
+  flash_prefill_kernel<D><<<grid, FpTile<D>::THREADS, smem, stream>>>(
+      q, k, v, out, ticket, B, H, KV, S, causal, scale * TC_LOG2E);
   return (int)cudaGetLastError();
 }
 
 // float32 q (B, H, S, D), k / v (B, KV, S, D); D in {64, 128, 256};
-// H % KV == 0; S >= 1.
+// H % KV == 0; S >= 1. ticket: two ints, 0 between launches, used by one
+// stream at a time.
 extern "C" int flash_prefill_launch(const float* q, const float* k,
-                                    const float* v, float* out, int B, int H,
-                                    int KV, int S, int D, int causal,
-                                    float scale, void* stream) {
+                                    const float* v, float* out, int* ticket,
+                                    int B, int H, int KV, int S, int D,
+                                    int causal, float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
-      return fp_launch<float, 64>(q, k, v, out, B, H, KV, S, causal, scale,
-                                  stream);
+      return fp_launch<64>(q, k, v, out, ticket, B, H, KV, S, causal, scale, s);
     case 128:
-      return fp_launch<float, 128>(q, k, v, out, B, H, KV, S, causal, scale,
-                                   stream);
+      return fp_launch<128>(q, k, v, out, ticket, B, H, KV, S, causal, scale,
+                            s);
     case 256:
-      return fp_launch<float, 256>(q, k, v, out, B, H, KV, S, causal, scale,
-                                   stream);
+      return fp_launch<256>(q, k, v, out, ticket, B, H, KV, S, causal, scale,
+                            s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,13 +6,22 @@ query head h reads KV head ``h // (H / KV_H)``.
 ``flash_decode`` launches ``csrc/flash_decode.cu`` for CUDA tensors and runs
 ``flash_decode_plain`` for CPU tensors; ``launches`` counts its calls that
 launch a kernel. Each dtype has its own kernel, and neither stands in for
-the other: bf16 runs ``flash_decode_tc_launch`` (both products on the
-tensor cores, K/V fed by a ``cp.async`` ring; G <= ``MAX_GROUP_TC``),
-float32 ``flash_decode_launch`` (the CUDA cores; G * D <=
-``MAX_GROUP_WIDTH``). Both cut the cache into ``decode_splits`` splits, one
-block per split, KV head and batch row, then combine the splits. The
-kernels take any S: keys past the end of the cache are left out, so no
-padding is needed.
+the other. Both cut the cache into splits, one block per split, KV head
+and batch row, with K and V fed through a ``cp.async`` ring and each warp
+on its own keys:
+
+  * bf16: ``flash_decode_tc_launch``, both products on the tensor cores
+    (G <= ``MAX_GROUP_TC``), ``decode_splits`` splits, then a combine
+    kernel merges them: two device operations a call;
+  * float32: ``flash_decode_launch``, the CUDA cores (G * D <=
+    ``MAX_GROUP_WIDTH``), ``decode_splits_f32`` splits (at least two blocks
+    an SM where S allows); the last block of each (batch row, KV head)
+    merges the splits in the same launch: one device operation a call.
+
+The kernels take any S: keys past the end of the cache are left out, so no
+padding is needed. The partials (and the float32 kernel's counters, 0
+between launches) live in a scratch per (device, stream), grown as
+needed, so a call allocates nothing but its output.
 
 The plain version is the dense oracle. It groups q as ``(B, KV_H, G, D)``
 and walks the KV heads, so its float32 temporaries stay one head of the
@@ -21,22 +30,43 @@ cache at a time (no ``repeat_interleave`` of the cache).
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
+from . import build
+
 __all__ = ["HEAD_DIMS", "MAX_GROUP_WIDTH", "MAX_GROUP_TC", "MIN_SPLIT",
-           "decode_splits", "split_bounds", "flash_decode_plain",
+           "MIN_SPLIT_F32", "F32_WARPS", "F32_TILE_KEYS", "decode_splits",
+           "decode_splits_f32", "split_bounds", "flash_decode_plain",
            "flash_decode"]
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' instances
-MAX_GROUP_WIDTH = 4096    # float32: 4 * FD_THREADS * FD_SLOTS, the most G * D a block holds
+MAX_GROUP_WIDTH = 4096    # float32: 128 * FD_LARGE, the most G * D a warp holds
 MAX_GROUP_TC = 16         # bf16: FDT_M, the mma rows that hold a group's heads
 MIN_SPLIT = 256           # fewest keys a split keeps (S allowing)
 MAX_SPLIT = 2048          # most keys a split takes, so blocks come in many waves
 BLOCKS_PER_SM = 4         # blocks a call aims at, per SM
-# library and entry of each dtype's kernel
-_ENTRIES = {torch.bfloat16: ("flash_decode", "flash_decode_tc_launch"),
-            torch.float32: ("flash_decode", "flash_decode_launch")}
+# float32: splits as short as a tile of the kernel's ring at D = 128, so
+# that small batches put two blocks on every SM
+MIN_SPLIT_F32 = 32
+MAX_SPLIT_F32 = 2048
+BLOCKS_PER_SM_F32 = 2
+# its in-launch merge stages 2^(m - max) and l of every (head, split) of
+# a group in shared memory: G * nsplit <= MERGE_WORDS (FD_MERGE_WORDS)
+MERGE_WORDS = 8192
+# the float32 kernel's warps (FD_WARPS) and keys a ring stage (4096 / D:
+# 32 KB of K and V); each warp takes a quarter of every stage's keys
+F32_WARPS = 4
+F32_TILE_KEYS = {D: 4096 // D for D in HEAD_DIMS}
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# library, entry and C prototype of each dtype's kernel: (q, k, v, bias,
+# out, acc, m, l, [counters], B, H, KV_H, S, D, nsplit, scale, stream)
+_ENTRIES = {
+    torch.bfloat16: ("flash_decode", "flash_decode_tc_launch",
+                     [_VP] * 8 + [_INT] * 6 + [ctypes.c_float, _VP]),
+    torch.float32: ("flash_decode", "flash_decode_launch",
+                    [_VP] * 9 + [_INT] * 6 + [ctypes.c_float, _VP])}
 
 
 def decode_splits(rows: int, S: int, sms: int) -> int:
@@ -49,6 +79,18 @@ def decode_splits(rows: int, S: int, sms: int) -> int:
     return max(1, min(want, S // MIN_SPLIT))
 
 
+def decode_splits_f32(rows: int, S: int, sms: int, group: int = 1) -> int:
+    """``decode_splits`` for the float32 kernel: enough splits for
+    ``BLOCKS_PER_SM_F32`` blocks an SM and splits of at most
+    ``MAX_SPLIT_F32`` keys, but none under ``MIN_SPLIT_F32`` keys while S
+    allows (at phase D's 4 rows of 4,096 keys on 132 SMs: 66 splits of 62
+    or 63 keys), and at most ``MERGE_WORDS // group`` for a group of
+    ``group`` query heads."""
+    want = max(-(-BLOCKS_PER_SM_F32 * sms // max(rows, 1)),
+               -(-S // MAX_SPLIT_F32))
+    return max(1, min(want, S // MIN_SPLIT_F32, MERGE_WORDS // group))
+
+
 def split_bounds(S: int, nsplit: int) -> list:
     """[begin, end) of each split, as the kernels compute them: split i
     covers keys [i S / n, (i + 1) S / n)."""
@@ -56,7 +98,7 @@ def split_bounds(S: int, nsplit: int) -> list:
 
 
 def _shapes(q, k, v, bias):
-    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
+    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     B, H, D = q.shape
@@ -64,12 +106,12 @@ def _shapes(q, k, v, bias):
     if k.shape[0] != B or k.shape[3] != D or KVH == 0 or H % KVH:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} against k "
                          f"{tuple(k.shape)}")
-    if tuple(bias.shape) != (B, S) or bias.dtype != torch.float32:
+    if bias.shape != (B, S) or bias.dtype != torch.float32:
         raise ValueError(f"flash_decode: bias must be ({B}, {S}) float32, got "
                          f"{tuple(bias.shape)} {bias.dtype}")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_decode: q {q.dtype}, k {k.dtype}, v {v.dtype}")
-    if len({t.device for t in (q, k, v, bias)}) != 1:
+    if not q.device == k.device == v.device == bias.device:
         raise ValueError("flash_decode: operands on different devices")
     return B, H, KVH, S, D
 
@@ -109,36 +151,79 @@ def flash_decode(q, k, v, bias) -> torch.Tensor:
                          f"{HEAD_DIMS}, G <= {MAX_GROUP_TC} (bf16) or G * D "
                          f"<= {MAX_GROUP_WIDTH} (float32), and S >= 1; got "
                          f"D={D}, G={G}, S={S}")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    out = _launch(q, k, v, bias, decode_splits(B * KVH, S, sms))
+    if q.dtype == torch.bfloat16:
+        nsplit = decode_splits(B * KVH, S, _sms(q.device))
+    else:
+        nsplit = decode_splits_f32(B * KVH, S, _sms(q.device), G)
+    out = _launch(q, k, v, bias, nsplit)
     flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+_SMS: Dict[object, int] = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count of ``device``, asked once a card."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+class _Scratch:
+    """The partials of one (device, stream): ``parts`` (acc, then m and l)
+    and the float32 kernel's ``counters`` (zero when made; the kernel
+    leaves them at 0)."""
+
+    def __init__(self, device, floats: int, counters: int):
+        self.parts = torch.empty(floats, dtype=torch.float32, device=device)
+        self.counters = torch.zeros(counters, dtype=torch.int32,
+                                    device=device)
+
+
+_SCRATCH: Dict[Tuple[object, int], _Scratch] = {}
+
+
+def _scratch(device, stream: int, floats: int, counters: int) -> _Scratch:
+    """The scratch of ``stream`` on ``device``, grown (each part to a power
+    of two, never below its size) when a launch needs more."""
+    s = _SCRATCH.get((device.index, stream))
+    if s is None or s.parts.numel() < floats or \
+            s.counters.numel() < counters:
+        have = (0, 0) if s is None else (s.parts.numel(), s.counters.numel())
+        s = _SCRATCH[(device.index, stream)] = _Scratch(
+            device, max(have[0], 1 << (floats - 1).bit_length()),
+            max(have[1], 1 << (counters - 1).bit_length()))
+    return s
 
 
 def _launch(q, k, v, bias, nsplit: int) -> torch.Tensor:
     """Launch q.dtype's kernel on q's stream, or raise; the partials hold
     ``nsplit`` splits of every head."""
-    from . import build
-
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
-    name, entry = _ENTRIES[q.dtype]
-    fn = getattr(build.library(name), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    q, k, v, bias = (build.vector_operand(t) for t in (q, k, v, bias))
-    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    name, entry, argtypes = _ENTRIES[q.dtype]
+    fn = build.entry(name, entry, argtypes)
+    vec = build.vector_operand
+    q, k, v, bias = vec(q), vec(k), vec(v), vec(bias)
+    dev = q.device
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     ml = B * H * nsplit
-    part = torch.empty((ml * (D + 2),), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-                       part[ml * D:].data_ptr(), part[ml * (D + 1):].data_ptr(),
-                       B, H, KVH, S, D, nsplit, 1.0 / D ** 0.5, stream),
-                    entry)
+    with build.on_device(dev):
+        stream = build.current_stream(dev)
+        s = _scratch(dev, stream, ml * (D + 2), B * KVH)
+        part = s.parts.data_ptr()
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), part, part + 4 * ml * D,
+                part + 4 * ml * (D + 1))
+        if q.dtype == torch.float32:
+            ptrs += (s.counters.data_ptr(),)
+        err = fn(*ptrs, B, H, KVH, S, D, nsplit, 1.0 / D ** 0.5, stream)
+        if err:
+            # a refused launch may leave the counters mid-count
+            del _SCRATCH[(dev.index, stream)]
+        build.check(err, entry)
     return out

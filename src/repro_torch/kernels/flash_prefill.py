@@ -11,9 +11,14 @@ the other:
   * bf16: ``csrc/flash_prefill_tc.cu``, on the tensor cores (``wgmma``):
     one block of a TMA producer and two consumer warpgroups per 128 query
     rows, head and batch row; K and V stream through a two-stage ring;
-  * float32: ``csrc/flash_prefill.cu``, on the CUDA cores: one block per 64
-    query rows, head and batch row. The reference computes in float32, and
-    the tensor cores' TF32 keeps too few digits for its tolerances.
+  * float32: ``csrc/flash_prefill.cu``, on the CUDA cores. The reference
+    computes in float32, and the tensor cores' TF32 keeps too few digits
+    for its tolerances. A persistent grid (one block of four warps an SM)
+    takes work items of ``TILE_Q`` query rows, head and batch row from a
+    ticket counter in ``work_order``, heaviest first; K and V stream
+    through a ``cp.async`` ring; each warp keeps its scores and its online
+    softmax in registers (base 2). The counter lives in a scratch per
+    (device, stream), which the kernel leaves at 0.
 
 Both run an online softmax over key tiles, so no S x S score matrix
 exists, and take any S: keys past the end are left out, causal or not, so
@@ -25,16 +30,40 @@ so its float32 scores are one group's ``(G, S, S)`` at a time.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, List, Tuple
 
 import torch
 
-__all__ = ["HEAD_DIMS", "flash_prefill_plain", "flash_prefill"]
+from . import build
+
+__all__ = ["HEAD_DIMS", "TILE_Q", "F32_SHAPES", "work_order",
+           "flash_prefill_plain", "flash_prefill"]
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' instances
-# library and entry of each dtype's kernel
-_ENTRIES = {torch.bfloat16: ("flash_prefill_tc", "flash_prefill_tc_launch"),
-            torch.float32: ("flash_prefill", "flash_prefill_launch")}
+TILE_Q = 64  # query rows of a float32 work item (FP_BQ)
+# the float32 kernel's FpShape<D>: (row warps, key warps, keys a tile); a
+# warp takes TILE_Q / row warps rows and keys a tile / key warps keys
+F32_SHAPES = {64: (2, 2, 128), 128: (4, 1, 64), 256: (4, 1, 32)}
 _MASK = -1e30  # the reference's causal mask value
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+# library, entry and C prototype of each dtype's kernel: (q, k, v, out,
+# [ticket], B, H, KV, S, D, causal, scale, stream)
+_ENTRIES = {
+    torch.bfloat16: ("flash_prefill_tc", "flash_prefill_tc_launch",
+                     [_VP] * 4 + [_INT] * 6 + [ctypes.c_float, _VP]),
+    torch.float32: ("flash_prefill", "flash_prefill_launch",
+                    [_VP] * 5 + [_INT] * 6 + [ctypes.c_float, _VP])}
+
+
+def work_order(S: int, H: int, B: int) -> List[Tuple[int, int, int]]:
+    """The float32 kernel's work items (query tile, head, batch row) in the
+    order its blocks take them from the ticket: the last query tile first
+    (under causal attention it walks the most keys; under full attention
+    every tile walks all S), and within a tile batch row by batch row,
+    head by head."""
+    T = -(-S // TILE_Q)
+    return [(T - 1 - n // (H * B), n % (H * B) % H, n % (H * B) // H)
+            for n in range(T * H * B)]
 
 
 def _shapes(q, k, v):
@@ -94,21 +123,32 @@ def flash_prefill(q, k, v, causal: bool = True) -> torch.Tensor:
 flash_prefill.launches = 0
 
 
+# the float32 kernel's ticket per (device index, stream): [next item,
+# blocks done], 0 between launches
+_TICKETS: Dict[Tuple[object, int], torch.Tensor] = {}
+
+
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     """Launch q.dtype's kernel on q's stream, or raise."""
-    from . import build
-
     B, H, S, D = q.shape
-    name, entry = _ENTRIES[q.dtype]
-    fn = getattr(build.library(name), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    name, entry, argtypes = _ENTRIES[q.dtype]
+    fn = build.entry(name, entry, argtypes)
     q, k, v = (build.vector_operand(t) for t in (q, k, v))
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       out.data_ptr(), B, H, k.shape[1], S, D,
-                       int(bool(causal)), 1.0 / D ** 0.5, stream), entry)
+    dev = q.device
+    with build.on_device(dev):
+        stream = build.current_stream(dev)
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+        if q.dtype == torch.float32:
+            ticket = _TICKETS.get((dev.index, stream))
+            if ticket is None:
+                ticket = _TICKETS[(dev.index, stream)] = torch.zeros(
+                    2, dtype=torch.int32, device=dev)
+            args.append(ticket.data_ptr())
+        err = fn(*args, B, H, k.shape[1], S, D, int(bool(causal)),
+                 1.0 / D ** 0.5, stream)
+        if err and q.dtype == torch.float32:
+            # a refused launch may leave the ticket mid-count
+            del _TICKETS[(dev.index, stream)]
+        build.check(err, entry)
     return out

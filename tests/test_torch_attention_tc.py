@@ -277,6 +277,9 @@ def _fake_card(monkeypatch, calls, rc=0, refuse=()):
             raise RuntimeError(f"nvcc failed for {name}")
         return _FakeLibrary(name, calls, rc)
     monkeypatch.setattr(build, "library", library)
+    # entries are looked up once and cached: start from none
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    monkeypatch.setattr(build, "current_stream", lambda d: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
