@@ -23,7 +23,9 @@ fresh engine), a route flip at B, and the CSR index at A (the
 the data plane: the micro-batcher, a fleet of four replicas with one
 crashed, ``serve --mode join`` and the Poisson-join training-data source
 over a million-document corpus; then (phase H) sharded sampling on a mesh
-of four entries on the card. It builds
+of four entries on the card; then (phase I) LM serving: ``serve_batch``
+at smollm-135m's published config in bf16, its prefill through
+``flash_prefill`` and its decode steps through ``flash_decode``. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -57,7 +59,10 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        to 8) at both, of 4 keys at A, every lane held bit
                        for bit against ``sample(keys[b])``; the batched
                        kernels against their plain versions at B and C (1,
-                       32 and 64 keys, flat PTBERN); ``uniform_sample`` at A
+                       32 and 64 keys, flat PTBERN) and at ``serve --mode
+                       join``'s demo corpus, each launch again through the
+                       checked build (``fused_draw.out_of_bounds``: no load
+                       outside its operands); ``uniform_sample`` at A
                        (p = 0.05 and 0.7) and BINOM at B; the facades at B;
                        five per-node draws of one key at A; the float64
                        mass prefix at A against ``torch.cumsum``.
@@ -109,6 +114,21 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        single draws, ``MicroBatcher(mesh=)`` over phase G's
                        stream, ``serve.main --devices 4``; times beside
                        single-device.
+  I  lm-serving        smollm-135m at its published config (30 layers,
+                       d_model 576, H 9, KV 3, head dim 64, vocabulary
+                       49,152, tied embeddings; 135 M float32 parameters
+                       drawn from ``--seed``, bf16 compute; not cut):
+                       ``serve_batch`` of 8 prompts of 128-1,024 tokens
+                       (from ``--seed``), 32 greedy tokens each, with 30
+                       ``flash_prefill`` launches a prefill, 30
+                       ``flash_decode`` a step and no plain attention call;
+                       each kernel at layers 0 and 29 against its plain
+                       version on the model's own q, k, v (prefill and one
+                       step); at float32 compute ``prefill`` and a
+                       ``decode_step`` against ``forward``; the bf16
+                       prefill's logits against the plain path's. Shrink
+                       it with ``--lm-requests``, ``--lm-prompt-min``,
+                       ``--lm-prompt-max`` and ``--lm-new``.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32; float64), the
                        float scans bit for bit against ``scan_order`` at
@@ -1031,10 +1051,12 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
 
     from repro_torch.core import (Atom, Database, JoinQuery, PoissonSampler,
                                   estimate, sampling, yannakakis)
+    from repro_torch.data import make_corpus_db
     from repro_torch.engine import QueryEngine
     from repro_torch.kernels import fused_draw as fd_mod
     from repro_torch.kernels import prefix_sum as ps_mod
     from repro_torch.kernels import threefry
+    from repro_torch.launch import serve
 
     on_card = device.type == "cuda"
     (tabA, engA, planA), (tabB, engB, planB), (tabC, engC, planC) = (
@@ -1161,7 +1183,30 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
         Atom.of("Cast2", "t", "person2"), Atom.of("Comp2", "t", "comp2")),
         prob_var="p"))
     assert plan5.shred.packed.layout.num_slots == 5
+    # serve --mode join's corpus (DEMO_CORPUS: 64 clusters): a root of 64
+    # rows takes 128 arrival lanes, an eighth of a tile, the shape whose
+    # last tile once read past the scratch (phase G's G.cli)
+    demo = make_corpus_db(**serve.DEMO_CORPUS, device=device)
+    demo_plan = QueryEngine(demo, device=device,
+                            kernel_policy=engB.kernel_policy).compile
+    planQ = demo_plan(JoinQuery((Atom.of("ClusterQuality", "clust", "p"),),
+                                prob_var="p"))
+    planQD = demo_plan(JoinQuery((Atom.of("ClusterQuality", "clust", "p"),
+                                  Atom.of("Doc", "doc", "clust")),
+                                 prob_var="p"))
+    demo_cases = (
+        ("the demo's ClusterQuality, a bucket of 64", planQ, keys64,
+         "exprace"),
+        ("the demo's ClusterQuality, one key", planQ, keysB[:1], "exprace"),
+        ("the demo's ClusterQuality, flat PTBERN", planQ, keysB,
+         "ptbern_flat"),
+        ("the demo's ClusterQuality |><| Doc", planQD, keysB, "exprace"))
+    # (the CPU rehearsal's small draw budget routes the corpus elsewhere)
+    assert planQ.route == planQD.route == "fused" or not on_card
+    if planQD.route != "fused":
+        demo_cases = demo_cases[:3] if planQ.route == "fused" else ()
     tiles = {"staged": 0, "fallback": 0}
+    bounds = {"launches": 0, "loads": 0}
     for label, plan, keys, method in (
             ("B", planB, keysB, "exprace"),
             ("B, flat PTBERN", planB, keysB, "ptbern_flat"),
@@ -1170,7 +1215,8 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
             ("C, a bucket of 64", planC, keys64, "exprace"),
             ("B at p = 0.01", planS, keysB, "exprace"),
             ("B, Title |><| Cast", planTC, keysB, "exprace"),
-            ("five relations", plan5, keysB[:4], "exprace")):
+            ("five relations", plan5, keysB[:4], "exprace"),
+            *demo_cases):
         pk = plan.shred.packed
         kw = dict(method=method, cap=plan.default_capacity(),
                   acap=plan.arrival_capacity() if method == "exprace" else 0,
@@ -1196,6 +1242,15 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
             counts["fused_sample_batch"] = fd_mod.tile_stats(
                 None, None, plan.draw_params, keys=keys, **kw)
             assert all(c == counts["model"] for c in counts.values()), counts
+            # the checked build: every load inside the launch's operands
+            for arena in (pk.arena, None):
+                out = fd_mod.out_of_bounds(
+                    arena, None, plan.draw_params,
+                    layout=None if arena is None else pk.layout, keys=keys,
+                    **kw)
+                bounds["launches"] += 1
+                bounds["loads"] += out["count"]
+                assert out["count"] == 0, (label, arena is None, out)
         for k in tiles:
             tiles[k] += counts["model"][k]
         log(f"[check] fused_draw_batch / fused_sample_batch at {label} "
@@ -1206,8 +1261,13 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
         del got, want, pos
     log(f"[check] the batched draw's tile searches over the checks: "
         f"{tiles['staged']} staged, {tiles['fallback']} fell back")
+    if on_card:
+        log(f"[check] the checked build (FD_CHECK_BOUNDS) over the same "
+            f"{bounds['launches']} launches, fused_draw_batch and "
+            f"fused_sample_batch: {bounds['loads']} loads outside their "
+            f"operands")
     assert tiles["staged"] > 0 and tiles["fallback"] > 0, tiles
-    del planS, planTC, plan5
+    del planS, planTC, plan5, planQ, planQD, demo
     if on_card:
         for label, walk, plan, nkeys in (("B", True, planB, args.draws),
                                          ("C", False, planC, args.draws),
@@ -2781,6 +2841,341 @@ def run_sharding(args, device, q, configs, kernels, kernel_policy):
     return launches, e2e
 
 
+# bf16 logits of the kernel path against the plain path's (phase I): about
+# twice the spread that one bf16 ulp of attention noise on half the outputs
+# gives at full width and depth (0.045 at S 256 on the CPU), a fifth of the
+# logits' standard deviation (0.48)
+LM_PATH_TOL = 0.1
+LM_PREFILL_TOL = 5e-3  # float32 prefill and decode against forward
+LM_ARCH = "smollm_135m"
+
+
+class counting_calls:
+    """Counts the calls of ``attr`` of each module in ``targets`` (a
+    list of ``(module, attr)``) while active, and restores them after."""
+
+    def __init__(self, targets):
+        self.targets, self.calls, self.saved = targets, {}, []
+
+    def __enter__(self):
+        for mod, attr in self.targets:
+            fn = getattr(mod, attr)
+            key = f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}"
+            self.calls[key] = 0
+
+            def wrapped(*a, _fn=fn, _key=key, **kw):
+                self.calls[_key] += 1
+                return _fn(*a, **kw)
+
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, wrapped)
+        return self.calls
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+        return False
+
+
+def attention_split(events) -> dict:
+    """Device ms of ``torch.profiler`` events by kind: the attention
+    kernels, the matrix products (cuBLAS), the rest."""
+    split = {"attention": 0.0, "matmul": 0.0, "rest": 0.0}
+    for e in events:
+        name = e.key.lower()
+        if "flash_" in name:
+            kind = "attention"
+        elif any(s in name for s in ("gemm", "gemv", "xmma", "nvjet",
+                                     "cutlass", "matmul", "splitk")):
+            kind = "matmul"
+        else:
+            kind = "rest"
+        split[kind] += e.self_device_time_total / 1e3
+    return split
+
+
+def run_lm(args, device, kernels, kernel_policy=None):
+    """Phase I: LM serving at smollm-135m's published config (30 layers,
+    d_model 576, H 9, KV 3, head dim 64, vocabulary 49,152; 135 M float32
+    parameters drawn from ``--seed``, bf16 compute): ``serve_batch`` of
+    ``--lm-requests`` prompts of ``--lm-prompt-min`` to ``--lm-prompt-max``
+    tokens (drawn from ``--seed``), ``--lm-new`` greedy tokens each. The
+    main path counts its launches: one ``flash_prefill`` a layer for the
+    prefill and one ``flash_decode`` a layer a step, and no call of a plain
+    attention version. Then the checks: at layers 0 and L-1, in the
+    prefill and in one decode step, each kernel's output on the model's
+    own q, k and v against its plain version (phase D's bf16 tolerance);
+    at float32 compute, ``prefill``'s last logits and one ``decode_step``
+    against ``forward`` (5e-3); in bf16 the kernel path's prefill logits
+    against the plain path's (a disabled policy), within ``LM_PATH_TOL``.
+    Then the times of a warm ``serve_batch``, the kernels at its shapes
+    beside SDPA and, with ``--profile``, the device time of a prefill and
+    of a decode step by kind. Returns the launches and the numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.config import DEFAULT_POLICY, KernelPolicy
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, forward, init_model, prefill
+
+    on_card = device.type == "cuda"
+    policy = kernel_policy or DEFAULT_POLICY
+    e2e = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = configs.get_config(LM_ARCH)
+    L = cfg.n_layers
+    # what earlier phases still hold, left out of phase I's peak
+    held = torch.cuda.memory_allocated(device) if on_card else 0
+    t0 = time.perf_counter()
+    model = init_model(cfg, args.seed, device=device, policy=policy)
+    sync()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[I] {cfg.name}: {L} layers, d_model {cfg.d_model}, H {cfg.n_heads}, "
+        f"KV {cfg.n_kv_heads}, head dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {n_params:,} {cfg.param_dtype} parameters (seed "
+        f"{args.seed}), {cfg.compute_dtype} compute; drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(args.seed + 25)
+    lens = rng.integers(args.lm_prompt_min, args.lm_prompt_max + 1,
+                        args.lm_requests)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in lens]
+
+    def requests():
+        return [serve.Request(prompt=list(p), max_new=args.lm_new)
+                for p in prompts]
+
+    plain_targets = [(dec_mod, "flash_decode_plain"),
+                     (pre_mod, "flash_prefill_plain"),
+                     (ref, "flash_decode_ref"), (ref, "flash_prefill_ref"),
+                     (attn_mod, "blockwise_attention")]
+
+    # -- the main path: serve_batch -------------------------------------------
+    for f in kernels.values():
+        f.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    stats = {}
+    with counting_calls(plain_targets) as plain_calls:
+        t0 = time.perf_counter()
+        done = serve.serve_batch(LM_ARCH, requests(), seed=args.seed,
+                                 reduced=False, params=model, stats=stats)
+        sync()
+        cold_s = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    log(f"[I] launches {({k: v for k, v in launches.items() if v})}; plain "
+        f"attention calls {plain_calls}")
+    if on_card:
+        assert launches["flash_prefill"] == L, launches
+        assert launches["flash_decode"] == L * args.lm_new, launches
+        assert all(v == 0 for k, v in launches.items()
+                   if k not in ("flash_prefill", "flash_decode")), launches
+        assert all(v == 0 for v in plain_calls.values()), plain_calls
+        e2e["peak_device_bytes"] = int(
+            torch.cuda.max_memory_allocated(device)) - held
+    S = int(max(lens))
+    assert all(len(r.out) == args.lm_new and
+               all(0 <= t < cfg.vocab for t in r.out) for r in done)
+    log(f"[I] served {len(done)} requests (prompts {sorted(int(n) for n in lens)}"
+        f" tokens, padded to {S}; cache {stats['cache_len']}), {args.lm_new} "
+        f"tokens each, cold in {cold_s:.2f} s; request 0 -> "
+        f"{done[0].out[:8]}")
+
+    # -- checks ------------------------------------------------------------------
+    B = len(prompts)
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p)
+    toks = toks.to(device)
+    total = S + args.lm_new + 1
+    seen = {"prefill": [], "decode": []}
+
+    def recording(kind, fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            n = len(seen[kind])
+            seen[kind].append((a, kw, out) if n % L in (0, L - 1) else None)
+            return out
+        return wrapped
+
+    saved = ops.prefill_attention, ops.decode_attention
+    ops.prefill_attention = recording("prefill", saved[0])
+    ops.decode_attention = recording("decode", saved[1])
+    try:
+        with torch.no_grad():
+            logits_k, cache = prefill(model, toks, total)
+            decode_step(model, cache, toks[:, -1:], S)
+    finally:
+        ops.prefill_attention, ops.decode_attention = saved
+    sync()
+    errs = {"flash_prefill": 0.0, "flash_decode": 0.0}
+    for kind, plain in (("prefill", pre_mod.flash_prefill_plain),
+                        ("decode", dec_mod.flash_decode_plain)):
+        assert len(seen[kind]) == L, (kind, len(seen[kind]))
+        for layer in (0, L - 1):
+            a, kw, out = seen[kind][layer]
+            want = plain(*a, kw["causal"]) if kind == "prefill" else plain(*a)
+            err = close(out, want, BF16_TOL)
+            name = f"flash_{kind}"
+            errs[name] = max(errs[name], err)
+            log(f"[check] I {name} at layer {layer} on the model's own q, k, "
+                f"v ({' x '.join(str(d) for d in a[0].shape)} queries over "
+                f"{a[1].shape[2]} keys): kernel vs plain max_abs_err "
+                f"{err:.3g} (rtol, atol {BF16_TOL})")
+    del seen, cache
+    # float32 compute, full width and depth: prefill and one decode step
+    # against forward, on the first two prompts
+    m32 = init_model(dataclasses.replace(cfg, compute_dtype="float32"),
+                     args.seed, device=device, policy=policy)
+    t2 = toks[:2]
+    with torch.no_grad():
+        lp, c32 = prefill(m32, t2, S + 2)
+        lf, _ = forward(m32, t2)
+        err_pre = float((lp[:, 0] - lf[:, -1]).abs().max())
+        nxt = lp[:, -1].argmax(-1, keepdim=True)
+        ld, _ = decode_step(m32, c32, nxt, S)
+        lf2, _ = forward(m32, torch.cat([t2, nxt], dim=1))
+        err_dec = float((ld[:, 0] - lf2[:, -1]).abs().max())
+    log(f"[check] I float32 at full width and depth, B 2, S {S}: prefill's "
+        f"last logits vs forward's max_abs_err {err_pre:.3g}; a decode_step "
+        f"at {S} vs forward over {S + 1} tokens {err_dec:.3g} (bound "
+        f"{LM_PREFILL_TOL})")
+    assert err_pre <= LM_PREFILL_TOL and err_dec <= LM_PREFILL_TOL
+    del m32, lp, lf, ld, lf2, c32
+    # bf16: the kernel path's prefill logits against the plain path's
+    model.policy = KernelPolicy(enabled=False)
+    try:
+        with torch.no_grad():
+            logits_p, _ = prefill(model, toks, total)
+    finally:
+        model.policy = policy
+    err_path = float((logits_k - logits_p).abs().max())
+    agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    log(f"[check] I bf16 prefill logits, kernel path vs plain path (B {B}, S "
+        f"{S}): max_abs_err {err_path:.4g} (bound {LM_PATH_TOL}; logits' sd "
+        f"{float(logits_p.float().std()):.3f}), argmax agree on {agree:.3f} "
+        f"of the rows")
+    assert err_path <= LM_PATH_TOL
+    e2e.update(attention_errs=errs, float32_prefill_err=err_pre,
+               float32_decode_err=err_dec, bf16_path_err=err_path,
+               bf16_path_argmax_agree=agree)
+    del logits_k, logits_p
+
+    # -- times: a warm serve_batch, then the kernels at its shapes -----------------
+    stats = {}
+    t0 = time.perf_counter()
+    serve.serve_batch(LM_ARCH, requests(), params=model, stats=stats)
+    sync()
+    wall_s = time.perf_counter() - t0
+    dec = stats["decode_ms"]
+    n_tok = B * args.lm_new
+    e2e.update(batch=B, prompt_lens=[int(n) for n in lens], padded_len=S,
+               new_tokens=args.lm_new, cold_s=cold_s, wall_s=wall_s,
+               prefill_ms=stats["prefill_ms"], decode_step_ms=dec,
+               decode_step_mean_ms=sum(dec) / len(dec),
+               tokens_per_s=n_tok / wall_s,
+               prompt_tokens_per_s=B * S / (stats["prefill_ms"] / 1e3))
+    log(f"[time] I serve_batch (warm): {wall_s * 1e3:.2f} ms for {n_tok} new "
+        f"tokens ({e2e['tokens_per_s']:.1f} tokens/s); prefill of {B} x {S} "
+        f"{stats['prefill_ms']:.3f} ms ({e2e['prompt_tokens_per_s']:.0f} "
+        f"prompt tokens/s); decode step mean {e2e['decode_step_mean_ms']:.3f} "
+        f"ms (min {min(dec):.3f}, max {max(dec):.3f})"
+        + (f"; peak device memory of the cold run "
+           f"{e2e['peak_device_bytes'] / 2**30:.2f} GiB over the "
+           f"{held / 2**30:.2f} GiB earlier phases hold" if on_card else ""))
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + 26)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    qp, kp, vp = randn(B, H, S, D), randn(B, KV, S, D), randn(B, KV, S, D)
+    qd, kd, vd = randn(B, H, D), randn(B, KV, total, D), randn(B, KV, total, D)
+    bias = attn_mod.decode_bias(B, total, S, 0, device)
+    k_times = {
+        "prefill_ms": timed(lambda: ops.prefill_attention(qp, kp, vp),
+                            args.reps, device),
+        "prefill_library_ms": library_timed(
+            lambda: F.scaled_dot_product_attention(qp, kp, vp, is_causal=True,
+                                                   enable_gqa=True),
+            args.reps, device, "I prefill SDPA"),
+        "prefill_bound_ms": bound(2 * (2 * qp.numel() + kp.numel()
+                                       + vp.numel()),
+                                  2 * qp.numel() * S, BF16_TC_OPS_PER_S)[0],
+        "decode_ms": timed(lambda: ops.decode_attention(qd, kd, vd, bias),
+                           args.reps, device),
+        "decode_library_ms": library_timed(
+            lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kd, vd, attn_mask=(bias == 0)[:, None, None],
+                enable_gqa=True), args.reps, device, "I decode SDPA"),
+        "decode_bound_ms": bound(2 * (kd.numel() + vd.numel() + 2 * qd.numel())
+                                 + 4 * bias.numel(),
+                                 4 * qd.numel() * total, BF16_TC_OPS_PER_S)[0],
+        "prefill_plain_ms": timed(lambda: pre_mod.flash_prefill_plain(
+            qp, kp, vp, True), 1, device),
+        "decode_plain_ms": timed(lambda: dec_mod.flash_decode_plain(
+            qd, kd, vd, bias), 1, device)}
+    e2e["kernel_times"] = k_times
+    lib = {k: "refused" if v is None else f"{v:.4f}"
+           for k, v in k_times.items()}
+    log(f"[time] I flash_prefill at B {B}, H {H}, KV {KV}, S {S}, D {D} "
+        f"causal: {k_times['prefill_ms']:.4f} ms (plain "
+        f"{lib['prefill_plain_ms']}, SDPA {lib['prefill_library_ms']}, bound "
+        f"{lib['prefill_bound_ms']}); flash_decode over {total} keys: "
+        f"{k_times['decode_ms']:.4f} ms (plain {lib['decode_plain_ms']}, SDPA "
+        f"{lib['decode_library_ms']}, bound {lib['decode_bound_ms']}); x {L} "
+        f"layers: "
+        f"{L * k_times['prefill_ms']:.3f} ms a prefill, "
+        f"{L * k_times['decode_ms']:.3f} ms a step")
+    del qp, kp, vp, qd, kd, vd
+    if on_card and args.profile:
+        with torch.no_grad():
+            _, cache = prefill(model, toks, total)
+            sync()
+            nxt = toks[:, -1:]
+            windows = {
+                "prefill": lambda: prefill(model, toks, total),
+                "decode step": lambda: decode_step(model, cache, nxt, S)}
+            for label, fn in windows.items():
+                wall = wall_ms(fn, device)
+                events = device_events(fn, 1)
+                split = attention_split(events)
+                busy = sum(split.values())
+                n_ops = sum(e.count for e in events)
+                e2e[f"profile_{label}"] = dict(split, busy_ms=busy,
+                                               wall_ms=wall, device_ops=n_ops,
+                                               idle_share=1 - busy / wall)
+                log(f"[profile] I {label}: device busy {busy:.3f} ms of "
+                    f"{wall:.3f} ms warm wall (idle share "
+                    f"{1 - busy / wall:.3f}): attention kernels "
+                    f"{split['attention']:.3f}, matrix products "
+                    f"{split['matmul']:.3f}, the rest {split['rest']:.3f}; "
+                    f"{n_ops} device operations ({len(events)} kernels by "
+                    "name)")
+                for e in sorted(events, key=lambda e: -e.self_device_time_total
+                                )[:6]:
+                    log(f"[profile] I {label}:   "
+                        f"{e.self_device_time_total / 1e3:8.3f} ms  "
+                        f"x{e.count:<4d} {e.key[:80]}")
+    del model
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, e2e
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -2828,8 +3223,10 @@ def run(args, device, kernel_policy=None) -> dict:
     # -- 2. build ------------------------------------------------------------
     if on_card:
         t0 = time.perf_counter()
-        reports = build.build_all()
-        log(f"[build] {len(build.SOURCES)} kernels in "
+        # the checked build of the draw (phase E's bounds checks) with them
+        reports = build.build_all(build.SOURCES + tuple(build.VARIANTS))
+        log(f"[build] {len(build.SOURCES)} kernels and "
+            f"{len(build.VARIANTS)} checked build in "
             f"{time.perf_counter() - t0:.1f} s")
         for name in build.SOURCES:
             text = reports.get(name) or build.ptxas_report(name)
@@ -3374,13 +3771,19 @@ def run(args, device, kernel_policy=None) -> dict:
     launchesH, e2eH = run_sharding(args, device, q, configs, kernels,
                                    kernel_policy)
     e2e["sharding"] = e2eH
+    # -- 7f. phase I: LM serving, last
+    launchesI, e2eI = run_lm(args, device, kernels, kernel_policy)
+    e2e["lm"] = e2eI
+    for name, err in e2eI["attention_errs"].items():
+        errs[name] = max(errs[name], err)
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
                        + sum(lp[k] for lp in launchesE.values())
                        + sum(lp[k] for lp in launchesF.values())
                        + sum(lp[k] for lp in launchesG.values())
-                       + sum(lp[k] for lp in launchesH.values()))
+                       + sum(lp[k] for lp in launchesH.values())
+                       + launchesI[k])
 
     # -- 8. the kernels' rows ---------------------------------------------------
     sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",
@@ -3423,6 +3826,7 @@ def run(args, device, kernel_policy=None) -> dict:
             "phase_f_launches": launchesF,
             "phase_g_launches": launchesG,
             "phase_h_launches": launchesH,
+            "phase_i_launches": launchesI,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),
@@ -3459,6 +3863,14 @@ def main(argv=None) -> int:
                     help="documents of phase G's training corpus")
     ap.add_argument("--corpus-seq", type=int, default=1024,
                     help="tokens a document of phase G's corpus")
+    ap.add_argument("--lm-requests", type=int, default=8,
+                    help="requests of phase I's smollm-135m serving")
+    ap.add_argument("--lm-prompt-min", type=int, default=128,
+                    help="fewest prompt tokens of a phase I request")
+    ap.add_argument("--lm-prompt-max", type=int, default=1024,
+                    help="most prompt tokens of a phase I request")
+    ap.add_argument("--lm-new", type=int, default=32,
+                    help="new tokens a phase I request")
     ap.add_argument("--serving-profiles", action="store_true",
                     help=argparse.SUPPRESS)  # phase G's windows, a child
     ap.add_argument("--every-card", action="store_true",

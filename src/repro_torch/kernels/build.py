@@ -5,7 +5,9 @@ interface, compiled for Hopper (``sm_90a``) at first use into the
 repository's ``build/kernels/`` directory (git-ignored). A library's file
 name carries a digest of every source in ``csrc/``, so an edited source
 is never served by a stale build. ``build_all`` starts one ``nvcc`` per
-source, all at once, and waits for them together.
+source, all at once, and waits for them together. ``VARIANTS`` are
+other builds of a source with flags of their own (the checked fused
+draw).
 
 No source links ``libcuda``: ``flash_prefill_tc.cu`` fetches
 ``cuTensorMapEncodeTiled`` at run time through the runtime's entry-point
@@ -27,15 +29,19 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "library", "library_path",
-           "entry", "check", "on_device", "current_stream", "ptxas_report",
-           "vector_operand"]
+__all__ = ["SOURCES", "VARIANTS", "BUILD_DIR", "build_all", "library",
+           "library_path", "entry", "check", "on_device", "current_stream",
+           "ptxas_report", "vector_operand"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
            "scan", "flash_decode", "flash_prefill", "flash_prefill_tc",
            "csr_walk")
+# Other builds of a source, each with its own flags and library: name ->
+# (source, extra nvcc flags). The checked fused draw holds every load of a
+# launch against its operands (fused_draw.out_of_bounds), a measurement.
+VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",))}
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -66,10 +72,10 @@ def _target(name: str) -> Path:
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every named source that has no current build, one ``nvcc``
-    process each, all started together. Returns name -> the compiler's
-    ``-Xptxas -v`` report (registers, shared memory, spills); raises if
-    any build fails."""
+    """Compile every named source (or ``VARIANTS`` entry) that has no
+    current build, one ``nvcc`` process each, all started together.
+    Returns name -> the compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills); raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -77,9 +83,11 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        source, flags = VARIANTS.get(name, (name, ()))
         cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3",
                "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
+               "-Xptxas", "-v", *flags, "-o", str(tmp),
+               str(CSRC / f"{source}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -110,7 +118,8 @@ def library_path(name: str) -> Path:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded shared library of ``csrc/<name>.cu`` (or of the build
+    ``VARIANTS[name]``), built on first use."""
     lib = _libs.get(name)
     if lib is None:
         if not _target(name).exists():

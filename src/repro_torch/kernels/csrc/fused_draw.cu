@@ -102,6 +102,84 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+// The checked build (-DFD_CHECK_BOUNDS; fused_draw.py out_of_bounds): every
+// __ldg and __ldcg of the launch, the walk's in tree_get.cuh included, and
+// every cp.async source is held against the byte ranges of the launch's
+// operands, which the host sets before it (fused_draw_check_set). A load
+// outside them is not made (it reads 0) but counted, and the first
+// FD_CHECK_RECORDS are kept as (address, bytes, source line)
+// (fused_draw_check_get). The card has no tool here that catches an
+// overread, and one past the end of its allocation faults only where the
+// next page is unmapped, so it shows only now and then.
+#ifdef FD_CHECK_BOUNDS
+#define FD_CHECK_RANGES 24
+#define FD_CHECK_RECORDS 64
+__device__ unsigned long long fd_check_lo[FD_CHECK_RANGES];
+__device__ unsigned long long fd_check_hi[FD_CHECK_RANGES];
+__device__ int fd_check_n;
+__device__ unsigned fd_check_count;
+__device__ unsigned long long fd_check_rec[FD_CHECK_RECORDS][3];
+
+__device__ __noinline__ void fd_check_fail(const void* p, int bytes,
+                                           int line) {
+  const unsigned k = atomicAdd(&fd_check_count, 1u);
+  if (k < FD_CHECK_RECORDS) {
+    fd_check_rec[k][0] = (unsigned long long)p;
+    fd_check_rec[k][1] = (unsigned long long)bytes;
+    fd_check_rec[k][2] = (unsigned long long)line;
+  }
+}
+
+__device__ __forceinline__ bool fd_check(const void* p, int bytes, int line) {
+  const unsigned long long a = (unsigned long long)p;
+  for (int i = 0; i < fd_check_n; ++i)
+    if (a >= fd_check_lo[i] && a + bytes <= fd_check_hi[i]) return true;
+  fd_check_fail(p, bytes, line);
+  return false;
+}
+
+template <typename T>
+__device__ __forceinline__ T fd_checked_ldg(const T* p, int line) {
+  return fd_check(p, sizeof(T), line) ? (__ldg)(p) : T();
+}
+
+template <typename T>
+__device__ __forceinline__ T fd_checked_ldcg(const T* p, int line) {
+  return fd_check(p, sizeof(T), line) ? (__ldcg)(p) : T();
+}
+
+#define __ldg(p) fd_checked_ldg((p), __LINE__)
+#define __ldcg(p) fd_checked_ldcg((p), __LINE__)
+#define FD_CHECKED(p, bytes) if (fd_check((p), (bytes), __LINE__))
+
+// The operands' byte ranges [lo, hi) of the next launch, and a zero count.
+extern "C" int fused_draw_check_set(const unsigned long long* lo,
+                                    const unsigned long long* hi, int n) {
+  if (n < 0 || n > FD_CHECK_RANGES) return (int)cudaErrorInvalidValue;
+  const unsigned zero = 0;
+  cudaError_t e = cudaMemcpyToSymbol(fd_check_lo, lo, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fd_check_hi, hi, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fd_check_n, &n, sizeof(int));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(fd_check_count, &zero, sizeof(unsigned));
+  // landed before the launch, whatever stream it takes
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+
+// The last launch's count of loads outside the ranges and its records
+// (FD_CHECK_RECORDS x 3 words), after the launch has finished.
+extern "C" int fused_draw_check_get(unsigned* count, unsigned long long* rec) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(count, fd_check_count, sizeof(unsigned));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(rec, fd_check_rec, sizeof(fd_check_rec));
+  return (int)e;
+}
+#else
+#define FD_CHECKED(p, bytes)
+#endif
+
 #include "scan.cuh"
 #include "threefry.cuh"
 #include "tree_get.cuh"
@@ -407,6 +485,7 @@ __device__ __forceinline__ unsigned fd_saddr(const void* p) {
 }
 // 16 bytes through L2 (coherent with the launch's earlier phases).
 __device__ __forceinline__ void fd_cp16(void* dst, const void* src) {
+  FD_CHECKED(src, 16)
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    fd_saddr(dst)),
                "l"(src)
@@ -414,6 +493,7 @@ __device__ __forceinline__ void fd_cp16(void* dst, const void* src) {
 }
 // 4 bytes: only for read-only operands (the arena, the parameter vectors).
 __device__ __forceinline__ void fd_cp4(void* dst, const void* src) {
+  FD_CHECKED(src, 4)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    fd_saddr(dst)),
                "l"(src)
@@ -1383,7 +1463,8 @@ __device__ __forceinline__ void fd_exprace(const FdArgs& a, const TgLayout& L,
     int g[FD_ITEMS];
     bool use[FD_ITEMS];
     {
-      int prev = i0 > 0 ? __ldcg(s.gid + i0 - 1) : -1;
+      // a thread wholly past acap reads no cell: its lanes are unused
+      int prev = i0 > 0 && i0 <= acap ? __ldcg(s.gid + i0 - 1) : -1;
 #pragma unroll
       for (int i = 0; i < FD_ITEMS; ++i) {
         g[i] = i0 + i < acap ? __ldcg(s.gid + i0 + i) : n32;

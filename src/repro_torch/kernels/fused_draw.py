@@ -59,7 +59,8 @@ __all__ = ["PARAM_ORDER", "THREADS", "ITEMS", "draw_core", "arrivals",
            "fused_sample", "fused_draw_batch_plain", "fused_draw_batch",
            "fused_sample_batch_plain", "fused_sample_batch", "TILE", "SPAN",
            "fused_draw_tiled", "fused_draw_batch_tiled", "grid", "PHASES",
-           "phase_ms", "tile_stats", "scratch_bytes"]
+           "phase_ms", "tile_stats", "scratch_bytes", "out_of_bounds",
+           "CHECK_RECORDS"]
 
 I32 = torch.int32
 F32 = torch.float32
@@ -416,16 +417,18 @@ def fused_draw_batch_tiled(arena, keys, params, *, layout=None, method: str,
 
 _METHODS = {"exprace": 0, "ptbern_flat": 1}  # FD_EXPRACE / FD_PTBERN
 _ENTRIES = {}
+CHECK_RECORDS = 64  # FD_CHECK_RECORDS: the loads a checked launch keeps
 
 
-def _entry(name: str):
-    """``csrc/fused_draw.cu``'s ``<name>`` with its argument types, set
+def _entry(name: str, lib: str = "fused_draw"):
+    """``<name>`` of the build ``lib`` of ``csrc/fused_draw.cu`` (or of its
+    checked build, ``fused_draw_checked``) with its argument types, set
     once."""
-    fn = _ENTRIES.get(name)
+    fn = _ENTRIES.get((lib, name))
     if fn is None:
         from . import build
 
-        fn = getattr(build.library("fused_draw"), name)
+        fn = getattr(build.library(lib), name)
         vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         draw = [vp, i32, u32, u32, i32] + [vp] * 8 + [i32] * 3
         fn.argtypes = {
@@ -433,10 +436,12 @@ def _entry(name: str):
             "fused_sample_launch": draw + [vp] * 6,
             "fused_draw_scratch_words": [i32] * 3,
             "fused_draw_grid": [i32] * 5 + [vp, vp],
+            "fused_draw_check_set": [vp, vp, i32],
+            "fused_draw_check_get": [vp, vp],
         }[name]
         fn.restype = (ctypes.c_longlong if name == "fused_draw_scratch_words"
                       else ctypes.c_int)
-        _ENTRIES[name] = fn
+        _ENTRIES[(lib, name)] = fn
     return fn
 
 
@@ -475,13 +480,16 @@ def _device_keys(keys, dev) -> torch.Tensor:
 
 
 def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
-            acap: int, n: int, keys=None, stamps=None, stats=None):
+            acap: int, n: int, keys=None, stamps=None, stats=None,
+            check=None):
     """Launch ``fused_draw_launch`` (with ``arena``) or
     ``fused_sample_launch`` (``arena`` None) on the params' device: one
     cooperative launch over the card for the one ``key``, or for the (B, 2)
     ``keys`` (``key`` None), its scratch one allocation. ``stamps``
     (zeroed int64, or None) takes the kernel's phase clock, ``stats`` (two
-    zeroed int64, or None) its staged and fallback tile searches. Returns
+    zeroed int64, or None) its staged and fallback tile searches. With
+    ``check`` (a dict) the checked build runs instead and ``check`` takes
+    its loads outside the operands (``_checked_run``). Returns
     ``(rows (B, slots, cap) or None, positions (B, cap), scalars (B, 2))``,
     B = 1 for one key; raises if the kernel cannot be built or launched (a
     refused cooperative launch included)."""
@@ -531,10 +539,55 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
     args += [positions.data_ptr(), scalars.data_ptr(), scratch.data_ptr(),
              None if stamps is None else stamps.data_ptr(),
              None if stats is None else stats.data_ptr()]
+    if check is not None:
+        operands = [("arena", arena), *zip(PARAM_ORDER, ops), ("rows", rows),
+                    ("positions", positions), ("scalars", scalars),
+                    ("scratch", scratch),
+                    ("keys", None if keys is None else kdev),
+                    ("stamps", stamps), ("stats", stats)]
+        _checked_run(entry, args, dev, operands, check)
+        return rows, positions, scalars
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         build.check(fn(*args, stream), entry)
     return rows, positions, scalars
+
+
+def _checked_run(entry: str, args, dev, operands, check: dict) -> None:
+    """One launch of ``entry`` from the checked build, its loads held
+    against the byte ranges of ``operands`` (name, tensor or None), then a
+    wait for it. ``check`` takes ``count``, the loads outside them, and
+    ``loads``: the first recorded, each as (source line, the nearest
+    operand, the load's byte offset from that operand's start, the
+    operand's bytes, the load's bytes)."""
+    from . import build
+
+    lib = "fused_draw_checked"
+    spans = [(name, t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+             for name, t in operands if t is not None]
+    lo = (ctypes.c_ulonglong * len(spans))(*[a for _, a, _ in spans])
+    hi = (ctypes.c_ulonglong * len(spans))(*[b for _, _, b in spans])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        stream.synchronize()  # the ranges are device globals of the build
+        build.check(_entry("fused_draw_check_set", lib)(lo, hi, len(spans)),
+                    "fused_draw_check_set")
+        build.check(_entry(f"{entry}_launch", lib)(*args, stream.cuda_stream),
+                    entry)
+        stream.synchronize()
+        count = ctypes.c_uint()
+        rec = (ctypes.c_ulonglong * (3 * CHECK_RECORDS))()
+        build.check(_entry("fused_draw_check_get", lib)(ctypes.byref(count),
+                                                        rec),
+                    "fused_draw_check_get")
+    loads = []
+    for i in range(min(count.value, CHECK_RECORDS)):
+        addr, nbytes, line = rec[3 * i], rec[3 * i + 1], rec[3 * i + 2]
+        name, a, b = min(spans, key=lambda s: min(abs(addr - s[1]),
+                                                  abs(addr - s[2])))
+        loads.append((int(line), name, int(addr - a), int(b - a),
+                      int(nbytes)))
+    check.update(count=count.value, loads=loads)
 
 
 # The kernel's phases, in order (csrc/fused_draw.cu), for phase_ms; the
@@ -577,6 +630,20 @@ def tile_stats(arena, key, params, *, layout=None, method: str, cap: int,
             params, layout, method, cap, acap, n, keys=keys, stats=stats)
     staged, fallback = stats.cpu().tolist()
     return {"staged": staged, "fallback": fallback}
+
+
+def out_of_bounds(arena, key, params, *, layout=None, method: str,
+                  cap: int, acap: int = 0, n: int = 0, keys=None) -> dict:
+    """The loads of one launch that fall outside its operands, by the
+    checked build of the kernel (``build.VARIANTS``, ``FD_CHECK_BOUNDS``):
+    ``{"count": ..., "loads": [(source line, operand, byte offset, the
+    operand's bytes, load bytes), ...]}``, the first ``CHECK_RECORDS``
+    loads recorded. Arguments as ``phase_ms``. A measurement: it is not
+    counted in ``launches``."""
+    check: dict = {}
+    _launch("fused_sample" if arena is None else "fused_draw", arena, key,
+            params, layout, method, cap, acap, n, keys=keys, check=check)
+    return check
 
 
 def fused_draw(arena, key, params, *, layout, method: str, cap: int,

@@ -1,8 +1,11 @@
-"""The join-sampling service demo: single-engine micro-batching (with
-``--devices N``, through the engine's sharded plan over a mesh of N
-entries), or, with ``--replicas N``, a replicated fleet behind a router
-with log-shipped deltas and an injected replica crash.
+"""Serving demos: (1) LM batched prefill + decode (``serve_batch``,
+``--mode lm``), and (2) the join-sampling service: single-engine
+micro-batching (with ``--devices N``, through the engine's sharded plan
+over a mesh of N entries), or, with ``--replicas N``, a replicated fleet
+behind a router with log-shipped deltas and an injected replica crash.
 
+    python -m repro_torch.launch.serve --mode lm --full [--arch smollm_135m]
+    python -m repro_torch.launch.serve --mode lm --device cpu
     python -m repro_torch.launch.serve --mode join [--devices 4]
     python -m repro_torch.launch.serve --mode join --replicas 4 [--updates 4]
 
@@ -12,27 +15,137 @@ it and re-exports the single-engine names (``MicroBatcher`` & co.). It
 runs on the card (a mesh round-robin over the visible cards);
 ``--device cpu`` runs it on the CPU.
 
-Not ported: ``--mode lm`` and ``serve_batch`` (the model half, ROADMAP
-A.5), which refuse with a message.
+``--mode lm`` serves the reduced config of ``--arch`` (head dim 16, which
+no attention kernel takes: on the card it asks for ``--full``) or, with
+``--full``, the published one, from random weights drawn from a seed.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import configs
 from repro_torch.config import resolve_device
 from repro_torch.launch.fleet import (  # noqa: F401  (re-exported public API)
     JoinSampleRequest, MicroBatcher, Rejected, UpdateRequest,
     serve_fleet, serve_join_samples,
 )
 from repro_torch.launch.metrics import percentile
+from repro_torch.models import (Transformer, decode_step, encode, init_model,
+                                prefill)
 
-__all__ = ["JoinSampleRequest", "MicroBatcher", "Rejected", "UpdateRequest",
-           "serve_fleet", "serve_join_samples", "main"]
+__all__ = ["Request", "serve_batch", "JoinSampleRequest", "MicroBatcher",
+           "Rejected", "UpdateRequest", "serve_fleet", "serve_join_samples",
+           "main"]
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: List[int]
+    max_new: int = 16
+    out: Optional[List[int]] = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def serve_batch(arch: str, requests: List[Request], seed: int = 0,
+                greedy: bool = True, *, reduced: bool = True,
+                params: Optional[Transformer] = None, device=None,
+                stats: Optional[Dict] = None) -> List[Request]:
+    """Pad requests to one batch, prefill, then decode greedily in
+    lockstep; each request's ``out`` gets its first ``max_new`` tokens.
+
+    ``reduced`` serves ``configs.reduced`` of ``arch`` (the reference's
+    default); ``False`` serves the published config. ``params`` is the
+    model to serve (e.g. from ``params_from_reference``; it carries its
+    ``KernelPolicy``); without it one is drawn from ``seed`` on ``device``
+    (the card by default). As in the reference, decoding starts by feeding
+    the last prompt column again, at position S (for a shorter prompt that
+    is its pad, 0), and pad positions are not masked.
+
+    ``stats``, when a dict, gets the host milliseconds of the prefill and
+    of each decode step (each ended by a device synchronize) and the
+    batch's shape."""
+    if not greedy:
+        raise ValueError("serve_batch decodes greedily (greedy=True)")
+    if params is None:
+        cfg = configs.get_config(arch)
+        if reduced:
+            cfg = configs.reduced(cfg)
+        params = init_model(cfg, seed, device=device)
+    cfg, dev = params.cfg, params.device
+    B = len(requests)
+    S = max(len(r.prompt) for r in requests)
+    max_new = max(r.max_new for r in requests)
+    total = S + max_new + 1
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, r in enumerate(requests):
+        toks[i, :len(r.prompt)] = torch.as_tensor(r.prompt, dtype=torch.long)
+    toks = toks.to(dev)
+
+    mem = None
+    if cfg.n_memory_tokens and not cfg.has_encoder:
+        mem = torch.zeros((B, cfg.n_memory_tokens, cfg.d_model), device=dev)
+    if cfg.has_encoder:
+        frames = torch.zeros((B, cfg.n_memory_tokens, cfg.enc_d_model),
+                             device=dev)
+        mem = encode(params, frames)
+
+    timed = stats is not None
+    if timed:
+        _sync(dev)
+        t0 = time.perf_counter()
+    _, cache = prefill(params, toks, total, mem)
+    if timed:
+        _sync(dev)
+        stats.update(batch=B, prompt_len=S, max_new=max_new, cache_len=total,
+                     prefill_ms=(time.perf_counter() - t0) * 1e3,
+                     decode_ms=[])
+    cur_tok = toks[:, -1:]
+    steps = []
+    for t in range(max_new):
+        if timed:
+            t0 = time.perf_counter()
+        logits, cache = decode_step(params, cache, cur_tok, S + t)
+        cur_tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+        steps.append(cur_tok)
+        if timed:
+            _sync(dev)
+            stats["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+    outs = torch.cat(steps, dim=1).tolist() if steps else [[] for _ in requests]
+    for r, o in zip(requests, outs):
+        r.out = o[:r.max_new]
+    return requests
+
+
+def _lm_demo(arch: str, batch: int, max_new: int, full: bool,
+             device) -> None:
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(1, 200, rng.integers(4, 12)).tolist(),
+                    max_new=max_new) for _ in range(batch)]
+    stats: Dict = {}
+    t0 = time.time()
+    done = serve_batch(arch, reqs, reduced=not full, device=device,
+                       stats=stats)
+    dt = time.time() - t0
+    ntok = sum(len(r.out) for r in done)
+    decode = stats["decode_ms"]
+    print(f"[serve] {arch}{'' if full else ' (reduced)'} on {device}: "
+          f"{len(done)} requests, {ntok} tokens in {dt:.2f}s ({ntok / dt:.1f} "
+          f"tok/s batched, model init included); prefill "
+          f"{stats['prefill_ms']:.2f} ms, decode step "
+          f"{sum(decode) / max(len(decode), 1):.2f} ms")
+    for i, r in enumerate(done):
+        print(f"  req{i}: prompt[:4]={r.prompt[:4]} -> out[:8]={r.out[:8]}")
 
 # The demo corpus: make_corpus_db's sizes in the reference's demo.
 DEMO_CORPUS = dict(n_docs=20_000, n_clusters=64, seq_len=8, vocab=256)
@@ -187,8 +300,18 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
     engines' ``KernelPolicy``; ``None`` is the default."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=("lm", "join"), default="join",
-                    help="join: the join-sampling service; lm waits for "
-                         "the model half (ROADMAP A.5)")
+                    help="join: the join-sampling service; lm: batched "
+                         "prefill + greedy decode of a model")
+    ap.add_argument("--arch", default="smollm_135m",
+                    help=f"lm mode: one of {', '.join(configs.ARCHS)}")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lm mode: requests in the batch")
+    ap.add_argument("--max-new", type=int, default=12,
+                    help="lm mode: new tokens a request")
+    ap.add_argument("--full", action="store_true",
+                    help="lm mode: serve the published config, not the "
+                         "reduced one (needed on the card: the attention "
+                         "kernels take head dims 64, 128 and 256)")
     ap.add_argument("--devices", type=int, default=1,
                     help="join mode: serve through the engine's sharded "
                          "plan over a mesh of this many entries")
@@ -209,12 +332,23 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
                     help="fleet mode: skip the injected mid-stream replica "
                          "crash")
     ap.add_argument("--device", default=None,
-                    help="where the engines run (default: the card; 'cpu' "
-                         "runs the plain versions)")
+                    help="where it runs (default: the card; 'cpu' runs the "
+                         "plain versions)")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        ap.error("--mode lm is not ported: it waits for the model half "
-                 "(ROADMAP A.5)")
+        if args.batch < 1 or args.max_new < 1:
+            ap.error(f"--batch and --max-new must be >= 1, got {args.batch} "
+                     f"and {args.max_new}")
+        if args.arch not in configs.ARCHS and args.arch not in configs.ALIASES:
+            ap.error(f"--arch must be one of {', '.join(configs.ARCHS)}")
+        on_card = torch.device(args.device or "cuda").type == "cuda"
+        if on_card and not args.full:
+            ap.error("--mode lm on the card needs --full: the reduced "
+                     "configs' head dim 16 is not one the attention kernels "
+                     "take (64, 128, 256); --device cpu serves them")
+        _lm_demo(args.arch, args.batch, args.max_new, args.full,
+                 resolve_device(args.device))
+        return 0
     if args.devices < 1:
         ap.error(f"--devices must be >= 1, got {args.devices}")
     device = resolve_device(args.device)

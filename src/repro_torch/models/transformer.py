@@ -1,0 +1,401 @@
+"""Model assembly: the pattern-stacked decoder (all 10 families) and the
+optional encoder (whisper), with the forward pass, prefill and one-token
+decode (``repro.models.transformer``).
+
+``Transformer`` holds one module a layer in ``blocks``, in the reference's
+scan order (layer ``r * len(pattern) + i`` is repeat r of pattern entry i).
+zamba2's tied attention block is one module, ``shared``, which every
+``shared_attn`` position uses (its entry in ``blocks`` holds an unused
+``norm1``, as the reference's does). The
+model also holds the ``KernelPolicy`` its attention routes take.
+
+The reference's ``remat``, ``grad_accum`` and ``residual_seq_shard`` change
+how a training step saves activations and lays out the residual stream,
+never what a forward pass computes; they have no effect here and wait for
+the training slice.
+
+``prefill`` computes the reference's function (the logits of position S-1
+and a cache holding positions 0..S-1) in one forward pass that writes each
+layer's K and V into the cache, where the reference runs S decode steps;
+the SSM layers keep the final state of their full-sequence scans.
+
+Caches are a list with one dict a layer: attention layers hold ``k`` and
+``v`` of shape (B, KV, T, hd) in the compute dtype (cross layers also the
+memory's ``ck`` and ``cv``, (B, KV, M, hd)), rwkv layers ``shift_t``,
+``shift_c`` and ``state``, mamba layers ``conv`` and ``state``.
+``decode_step`` updates the cache in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.config import DEFAULT_POLICY, KernelPolicy, resolve_device
+
+from . import attention as attn
+from . import moe as moe_mod
+from . import ssm as ssm_mod
+from .config import ModelConfig
+from .layers import (Initializer, cast, cross_entropy_loss, dtype_of,
+                     gated_mlp, init_mlp, init_norm, rms_norm)
+
+__all__ = ["Block", "Encoder", "Transformer", "init_model", "forward",
+           "loss_fn", "encode", "init_cache", "decode_step", "prefill"]
+
+Cache = List[Dict[str, torch.Tensor]]
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One layer of type ``btype``: ``norm1``, then by type ``attn``,
+    ``norm2`` and ``mlp`` or ``moe`` (dense, local, enc, moe); ``attn``
+    with the cross projections, ``norm_c``, ``norm2``, ``mlp`` (cross);
+    ``rwkv_t``, ``norm2`` (rwkv); ``mamba`` and, with ``mamba_mlp``,
+    ``norm2`` and ``mlp`` (mamba). A ``shared_attn`` block holds only its
+    ``norm1``, unused, as in the reference: its layer runs the model's
+    ``shared`` block."""
+
+    def __init__(self, ini: Initializer, btype: str, cfg: ModelConfig):
+        super().__init__()
+        self.btype = btype
+        d = cfg.d_model
+        self.norm1 = init_norm(ini, d)
+        if btype == "shared_attn":
+            return
+        if btype in ("dense", "local", "enc", "moe"):
+            self.attn = attn.init_attention(ini, cfg)
+            self.norm2 = init_norm(ini, d)
+            if btype == "moe":
+                self.moe = moe_mod.init_moe(ini, cfg)
+            else:
+                self.mlp = init_mlp(ini, d, cfg.d_ff, cfg.mlp_gated)
+        elif btype == "cross":
+            self.attn = attn.init_attention(ini, cfg, cross=True)
+            self.norm_c = init_norm(ini, d)
+            self.norm2 = init_norm(ini, d)
+            self.mlp = init_mlp(ini, d, cfg.d_ff, cfg.mlp_gated)
+        elif btype == "rwkv":
+            self.rwkv_t = ssm_mod.init_rwkv(ini, cfg)
+            self.norm2 = init_norm(ini, d)
+        elif btype == "mamba":
+            self.mamba = ssm_mod.init_mamba(ini, cfg)
+            if cfg.mamba_mlp:
+                self.norm2 = init_norm(ini, d)
+                self.mlp = init_mlp(ini, d, cfg.d_ff, cfg.mlp_gated)
+        else:
+            raise ValueError(btype)
+
+
+class Encoder(nn.Module):
+    """whisper's encoder: ``enc_layers`` bidirectional blocks and
+    ``final_norm``."""
+
+    def __init__(self, ini: Initializer, cfg: ModelConfig):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(ini, "enc", cfg)
+                                    for _ in range(cfg.enc_layers))
+        self.final_norm = init_norm(ini, cfg.d_model)
+
+
+class Transformer(nn.Module):
+    """``embed``, ``blocks``, ``final_norm``, ``unembed`` (unless the
+    embeddings are tied), ``shared`` (zamba2) and ``encoder`` (whisper).
+    ``cfg`` and ``policy`` ride along; ``policy`` routes the attention."""
+
+    def __init__(self, cfg: ModelConfig, ini: Initializer,
+                 policy: KernelPolicy = DEFAULT_POLICY):
+        super().__init__()
+        self.cfg = cfg
+        self.policy = policy
+        self.embed = ini.normal((cfg.vocab, cfg.d_model), scale=0.02)
+        self.final_norm = init_norm(ini, cfg.d_model)
+        self.blocks = nn.ModuleList(Block(ini, bt, cfg)
+                                    for _ in range(cfg.repeats)
+                                    for bt in cfg.pattern)
+        if not cfg.tie_embeddings:
+            self.unembed = ini.normal((cfg.d_model, cfg.vocab), scale=0.02)
+        if "shared_attn" in cfg.pattern:
+            self.shared = Block(ini, "dense", cfg)
+        if cfg.has_encoder:
+            assert cfg.enc_d_model == cfg.d_model, "bridge projection unsupported"
+            self.encoder = Encoder(ini, cfg)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens, memory=None):
+        return forward(self, tokens, memory)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
+               policy: KernelPolicy = DEFAULT_POLICY) -> Transformer:
+    """A model drawn from a CPU ``torch.Generator`` seeded with ``seed``, on
+    ``device`` (the card by default)."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    model = Transformer(cfg, Initializer(gen, dtype_of(cfg.param_dtype)),
+                        policy)
+    return model.to(device)
+
+
+# ---------------------------------------------------------------------------
+# Forward (and prefill: the same pass, writing the caches)
+# ---------------------------------------------------------------------------
+
+def _apply_block(model: Transformer, bp: Block, h, positions, memory,
+                 aux: Dict[str, Any], cache: Optional[Dict] = None):
+    """One layer over the full sequence. With ``cache`` (prefill) the
+    layer's K and V (or SSM state) go into it."""
+    cfg, eps, policy = model.cfg, model.cfg.norm_eps, model.policy
+    btype = bp.btype
+    if btype == "shared_attn":
+        bp, btype_eff = model.shared, "dense"
+    else:
+        btype_eff = btype
+
+    if btype_eff in ("dense", "local", "enc", "moe", "cross"):
+        window = cfg.window if btype == "local" else 0
+        # prefill groups the query heads as the reference's decode steps
+        # do (h // G), whatever attn_head_shard says
+        y, (k, v) = attn.self_attention(
+            bp.attn, rms_norm(h, bp.norm1.scale, eps), cfg, positions,
+            causal=btype_eff != "enc", window=window,
+            head_shard=None if cache is None else False, policy=policy)
+        if cache is not None:
+            S = k.shape[1]
+            cache["k"][:, :, :S] = k.transpose(1, 2).to(cache["k"].dtype)
+            cache["v"][:, :, :S] = v.transpose(1, 2).to(cache["v"].dtype)
+        h = h + y
+        if btype_eff == "cross":
+            if memory is not None:
+                mkv = attn.memory_kv(bp.attn, memory, cfg)
+                if cache is not None:
+                    cache["ck"] = mkv[0].transpose(1, 2).contiguous()
+                    cache["cv"] = mkv[1].transpose(1, 2).contiguous()
+                h = h + attn.cross_attention(
+                    bp.attn, rms_norm(h, bp.norm_c.scale, eps), mkv, cfg)
+            # without memory the cache's memory is one zero token, whose
+            # cross attention adds zero: h is unchanged
+            return h + gated_mlp(bp.mlp, rms_norm(h, bp.norm2.scale, eps), cfg)
+        if btype_eff == "moe":
+            y, a = moe_mod.moe_ffn(bp.moe, rms_norm(h, bp.norm2.scale, eps),
+                                   cfg)
+            aux["moe_aux"] = aux.get("moe_aux", 0.0) + a
+        else:
+            y = gated_mlp(bp.mlp, rms_norm(h, bp.norm2.scale, eps), cfg)
+        return h + y
+    if btype_eff == "rwkv":
+        y, c1 = ssm_mod.rwkv_time_mix(bp.rwkv_t,
+                                      rms_norm(h, bp.norm1.scale, eps), cfg)
+        h = h + y
+        y, c2 = ssm_mod.rwkv_channel_mix(bp.rwkv_t,
+                                         rms_norm(h, bp.norm2.scale, eps), cfg)
+        if cache is not None:
+            cache.update(c1)
+            cache.update(c2)
+        return h + y
+    if btype_eff == "mamba":
+        y, c1 = ssm_mod.mamba_mixer(bp.mamba, rms_norm(h, bp.norm1.scale, eps),
+                                    cfg)
+        if cache is not None:
+            cache.update(c1)
+        h = h + y
+        if cfg.mamba_mlp:
+            h = h + gated_mlp(bp.mlp, rms_norm(h, bp.norm2.scale, eps), cfg)
+        return h
+    raise ValueError(btype)
+
+
+def _tokens(model: Transformer, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens, device=model.device).long()
+
+
+def _unembed(model: Transformer, dt: torch.dtype) -> torch.Tensor:
+    if model.cfg.tie_embeddings:
+        return cast(model.embed, dt).T
+    return cast(model.unembed, dt)
+
+
+def _stack(model: Transformer, tokens, memory, caches: Optional[Cache] = None):
+    """The decoder stack over the full sequence: the final hidden state
+    (before the final norm) and the MoE aux loss."""
+    cfg = model.cfg
+    dt = dtype_of(cfg.compute_dtype)
+    tokens = _tokens(model, tokens)
+    S = tokens.shape[1]
+    h = cast(model.embed, dt)[tokens]
+    positions = torch.arange(S, device=model.device)
+    if memory is not None:
+        memory = torch.as_tensor(memory, device=model.device).to(dt)
+    aux: Dict[str, Any] = {}
+    for i, bp in enumerate(model.blocks):
+        h = _apply_block(model, bp, h, positions, memory, aux,
+                         None if caches is None else caches[i])
+    moe_aux = aux.get("moe_aux", torch.zeros((), device=model.device))
+    return h, moe_aux
+
+
+def encode(model: Transformer, frames) -> torch.Tensor:
+    """Whisper-style encoder over (stub) precomputed frame embeddings."""
+    cfg = model.cfg
+    enc = model.encoder
+    h = torch.as_tensor(frames, device=model.device).to(
+        dtype_of(cfg.compute_dtype))
+    positions = torch.arange(h.shape[1], device=model.device)
+    aux: Dict[str, Any] = {}
+    for bp in enc.blocks:
+        h = _apply_block(model, bp, h, positions, None, aux)
+    return rms_norm(h, enc.final_norm.scale, cfg.norm_eps)
+
+
+def forward(model: Transformer, tokens, memory=None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward -> (logits in the compute dtype, aux). memory:
+    stub modality tokens (B, M, d) for VLM cross-attn, or encoder output
+    for whisper."""
+    cfg = model.cfg
+    dt = dtype_of(cfg.compute_dtype)
+    h, moe_aux = _stack(model, tokens, memory)
+    h = rms_norm(h, model.final_norm.scale, cfg.norm_eps)
+    return h @ _unembed(model, dt), {"moe_aux": moe_aux}
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
+    """batch: tokens (B,S), targets (B,S), optional mask (B,S), optional
+    memory/frames for VLM & whisper. The forward loss only: backward passes
+    come with the training slice."""
+    cfg = model.cfg
+    memory = batch.get("memory")
+    if cfg.has_encoder and "frames" in batch:
+        memory = encode(model, batch["frames"])
+    logits, aux = forward(model, batch["tokens"], memory)
+    targets = torch.as_tensor(batch["targets"], device=model.device)
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=model.device)
+    loss = cross_entropy_loss(logits, targets, mask)
+    if cfg.is_moe:
+        loss = loss + 0.01 * aux["moe_aux"] / max(cfg.repeats, 1)
+    return loss, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               n_memory: int = 0, *, device=None) -> Cache:
+    """The decode cache, one dict a layer, zeros (on the card by
+    default)."""
+    device = resolve_device(device)
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cdt, device=device)
+
+    def one(btype):
+        if btype in ("dense", "local", "moe", "shared_attn"):
+            return {"k": zeros(batch, KV, max_len, hd),
+                    "v": zeros(batch, KV, max_len, hd)}
+        if btype == "cross":
+            return {"k": zeros(batch, KV, max_len, hd),
+                    "v": zeros(batch, KV, max_len, hd),
+                    "ck": zeros(batch, KV, max(n_memory, 1), hd),
+                    "cv": zeros(batch, KV, max(n_memory, 1), hd)}
+        if btype == "rwkv":
+            return ssm_mod.init_rwkv_cache(cfg, batch, device)
+        if btype == "mamba":
+            return ssm_mod.init_mamba_cache(cfg, batch, device)
+        raise ValueError(btype)
+
+    return [one(bt) for _ in range(cfg.repeats) for bt in cfg.pattern]
+
+
+def _decode_block(model: Transformer, bp: Block, h, cache: Dict, cur: int,
+                  biases: Dict[int, torch.Tensor]):
+    cfg, eps, policy = model.cfg, model.cfg.norm_eps, model.policy
+    btype = bp.btype
+    if btype == "shared_attn":
+        bp, btype = model.shared, "dense"
+    if btype in ("dense", "local", "moe", "cross"):
+        window = cfg.window if btype == "local" else 0
+        y, _ = attn.decode_self_attention(
+            bp.attn, rms_norm(h, bp.norm1.scale, eps), cfg, cache, cur,
+            biases[window], policy=policy)
+        h = h + y
+        if btype == "cross":
+            h = h + attn.decode_cross_attention(
+                bp.attn, rms_norm(h, bp.norm_c.scale, eps), cfg, cache,
+                policy=policy)
+            return h + gated_mlp(bp.mlp, rms_norm(h, bp.norm2.scale, eps), cfg)
+        if btype == "moe":
+            y, _ = moe_mod.moe_ffn(bp.moe, rms_norm(h, bp.norm2.scale, eps),
+                                   cfg)
+        else:
+            y = gated_mlp(bp.mlp, rms_norm(h, bp.norm2.scale, eps), cfg)
+        return h + y
+    if btype == "rwkv":
+        y, c1 = ssm_mod.rwkv_time_mix(bp.rwkv_t,
+                                      rms_norm(h, bp.norm1.scale, eps),
+                                      cfg, cache)
+        h = h + y
+        y, c2 = ssm_mod.rwkv_channel_mix(bp.rwkv_t,
+                                         rms_norm(h, bp.norm2.scale, eps),
+                                         cfg, cache)
+        cache.update(c1)
+        cache.update(c2)
+        return h + y
+    if btype == "mamba":
+        y, c1 = ssm_mod.mamba_mixer(bp.mamba, rms_norm(h, bp.norm1.scale, eps),
+                                    cfg, cache)
+        cache.update(c1)
+        h = h + y
+        if cfg.mamba_mlp:
+            h = h + gated_mlp(bp.mlp, rms_norm(h, bp.norm2.scale, eps), cfg)
+        return h
+    raise ValueError(btype)
+
+
+def decode_step(model: Transformer, cache: Cache, tokens, cur
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step. tokens: (B, 1); cur: the current length (an int).
+    Updates ``cache`` in place (K and V written at ``cur``, SSM states
+    replaced) and returns the float32 logits (B, 1, V) and the same
+    cache."""
+    cfg = model.cfg
+    dt = dtype_of(cfg.compute_dtype)
+    cur = int(cur)
+    tokens = _tokens(model, tokens)
+    h = cast(model.embed, dt)[tokens]
+    B = tokens.shape[0]
+    biases = {}  # one mask a window, shared by the layers
+    for i, bp in enumerate(model.blocks):
+        window = cfg.window if bp.btype == "local" else 0
+        if "k" in cache[i] and window not in biases:
+            biases[window] = attn.decode_bias(B, cache[i]["k"].shape[2], cur,
+                                              window, model.device)
+        h = _decode_block(model, bp, h, cache[i], cur, biases)
+    h = rms_norm(h, model.final_norm.scale, cfg.norm_eps)
+    return (h @ _unembed(model, dt)).float(), cache
+
+
+def prefill(model: Transformer, tokens, max_len: int, memory=None):
+    """The reference's prefill in one forward pass: returns the float32
+    logits of position S-1, (B, 1, V), and a cache of ``max_len`` positions
+    holding 0..S-1 (the memory's projections in cross layers)."""
+    cfg = model.cfg
+    dt = dtype_of(cfg.compute_dtype)
+    tokens = _tokens(model, tokens)
+    B = tokens.shape[0]
+    n_mem = 0 if memory is None else memory.shape[1]
+    caches = init_cache(cfg, B, max_len, n_mem, device=model.device)
+    h, _ = _stack(model, tokens, memory, caches)
+    h = rms_norm(h[:, -1:], model.final_norm.scale, cfg.norm_eps)
+    return (h @ _unembed(model, dt)).float(), caches

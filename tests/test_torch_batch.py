@@ -314,6 +314,103 @@ def test_batched_wrappers_make_one_launch(monkeypatch, walk):
     assert batch == 6 and kptr is not None and (k0, k1) == (0, 0)
 
 
+class _FakeOperand:
+    """A CPU tensor that claims a CUDA device (the wrappers' checks)."""
+
+    def __init__(self, t):
+        self.t = t
+        self.device, self.dtype, self.shape = torch.device("cuda", 0), \
+            t.dtype, t.shape
+
+    def contiguous(self):
+        return self
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+    def numel(self):
+        return self.t.numel()
+
+    def element_size(self):
+        return self.t.element_size()
+
+
+@pytest.mark.parametrize("walk", [True, False])
+def test_out_of_bounds_runs_the_checked_build(monkeypatch, walk):
+    """``out_of_bounds`` sets every operand's byte range, launches the
+    checked build's entry (not the draw's, and counts no launch), and
+    names each recorded load by its nearest operand. The card and the
+    library are faked: a load 8 bytes past the scratch comes back."""
+    port, tq, _ = _route_engine("fused")
+    plan = port.compile(tq)
+    pk = plan.shred.packed
+    spans, calls = [], []
+
+    def check_set(lo, hi, n):
+        spans[:] = [(lo[i], hi[i]) for i in range(n)]
+        return 0
+
+    def check_get(count, rec):
+        scratch = calls[0][1][-4]
+        end = next(h for lo, h in spans if lo == scratch)
+        count._obj.value = 1
+        rec[0], rec[1], rec[2] = end + 8, 4, 1234
+        return 0
+
+    entry = "fused_draw" if walk else "fused_sample"
+    entries = {
+        ("fused_draw_checked", f"{entry}_launch"): _FakeLaunch(calls, entry),
+        ("fused_draw_checked", "fused_draw_check_set"): check_set,
+        ("fused_draw_checked", "fused_draw_check_get"): check_get,
+        ("fused_draw", f"{entry}_launch"): None,
+        ("fused_draw", "fused_draw_scratch_words"):
+            lambda lanes, R, batch: batch * (
+                6 * lanes + 2 * (R + 1) + 7 * (-(-lanes // 1024))) + 1}
+    monkeypatch.setattr(t_fd, "_entry",
+                        lambda name, lib="fused_draw": entries[(lib, name)])
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, **k: real_empty(
+        *a, **{**k, "device": "cpu"}))
+    monkeypatch.setattr(torch.cuda, "device", lambda d: _Null())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type(
+        "S", (), {"cuda_stream": 0, "synchronize": lambda self: None})())
+    monkeypatch.setattr(t_fd, "_device_keys", lambda keys, dev:
+                        torch.from_numpy(t_threefry.key_batch(keys).view(
+                            np.int32)))
+    fparams = {k: _FakeOperand(v) for k, v in plan.draw_params.items()}
+    before = (t_fd.fused_draw_batch.launches, t_fd.fused_sample_batch.launches)
+    out = t_fd.out_of_bounds(
+        _FakeOperand(pk.arena) if walk else None, None, fparams,
+        layout=pk.layout if walk else None, keys=t_threefry.keys(2, 3),
+        method="exprace", cap=plan.default_capacity(),
+        acap=plan.arrival_capacity())
+    assert [name for name, _ in calls] == [entry]
+    # the arena and the rows (the walk), 8 parameters, positions, scalars,
+    # scratch and keys
+    assert len(spans) == (14 if walk else 12)
+    assert all(lo < hi for lo, hi in spans)
+    assert out["count"] == 1
+    (line, name, offset, size, nbytes), = out["loads"]
+    assert (line, name, offset - size, nbytes) == (1234, "scratch", 8, 4)
+    assert (t_fd.fused_draw_batch.launches,
+            t_fd.fused_sample_batch.launches) == before
+
+
+def test_checked_build_mirrors_the_source():
+    """The checked build is ``csrc/fused_draw.cu`` under FD_CHECK_BOUNDS,
+    and ``CHECK_RECORDS`` is its FD_CHECK_RECORDS."""
+    import re
+
+    from repro_torch.kernels import build
+
+    assert build.VARIANTS["fused_draw_checked"] == (
+        "fused_draw", ("-DFD_CHECK_BOUNDS",))
+    src = (build.CSRC / "fused_draw.cu").read_text()
+    assert "#ifdef FD_CHECK_BOUNDS" in src
+    records = re.search(r"#define FD_CHECK_RECORDS (\d+)", src)
+    assert records and int(records.group(1)) == t_fd.CHECK_RECORDS
+
+
 class _Null:
     def __enter__(self):
         return self

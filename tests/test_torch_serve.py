@@ -16,7 +16,8 @@
     fingerprint, the update barrier, zero rebuilds after an update.
   * ``serve.main`` in join mode on the CPU (an explicit device and
     policy), single-engine, sharded over a mesh of four (``--devices 4``)
-    and fleet; ``--mode lm`` and ``--devices 0`` refuse with a message;
+    and fleet; ``--mode lm --batch 0`` and ``--devices 0`` refuse with a
+    message (``--mode lm`` itself: ``test_torch_serve_lm.py``);
     the default device is the card.
   * ``MicroBatcher(mesh=)`` and ``serve_join_samples(mesh=)`` serve each
     draw as the engine's sharded ``sample`` under the same key.
@@ -511,7 +512,7 @@ def test_serve_main_join_on_cpu(argv, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "lm"], "A.5"),
+    (["--mode", "lm", "--batch", "0"], "--batch and --max-new must be >= 1"),
     (["--mode", "join", "--devices", "0"], "--devices must be >= 1"),
 ])
 def test_serve_main_refuses_unported_modes(argv, match, capsys):
