@@ -25,7 +25,11 @@ crashed, ``serve --mode join`` and the Poisson-join training-data source
 over a million-document corpus; then (phase H) sharded sampling on a mesh
 of four entries on the card; then (phase I) LM serving: ``serve_batch``
 at smollm-135m's published config in bf16, its prefill through
-``flash_prefill`` and its decode steps through ``flash_decode``. It builds
+``flash_prefill`` and its decode steps through ``flash_decode``; then
+(phase J) LM training: ``python -m repro_torch.launch.train --full`` and the
+port's ``train_lm_joinsampled`` at smollm-135m's published widths on
+Poisson-join-sampled batches, the attention's gradient through the
+kernel's autograd wrapper, with a kill and a resume. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -129,6 +133,27 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        prefill's logits against the plain path's. Shrink
                        it with ``--lm-requests``, ``--lm-prompt-min``,
                        ``--lm-prompt-max`` and ``--lm-new``.
+  J  lm-training       smollm-135m at its published widths (as I; remat
+                       "full"), B 8 x S 2,048 (its context): 16,384 tokens
+                       a step from ``train``'s own corpus
+                       (``make_corpus_db(512, 16, 2,049)``) through
+                       ``PoissonJoinSource`` (a window of 8 steps one
+                       ``fused_draw_batch``), a ``corpus_delta`` (64 in, 8
+                       out) at step 8. ``launch.train.main --full`` for 3
+                       steps; every parameter's gradient through the kernel
+                       route against the plain route's (``TRAIN_GRAD_TOL``);
+                       the attention backward alone against autograd of the
+                       plain version; the checked ``flash_prefill_tc`` build
+                       at the training shapes (phase I checks its serving
+                       shapes); run A of ``train_lm_joinsampled`` (24 steps,
+                       launches counted: two ``flash_prefill`` a layer a
+                       step, one ``fused_draw_batch`` a window, no plain
+                       attention call), the loss falling; run B killed after
+                       12 and resumed, each leg a process of its own, bit for
+                       bit equal to A; the newest checkpoint corrupted and
+                       the restart resuming from the one before. Its sizes
+                       are constants (``TRAIN_BATCH`` and the rest), not
+                       options.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32; float64), the
                        float scans bit for bit against ``scan_order`` at
@@ -160,6 +185,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -275,9 +301,16 @@ def wall_ms(fn, device) -> float:
 
 def device_events(fn, reps: int) -> list:
     """The device-side events (kernels, memsets, copies) of ``reps`` warm
-    calls of ``fn`` under ``torch.profiler``, summed by name."""
+    calls of ``fn`` under ``torch.profiler``, summed by name (a
+    ``record_function`` range's span on the device is not one of them)."""
+    return [e for e in profiled(fn, reps).key_averages()
+            if is_device_work(e)]
+
+
+def profiled(fn, reps: int):
+    """``torch.profiler``'s trace (CPU and CUDA) of ``reps`` warm calls of
+    ``fn``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -287,9 +320,17 @@ def device_events(fn, reps: int) -> list:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    return prof
+
+
+def is_device_work(e) -> bool:
+    """Whether a profiler event is work on the device: a kernel, memset or
+    copy, not a user range's span there."""
+    from torch.autograd import DeviceType
+
+    return (e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.self_device_time_total > 0)
 
 
 def device_ms(fn, reps: int = 20):
@@ -2882,16 +2923,20 @@ def attention_split(events) -> dict:
     kernels, the matrix products (cuBLAS), the rest."""
     split = {"attention": 0.0, "matmul": 0.0, "rest": 0.0}
     for e in events:
-        name = e.key.lower()
-        if "flash_" in name:
-            kind = "attention"
-        elif any(s in name for s in ("gemm", "gemv", "xmma", "nvjet",
-                                     "cutlass", "matmul", "splitk")):
-            kind = "matmul"
-        else:
-            kind = "rest"
-        split[kind] += e.self_device_time_total / 1e3
+        split[kernel_kind(e.key)] += e.self_device_time_total / 1e3
     return split
+
+
+def kernel_kind(name: str) -> str:
+    """A device kernel's kind by its name: "attention" (the attention
+    kernels), "matmul" (cuBLAS and CUTLASS products) or "rest"."""
+    name = name.lower()
+    if "flash_" in name:
+        return "attention"
+    if any(s in name for s in ("gemm", "gemv", "xmma", "nvjet", "cutlass",
+                               "matmul", "splitk")):
+        return "matmul"
+    return "rest"
 
 
 def run_lm(args, device, kernels, kernel_policy=None):
@@ -3033,6 +3078,14 @@ def run_lm(args, device, kernels, kernel_policy=None):
                 f"v ({' x '.join(str(d) for d in a[0].shape)} queries over "
                 f"{a[1].shape[2]} keys): kernel vs plain max_abs_err "
                 f"{err:.3g} (rtol, atol {BF16_TOL})")
+    if on_card:  # the prefill's loads at its padded serving shapes
+        a, kw, _ = seen["prefill"][0]
+        oob = pre_mod.out_of_bounds(*a, kw["causal"])
+        log(f"[check] I flash_prefill_tc checked build at "
+            f"{' x '.join(str(d) for d in a[0].shape)}: {oob['count']} "
+            f"accesses outside q, k, v and the output {oob['loads'][:4]}")
+        assert oob["count"] == 0, oob
+        e2e["out_of_bounds"] = oob["count"]
     del seen, cache
     # float32 compute, full width and depth: prefill and one decode step
     # against forward, on the first two prompts
@@ -3174,6 +3227,446 @@ def run_lm(args, device, kernels, kernel_policy=None):
     if on_card:
         torch.cuda.empty_cache()
     return launches, e2e
+
+
+# Phase J's gradient bound, set before its first run on the card: the
+# largest ||g_kernel - g_plain|| / ||g_plain|| over the parameters, both
+# routes in bf16 compute (attention by the kernel against the plain
+# version, everything else the same). A CPU emulation of the kernel's
+# numerics (tests/test_torch_attention_tc.py's prefill_tc_emulated) at
+# full width and depth gave a largest 0.037 (median 0.023) at B 1, S 256
+# and 0.032 (median 0.024) at B 2, S 512: bf16 rounding in 30 layers, not
+# the backward. The bound is about three times that; a missing gradient
+# reads 1.
+TRAIN_GRAD_TOL = 0.1
+TRAIN_ARCH = "smollm_135m"
+# phase J's sizes: smollm's published context, a batch of 8 (16,384 tokens
+# a step); run A's steps, the step after which run B is killed, the step of
+# the corpus delta, and the steps of ``launch.train --full``
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS, TRAIN_KILL_AT, TRAIN_DELTA_STEP, TRAIN_CLI_STEPS = 24, 12, 8, 3
+# The attention backward alone against autograd of the plain version from
+# the same bf16 operands (both in float32, rounded to bf16 once): they
+# differ by rowsum(dO O), taken from the bf16 output, as flash attention
+# takes it. On the CPU: 0.0013 for randn operands (B 2, S 512), 0.0049 for
+# three times those.
+TRAIN_BWD_TOL = 2.0 ** -7
+
+
+def run_training(args, device, kernels, kernel_policy=None, *,
+                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                 kill_at=TRAIN_KILL_AT, delta_step=TRAIN_DELTA_STEP,
+                 cli_steps=TRAIN_CLI_STEPS, reduced=False):
+    """Phase J: LM training at smollm-135m's published widths (30 layers,
+    d_model 576, H 9, KV 3, head dim 64, d_ff 1,536, vocabulary 49,152;
+    135 M float32 parameters from ``--seed``, bf16 compute, remat
+    ``"full"``) on Poisson-join-sampled batches of ``batch`` x ``seq``
+    tokens from ``train``'s own corpus (``make_corpus_db(512, 16, seq +
+    1)``). Main path: ``python -m repro_torch.launch.train --full`` through
+    ``main`` (``cli_steps`` steps), then the port's
+    ``train_lm_joinsampled`` run A (``steps`` steps, a corpus delta at
+    ``delta_step``), each with its launches counted: two
+    ``flash_prefill`` a layer a step (the forward and its recomputation),
+    one ``fused_draw_batch`` a window dispatched, no plain attention call.
+    Checks: every parameter's gradient through the kernel route against
+    the plain route's on one batch (``TRAIN_GRAD_TOL``), the checked
+    ``flash_prefill_tc`` build on the training shapes, the loss falls over
+    run A, run B killed at ``kill_at`` and resumed (each leg a
+    process of its own) repeats run A's losses and doc ids bit for bit with
+    the version trace flipping at the delta, and a corrupted newest
+    checkpoint resumes from the one before it. Prints the step's ms,
+    tokens/s and peak memory and, with ``--profile``, a step's device time
+    by kind. The keywords shrink it for a CPU rehearsal only (``reduced``,
+    smollm's reduced config, has no kernel: head dim 16); on the card it
+    runs at the constants. Returns the main path's launches and the
+    numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import DEFAULT_POLICY, KernelPolicy
+    from repro_torch.data import PoissonJoinSource, make_corpus_db
+    from repro_torch.examples import train_lm_joinsampled as example
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import ops as ops_mod
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import init_model, loss_fn
+
+    on_card = device.type == "cuda"
+    policy = kernel_policy or DEFAULT_POLICY
+    smi = nvidia_smi_line() if on_card else "cpu"
+    if on_card and (reduced, batch, seq, steps, kill_at, delta_step,
+                    cli_steps) != (False, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+                                   TRAIN_KILL_AT, TRAIN_DELTA_STEP,
+                                   TRAIN_CLI_STEPS):
+        raise ValueError("phase J runs at its constants on the card")
+    B, S = batch, seq
+    cfg = configs.get_config(TRAIN_ARCH)
+    if reduced:
+        cfg = configs.reduced(cfg)
+    L = cfg.n_layers
+    runs = 1 if cfg.remat == "none" else 2  # forwards of a layer a step
+    e2e = {"arch": cfg.name, "batch": B, "seq": S, "tokens_per_step": B * S,
+           "remat": cfg.remat, "grad_tol": TRAIN_GRAD_TOL, "device": smi}
+    plain_targets = [(dec_mod, "flash_decode_plain"),
+                     (pre_mod, "flash_prefill_plain"),
+                     (ref, "flash_decode_ref"), (ref, "flash_prefill_ref"),
+                     (attn_mod, "blockwise_attention")]
+    work = Path(tempfile.mkdtemp(prefix="phase_j_"))
+    launches = {k: 0 for k in kernels}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def main_path(label, fn):
+        """``fn`` with every count at 0 before it, read after it (summed
+        into the phase's launches), and the plain attention calls and the
+        source's window dispatches it makes."""
+        for f in kernels.values():
+            f.launches = 0
+        with counting_calls(plain_targets + [(PoissonJoinSource,
+                                              "_dispatch")]) as calls:
+            out = fn()
+            sync()
+        got = {k: f.launches for k, f in kernels.items()}
+        for k, v in got.items():
+            launches[k] += v
+        windows = calls.pop("PoissonJoinSource._dispatch")
+        log(f"[J] {label}: launches "
+            f"{ {k: v for k, v in got.items() if v} }; windows dispatched "
+            f"{windows}; plain attention calls {calls}")
+        return out, got, windows, calls
+
+    def assert_launches(got, windows, calls, steps):
+        if on_card:
+            assert got["flash_prefill"] == runs * L * steps, got
+            assert got["fused_draw_batch"] == windows >= 1, (got, windows)
+            assert got["flash_decode"] == 0, got
+            assert all(v == 0 for v in calls.values()), calls
+
+    try:
+        # -- 1. the entry point: python -m repro_torch.launch.train --full ----
+        argv = ["--seq-len", str(S), "--batch", str(B), "--steps",
+                str(cli_steps), "--ckpt-dir", str(work / "cli"),
+                "--device", str(device)] + ([] if reduced else ["--full"])
+        t0 = time.perf_counter()
+        out, got, windows, calls = main_path(
+            f"launch.train.main({' '.join(argv)})",
+            lambda: train_mod.main(argv))
+        assert_launches(got, windows, calls, cli_steps)
+        assert all(math.isfinite(x) for x in out["losses"])
+        log(f"[J] launch.train --full: {cli_steps} steps of {B} x "
+            f"{S} tokens in {time.perf_counter() - t0:.1f} s (model, corpus "
+            f"and first-step set-up included); losses {out['losses']}")
+        del out
+        shutil.rmtree(work / "cli", ignore_errors=True)
+
+        # -- 2. gradients: the kernel route against the plain route -----------
+        model = init_model(cfg, args.seed, device=device, policy=policy)
+        db = make_corpus_db(512, 16, S + 1, cfg.vocab, seed=args.seed,
+                            device=device)
+        batch = PoissonJoinSource(db, S + 1, B, seed=args.seed,
+                                  kernel_policy=policy).batch_at(0)
+        batch = {"tokens": batch["tokens"], "targets": batch["targets"]}
+
+        def grads():
+            model.zero_grad(set_to_none=True)
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            return float(loss.detach()), ms, {n: p.grad.detach().clone()
+                                     for n, p in model.named_parameters()}
+
+        count0 = pre_mod.flash_prefill.launches
+        with counting_calls(plain_targets) as calls:
+            loss_k, ms_k, g_k = grads()
+        fwd = pre_mod.flash_prefill.launches - count0
+        model.policy = KernelPolicy(enabled=False)
+        loss_p, ms_p, g_p = grads()
+        model.policy = policy
+        rel = {n: float((g_k[n].float() - g_p[n].float()).norm()
+                        / g_p[n].float().norm()) for n in g_p}
+        zero = [n for n in g_p if float(g_k[n].abs().max()) == 0
+                or float(g_p[n].abs().max()) == 0]
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+        log(f"[check] J gradients of all {len(rel)} parameters, kernel route "
+            f"vs plain route (B {B}, S {S}, one batch): largest ||g_k - g_p|| "
+            f"/ ||g_p|| {worst[0][1]:.4g} (bound {TRAIN_GRAD_TOL}; median "
+            f"{float(np.median(list(rel.values()))):.4g}; worst {worst}); "
+            f"zero gradients {zero}; loss {loss_k:.6f} vs {loss_p:.6f}; "
+            f"flash_prefill launches {fwd}, plain calls {calls}; a step's "
+            f"forward and backward {ms_k:.1f} ms vs plain {ms_p:.1f} ms")
+        assert not zero and all(math.isfinite(v) for v in rel.values())
+        assert max(rel.values()) <= TRAIN_GRAD_TOL, worst
+        if on_card:
+            assert fwd == runs * L and all(v == 0 for v in calls.values())
+        e2e.update(grad_rel_err_max=worst[0][1], grad_rel_err_worst=worst,
+                   grad_rel_err_median=float(np.median(list(rel.values()))),
+                   grad_params=len(rel), loss_kernel=loss_k,
+                   loss_plain=loss_p, fwd_bwd_ms=ms_k, fwd_bwd_plain_ms=ms_p)
+        del g_k, g_p
+
+        # -- 3. the kernel at the training shapes: its checked build, its
+        #    backward alone, times ---------------------------------------
+        H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        gen = torch.Generator(device=device).manual_seed(args.seed + 27)
+        qkv = [torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16) for shape in ((B, H, S, D), (B, KV, S, D),
+                                          (B, KV, S, D))]
+        if on_card:
+            oob = pre_mod.out_of_bounds(*qkv, True)
+            log(f"[check] J flash_prefill_tc checked build at B {B}, H {H}, "
+                f"KV {KV}, S {S}, D {D}, causal: {oob['count']} accesses "
+                f"outside q, k, v and the output {oob['loads'][:4]}")
+            assert oob["count"] == 0, oob
+            e2e["out_of_bounds"] = oob["count"]
+        # the backward alone against autograd through the plain version
+        q, k, v = (t.requires_grad_(True) for t in qkv)
+        w = torch.randn((B, H, S, D), generator=gen, device=device).to(
+            torch.bfloat16)
+        out = pre_mod.flash_prefill_plain(q, k, v, True)
+        want = torch.autograd.grad(out, (q, k, v), w)
+        got = pre_mod.flash_prefill_backward(
+            q.detach(), k.detach(), v.detach(), out.detach(), w, True)
+        bwd_err = max(float((g.float() - r.float()).norm()
+                            / r.float().norm()) for g, r in zip(got, want))
+        log(f"[check] J attention backward at the training shapes vs "
+            f"autograd of the plain version (bf16 operands): largest "
+            f"||d - d_plain|| / ||d_plain|| over dq, dk, dv {bwd_err:.3g} "
+            f"(bound {TRAIN_BWD_TOL})")
+        assert bwd_err <= TRAIN_BWD_TOL
+        e2e["backward_rel_err"] = bwd_err
+        del want, got
+        # the kernel and its backward at these shapes, beside SDPA's
+        q, k, v = (t.detach() for t in (q, k, v))
+        o = ops_mod.prefill_attention(q, k, v)
+
+        def sdpa_fwd_bwd():
+            x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            y = F.scaled_dot_product_attention(*x, is_causal=True,
+                                               enable_gqa=True)
+            return torch.autograd.grad(y, x, w)
+
+        k_times = {
+            "ms": timed(lambda: ops_mod.prefill_attention(q, k, v),
+                        args.reps, device),
+            "library_ms": library_timed(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                args.reps, device, "J prefill SDPA"),
+            "bound_ms": bound(2 * (2 * q.numel() + k.numel()
+                                   + v.numel()), 2 * q.numel() * S,
+                              BF16_TC_OPS_PER_S)[0],
+            "plain_ms": timed(lambda: pre_mod.flash_prefill_plain(
+                q, k, v, True), 1, device),
+            "backward_ms": timed(lambda: pre_mod.flash_prefill_backward(
+                q, k, v, o, w, True), args.reps, device),
+            "library_fwd_bwd_ms": library_timed(
+                sdpa_fwd_bwd, args.reps, device, "J SDPA fwd + bwd")}
+        e2e["kernel_times"] = k_times
+        lib = {key: "refused" if val is None else f"{val:.4f}"
+               for key, val in k_times.items()}
+        log(f"[time] J flash_prefill at B {B}, H {H}, KV {KV}, S {S}, D "
+            f"{D} causal: {k_times['ms']:.4f} ms (plain "
+            f"{k_times['plain_ms']:.3f}, SDPA {lib['library_ms']}, bound "
+            f"{k_times['bound_ms']:.4f}); its backward (torch operations "
+            f"in float32) {k_times['backward_ms']:.3f} ms, SDPA's forward "
+            f"and backward {lib['library_fwd_bwd_ms']}; {smi}")
+        del qkv, q, k, v, w, o, out
+
+        # -- 4. profile: a step's device time by kind -------------------------
+        if on_card and args.profile:
+            e2e["profile_step"] = profile_train_step(model, batch, smi)
+        del model, db, batch
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- 5. the integration run: A in this process, B in children ---------
+        held = torch.cuda.memory_allocated(device) if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        stamps = []
+        hooks = {"on_step": lambda step, loss: stamps.append(
+            (step, time.perf_counter()))}
+        kill, at = kill_at, delta_step
+        t0 = time.perf_counter()
+        res, got, windows, calls = main_path(
+            "train_lm_joinsampled run A", lambda: example.run_integration(
+                steps, kill, at, B, S, work / "int",
+                full=not reduced, device=str(device), restart=True,
+                hooks=hooks))
+        wall_s = time.perf_counter() - t0
+        a, b = res["a"], res["b"]
+        # run A's own launches: the children count theirs in their processes
+        assert_launches(got, windows, calls, steps)
+        peak = (int(torch.cuda.max_memory_allocated(device)) - held
+                if on_card else 0)
+        gaps = [(t1 - t0_) * 1e3 for (_, t0_), (_, t1) in
+                zip(stamps, stamps[1:])]
+        steady = sorted(gaps)
+        mean = sum(gaps) / len(gaps)
+        e2e.update(losses_a=a["losses"], losses_b=b["losses"],
+                   versions_a=a["data_versions"], step_ms=gaps,
+                   step_ms_mean=mean, step_ms_median=steady[len(steady) // 2],
+                   step_ms_min=steady[0], step_ms_max=steady[-1],
+                   tokens_per_s=B * S / (mean / 1e3),
+                   peak_device_bytes=peak, integration_wall_s=wall_s,
+                   straggler_events=len(a["straggler_events"]))
+        log(f"[check] J run A: loss {a['losses'][0]:.4f} -> "
+            f"{a['losses'][-1]:.4f} over {steps} steps; versions "
+            f"{a['data_versions']}; run B killed after {kill} and resumed in "
+            f"a new process: {len(b['losses'])} losses and doc ids equal run "
+            f"A's bit for bit")
+        quarter = max(steps // 4, 1)
+        first = sum(a["losses"][:quarter]) / quarter
+        last = sum(a["losses"][-quarter:]) / quarter
+        log(f"[check] J the loss falls: mean of steps 0-{quarter - 1} "
+            f"{first:.4f}, of the last {quarter} {last:.4f}")
+        assert last < first, a["losses"]
+        e2e.update(loss_first_quarter=first, loss_last_quarter=last)
+        assert a["data_versions"] == [0] * at + [1] * (steps - at)
+        log(f"[time] J step (run A, steps 1-{steps - 1}, a loop iteration: "
+            f"batch, step, loss read, a due checkpoint's snapshot): mean "
+            f"{mean:.2f} ms (median {e2e['step_ms_median']:.2f}, min "
+            f"{steady[0]:.2f}, max {steady[-1]:.2f}); "
+            f"{e2e['tokens_per_s']:.0f} tokens/s at {B} x {S}; peak device "
+            f"memory {peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB "
+            f"held before; run A and B {wall_s:.1f} s; {smi}")
+
+        # -- 6. a corrupted newest checkpoint: resume from the one before -----
+        b_dir = work / "int" / "b"
+        manager = CheckpointManager(str(b_dir))
+        newest = manager.all_steps()[-1]
+        shard = b_dir / f"step_{newest:010d}" / "shard0.npz"
+        with open(shard, "r+b") as f:
+            f.seek(shard.stat().st_size // 2)
+            f.write(b"corrupted!")
+        tc = train_mod.TrainConfig(
+            arch=TRAIN_ARCH, reduced=reduced, steps=kill + 1,
+            batch=B, seq_len=S, ckpt_every=kill, log_every=1000,
+            ckpt_dir=str(b_dir), device=str(device))
+        c = train_mod.train(dataclasses.replace(
+            tc, deltas=example.delta_schedule(tc, at)))
+        log(f"[check] J newest checkpoint (step {newest}) corrupted: the "
+            f"restart resumed from step {kill} and step {kill}'s loss "
+            f"{c['losses'][0]!r} equals run A's {a['losses'][kill]!r}")
+        assert c["losses"] == a["losses"][kill:kill + 1], c["losses"]
+        del a, b, c, res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    return launches, e2e
+
+
+def profile_train_step(model, batch, smi) -> dict:
+    """A warm training step's device time by kind, all from one
+    ``torch.profiler`` trace of the step: the attention kernel (by name),
+    the attention backward (the kernels launched inside
+    ``FlashPrefill.backward``'s range, ``flash_prefill.BACKWARD_RANGE``),
+    the optimizer (inside ``adamw_update``'s, ``adamw.UPDATE_RANGE``), the
+    matrix products outside both ranges, and the rest; the idle share of
+    the step's unprofiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import adamw as adamw_mod
+
+    opt_cfg = AdamWConfig(lr=3e-3)
+    state = adamw_init(opt_cfg, dict(model.named_parameters()))
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        def step():
+            train_mod.train_step(model, opt_cfg, state, batch, 25)
+        wall = wall_ms(step, model.device)
+        events = profiled(step, 1).events()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    # a range's span on the device is not work (the trace may also link it
+    # to the range as one of its kernels)
+    spans = {pre_mod.BACKWARD_RANGE, adamw_mod.UPDATE_RANGE} | {
+        e.name for e in events if getattr(e, "is_user_annotation", False)}
+    work = [e for e in events if is_device_work(e) and e.name not in spans]
+    split = attention_split(work)
+    busy = sum(split.values())
+
+    def inside(name):
+        """The kernels launched inside each CPU range ``name``, by kind
+        (``kernel_kind``), and the ranges' count."""
+        def kernels(e):
+            return [k for k in e.kernels if k.name not in spans] + [
+                k for c in e.cpu_children for k in kernels(c)]
+        ranges = [e for e in events
+                  if e.name == name and e.device_type == DeviceType.CPU]
+        split = {"attention": 0.0, "matmul": 0.0, "rest": 0.0}
+        for r in ranges:
+            for k in kernels(r):
+                split[kernel_kind(k.name)] += k.duration / 1e3
+        return split, len(ranges)
+
+    bwd, n_bwd = inside(pre_mod.BACKWARD_RANGE)
+    opt, n_opt = inside(adamw_mod.UPDATE_RANGE)
+    L = model.cfg.n_layers
+    B, S = batch["tokens"].shape
+    kinds = {"attention_kernel": split["attention"] - bwd["attention"]
+             - opt["attention"],
+             "attention_backward": sum(bwd.values()),
+             "matmul": split["matmul"] - bwd["matmul"] - opt["matmul"],
+             "optimizer": sum(opt.values()),
+             "rest": split["rest"] - bwd["rest"] - opt["rest"]}
+    out = dict(kinds, busy_ms=busy, wall_ms=wall,
+               device_ops=sum(1 for e in work), idle_share=1 - busy / wall,
+               backward_ranges=n_bwd, optimizer_ranges=n_opt)
+    log(f"[profile] J a training step (B {B}, S {S}): device busy "
+        f"{busy:.3f} ms of {wall:.3f} ms warm wall (idle share "
+        f"{out['idle_share']:.3f}): attention kernel "
+        f"{kinds['attention_kernel']:.3f}, attention backward "
+        f"{kinds['attention_backward']:.3f} ({n_bwd} ranges), matrix "
+        f"products {kinds['matmul']:.3f}, optimizer "
+        f"{kinds['optimizer']:.3f} ({n_opt} range), the rest "
+        f"{kinds['rest']:.3f}; {out['device_ops']} device operations; "
+        f"{smi}")
+    # each backward and the update ran in its range, and the ranges held
+    # device work: the kinds are read from the trace, not estimated
+    assert n_bwd == L and n_opt == 1, (n_bwd, n_opt)
+    assert kinds["attention_backward"] > 0 and kinds["optimizer"] > 0, kinds
+    assert min(kinds.values()) >= 0, kinds
+    top = {}
+    for e in work:
+        top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
+    for key, us in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile] J step:   {us / 1e3:8.3f} ms  {key[:80]}")
+    return out
+
+
+def training_summary(e2e: dict) -> dict:
+    """Phase J's figures for one line near the end of the output: a step's
+    ms, tokens/s, peak memory, the gradient check, the checked build and,
+    with ``--profile``, a step's device time by kind."""
+    keys = ("arch", "batch", "seq", "step_ms_mean", "step_ms_median",
+            "step_ms_min", "step_ms_max", "tokens_per_s", "peak_device_bytes",
+            "grad_rel_err_max", "grad_rel_err_median", "backward_rel_err",
+            "out_of_bounds", "loss_first_quarter", "loss_last_quarter",
+            "device")
+    out = {k: e2e[k] for k in keys if k in e2e}
+    if "profile_step" in e2e:
+        out["profile_step"] = e2e["profile_step"]
+    return out
 
 
 def run(args, device, kernel_policy=None) -> dict:
@@ -3771,11 +4264,14 @@ def run(args, device, kernel_policy=None) -> dict:
     launchesH, e2eH = run_sharding(args, device, q, configs, kernels,
                                    kernel_policy)
     e2e["sharding"] = e2eH
-    # -- 7f. phase I: LM serving, last
+    # -- 7f. phase I: LM serving
     launchesI, e2eI = run_lm(args, device, kernels, kernel_policy)
     e2e["lm"] = e2eI
     for name, err in e2eI["attention_errs"].items():
         errs[name] = max(errs[name], err)
+    # -- 7g. phase J: LM training, last
+    launchesJ, e2eJ = run_training(args, device, kernels, kernel_policy)
+    e2e["training"] = e2eJ
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
@@ -3783,7 +4279,7 @@ def run(args, device, kernel_policy=None) -> dict:
                        + sum(lp[k] for lp in launchesF.values())
                        + sum(lp[k] for lp in launchesG.values())
                        + sum(lp[k] for lp in launchesH.values())
-                       + launchesI[k])
+                       + launchesI[k] + launchesJ[k])
 
     # -- 8. the kernels' rows ---------------------------------------------------
     sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",
@@ -3827,6 +4323,7 @@ def run(args, device, kernel_policy=None) -> dict:
             "phase_g_launches": launchesG,
             "phase_h_launches": launchesH,
             "phase_i_launches": launchesI,
+            "phase_j_launches": launchesJ,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),
@@ -3882,6 +4379,9 @@ def main(argv=None) -> int:
     ap.add_argument("--json-out", default=None,
                     help="also write the results to this file")
     args = ap.parse_args(argv)
+    # phase J trains under deterministic algorithms: cuBLAS reads this
+    # before its first call, which earlier phases make
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     import torch
 
@@ -3917,6 +4417,8 @@ def main(argv=None) -> int:
         out = Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(result, device=smi), indent=1))
+    print("TRAINING " + json.dumps(training_summary(
+        result["end_to_end"]["training"])))
     print(smi)
     print(json.dumps({"kernels": result["kernels"]}))
     print(json.dumps({"ok": True, "device": {

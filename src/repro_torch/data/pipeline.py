@@ -28,8 +28,8 @@ equals the single draw under ``keys[b]`` — so a restart resumes
 mid-epoch exactly (a checkpoint stores the step counter and the data
 version).
 
-Not ported: ``SyntheticLMSource``, which feeds only the model trainer
-(ROADMAP A.5).
+``SyntheticLMSource`` is the model trainer's other source: pure-random
+tokens, ``jax.random.randint``'s bits and arithmetic reproduced exactly.
 """
 from __future__ import annotations
 
@@ -42,12 +42,13 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.config import resolve_device
 from repro_torch.core import Atom, Database, DeltaBatch, JoinQuery
 from repro_torch.engine import DrawSpec, QueryEngine
 from repro_torch.kernels import threefry
 
 __all__ = ["make_corpus_db", "corpus_delta", "PoissonJoinSource",
-           "Prefetcher"]
+           "SyntheticLMSource", "Prefetcher"]
 
 
 def make_corpus_db(
@@ -317,6 +318,78 @@ class PoissonJoinSource:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def randint(k, n: int, minval: int, maxval: int) -> np.ndarray:
+    """The (n,) int32 values of ``jax.random.randint(k, (n,), minval,
+    maxval, jnp.int32)`` (int32 bounds, ``maxval > minval``), bit for bit:
+    two streams of 32-bit words, from the two keys of ``split(k, 2)``, taken
+    mod the span and joined as ``(hi % span) * (2^32 % span) + lo % span``,
+    mod the span, every step in wrapping uint32 arithmetic as jax's (so a
+    span over 2^16 gets a multiplier of 0)."""
+    if not -2**31 <= minval < maxval <= 2**31 - 1:
+        raise ValueError(f"randint: int32 bounds with minval < maxval, got "
+                         f"[{minval}, {maxval})")
+    k1, k2 = threefry.split(k, 2)
+    hi = threefry.random_bits(k1, n).astype(np.uint64)
+    lo = threefry.random_bits(k2, n).astype(np.uint64)
+    span = np.uint64(maxval - minval)
+    m32 = np.uint64(0xFFFFFFFF)  # every product and sum wraps as a uint32
+    mult = ((np.uint64(2**16) % span) ** np.uint64(2) & m32) % span
+    off = (((hi % span) * mult & m32) + lo % span) & m32
+    return (minval + (off % span).astype(np.int64)).astype(np.int32)
+
+
+def normal(k, shape, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.random.normal(k, shape, dtype)`` for a float32 or bf16
+    ``dtype``: uniforms on [nextafter(-1, 0), 1) from the words of
+    ``jax.random.bits`` (their low 32 or, for bf16, 8 bits as mantissa bits
+    under the exponent of 1), then
+    ``sqrt(2) * erfinv(u)``. The bits are jax's; ``erfinv`` is torch's,
+    which may differ from XLA's in the last place."""
+    finfo = torch.finfo(dtype)
+    nbits, nmant = finfo.bits, {torch.float32: 23, torch.bfloat16: 7}[dtype]
+    rng_bits = nbits if nmant >= 8 else 8  # jax draws 8 bits for bf16
+    n = int(np.prod(shape))
+    bits = threefry.random_bits(k, n).astype(np.int64) & ((1 << rng_bits) - 1)
+    one = {32: 0x3F800000, 16: 0x3F80}[nbits]
+    fbits = torch.from_numpy((bits >> (rng_bits - nmant)) | one)
+    int_t = {32: torch.int32, 16: torch.int16}[nbits]
+    u = fbits.to(int_t).view(dtype) - torch.ones((), dtype=dtype)
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype),
+                         torch.tensor(0.0, dtype=dtype))
+    u = torch.maximum(lo, u * (torch.ones((), dtype=dtype) - lo) + lo)
+    return (torch.tensor(2.0 ** 0.5, dtype=dtype)
+            * torch.special.erfinv(u)).reshape(tuple(shape))
+
+
+class SyntheticLMSource:
+    """Pure-random token batches (model-only benchmarking), deterministic in
+    (seed, step): the reference's batches bit for bit. ``batch_at(step)``
+    draws ``randint`` under ``fold_in(key(seed), step)`` over ``(batch,
+    seq_len + 1)`` on the host and returns the shifted ``tokens`` and
+    ``targets`` (int32, on ``device``: the card by default), and for each
+    of ``extra_specs`` (name -> a tensor of its shape and dtype, such as
+    ``configs.input_specs``' meta tensors) ``normal`` under ``fold_in(key,
+    1)`` (the step's key folded with 1)."""
+
+    def __init__(self, vocab: int, seq_len: int, batch: int, seed: int = 0,
+                 extra_specs: Optional[Dict] = None, device=None):
+        self.vocab, self.seq_len, self.batch = vocab, seq_len, batch
+        self.key = threefry.key(seed)
+        self.extra_specs = extra_specs or {}
+        self.device = resolve_device(device)
+
+    def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        key = threefry.fold_in(self.key, step)
+        toks = randint(key, self.batch * (self.seq_len + 1), 0, self.vocab)
+        toks = torch.from_numpy(toks.reshape(self.batch, self.seq_len + 1)
+                                ).to(self.device)
+        out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        for name, spec in self.extra_specs.items():
+            out[name] = normal(threefry.fold_in(key, 1), spec.shape,
+                               spec.dtype).to(self.device)
+        return out
 
 
 class Prefetcher:

@@ -7,7 +7,7 @@ name carries a digest of every source in ``csrc/``, so an edited source
 is never served by a stale build. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together. ``VARIANTS`` are
 other builds of a source with flags of their own (the checked fused
-draw).
+draw and bf16 prefill).
 
 No source links ``libcuda``: ``flash_prefill_tc.cu`` fetches
 ``cuTensorMapEncodeTiled`` at run time through the runtime's entry-point
@@ -31,7 +31,7 @@ import torch
 
 __all__ = ["SOURCES", "VARIANTS", "BUILD_DIR", "build_all", "library",
            "library_path", "entry", "check", "on_device", "current_stream",
-           "ptxas_report", "vector_operand"]
+           "ptxas_report", "vector_operand", "checked_run"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -39,9 +39,12 @@ SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
            "scan", "flash_decode", "flash_prefill", "flash_prefill_tc",
            "csr_walk")
 # Other builds of a source, each with its own flags and library: name ->
-# (source, extra nvcc flags). The checked fused draw holds every load of a
-# launch against its operands (fused_draw.out_of_bounds), a measurement.
-VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",))}
+# (source, extra nvcc flags). The checked builds hold every load of a launch
+# against its operands (fused_draw.out_of_bounds,
+# flash_prefill.out_of_bounds), a measurement.
+VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",)),
+            "flash_prefill_tc_checked": ("flash_prefill_tc",
+                                         ("-DFPT_CHECK_BOUNDS",))}
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -167,3 +170,36 @@ def vector_operand(t):
     16-byte vectors need (a contiguous view may start mid-allocation)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def checked_run(check_set, launch, check_get, operands, device,
+                records: int) -> dict:
+    """One launch of a checked build (``VARIANTS``), its accesses held
+    against the byte ranges of ``operands`` (name, tensor or None), then a
+    wait for it. ``check_set(lo, hi, n)`` and ``check_get(count, rec)`` are
+    the build's C entries, ``launch(stream)`` launches it. Returns
+    ``{"count": the accesses outside the ranges, "loads": the first
+    recorded, each as (source line, the nearest operand, the access's byte
+    offset from that operand's start, the operand's bytes, the access's
+    bytes)}``."""
+    spans = [(name, t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+             for name, t in operands if t is not None]
+    lo = (ctypes.c_ulonglong * len(spans))(*[a for _, a, _ in spans])
+    hi = (ctypes.c_ulonglong * len(spans))(*[b for _, _, b in spans])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        stream.synchronize()  # the ranges are device globals of the build
+        check(check_set(lo, hi, len(spans)), "check_set")
+        launch(stream.cuda_stream)
+        stream.synchronize()
+        count = ctypes.c_uint()
+        rec = (ctypes.c_ulonglong * (3 * records))()
+        check(check_get(ctypes.byref(count), rec), "check_get")
+    loads = []
+    for i in range(min(count.value, records)):
+        addr, nbytes, line = rec[3 * i], rec[3 * i + 1], rec[3 * i + 2]
+        name, a, b = min(spans, key=lambda s: min(abs(addr - s[1]),
+                                                  abs(addr - s[2])))
+        loads.append((int(line), name, int(addr - a), int(b - a),
+                      int(nbytes)))
+    return {"count": count.value, "loads": loads}

@@ -55,6 +55,93 @@
 #include "tensor_core.cuh"
 #include "wgmma.cuh"
 
+// The checked build (-DFPT_CHECK_BOUNDS; flash_prefill.py out_of_bounds):
+// each 4-byte store of the output is held against the byte ranges of the
+// launch's operands, which the host sets before it
+// (flash_prefill_tc_check_set); a store outside them is not made but
+// counted, the first FPT_CHECK_RECORDS kept as (address, bytes, source
+// line) (flash_prefill_tc_check_get). The loads are TMA boxes, which read
+// nothing outside their tensor map's dims (zeros fill the rest), so the
+// host holds each map instead: its base and dims times 2 bytes must be one
+// of the ranges set (FPT_ERR_MAP_RANGE otherwise). The kernel is the same,
+// setmaxnreg included.
+#ifdef FPT_CHECK_BOUNDS
+#define FPT_CHECK_RANGES 8
+#define FPT_CHECK_RECORDS 64
+#define FPT_ERR_MAP_RANGE 20000
+__device__ unsigned long long fpt_check_lo[FPT_CHECK_RANGES];
+__device__ unsigned long long fpt_check_hi[FPT_CHECK_RANGES];
+__device__ int fpt_check_n;
+__device__ unsigned fpt_check_count;
+__device__ unsigned long long fpt_check_rec[FPT_CHECK_RECORDS][3];
+// the host's copy of the ranges, for the maps
+static unsigned long long fpt_host_lo[FPT_CHECK_RANGES];
+static unsigned long long fpt_host_hi[FPT_CHECK_RANGES];
+static int fpt_host_n;
+
+__device__ __noinline__ void fpt_check_fail(unsigned long long a,
+                                            long long bytes, int line) {
+  const unsigned k = atomicAdd(&fpt_check_count, 1u);
+  if (k < FPT_CHECK_RECORDS) {
+    fpt_check_rec[k][0] = a;
+    fpt_check_rec[k][1] = (unsigned long long)bytes;
+    fpt_check_rec[k][2] = (unsigned long long)line;
+  }
+}
+
+__device__ bool fpt_check(unsigned long long a, long long bytes, int line) {
+  for (int i = 0; i < fpt_check_n; ++i)
+    if (a >= fpt_check_lo[i] && a + bytes <= fpt_check_hi[i]) return true;
+  fpt_check_fail(a, bytes, line);
+  return false;
+}
+
+#define FPT_STORE_OK(p, bytes) \
+  fpt_check((unsigned long long)(p), (bytes), __LINE__)
+
+// Whether a map of (D, S, heads) bf16 elements at ptr spans one range set.
+static bool fpt_map_ok(const void* ptr, int D, int S, int heads) {
+  const unsigned long long lo = (unsigned long long)ptr;
+  const unsigned long long hi = lo + 2ull * D * S * heads;
+  for (int i = 0; i < fpt_host_n; ++i)
+    if (fpt_host_lo[i] == lo && fpt_host_hi[i] == hi) return true;
+  return false;
+}
+
+// The operands' byte ranges [lo, hi) of the next launch, and a zero count.
+extern "C" int flash_prefill_tc_check_set(const unsigned long long* lo,
+                                          const unsigned long long* hi,
+                                          int n) {
+  if (n < 0 || n > FPT_CHECK_RANGES) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    fpt_host_lo[i] = lo[i];
+    fpt_host_hi[i] = hi[i];
+  }
+  fpt_host_n = n;
+  const unsigned zero = 0;
+  cudaError_t e = cudaMemcpyToSymbol(fpt_check_lo, lo, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fpt_check_hi, hi, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fpt_check_n, &n, sizeof(int));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(fpt_check_count, &zero, sizeof(unsigned));
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+
+// The last launch's count of accesses outside the ranges and its records
+// (FPT_CHECK_RECORDS x 3 words), after the launch has finished.
+extern "C" int flash_prefill_tc_check_get(unsigned* count,
+                                          unsigned long long* rec) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(count, fpt_check_count, sizeof(unsigned));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(rec, fpt_check_rec, sizeof(fpt_check_rec));
+  return (int)e;
+}
+#else
+#define FPT_STORE_OK(p, bytes) true
+#endif
+
 #define FPT_BQ 128        // query rows per block: two consumer warpgroups
 #define FPT_THREADS 384   // producer + two consumers
 #define FPT_NEG (-1e30f)  // the reference's mask value and initial max
@@ -293,9 +380,10 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
       __nv_bfloat16* orow = out + (((long long)b * H + h) * S + row) * D;
 #pragma unroll
       for (int nb = 0; nb < D / 8; ++nb)
-        *reinterpret_cast<uint32_t*>(orow + nb * 8 + (lane % 4) * 2) =
-            pack_bf16(__fdiv_rn(o[nb * 4 + 2 * r], den),
-                      __fdiv_rn(o[nb * 4 + 2 * r + 1], den));
+        if (FPT_STORE_OK(orow + nb * 8 + (lane % 4) * 2, 4))
+          *reinterpret_cast<uint32_t*>(orow + nb * 8 + (lane % 4) * 2) =
+              pack_bf16(__fdiv_rn(o[nb * 4 + 2 * r], den),
+                        __fdiv_rn(o[nb * 4 + 2 * r + 1], den));
     }
   }
 }
@@ -354,6 +442,11 @@ static int fpt_launch(const void* q, const void* k, const void* v, void* out,
   if (err == 0) err = make_map(enc, &tk, k, D, S, B * KV, FptShape<D>::BK);
   if (err == 0) err = make_map(enc, &tv, v, D, S, B * KV, FptShape<D>::BK);
   if (err != 0) return err;
+#ifdef FPT_CHECK_BOUNDS
+  if (!fpt_map_ok(q, D, S, B * H) || !fpt_map_ok(k, D, S, B * KV) ||
+      !fpt_map_ok(v, D, S, B * KV))
+    return FPT_ERR_MAP_RANGE;
+#endif
   const int smem = FptShape<D>::SMEM;
   cudaError_t cerr = cudaFuncSetAttribute(
       flash_prefill_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -24,8 +24,22 @@ Both run an online softmax over key tiles, so no S x S score matrix
 exists, and take any S: keys past the end are left out, causal or not, so
 no padding is needed.
 
+``out_of_bounds`` runs the bf16 kernel's checked build
+(``build.VARIANTS``, ``-DFPT_CHECK_BOUNDS``) once and returns the stores
+that fall outside q, k, v and the output; it raises if a tensor map does
+not span its operand's bytes (TMA reads nothing outside its map): a
+measurement, not counted in ``launches``.
+
 The plain version is the dense oracle. It walks batch rows and KV heads,
 so its float32 scores are one group's ``(G, S, S)`` at a time.
+
+``FlashPrefill`` is ``ops.prefill_attention``'s route: an autograd
+function whose forward is ``flash_prefill`` (the same launch and bits,
+with or without a graph) and whose backward computes dq, dk and dv with
+torch operations in float32 (``flash_prefill_backward``), a block of query
+rows at a time, inside the profiler range ``BACKWARD_RANGE``. The
+reference has no backward kernel either: ``jax.grad`` differentiates its
+attention in XLA.
 """
 from __future__ import annotations
 
@@ -37,7 +51,9 @@ import torch
 from . import build
 
 __all__ = ["HEAD_DIMS", "TILE_Q", "F32_SHAPES", "work_order",
-           "flash_prefill_plain", "flash_prefill"]
+           "flash_prefill_plain", "flash_prefill", "flash_prefill_backward",
+           "FlashPrefill", "BACKWARD_RANGE", "out_of_bounds",
+           "CHECK_RECORDS", "MAP_RANGE_ERROR"]
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' instances
 TILE_Q = 64  # query rows of a float32 work item (FP_BQ)
@@ -121,6 +137,111 @@ def flash_prefill(q, k, v, causal: bool = True) -> torch.Tensor:
 
 
 flash_prefill.launches = 0
+
+
+# float32 elements of one (B, H, rows, S) block of the backward's scores
+BWD_BLOCK_ELEMS = 1 << 26
+
+
+def flash_prefill_backward(q, k, v, out, d_out, causal: bool = True):
+    """dq, dk, dv of ``flash_prefill`` at (q, k, v) with output ``out`` and
+    upstream gradient ``d_out``, in float32, back in each operand's dtype.
+    Blocks of query rows (``BWD_BLOCK_ELEMS`` scores each) recompute
+    ``P = softmax(QK^T / sqrt(D), masked)`` and take ``dV += P^T dO``, ``dP
+    = dO V^T``, ``dS = P (dP - rowsum(dO O)) / sqrt(D)``, ``dQ = dS K``,
+    ``dK += dS^T Q``; query heads are summed into their KV head."""
+    B, H, KV, S, D = _shapes(q, k, v)
+    G = H // KV
+    f32 = torch.float32
+    qg = q.to(f32).reshape(B, KV, G, S, D)
+    dog = d_out.to(f32).reshape(B, KV, G, S, D)
+    delta = (dog * out.to(f32).reshape(B, KV, G, S, D)).sum(-1)
+    kf, vf = k.to(f32)[:, :, None], v.to(f32)[:, :, None]  # (B, KV, 1, S, D)
+    dq = torch.empty_like(qg)
+    dk = torch.zeros((B, KV, S, D), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = max(1, min(S, BWD_BLOCK_ELEMS // max(B * H * S, 1)))
+    for i0 in range(0, S, rows):
+        i1 = min(S, i0 + rows)
+        t = i1 if causal else S  # keys past the block's last row are masked
+        kb, vb = kf[..., :t, :], vf[..., :t, :]
+        s = torch.matmul(qg[..., i0:i1, :], kb.transpose(-1, -2)) / D ** 0.5
+        if causal:
+            keep = (torch.arange(t, device=q.device)[None, :]
+                    <= torch.arange(i0, i1, device=q.device)[:, None])
+            s = torch.where(keep, s, _MASK)
+        p = torch.softmax(s, dim=-1)                      # (B, KV, G, r, t)
+        do = dog[..., i0:i1, :]
+        dv[..., :t, :] += torch.matmul(p.transpose(-1, -2), do).sum(2)
+        ds = p * (torch.matmul(do, vb.transpose(-1, -2))
+                  - delta[..., i0:i1, None]) / D ** 0.5
+        dq[..., i0:i1, :] = torch.matmul(ds, kb)
+        dk[..., :t, :] += torch.matmul(ds.transpose(-1, -2),
+                                       qg[..., i0:i1, :]).sum(2)
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+# the ``torch.profiler`` range of FlashPrefill's backward (a training
+# step's device time by kind reads it)
+BACKWARD_RANGE = "FlashPrefill.backward"
+
+
+class FlashPrefill(torch.autograd.Function):
+    """``flash_prefill`` with a gradient: the forward is the kernel's launch
+    (the plain version on the CPU), the backward
+    ``flash_prefill_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_prefill(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            dq, dk, dv = flash_prefill_backward(q, k, v, out, d_out,
+                                                ctx.causal)
+        return dq, dk, dv, None
+
+
+CHECK_RECORDS = 64  # FPT_CHECK_RECORDS: the accesses a checked launch keeps
+MAP_RANGE_ERROR = 20000  # FPT_ERR_MAP_RANGE: a map that is not its operand
+
+
+def out_of_bounds(q, k, v, causal: bool = True) -> dict:
+    """One launch of the bf16 kernel's checked build on CUDA operands, its
+    output stores held against q, k, v and the output: ``{"count": ...,
+    "loads": [(source line, operand, byte offset, the operand's bytes,
+    access bytes), ...]}``, the first ``CHECK_RECORDS`` recorded. Raises if
+    the host finds a tensor map whose base and dims are not exactly q's,
+    k's or v's bytes. Not counted in ``launches``."""
+    B, H, KV, S, D = _shapes(q, k, v)
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("out_of_bounds: the checked build is the bf16 "
+                         "kernel's, on the card")
+    lib = "flash_prefill_tc_checked"
+    q, k, v = (build.vector_operand(t) for t in (q, k, v))
+    out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
+    _, entry, argtypes = _ENTRIES[torch.bfloat16]
+    fn = build.entry(lib, entry, argtypes)
+
+    def launch(stream):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 H, KV, S, D, int(bool(causal)), 1.0 / D ** 0.5, stream)
+        if err == MAP_RANGE_ERROR:
+            raise RuntimeError("out_of_bounds: a tensor map of q, k or v "
+                               "does not span its operand's bytes")
+        build.check(err, entry)
+
+    return build.checked_run(
+        build.entry(lib, "flash_prefill_tc_check_set", [_VP, _VP, _INT]),
+        launch, build.entry(lib, "flash_prefill_tc_check_get", [_VP, _VP]),
+        (("q", q), ("k", k), ("v", v), ("out", out)), q.device,
+        CHECK_RECORDS)
 
 
 # the float32 kernel's ticket per (device index, stream): [next item,

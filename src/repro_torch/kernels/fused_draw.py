@@ -555,39 +555,17 @@ def _launch(entry: str, arena, key, params, layout, method: str, cap: int,
 
 def _checked_run(entry: str, args, dev, operands, check: dict) -> None:
     """One launch of ``entry`` from the checked build, its loads held
-    against the byte ranges of ``operands`` (name, tensor or None), then a
-    wait for it. ``check`` takes ``count``, the loads outside them, and
-    ``loads``: the first recorded, each as (source line, the nearest
-    operand, the load's byte offset from that operand's start, the
-    operand's bytes, the load's bytes)."""
+    against the byte ranges of ``operands`` (``build.checked_run``);
+    ``check`` takes its ``count`` and ``loads``."""
     from . import build
 
     lib = "fused_draw_checked"
-    spans = [(name, t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
-             for name, t in operands if t is not None]
-    lo = (ctypes.c_ulonglong * len(spans))(*[a for _, a, _ in spans])
-    hi = (ctypes.c_ulonglong * len(spans))(*[b for _, _, b in spans])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev)
-        stream.synchronize()  # the ranges are device globals of the build
-        build.check(_entry("fused_draw_check_set", lib)(lo, hi, len(spans)),
-                    "fused_draw_check_set")
-        build.check(_entry(f"{entry}_launch", lib)(*args, stream.cuda_stream),
-                    entry)
-        stream.synchronize()
-        count = ctypes.c_uint()
-        rec = (ctypes.c_ulonglong * (3 * CHECK_RECORDS))()
-        build.check(_entry("fused_draw_check_get", lib)(ctypes.byref(count),
-                                                        rec),
-                    "fused_draw_check_get")
-    loads = []
-    for i in range(min(count.value, CHECK_RECORDS)):
-        addr, nbytes, line = rec[3 * i], rec[3 * i + 1], rec[3 * i + 2]
-        name, a, b = min(spans, key=lambda s: min(abs(addr - s[1]),
-                                                  abs(addr - s[2])))
-        loads.append((int(line), name, int(addr - a), int(b - a),
-                      int(nbytes)))
-    check.update(count=count.value, loads=loads)
+    check.update(build.checked_run(
+        _entry("fused_draw_check_set", lib),
+        lambda stream: build.check(_entry(f"{entry}_launch", lib)(*args,
+                                                                  stream),
+                                   entry),
+        _entry("fused_draw_check_get", lib), operands, dev, CHECK_RECORDS))
 
 
 # The kernel's phases, in order (csrc/fused_draw.cu), for phase_ms; the

@@ -35,7 +35,7 @@ from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 from . import ref
 from .bsearch_probe import bsearch_probe
 from .flash_decode import flash_decode
-from .flash_prefill import flash_prefill
+from .flash_prefill import FlashPrefill
 from .geo_gaps import geo_gaps_tiles
 from .prefix_sum import prefix_sum_tiles
 
@@ -112,10 +112,12 @@ def prefill_attention(q, k, v, *, causal: bool = True,
                       policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """Causal (or full) flash attention over full sequences: q (B, H, S,
     D), k/v (B, KV, S, D). bf16 takes the tensor-core kernel, float32 the
-    CUDA-core one. ``block_q`` and ``block_k`` are checked and have no
-    effect (the kernels' tiles are fixed)."""
+    CUDA-core one, through ``flash_prefill.FlashPrefill``: the kernel's
+    launch, with a gradient when autograd records one. ``block_q`` and
+    ``block_k`` are checked and have no effect (the kernels' tiles are
+    fixed)."""
     _check_block("block_q", block_q)
     _check_block("block_k", block_k)
     if not policy.enabled:
         return ref.flash_prefill_ref(q, k, v, causal=causal)
-    return flash_prefill(q, k, v, causal)
+    return FlashPrefill.apply(q, k, v, causal)

@@ -13,7 +13,9 @@ words of ``jax.random.split(key, num)`` (the partitionable, fold-like
 split: key i is the cipher of the 64-bit counter i), and ``keys(seed,
 num)`` those of ``split(key(seed), num)``, the canonical keys of a batch,
 and ``fold_in(key, data)`` those of ``jax.random.fold_in`` (the cipher
-of the counter (0, data)). ``fold_in_keys(keys, data)`` folds every datum
+of the counter (0, data)), and ``random_bits(key, n)`` the 32-bit words of
+``jax.random.bits`` (the cipher of the counter (0, i) for word i, its two
+output words xored). ``fold_in_keys(keys, data)`` folds every datum
 into every key of a batch in one numpy cipher; ``fold_in_batch`` (the
 data pipeline's per-step keys), ``split`` and the shard keys go through
 it. ``fold`` is another function: the draw
@@ -35,7 +37,8 @@ import torch
 from repro_torch.config import resolve_device
 
 __all__ = ["key", "key_words", "key_batch", "split", "keys", "fold_in",
-           "fold_in_batch", "fold_in_keys", "threefry2x32", "fold",
+           "fold_in_batch", "fold_in_keys", "random_bits", "threefry2x32",
+           "fold",
            "bits_to_uniform", "uniforms_plain", "uniforms"]
 
 M32 = 0xFFFFFFFF
@@ -110,6 +113,16 @@ def fold_in_keys(ks, data) -> np.ndarray:
                           np.broadcast_to(w[:, 1], shape),
                           np.zeros(shape, np.int64), np.broadcast_to(d, shape))
     return np.stack([x0, x1], axis=-1).astype(np.uint32)
+
+
+def random_bits(k, n: int) -> np.ndarray:
+    """The (n,) uint32 words of ``jax.random.bits(k, (n,))`` (jax's
+    partitionable Threefry): word i is ``x0 ^ x1`` of the cipher of the
+    64-bit counter i, as (hi, lo) words, under ``k``."""
+    k0, k1 = key_words(k)
+    i = np.arange(int(n), dtype=np.int64)
+    x0, x1 = threefry2x32(k0, k1, i >> 32, i & M32)
+    return (x0 ^ x1).astype(np.uint32)
 
 
 def _rotl(x, d: int):

@@ -1,0 +1,238 @@
+"""Training (``repro.launch.train``): the fault-tolerant loop with
+checkpoint/resume, the straggler watchdog, the elastic mesh rule, and the
+Poisson-join data pipeline, on one card.
+
+    python -m repro_torch.launch.train --full --seq-len 2048 --batch 8
+
+(with ``PYTHONPATH=src``; the card by default, ``--device cpu`` runs the
+reduced config here). Without ``--full`` it trains the reduced config,
+whose head dim 16 has no attention kernel: on the card that raises.
+
+Fault tolerance, as the reference's:
+  * checkpoints: atomic, checksummed, keep-N, asynchronous; ``train``
+    resumes from the newest valid step, so a node failure is a restart;
+  * straggler watchdog: an EWMA of the step's wall time; a step over
+    ``straggler_factor`` x the EWMA (after the first four steps of a run)
+    is recorded and passed to the ``on_straggler`` hook;
+  * the delta schedule is part of the run's identity: the checkpoint
+    records the data version, and a resume whose schedule puts the last
+    step at another version raises.
+
+Determinism: the reference's contract is resume bit for bit
+(``examples/train_lm_joinsampled.py``). ``train`` runs its loop under
+``torch.use_deterministic_algorithms(True)`` (an operation without a
+deterministic implementation raises; it never falls back quietly) and
+restores the caller's setting after. On the card cuBLAS then needs
+``CUBLAS_WORKSPACE_CONFIG`` set before its first call: ``main`` sets it
+when absent.
+
+``train_step`` keeps the reference's step exactly: AdamW with float32
+moments under ``warmup_cosine(step, warmup=20, total=100000)``, whatever
+``TrainConfig.warmup`` says (a defect of the reference, kept for parity).
+``TrainConfig.lr`` is the peak rate.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data import PoissonJoinSource, SyntheticLMSource, make_corpus_db
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import init_model, loss_fn
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               warmup_cosine)
+
+__all__ = ["TrainConfig", "train_step", "train", "main"]
+
+# what cuBLAS needs for deterministic products (its documented setting)
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    arch: str = "smollm_135m"
+    reduced: bool = True
+    steps: int = 200
+    batch: int = 8
+    seq_len: int = 64
+    lr: float = 3e-3
+    warmup: int = 20
+    seed: int = 0
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
+    ckpt_every: int = 50
+    keep_n: int = 3
+    straggler_factor: float = 3.0
+    data: str = "poisson_join"  # or "synthetic"
+    log_every: int = 10
+    # Live-corpus schedule: ``(step, DeltaBatch)`` events applied by the
+    # data source at step-aligned version barriers. The schedule is part of
+    # the run's identity: resume replays it from the base snapshot, and the
+    # checkpoint records the data version so a mismatched schedule fails
+    # loudly instead of drifting silently.
+    deltas: tuple = ()
+    # The port's own: where the run lives (None: the card).
+    device: Optional[str] = None
+
+
+def train_step(model, opt_cfg: AdamWConfig, opt_state: Dict, batch: Dict,
+               step: int):
+    """One step, the reference's ``_train_step``: the loss's gradient
+    (zeros for a parameter the loss does not reach, as ``jax.grad`` gives),
+    then AdamW under ``warmup_cosine(step, warmup=20, total=100000)``. The
+    model's parameters change in place. Returns ``(opt_state, metrics)``
+    with ``metrics = {"grad_norm", "lr", "loss"}`` (0-d tensors)."""
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, batch)
+    loss.backward()
+    params = dict(model.named_parameters())
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in params.items()}
+    lr_scale = warmup_cosine(step, warmup=20, total=100000)
+    _, opt_state, metrics = adamw_update(opt_cfg, params, grads, opt_state,
+                                         lr_scale)
+    metrics["loss"] = loss.detach()
+    return opt_state, metrics
+
+
+def train(tc: TrainConfig, hooks: Optional[Dict[str, Callable]] = None
+          ) -> Dict[str, Any]:
+    hooks = hooks or {}
+    cfg = configs.get_config(tc.arch)
+    if tc.reduced:
+        cfg = configs.reduced(cfg)
+        cfg = dataclasses.replace(cfg, attn_chunk=max(tc.seq_len // 2, 16))
+
+    # --- elastic mesh -------------------------------------------------------
+    # The reference re-derives the data-parallel degree from the live
+    # devices at every (re)start and shards the batch over the mesh's data
+    # axes when the global batch divides (``layers.set_batch_axes``). The
+    # port's mesh is single-controller, and until the sharding rules come
+    # (``set_batch_axes``, ROADMAP A.5.4) its data-parallel degree is 1:
+    # the step runs on the mesh's first entry. The batch stream depends
+    # only on (seed, step, schedule), never on the mesh, so a restart on
+    # another mesh resumes the same stream.
+    mesh = make_host_mesh(devices=tc.device)
+    device = mesh.devices.flat[0]
+
+    model = init_model(cfg, tc.seed, device=device)
+    params = dict(model.named_parameters())
+    opt_cfg = AdamWConfig(lr=tc.lr, moment_dtype="float32")
+    opt_state = adamw_init(opt_cfg, params)
+
+    # --- data ---------------------------------------------------------------
+    if tc.data == "poisson_join":
+        db = make_corpus_db(n_docs=512, n_clusters=16, seq_len=tc.seq_len + 1,
+                            vocab=cfg.vocab, seed=tc.seed, device=device)
+        source = PoissonJoinSource(db, tc.seq_len + 1, tc.batch, seed=tc.seed,
+                                   deltas=tc.deltas)
+    else:
+        source = SyntheticLMSource(cfg.vocab, tc.seq_len, tc.batch,
+                                   seed=tc.seed, device=device)
+
+    # --- resume ---------------------------------------------------------------
+    ckpt = CheckpointManager(tc.ckpt_dir, keep_n=tc.keep_n)
+    state_tpl = {"params": params, "opt": opt_state,
+                 "data_version": np.zeros((), np.int64)}
+    start, restored = ckpt.restore(state_tpl)
+    if start is not None:
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(restored["params"][name])
+        opt_state = restored["opt"]
+        if hasattr(source, "version_at") and start > 0:
+            want = source.version_at(start - 1)
+            got = int(restored["data_version"])
+            if got != want:
+                raise RuntimeError(
+                    f"checkpoint data_version={got} but the delta schedule "
+                    f"puts step {start - 1} at version {want}; resume must "
+                    f"replay the run's exact schedule")
+        print(f"[train] resumed from step {start}")
+    start = (start or 0)
+
+    # --- loop with straggler watchdog ----------------------------------------
+    ewma = None
+    losses = []
+    straggler_events = []
+    doc_ids = []        # per-step sampled doc ids (poisson_join source)
+    data_versions = []  # per-step snapshot version each batch was drawn at
+    data_version = 0
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for step in range(start, tc.steps):
+            batch = source.batch_at(step)
+            batch.pop("sampled_k", None)
+            step_docs = batch.pop("doc_ids", None)
+            data_version = batch.pop("db_version", data_version)
+            if step_docs is not None:
+                doc_ids.append(step_docs.cpu().numpy())
+            data_versions.append(data_version)
+            t0 = time.time()
+            opt_state, metrics = train_step(model, opt_cfg, opt_state, batch,
+                                            step)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            if ewma is None:
+                ewma = dt
+            if dt > tc.straggler_factor * ewma and step > start + 3:
+                straggler_events.append((step, dt, ewma))
+                print(f"[train] STRAGGLER step {step}: {dt:.3f}s vs EWMA "
+                      f"{ewma:.3f}s")
+                if "on_straggler" in hooks:
+                    hooks["on_straggler"](step, dt, ewma)
+            ewma = 0.9 * ewma + 0.1 * dt
+            losses.append(loss)
+            if step % tc.log_every == 0:
+                print(f"[train] step {step} loss {loss:.4f} ({dt*1e3:.0f} ms)")
+            if "on_step" in hooks:
+                hooks["on_step"](step, loss)
+            if (step + 1) % tc.ckpt_every == 0 or step + 1 == tc.steps:
+                ckpt.save(step + 1, {"params": params, "opt": opt_state,
+                                     "data_version": np.asarray(data_version,
+                                                                np.int64)})
+        ckpt.wait()
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic,
+                                           warn_only=warn_only)
+    return {"losses": losses, "params": params,
+            "straggler_events": straggler_events, "doc_ids": doc_ids,
+            "data_versions": data_versions, "final_step": tc.steps}
+
+
+def main(argv=None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm_135m")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--data", default="poisson_join")
+    ap.add_argument("--ckpt-dir", default=TrainConfig.ckpt_dir)
+    ap.add_argument("--full", action="store_true",
+                    help="full (non-reduced) config")
+    ap.add_argument("--device", default=None,
+                    help="where to train (default: the card)")
+    args = ap.parse_args(argv)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    out = train(TrainConfig(arch=args.arch, steps=args.steps,
+                            batch=args.batch, seq_len=args.seq_len,
+                            data=args.data, ckpt_dir=args.ckpt_dir,
+                            reduced=not args.full, device=args.device))
+    if out["losses"]:  # a run resumed at its last step trains none
+        print(f"[train] done. loss {out['losses'][0]:.3f} -> "
+              f"{out['losses'][-1]:.3f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,8 @@ Public API:
     ModelConfig                                   (config.py)
     Transformer, init_model, forward, loss_fn,
     init_cache, decode_step, prefill, encode      (transformer.py)
-    params_from_reference, cache_from_reference,
-    cache_to_reference                            (convert.py)
+    params_from_reference, params_to_reference,
+    cache_from_reference, cache_to_reference      (convert.py)
 
 The reference's ``param_specs`` and ``shardings_for`` (its sharding rules)
 wait for ``parallel/*`` (ROADMAP A.5.4).
@@ -14,6 +14,7 @@ wait for ``parallel/*`` (ROADMAP A.5.4).
 from .config import ModelConfig  # noqa: F401
 from .convert import (  # noqa: F401
     cache_from_reference, cache_to_reference, params_from_reference,
+    params_to_reference,
 )
 from .transformer import (  # noqa: F401
     Transformer, decode_step, encode, forward, init_cache, init_model,

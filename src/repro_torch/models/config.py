@@ -72,14 +72,20 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     logical_batch_axes: Tuple[str, ...] = ("pod", "data")
-    remat: str = "full"                      # "none" | "full" | "segments"
+    # "none" | "full" | "segments": torch.utils.checkpoint over a repeat
+    # (or a segment of repeats) while autograd records (transformer.py)
+    remat: str = "full"
     remat_segment: int = 0                   # inner segment length (0 = ~sqrt)
-    grad_accum: int = 1                      # microbatch accumulation factor
+    # microbatch accumulation factor: read by the reference's dry run only,
+    # never by its train loop; nothing here reads it
+    grad_accum: int = 1
     opt_factored: bool = False               # Adafactor-style second moment
     attn_chunk: int = 1024                   # blockwise-attention KV chunk
     attn_seq_shard: bool = False             # sequence-parallel attention
     attn_head_shard: bool = False            # GQA group-parallel attention
-    residual_seq_shard: bool = False         # SP residual stream (RS+AG TP)
+    # SP residual stream (RS+AG TP) across a mesh's model axis: no effect on
+    # one card until the sharding rules come (ROADMAP A.5.4)
+    residual_seq_shard: bool = False
     attn_probs_bf16: bool = False            # bf16 probability tensors
     # sub-quadratic capability flag (long_500k eligibility)
     subquadratic: bool = False

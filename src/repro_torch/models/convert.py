@@ -1,7 +1,8 @@
 """Weights and caches carried across from the reference (``repro.models``):
 its parameter and cache trees, as nested dicts of numpy arrays with every
 block leaf stacked on the repeat axis, to the port's ``Transformer`` and
-per-layer caches, and back.
+per-layer caches, and back (``params_to_reference`` also lays out any
+per-parameter values, such as gradients, as the reference's tree).
 
 The reference's init cannot be reproduced in torch (``jax.random`` bits,
 and a key folded from ``hash(path)``), so parity checks take the
@@ -12,7 +13,7 @@ and V as (R, B, T, KV, hd) where the port's layers hold (B, KV, T, hd).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -24,8 +25,8 @@ from .config import ModelConfig
 from .layers import Initializer, dtype_of
 from .transformer import Cache, Transformer
 
-__all__ = ["params_from_reference", "cache_from_reference",
-           "cache_to_reference"]
+__all__ = ["params_from_reference", "params_to_reference",
+           "cache_from_reference", "cache_to_reference"]
 
 _KV_KEYS = ("k", "v", "ck", "cv")
 
@@ -87,6 +88,41 @@ def params_from_reference(tree: Dict, cfg: ModelConfig, device=None,
         raise ValueError(f"params_from_reference: no reference leaf for "
                          f"{missing}")
     return model.to(device)
+
+
+def params_to_reference(model: Transformer,
+                        values: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> Dict:
+    """``values`` (parameter name -> tensor; the model's parameters by
+    default) in the reference's tree as float32 numpy arrays: block leaves
+    stacked on the repeat axis under ``blocks/p{i}`` (the encoder's under
+    ``encoder/blocks/p0``), every other leaf at its own path."""
+    if values is None:
+        values = dict(model.named_parameters())
+    P = len(model.cfg.pattern)
+    tree: Dict = {}
+    stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, t in values.items():
+        a = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            r, i = divmod(int(parts[1]), P)
+            stacks.setdefault(("blocks", f"p{i}", *parts[2:]), {})[r] = a
+            continue
+        if parts[:2] == ["encoder", "blocks"]:
+            stacks.setdefault(("encoder", "blocks", "p0", *parts[3:]),
+                              {})[int(parts[2])] = a
+            continue
+        _put(tree, tuple(parts), a)
+    for path, rows in stacks.items():
+        _put(tree, path, np.stack([rows[r] for r in sorted(rows)]))
+    return tree
+
+
+def _put(tree: Dict, path: tuple, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
 
 
 def cache_from_reference(tree: Dict, cfg: ModelConfig, device=None) -> Cache:

@@ -9,10 +9,23 @@ zamba2's tied attention block is one module, ``shared``, which every
 ``norm1``, as the reference's does). The
 model also holds the ``KernelPolicy`` its attention routes take.
 
-The reference's ``remat``, ``grad_accum`` and ``residual_seq_shard`` change
-how a training step saves activations and lays out the residual stream,
-never what a forward pass computes; they have no effect here and wait for
-the training slice.
+The training knobs, as the reference reads them:
+
+  * ``remat`` (with ``remat_segment``) maps onto ``torch.utils.checkpoint``
+    (``use_reentrant=False``) when autograd records: ``"full"`` keeps only
+    each repeat's input (a repeat of the pattern at a time, one block for
+    a one-entry pattern) and recomputes the repeat in the backward pass;
+    ``"segments"`` does so a segment of ``_segment_factor`` repeats at a
+    time (about sqrt(repeats)); ``"none"`` keeps every activation. The
+    recomputation runs each attention layer's forward again, so a training
+    step launches the attention kernel twice a layer. The values are the
+    same under every setting;
+  * ``grad_accum`` is read only by the reference's dry run
+    (``launch/dryrun.py``), never by its ``train``: it changes nothing
+    here either;
+  * ``residual_seq_shard`` lays the residual stream out across a mesh's
+    model axis; on one card it has no effect until the sharding rules come
+    (ROADMAP A.5.4).
 
 ``prefill`` computes the reference's function (the logits of position S-1
 and a cache holding positions 0..S-1) in one forward pass that writes each
@@ -31,6 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import DEFAULT_POLICY, KernelPolicy, resolve_device
 
@@ -222,6 +236,57 @@ def _unembed(model: Transformer, dt: torch.dtype) -> torch.Tensor:
     return cast(model.unembed, dt)
 
 
+def _segment_factor(r: int, hint: int) -> int:
+    """Inner segment length for two-level remat: a divisor of r near
+    sqrt(r) (or the config hint if it divides r)."""
+    if hint and r % hint == 0:
+        return hint
+    target = max(int(r ** 0.5), 1)
+    for delta in range(r):
+        for cand in (target + delta, target - delta):
+            if 1 <= cand <= r and r % cand == 0:
+                return cand
+    return 1
+
+
+def _run_blocks(model: Transformer, blocks, P: int, h, positions, memory,
+                moe_aux, caches: Optional[Cache] = None):
+    """``blocks`` (repeats of a pattern of ``P``) in order over ``h``;
+    ``moe_aux`` plus each repeat's MoE aux loss (summed within the repeat
+    first, as the reference's scan carries it)."""
+    for r0 in range(0, len(blocks), P):
+        aux: Dict[str, Any] = {}
+        for i in range(r0, r0 + P):
+            h = _apply_block(model, blocks[i], h, positions, memory, aux,
+                             None if caches is None else caches[i])
+        if "moe_aux" in aux:
+            moe_aux = moe_aux + aux["moe_aux"]
+    return h, moe_aux
+
+
+def _run_stack(model: Transformer, blocks, P: int, h, positions, memory,
+               caches: Optional[Cache] = None):
+    """The layer stack ``blocks`` (repeats of a pattern of ``P``) over ``h``
+    under the config's ``remat``: (the final hidden state, the MoE aux
+    loss)."""
+    cfg = model.cfg
+    moe_aux = torch.zeros((), device=model.device)
+    if (cfg.remat == "none" or caches is not None
+            or not torch.is_grad_enabled()):
+        return _run_blocks(model, blocks, P, h, positions, memory, moe_aux,
+                           caches)
+    R = len(blocks) // P
+    seg = _segment_factor(R, cfg.remat_segment) if cfg.remat == "segments" \
+        else 1
+    for r0 in range(0, R, seg):
+        # the model draws no random numbers: no RNG state to replay
+        h, moe_aux = checkpoint(_run_blocks, model,
+                                blocks[r0 * P:(r0 + seg) * P], P, h, positions,
+                                memory, moe_aux, use_reentrant=False,
+                                preserve_rng_state=False)
+    return h, moe_aux
+
+
 def _stack(model: Transformer, tokens, memory, caches: Optional[Cache] = None):
     """The decoder stack over the full sequence: the final hidden state
     (before the final norm) and the MoE aux loss."""
@@ -233,12 +298,8 @@ def _stack(model: Transformer, tokens, memory, caches: Optional[Cache] = None):
     positions = torch.arange(S, device=model.device)
     if memory is not None:
         memory = torch.as_tensor(memory, device=model.device).to(dt)
-    aux: Dict[str, Any] = {}
-    for i, bp in enumerate(model.blocks):
-        h = _apply_block(model, bp, h, positions, memory, aux,
-                         None if caches is None else caches[i])
-    moe_aux = aux.get("moe_aux", torch.zeros((), device=model.device))
-    return h, moe_aux
+    return _run_stack(model, list(model.blocks), len(cfg.pattern), h,
+                      positions, memory, caches)
 
 
 def encode(model: Transformer, frames) -> torch.Tensor:
@@ -248,9 +309,7 @@ def encode(model: Transformer, frames) -> torch.Tensor:
     h = torch.as_tensor(frames, device=model.device).to(
         dtype_of(cfg.compute_dtype))
     positions = torch.arange(h.shape[1], device=model.device)
-    aux: Dict[str, Any] = {}
-    for bp in enc.blocks:
-        h = _apply_block(model, bp, h, positions, None, aux)
+    h, _ = _run_stack(model, list(enc.blocks), 1, h, positions, None)
     return rms_norm(h, enc.final_norm.scale, cfg.norm_eps)
 
 
@@ -268,8 +327,8 @@ def forward(model: Transformer, tokens, memory=None
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
     """batch: tokens (B,S), targets (B,S), optional mask (B,S), optional
-    memory/frames for VLM & whisper. The forward loss only: backward passes
-    come with the training slice."""
+    memory/frames for VLM & whisper. Differentiable: ``launch/train.py``'s
+    step takes its gradient."""
     cfg = model.cfg
     memory = batch.get("memory")
     if cfg.has_encoder and "frames" in batch:

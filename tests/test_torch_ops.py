@@ -33,6 +33,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro_torch.config import KernelPolicy
+from repro_torch.kernels import flash_prefill as t_fp
 from repro_torch.kernels import geo_gaps as t_geo
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import prefix_sum as t_ps
@@ -298,25 +299,28 @@ def _refuse(*args, **kwargs):
 def test_disabled_policy_takes_the_plain_routes(monkeypatch, wrapper):
     x = torch.from_numpy(np.random.default_rng(4).integers(0, 9, 300)
                          .astype(np.int32))
+    # (module, kernel wrapper, call); prefill reaches its wrapper through
+    # ``FlashPrefill``'s forward, in the wrapper's own module
     calls = {
-        "prefix_sum": ("prefix_sum_tiles",
+        "prefix_sum": (t_ops, "prefix_sum_tiles",
                        lambda **kw: t_ops.prefix_sum(x, **kw)),
-        "geo_positions_fused": ("geo_gaps_tiles",
+        "geo_positions_fused": (t_ops, "geo_gaps_tiles",
                                 lambda **kw: t_ops.geo_positions_fused(
                                     torch.rand(300), 0.2, **kw)),
-        "decode_attention": ("flash_decode", lambda **kw: t_ops.decode_attention(
+        "decode_attention": (t_ops, "flash_decode",
+                             lambda **kw: t_ops.decode_attention(
             torch.randn(1, 4, 64), torch.randn(1, 2, 100, 64),
             torch.randn(1, 2, 100, 64), **kw)),
-        "prefill_attention": ("flash_prefill",
+        "prefill_attention": (t_fp, "flash_prefill",
                               lambda **kw: t_ops.prefill_attention(
                                   torch.randn(1, 4, 50, 64),
                                   torch.randn(1, 2, 50, 64),
                                   torch.randn(1, 2, 50, 64), **kw)),
     }
-    kernel, call = calls[wrapper]
+    module, kernel, call = calls[wrapper]
     torch.manual_seed(0)
     on = call()
-    monkeypatch.setattr(t_ops, kernel, _refuse)
+    monkeypatch.setattr(module, kernel, _refuse)
     with pytest.raises(AssertionError, match="kernel route"):
         torch.manual_seed(0)
         call()
