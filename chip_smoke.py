@@ -29,7 +29,11 @@ at smollm-135m's published config in bf16, its prefill through
 (phase J) LM training: ``python -m repro_torch.launch.train --full`` and the
 port's ``train_lm_joinsampled`` at smollm-135m's published widths on
 Poisson-join-sampled batches, the attention's gradient through the
-kernel's autograd wrapper, with a kill and a resume. It builds
+kernel's autograd wrapper, with a kill and a resume; then (phase K) data
+parallelism over four entries on the card (``train`` with
+``TrainConfig.devices``), int8 gradient compression with error feedback,
+the GPipe forward over a stage axis and the dry run
+(``launch.dryrun``). It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -154,6 +158,24 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        the restart resuming from the one before. Its sizes
                        are constants (``TRAIN_BATCH`` and the rest), not
                        options.
+  K  parallel          smollm-135m as J. K.dp: ``train`` over a ("data" 4,
+                       "model" 1) mesh of four entries on the card, J's
+                       batch split 2 an entry, 4 steps (launches: two
+                       ``flash_prefill`` a layer an entry a step); one
+                       step's gradients against the single entry's
+                       (``DP_GRAD_TOL``); the same run by 4
+                       ``dp_train_step``s, bit for bit ``train``'s,
+                       replicas bit-equal after each, and
+                       ``compressed_psum_grads`` over the entries' real
+                       gradients with the error carried (the mean within
+                       scale / 2, errors within scale / 2, the accumulated
+                       sum within one step). K.pipe: ``pipeline_forward``
+                       over 5 stages of 6 layers, 8 microbatches of 1 x
+                       1,024, against ``reference_forward`` and the forward
+                       pass (``PIPE_TOL``; (8 + 4) x 30 ``flash_prefill``
+                       launches). K.dryrun: ``launch.dryrun --all`` on
+                       ``meta`` (every cell, both meshes) and ``--paper``
+                       on the card. Its sizes are constants.
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32; float64), the
                        float scans bit for bit against ``scan_order`` at
@@ -3669,6 +3691,407 @@ def training_summary(e2e: dict) -> dict:
     return out
 
 
+# Phase K's bounds and sizes, set before its first run on the card.
+# K.dp: ||g_dp - g_one|| / ||g_one|| over the parameters, one step's
+# gradients over four entries (B 2 each) against one entry's (B 8), both in
+# bf16 compute through the kernel. They differ by the products' shapes (M
+# of 4,096 rows against 16,384: other tilings, other bf16 roundings of
+# their outputs) and the sum's order. A CPU emulation at full width and
+# depth (the plain attention in bf16, B 8 on one entry against 2 on each
+# of four) gave a largest 0.0174 (median 0.0083) at S 256, 0.0282 (median
+# 0.0222) at S 512 and 0.0174 (median 0.0079) at S 1,024; the bound is
+# about three times the largest.
+DP_GRAD_TOL = 0.1
+DP_ENTRIES, DP_STEPS = 4, 4
+# K.pipe: 5 stages of 6 layers, 8 microbatches of 1 x 1,024 tokens; the
+# pipeline's hidden states against the stages applied in turn and against
+# the forward pass's, relative to their norm: the same products on the same
+# shapes, so one bf16 rounding (2^-8) everywhere would already be a fault.
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 5, 8, 1024
+PIPE_TOL = 2.0 ** -8
+
+
+def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                 steps=DP_STEPS, stages=PIPE_STAGES, micro=PIPE_MICRO,
+                 pipe_seq=PIPE_SEQ, reduced=False, dryrun_argv=("--all",),
+                 paper_scale=200_000):
+    """Phase K: data parallelism, compression, the GPipe forward and the
+    dry run, at smollm-135m's published widths (as J: bf16 compute, remat
+    ``"full"``, parameters from ``--seed``).
+
+    K.dp: ``train`` over a ("data" 4, "model" 1) mesh of four entries on
+    the card (``TrainConfig(devices=[card] * 4)``), J's batch (8 x 2,048
+    from ``PoissonJoinSource``) split 2 an entry, ``steps`` steps, launches
+    counted (two ``flash_prefill`` a layer an entry a step). One step's
+    gradients against the single-entry step's, leaf by leaf
+    (``DP_GRAD_TOL``). Then a second DP run from the same seed and batches,
+    ``steps`` calls of ``dp_train_step`` under deterministic algorithms:
+    the replicas bit-equal after each step, its losses and final
+    parameters bit-equal to ``train``'s, and ``compressed_psum_grads``
+    over the four entries' real gradients of each step with the error
+    carried: the compressed mean within scale / 2 of the exact mean of the
+    corrected gradients, every new error within scale / 2, and over the
+    steps the accumulated means within one quantization step of the true
+    sum. With ``--profile``, a warm step's device time and idle share.
+
+    K.pipe: ``pipeline_forward`` over a "stage" mesh of ``stages`` entries
+    on the card (``transformer_stages``: 6 layers a stage) on ``micro``
+    microbatches of 1 x ``pipe_seq`` tokens (launches counted: a
+    ``flash_prefill`` a layer a tick, (micro + stages - 1) x 30), against
+    ``reference_forward`` and the forward pass's hidden states
+    (``PIPE_TOL``).
+
+    K.dryrun: ``python -m repro_torch.launch.dryrun`` with
+    ``dryrun_argv`` on ``meta`` (a line a cell, a record each) in a child
+    process at the lowest priority, started after K.dp's timed run (with
+    ``--profile``, after the profiled step) and joined last; ``--paper``
+    on the card (launches counted).
+
+    The keywords shrink it for a CPU rehearsal only; on the card it runs at
+    the constants. Returns the main paths' launches and the numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import PoissonJoinSource, make_corpus_db
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_model, loss_fn, transformer
+    from repro_torch.models.layers import cast, dtype_of
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel import (compressed_psum_grads, pipeline_forward,
+                                      reference_forward)
+    from repro_torch.parallel.pipeline import transformer_stages
+
+    on_card = device.type == "cuda"
+    smi = nvidia_smi_line() if on_card else "cpu"
+    if on_card and (reduced, batch, seq, steps, stages, micro, pipe_seq,
+                    tuple(dryrun_argv), paper_scale) != (
+            False, TRAIN_BATCH, TRAIN_SEQ, DP_STEPS, PIPE_STAGES, PIPE_MICRO,
+            PIPE_SEQ, ("--all",), 200_000):
+        raise ValueError("phase K runs at its constants on the card")
+    cfg = configs.get_config(TRAIN_ARCH)
+    if reduced:
+        cfg = configs.reduced(cfg)
+    L = cfg.n_layers
+    runs = 1 if cfg.remat == "none" else 2  # forwards of a layer a step
+    n = DP_ENTRIES
+    e2e = {"arch": cfg.name, "batch": batch, "seq": seq, "entries": n,
+           "grad_tol": DP_GRAD_TOL, "pipe_tol": PIPE_TOL, "device": smi}
+    launches = {k: 0 for k in kernels}
+    work = Path(tempfile.mkdtemp(prefix="phase_k_"))
+    dry = None  # the dry run's child process
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        """Seconds into phase K, for its log lines."""
+        return f"[{time.perf_counter() - t_phase:.1f} s into K]"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def main_path(label, fn):
+        """``fn`` with every count at 0 before it, read after it (summed
+        into the phase's launches)."""
+        for f in kernels.values():
+            f.launches = 0
+        with counting_calls([(PoissonJoinSource, "_dispatch")]) as calls:
+            out = fn()
+            sync()
+        got = {k: f.launches for k, f in kernels.items()}
+        for k, v in got.items():
+            launches[k] += v
+        log(f"[K] {label}: launches { {k: v for k, v in got.items() if v} }"
+            f"; windows dispatched {calls['PoissonJoinSource._dispatch']} "
+            f"{at()}")
+        return out, got, calls["PoissonJoinSource._dispatch"]
+
+    def same_bits(a, b) -> bool:
+        return all(torch.equal(p, q) for p, q in zip(a.parameters(),
+                                                     b.parameters()))
+
+    def start_dryrun():
+        """The dry run in a child process at the lowest priority, its
+        output to ``work / "dryrun.log"``."""
+        with open(work / "dryrun.log", "w") as out:
+            child = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 *dryrun_argv], stdout=out, stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                                    .parent / "src"),
+                         OMP_NUM_THREADS="1"))
+        os.setpriority(os.PRIO_PROCESS, child.pid, 19)
+        return child
+
+    try:
+        # -- K.dp 1. the entry point: train() over four entries -------------
+        tc = train_mod.TrainConfig(
+            arch=TRAIN_ARCH, reduced=reduced, steps=steps, batch=batch,
+            seq_len=seq, seed=args.seed, ckpt_every=10 ** 6,
+            log_every=10 ** 6, ckpt_dir=str(work / "a"), device=str(device),
+            devices=[str(device)] * n)
+        stamps = []
+        hooks = {"on_step": lambda step, loss: stamps.append(
+            time.perf_counter())}
+        held = torch.cuda.memory_allocated(device) if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        a, got, windows = main_path(
+            f"train() over {n} entries, {steps} steps of {batch} x {seq}",
+            lambda: train_mod.train(tc, hooks))
+        wall_s = time.perf_counter() - t0
+        peak = (int(torch.cuda.max_memory_allocated(device)) - held
+                if on_card else 0)
+        assert len(a["replicas"]) == n, len(a["replicas"])
+        if on_card:
+            assert got["flash_prefill"] == runs * L * n * steps, got
+            assert got["fused_draw_batch"] == windows >= 1, (got, windows)
+        gaps = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+        mean = sum(gaps) / len(gaps)
+        e2e.update(losses=a["losses"], step_ms=gaps, step_ms_mean=mean,
+                   tokens_per_s=batch * seq / (mean / 1e3),
+                   peak_device_bytes=peak, train_wall_s=wall_s,
+                   flash_prefill_per_step=got["flash_prefill"] / steps)
+        log(f"[time] K.dp step over {n} entries (steps 1-{steps - 1}, a loop "
+            f"iteration): {', '.join(f'{g:.1f}' for g in gaps)} ms; peak "
+            f"device memory {peak / 2**30:.2f} GiB over the "
+            f"{held / 2**30:.2f} GiB held before; {steps} steps, set-up and "
+            f"the last step's checkpoint {wall_s:.1f} s; {smi} {at()}")
+        if not (on_card and args.profile):  # else after the profiled step
+            dry, t_dry = start_dryrun(), time.perf_counter()
+        # -- K.dp 2. one step's gradients: four entries against one ---------
+        torch.use_deterministic_algorithms(True)
+        model = init_model(cfg, args.seed, device=device)
+        db = make_corpus_db(512, 16, seq + 1, cfg.vocab, seed=args.seed,
+                            device=device)
+        source = PoissonJoinSource(db, seq + 1, batch, seed=args.seed)
+        batches = []
+        for step in range(steps):
+            bt = source.batch_at(step)
+            batches.append({"tokens": bt["tokens"],
+                            "targets": bt["targets"]})
+        model.zero_grad(set_to_none=True)
+        loss1, _ = loss_fn(model, batches[0])
+        loss1.backward()
+        loss1 = float(loss1.detach())
+        g1 = {k: p.grad.detach().clone() for k, p in
+              model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        replicas = [model] + [train_mod.replicate(model, device)
+                              for _ in range(n - 1)]
+        losses, grads = train_mod.entry_gradients(replicas, batches[0])
+        gdp = train_mod.reduce_gradients(grads)
+        rel = {k: float((gdp[k].float() - g1[k].float()).norm()
+                        / g1[k].float().norm()) for k in g1}
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+        loss_dp = sum(float(x) for x in losses)
+        median = float(np.median(list(rel.values())))
+        log(f"[check] K.dp gradients of all {len(rel)} parameters, {n} "
+            f"entries of {batch // n} rows against one of {batch}: largest "
+            f"||g_dp - g_one|| / ||g_one|| {worst[0][1]:.4g} (bound "
+            f"{DP_GRAD_TOL}; median {median:.4g}; worst {worst}); loss "
+            f"{loss_dp:.6f} vs {loss1:.6f} {at()}")
+        assert max(rel.values()) <= DP_GRAD_TOL, worst
+        e2e.update(grad_rel_err_max=worst[0][1], grad_rel_err_median=median,
+                   loss_dp=loss_dp, loss_one=loss1)
+        del g1, gdp, grads, losses
+        # -- K.dp 3. the same run by dp_train_step; compression -------------
+        opt_cfg = AdamWConfig(lr=tc.lr, moment_dtype="float32")
+        opt_state = adamw_init(opt_cfg, dict(model.named_parameters()))
+        mesh = make_mesh((n,), ("data",), devices=device)
+        names = [k for k, _ in model.named_parameters()]
+        err = [{k: torch.zeros_like(p, dtype=torch.float32)
+                for k, p in r.named_parameters()} for r in replicas]
+        true_sum = {k: 0.0 for k in names}
+        applied = {k: 0.0 for k in names}
+        worst_mean = worst_err = 0.0  # over each leaf's scale
+        own_losses = []
+        for step in range(steps):
+            seen = []
+            opt_state, met = train_mod.dp_train_step(
+                replicas, opt_cfg, opt_state, batches[step], step,
+                grads_out=seen)
+            own_losses.append(float(met["loss"]))
+            assert all(same_bits(replicas[0], r) for r in replicas[1:]), step
+            means, new_err = compressed_psum_grads(seen, err, mesh, "data")
+            stats = []  # per leaf: scale, slack, |mean - exact|, |new err|
+            for k in names:
+                corrected = torch.stack([g[k].float() + e[k]
+                                         for g, e in zip(seen, err)])
+                top = corrected.abs().max()
+                stats.append(torch.stack([
+                    top / 127.0, 4 * top * 2.0 ** -23,
+                    (means[0][k].double() - corrected.double().mean(dim=0))
+                    .abs().max().float(),
+                    torch.stack([e[k].abs().max() for e in new_err]).max()]))
+                true_sum[k] = true_sum[k] + torch.stack(
+                    [g[k].double() for g in seen]).mean(dim=0)
+                applied[k] = applied[k] + means[0][k].double()
+            scale, slack, dm, de = torch.stack(stats).T.double().cpu()
+            assert bool(torch.all(dm <= scale / 2 + slack)), step
+            assert bool(torch.all(de <= scale / 2 + slack)), step
+            live = scale > 0
+            worst_mean = max(worst_mean, float((dm[live] / scale[live]).max()))
+            worst_err = max(worst_err, float((de[live] / scale[live]).max()))
+            err = new_err
+            del seen, means, corrected
+        acc = torch.stack([(true_sum[k] - applied[k]).abs().max()
+                           for k in names]).cpu()
+        assert bool(torch.all(acc <= scale + slack))
+        worst_acc = float((acc[live] / scale[live]).max())
+        equal_run = own_losses == a["losses"] and all(
+            same_bits(x, y) for x, y in zip(a["replicas"], replicas))
+        log(f"[check] K.dp {steps} steps of dp_train_step from the same seed "
+            f"and batches: the {n} replicas bit-equal after each step; "
+            f"losses {own_losses} and every replica's parameters bit-equal "
+            f"to train()'s: {equal_run}; compressed_psum_grads over the "
+            f"entries' gradients, error carried: the mean within "
+            f"{worst_mean:.4f} scale of the exact mean (bound 0.5), new "
+            f"errors within {worst_err:.4f} scale (bound 0.5), the "
+            f"accumulated means within {worst_acc:.4f} of the last step's "
+            f"scale of the true sum (bound 1) {at()}")
+        assert equal_run, (own_losses, a["losses"])
+        e2e.update(compress_mean_over_scale=worst_mean,
+                   compress_err_over_scale=worst_err,
+                   compress_accumulated_over_scale=worst_acc)
+        del true_sum, applied, err, new_err, a, db, source
+        torch.use_deterministic_algorithms(was_deterministic)
+        # -- K.dp 4. (--profile) a warm step's device time and idle share ---
+        if on_card and args.profile:
+            def step_fn():
+                return train_mod.dp_train_step(replicas, opt_cfg, opt_state,
+                                               batches[0], steps)
+
+            wall = wall_ms(step_fn, device)
+            e2e["profile_step"] = profile_window(
+                step_fn, f"K.dp step over {n} entries", wall)
+            e2e["profile_step"]["wall_ms"] = wall
+            log(f"[K] profiled {at()}")
+        if dry is None:
+            dry, t_dry = start_dryrun(), time.perf_counter()
+        model = replicas[0]
+        del replicas[1:], batches, opt_state
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- K.pipe: the GPipe forward over a stage axis ---------------------
+        gen = torch.Generator(device=device).manual_seed(args.seed + 28)
+        tokens = torch.randint(0, cfg.vocab, (micro, 1, pipe_seq),
+                               generator=gen, device=device)
+        dt = dtype_of(cfg.compute_dtype)
+        with torch.no_grad():
+            h0 = torch.stack([cast(model.embed, dt)[t] for t in tokens])
+            fn, params = transformer_stages(model, stages)
+            pmesh = make_mesh((stages,), ("stage",), devices=device)
+            t0 = time.perf_counter()
+            got_h, got, _ = main_path(
+                f"pipeline_forward: {stages} stages of {L // stages} layers,"
+                f" {micro} microbatches of 1 x {pipe_seq}",
+                lambda: pipeline_forward(fn, params, h0, pmesh))
+            pipe_ms = (time.perf_counter() - t0) * 1e3
+            ticks = micro + stages - 1
+            if on_card:
+                assert got["flash_prefill"] == ticks * L, got
+            want = reference_forward(fn, params, h0)
+            fwd = torch.stack([transformer._stack(model, t, None)[0]
+                               for t in tokens])
+            sync()
+
+        def rel_err(x, y):
+            return float((x.float() - y.float()).norm() / y.float().norm())
+
+        e_ref, e_fwd = rel_err(got_h, want), rel_err(got_h, fwd)
+        log(f"[check] K.pipe {ticks} ticks of {stages} stages: hidden states "
+            f"against reference_forward {e_ref:.3g} (bit-equal "
+            f"{torch.equal(got_h, want)}), against the forward pass's "
+            f"{e_fwd:.3g} (bit-equal {torch.equal(got_h, fwd)}); bound "
+            f"{PIPE_TOL:.4g}; {pipe_ms:.1f} ms; {smi} {at()}")
+        assert e_ref <= PIPE_TOL and e_fwd <= PIPE_TOL
+        e2e.update(pipe_ticks=ticks, pipe_launches=got["flash_prefill"],
+                   pipe_err_reference=e_ref, pipe_err_forward=e_fwd,
+                   pipe_ms=pipe_ms)
+        del model, replicas, params, h0, got_h, want, fwd
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- K.dryrun: the paper cell on the card, then the child's cells ----
+        paper = []
+        for multi in (False, True):
+            rec, _, _ = main_path(
+                f"launch.dryrun --paper ({'2x16' if multi else '16'} "
+                f"entries)", lambda: dryrun.run_paper_cell(
+                    multi, scale=paper_scale, device=device))
+            assert rec["per_shard_capacity"] > 0 and rec["join_size"] > 0
+            paper.append(rec)
+        e2e["paper"] = paper
+        t_wait = time.perf_counter()
+        rc = dry.wait(timeout=900)
+        waited = time.perf_counter() - t_wait
+        dry_s = time.perf_counter() - t_dry
+        for line in (work / "dryrun.log").read_text().splitlines():
+            if line.strip():
+                log(f"[K.dryrun] {line}")
+        assert rc == 0, rc
+        cells = [(a_, s_, m_) for a_ in configs.ARCHS for s_ in configs.SHAPES
+                 for m_ in ("16x16", "2x16x16")]
+        if "--all" not in dryrun_argv:
+            i = list(dryrun_argv)
+            cells = [(i[i.index("--arch") + 1], i[i.index("--shape") + 1],
+                      "16x16")]
+        recs = [json.loads((dryrun.OUT_DIR / f"{a_}__{s_}__{m_}.json")
+                           .read_text()) for a_, s_, m_ in cells]
+        run_cells = [r for r in recs if "skipped" not in r]
+        one = sorted({f"{r['arch']} {r['shape']}" for r in run_cells
+                      if r["one_card"]["fits_80gb"]})
+        log(f"[check] K.dryrun: {len(recs)} records, {len(run_cells)} cells "
+            f"run, {len(recs) - len(run_cells)} skipped by "
+            f"shape_applicable; the child ran {dry_s:.1f} s ({waited:.1f} s "
+            f"waited for at the end); every cell's state fits 80 GB a "
+            f"device: {all(r['fits_80gb'] for r in run_cells)}; one card "
+            f"alone holds {one} {at()}")
+        assert all(r["fits_80gb"] for r in run_cells)
+        e2e.update(dryrun_cells=len(run_cells), dryrun_records=len(recs),
+                   dryrun_one_card=one, dryrun_s=dry_s, dryrun_waited_s=waited)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        if dry is not None and dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    return launches, e2e
+
+
+def parallel_summary(e2e: dict) -> dict:
+    """Phase K's figures for one line near the end of the output."""
+    keys = ("arch", "batch", "seq", "entries", "step_ms", "step_ms_mean",
+            "tokens_per_s", "peak_device_bytes", "flash_prefill_per_step",
+            "grad_rel_err_max", "grad_rel_err_median",
+            "compress_mean_over_scale", "compress_err_over_scale",
+            "compress_accumulated_over_scale", "pipe_ticks", "pipe_launches",
+            "pipe_err_reference", "pipe_err_forward", "pipe_ms",
+            "dryrun_cells", "dryrun_records", "dryrun_one_card", "dryrun_s",
+            "dryrun_waited_s", "device")
+    out = {k: e2e[k] for k in keys if k in e2e}
+    if "profile_step" in e2e:
+        out["profile_step"] = {k: e2e["profile_step"][k]
+                               for k in ("busy_ms", "idle_share", "wall_ms")}
+    out["paper"] = [{k: r[k] for k in ("mesh", "entries", "join_size",
+                                       "draw_ms", "peak_device_bytes",
+                                       "per_shard_capacity", "build_s")}
+                    for r in e2e.get("paper", [])]
+    return out
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -4269,9 +4692,12 @@ def run(args, device, kernel_policy=None) -> dict:
     e2e["lm"] = e2eI
     for name, err in e2eI["attention_errs"].items():
         errs[name] = max(errs[name], err)
-    # -- 7g. phase J: LM training, last
+    # -- 7g. phase J: LM training
     launchesJ, e2eJ = run_training(args, device, kernels, kernel_policy)
     e2e["training"] = e2eJ
+    # -- 7h. phase K: data parallelism, compression, GPipe, the dry run
+    launchesK, e2eK = run_parallel(args, device, kernels)
+    e2e["parallel"] = e2eK
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
@@ -4279,7 +4705,7 @@ def run(args, device, kernel_policy=None) -> dict:
                        + sum(lp[k] for lp in launchesF.values())
                        + sum(lp[k] for lp in launchesG.values())
                        + sum(lp[k] for lp in launchesH.values())
-                       + launchesI[k] + launchesJ[k])
+                       + launchesI[k] + launchesJ[k] + launchesK[k])
 
     # -- 8. the kernels' rows ---------------------------------------------------
     sources = {"fused_sample": "fused_draw.cu", "tree_probe": "tree_get.cu",
@@ -4324,6 +4750,7 @@ def run(args, device, kernel_policy=None) -> dict:
             "phase_h_launches": launchesH,
             "phase_i_launches": launchesI,
             "phase_j_launches": launchesJ,
+            "phase_k_launches": launchesK,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),
@@ -4419,6 +4846,8 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(dict(result, device=smi), indent=1))
     print("TRAINING " + json.dumps(training_summary(
         result["end_to_end"]["training"])))
+    print("PARALLEL " + json.dumps(parallel_summary(
+        result["end_to_end"]["parallel"])))
     print(smi)
     print(json.dumps({"kernels": result["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ host thread. An entry may repeat, so a mesh of four entries on one card
 runs four real shards on it: the port's counterpart of the reference's
 ``force_host_devices(4)``.
 
-``make_production_mesh`` (the reference's TPU pods) has no meaning on one
-host and is not ported.
+``make_production_mesh`` gives the reference's production meshes (one pod
+of 16 x 16, or two) with every entry on the ``meta`` device: on one host
+they are shape arithmetic for the dry run (``launch/dryrun.py``), not
+devices to run on.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from typing import Dict, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "make_host_mesh", "batch_axes"]
+__all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_production_mesh",
+           "batch_axes"]
 
 Devices = Union[None, str, torch.device, Sequence[Union[str, torch.device]]]
 
@@ -128,6 +131,14 @@ def make_host_mesh(model: int = 1, devices: Devices = None) -> Mesh:
     if n % model:
         raise ValueError(f"{n} entries do not split into model={model}")
     return make_mesh((n // model, model), ("data", "model"), devices)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """(16, 16) = ("data", "model"), one pod of 256 chips, or (2, 16, 16) =
+    ("pod", "data", "model"), two pods of 512: every entry on ``meta``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices="meta")
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:

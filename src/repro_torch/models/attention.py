@@ -42,7 +42,8 @@ from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import Initializer, cast, dtype_of, rope
+from .layers import (Initializer, cast, dtype_of, rope, shard_batch,
+                     shard_batch_seq)
 
 NEG_INF = -1e30
 
@@ -122,6 +123,7 @@ def blockwise_attention(
     acc_dt = torch.bfloat16 if probs_bf16 else torch.float32
     if head_shard:  # g-major heads: (B, S, G, KV, hd) -> (B, S, KV, G, hd)
         qg = q.reshape(B, S, G, KV, hd).transpose(2, 3).to(acc_dt) * scale
+        k, v = shard_batch(k), shard_batch(v)
     else:
         qg = q.reshape(B, S, KV, G, hd).to(acc_dt) * scale
 
@@ -191,6 +193,8 @@ def self_attention(
     q, k, v = _project_qkv(p, x, cfg)
     q = rope(q, positions[None, :], cfg.rope_theta)
     k = rope(k, positions[None, :], cfg.rope_theta)
+    if cfg.attn_seq_shard:  # the reference's sequence-parallel layout
+        q, k, v = shard_batch_seq(q, 1), shard_batch(k), shard_batch(v)
     if window > 0:
         out = blockwise_attention(q, k, v, positions, positions,
                                   causal=causal, window=window,
@@ -200,7 +204,10 @@ def self_attention(
         out = _prefill_route(q, k, v, cfg.n_kv_heads, causal, head_shard,
                              policy)
     dt = dtype_of(cfg.compute_dtype)
-    return out.reshape(B, S, -1) @ cast(p.wo, dt), (k, v)
+    out = out.reshape(B, S, -1)
+    if cfg.attn_seq_shard:
+        out = shard_batch(out)  # S gathered back before the row-parallel wo
+    return out @ cast(p.wo, dt), (k, v)
 
 
 def cross_attention(p: Attention, x: torch.Tensor, memory_kv, cfg: ModelConfig

@@ -13,7 +13,7 @@ and V as (R, B, T, KV, hd) where the port's layers hold (B, KV, T, hd).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,7 @@ from .config import ModelConfig
 from .layers import Initializer, dtype_of
 from .transformer import Cache, Transformer
 
-__all__ = ["params_from_reference", "params_to_reference",
+__all__ = ["reference_path", "params_from_reference", "params_to_reference",
            "cache_from_reference", "cache_to_reference"]
 
 _KV_KEYS = ("k", "v", "ck", "cv")
@@ -90,6 +90,25 @@ def params_from_reference(tree: Dict, cfg: ModelConfig, device=None,
     return model.to(device)
 
 
+def reference_path(name: str, pattern_len: int,
+                   stacked_keys=("blocks",)) -> Tuple[Tuple[str, ...], bool]:
+    """The port's parameter ``name`` ("blocks.7.attn.wq") as the path of
+    its leaf in the reference's tree (("blocks", "p1", "attn", "wq") for a
+    pattern of 2: layer ``r * pattern_len + i`` is repeat r of ``p{i}``;
+    the encoder's layers are repeats of ``encoder/blocks/p0``), and whether
+    that leaf is stacked on the repeat axis (a key of ``stacked_keys`` on
+    its path, as the reference's ``param_specs`` reads it)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        i = int(parts[1]) % pattern_len
+        path = ("blocks", f"p{i}", *parts[2:])
+    elif parts[:2] == ["encoder", "blocks"]:
+        path = ("encoder", "blocks", "p0", *parts[3:])
+    else:
+        path = tuple(parts)
+    return path, any(k in stacked_keys for k in path)
+
+
 def params_to_reference(model: Transformer,
                         values: Optional[Dict[str, torch.Tensor]] = None
                         ) -> Dict:
@@ -104,16 +123,13 @@ def params_to_reference(model: Transformer,
     stacks: Dict[tuple, Dict[int, np.ndarray]] = {}
     for name, t in values.items():
         a = t.detach().float().cpu().numpy()
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            r, i = divmod(int(parts[1]), P)
-            stacks.setdefault(("blocks", f"p{i}", *parts[2:]), {})[r] = a
+        path, stacked = reference_path(name, P)
+        if stacked:  # the repeat: blocks.<r P + i>, encoder.blocks.<r>
+            parts = name.split(".")
+            r = int(parts[1]) // P if parts[0] == "blocks" else int(parts[2])
+            stacks.setdefault(path, {})[r] = a
             continue
-        if parts[:2] == ["encoder", "blocks"]:
-            stacks.setdefault(("encoder", "blocks", "p0", *parts[3:]),
-                              {})[int(parts[2])] = a
-            continue
-        _put(tree, tuple(parts), a)
+        _put(tree, path, a)
     for path, rows in stacks.items():
         _put(tree, path, np.stack([rows[r] for r in sorted(rows)]))
     return tree

@@ -7,14 +7,34 @@ dtype at its use, as the reference casts at every einsum; ``cast`` keeps
 the cast copy of a parameter while the parameter is unchanged and no
 gradient flows, so serving in bf16 casts each weight once.
 
-The reference's sharding rules (``param_specs``, ``shardings_for``,
-``sanitize_pspecs``, ``set_batch_axes``, ``shard_batch*``) are absent:
-they wait for ``parallel/*`` (ROADMAP A.5.4), and the port's forward passes
-run on one card.
+The logical-axis sharding rules are the reference's: a parameter's
+``PartitionSpec`` comes from its path in the reference's tree (the port's
+module path mapped through ``convert.reference_path``):
+
+    vocab axis      -> "model"   (embed / unembed tables)
+    heads / d_ff    -> "model"   (column-parallel in, row-parallel out)
+    experts' d_ff   -> "model"   (TP-MoE default; EP with ``set_moe_ep``)
+    the complement  -> "data"    (FSDP: weights and moments fully sharded)
+    batch           -> ("pod", "data")
+    everything else -> replicated
+
+The port holds layers one by one where the reference stacks a pattern's
+repeats under ``blocks`` (a leading, unsharded axis): a layer's spec is the
+reference's without that leading ``None``. ``shardings_for`` places each
+block of a parameter on the port's ``launch.mesh.Mesh``; the dry run
+(``launch/dryrun.py``) sizes a device's share from them.
+
+One controller drives the port's meshes, with no GSPMD to propagate a
+constraint: ``shard_batch``, ``shard_batch_seq`` and
+``shard_replicated_model`` return their input, at the reference's call
+sites. ``set_batch_axes`` records the data-parallel axes, which the
+training step reads to split the batch over the mesh's entries
+(``launch/train.py``).
 """
 from __future__ import annotations
 
-from typing import Optional
+import re
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,7 +44,11 @@ from torch import nn
 from .config import ModelConfig
 
 __all__ = ["dtype_of", "cast", "Initializer", "Norm", "MLP", "rms_norm",
-           "rope", "gated_mlp", "init_mlp", "init_norm", "cross_entropy_loss"]
+           "rope", "gated_mlp", "init_mlp", "init_norm", "cross_entropy_loss",
+           "PartitionSpec", "P", "NamedSharding", "set_moe_ep",
+           "spec_for_path", "param_specs", "shardings_for",
+           "sanitize_pspecs", "set_batch_axes", "get_batch_axes",
+           "shard_batch", "shard_batch_seq", "shard_replicated_model"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -114,6 +138,227 @@ def init_norm(ini: Initializer, d: int) -> Norm:
 
 
 # ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """A tensor's layout over a mesh, one entry a dimension: an axis name,
+    a tuple of axis names (the first most significant), or ``None``
+    (replicated); trailing dimensions left out are replicated. The port's
+    ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, dims)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _axes(dim) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    if dim is None:
+        return ()
+    return (dim,) if isinstance(dim, str) else tuple(dim)
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+class NamedSharding:
+    """``spec`` placed on ``mesh`` (the port's ``launch.mesh.Mesh``, or
+    anything with ``axis_names`` and a ``devices`` array): which entries
+    hold which block of a tensor."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def _dims(self, ndim: int) -> List[Tuple[str, ...]]:
+        dims = list(self.spec) + [None] * (ndim - len(self.spec))
+        return [_axes(d) for d in dims[:ndim]]
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of the block one entry holds (each sharded dimension
+        divided by its axes' sizes, rounded up)."""
+        sizes = _axis_sizes(self.mesh)
+        return tuple(-(-int(n) // int(np.prod([sizes[a] for a in axes])))
+                     for n, axes in zip(shape, self._dims(len(shape))))
+
+    def blocks(self, shape: Sequence[int]
+               ) -> Dict[Tuple[Tuple[int, int], ...], List]:
+        """Each block of a tensor of ``shape`` (its ``(start, stop)`` a
+        dimension) and the entries that hold it, in the mesh's row-major
+        order: an entry holds block ``sum(index(a) * stride(a))`` of a
+        dimension over its axes, replicas along the axes the spec leaves
+        out."""
+        sizes = _axis_sizes(self.mesh)
+        dims = self._dims(len(shape))
+        block = self.shard_shape(shape)
+        out: Dict[Tuple[Tuple[int, int], ...], List] = {}
+        for coords in np.ndindex(*self.mesh.devices.shape):
+            at = dict(zip(self.mesh.axis_names, coords))
+            key = []
+            for n, axes, b in zip(shape, dims, block):
+                i = 0
+                for a in axes:
+                    i = i * sizes[a] + at[a]
+                key.append((min(i * b, int(n)), min((i + 1) * b, int(n))))
+            out.setdefault(tuple(key), []).append(self.mesh.devices[coords])
+        return out
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.spec!r})"
+
+
+_MOE_EP = False
+
+
+def set_moe_ep(flag: bool) -> None:
+    """Expert parallelism: the experts' own axis on "model" (and their
+    d_model on "data") instead of their d_ff. Read by ``param_specs``."""
+    global _MOE_EP
+    _MOE_EP = bool(flag)
+
+
+# (regex on the reference's parameter path, spec builder given the
+# unstacked ndim), first match wins. FSDP x TP: the tensor-parallel dim
+# goes on "model"; the complementary dim is sharded over "data" (ZeRO-3 /
+# FSDP: weights, gradients and moments all fully sharded).
+_RULES = [
+    (r"embed$",          lambda nd: ("model", "data")),
+    (r"unembed$",        lambda nd: ("data", "model")),
+    (r"(wq|wk|wv|wr|wg)$", lambda nd: ("data", "model")),
+    (r"wo$",             lambda nd: ("model", "data")),
+    (r"(w_up|w_gate)$",  lambda nd: ("data", "model")),
+    (r"w_down$",         lambda nd: ("model", "data")),
+    (r"experts_(up|gate)$",
+     lambda nd: ("model", "data", None) if _MOE_EP else (None, "data", "model")),
+    (r"experts_down$",
+     lambda nd: ("model", None, "data") if _MOE_EP else (None, "model", "data")),
+    (r"router$",         lambda nd: (None, None)),
+    (r"(in_proj|x_proj)$", lambda nd: ("data", "model")),
+    (r"(out_proj)$",     lambda nd: ("model", "data")),
+    (r"chan_k$",         lambda nd: ("data", "model")),
+    (r"chan_v$",         lambda nd: ("model", "data")),
+    (r"(time_decay_[ab])$", lambda nd: (None, None)),
+    (r"(time_|chan_)\w*$", lambda nd: tuple(None for _ in range(nd))),
+]
+
+
+def spec_for_path(path: str, ndim: int, stacked: bool) -> PartitionSpec:
+    """The spec of the reference's leaf at ``path`` ("/blocks/p0/attn/wq")
+    of ``ndim`` dimensions, the first of them the repeat axis when
+    ``stacked``. (``unembed`` matches ``embed$`` first, as in the
+    reference.)"""
+    body_nd = ndim - (1 if stacked else 0)
+    for pat, fn in _RULES:
+        if re.search(pat, path):
+            spec = list(fn(body_nd))
+            spec = spec[:body_nd] + [None] * (body_nd - len(spec))
+            if stacked:
+                spec = [None] + spec
+            return PartitionSpec(*spec)
+    return PartitionSpec(*([None] * ndim))
+
+
+def _named_shapes(params) -> Tuple[Dict[str, Tuple[int, ...]], int]:
+    """``params`` (a model, or a mapping from parameter name to a tensor or
+    a shape) as {name: shape}, and the model's pattern length (1 for a
+    mapping: a layer's index then names its pattern entry only through
+    the leaf, which is all the rules read)."""
+    if isinstance(params, nn.Module):
+        cfg = getattr(params, "cfg", None)
+        return ({n: tuple(p.shape) for n, p in params.named_parameters()},
+                len(cfg.pattern) if cfg is not None else 1)
+    return ({n: tuple(getattr(v, "shape", v)) for n, v in params.items()}, 1)
+
+
+def param_specs(params, prefix: str = "", stacked_keys=("blocks",)
+                ) -> Dict[str, PartitionSpec]:
+    """{parameter name: spec} by the reference's path rules: each of the
+    port's parameters gets the reference's spec of its leaf, without the
+    repeat axis the reference stacks under ``stacked_keys`` (the port
+    holds one tensor a layer)."""
+    from .convert import reference_path
+
+    shapes, P_len = _named_shapes(params)
+    out = {}
+    for name, shape in shapes.items():
+        path, stacked = reference_path(name, P_len, stacked_keys)
+        spec = spec_for_path(prefix + "/" + "/".join(path),
+                             len(shape) + stacked, stacked)
+        out[name] = PartitionSpec(*spec[1:]) if stacked else spec
+    return out
+
+
+def shardings_for(params, mesh) -> Dict[str, NamedSharding]:
+    """{parameter name: its spec on ``mesh``}."""
+    return {n: NamedSharding(mesh, s) for n, s in param_specs(params).items()}
+
+
+def sanitize_pspecs(pspecs: Mapping[str, PartitionSpec], shapes, mesh
+                    ) -> Dict[str, PartitionSpec]:
+    """Drop sharding on any dim not divisible by its mesh axes (e.g.
+    whisper's 51,865 vocabulary on a 16-way axis), so that rule-generated
+    specs stay valid for every architecture. ``shapes``: {name: tensor or
+    shape}."""
+    sizes = _axis_sizes(mesh)
+    out = {}
+    for name, spec in pspecs.items():
+        shape = tuple(getattr(shapes[name], "shape", shapes[name]))
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        fixed = []
+        for d, size in zip(dims, shape):
+            prod = 1
+            for a in _axes(d):
+                prod *= sizes.get(a, 1)
+            fixed.append(d if (prod > 0 and size % prod == 0) else None)
+        out[name] = PartitionSpec(*fixed)
+    return out
+
+
+# --- activation sharding -----------------------------------------------------
+# The reference pins every major activation to a batch-sharded layout with
+# GSPMD constraints. One controller has no GSPMD: the functions below
+# return their input, at the reference's call sites, and the training step
+# splits the batch over the entries of the axes recorded here.
+_BATCH_AXES: Tuple[str, ...] = ()
+_SEQ_AXIS: str = ""
+
+
+def set_batch_axes(axes, seq_axis: str = "model") -> None:
+    """Record the data-parallel axes (``()``: none)."""
+    global _BATCH_AXES, _SEQ_AXIS
+    _BATCH_AXES = tuple(axes)
+    _SEQ_AXIS = seq_axis if axes else ""
+
+
+def get_batch_axes() -> Tuple[str, ...]:
+    """The axes the last ``set_batch_axes`` recorded."""
+    return _BATCH_AXES
+
+
+def shard_batch(x, batch_dim: int = 0):
+    """Batch on the data axes: the reference's constraint; ``x`` here."""
+    return x
+
+
+def shard_batch_seq(x, seq_dim: int = 1):
+    """Batch on the data axes and sequence on the model axis (the
+    reference's sequence-parallel layout); ``x`` here."""
+    return x
+
+
+def shard_replicated_model(x, batch_dim: int = 0):
+    """Batch-sharded, replicated elsewhere; ``x`` here."""
+    return shard_batch(x, batch_dim)
+
+
+# ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------
 
@@ -152,8 +397,13 @@ def gated_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       z_loss: float = 1e-4) -> torch.Tensor:
-    """Causal-LM loss in float32, with the optional z-loss."""
+                       z_loss: float = 1e-4,
+                       total: Union[None, float, torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Causal-LM loss in float32, with the optional z-loss. ``total`` is
+    the count a share of a larger batch divides by (a data-parallel step:
+    the global batch's tokens, or its mask's sum), so that the shares'
+    losses and gradients sum to the global batch's."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -161,6 +411,8 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     if z_loss:
         nll = nll + z_loss * lse ** 2
     if mask is None:
-        return torch.mean(nll)
+        return torch.mean(nll) if total is None else torch.sum(nll) / total
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask) if total is None else total
+    return torch.sum(nll * mask) / torch.clamp(torch.as_tensor(count),
+                                               min=1.0)

@@ -12,10 +12,19 @@ follow the reference's: its ``top_k`` breaks ties toward the lower index
 A Switch-style load-balancing loss is returned alongside. The reference's
 expert-parallel variant (``ep=True``) only places experts over a mesh
 axis and computes the same function; it is not taken here.
+
+Under data parallelism each entry routes its share of the batch, while
+the reference's GSPMD step routes the global batch: the capacity comes
+from the global batch's tokens, an expert's slots go to the assignments
+in the global batch's order (so an entry's tokens drop after those of the
+entries before it), and the aux loss takes the global batch's expert
+density. ``MoE.dispatch`` (a ``Dispatch``, set by the training step for
+one entry) carries those statistics in; ``None`` routes the tokens given
+as the whole batch.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +33,26 @@ from torch import nn
 from .config import ModelConfig
 from .layers import Initializer, cast, dtype_of
 
-__all__ = ["MoE", "init_moe", "route", "moe_ffn"]
+__all__ = ["MoE", "Dispatch", "init_moe", "route", "capacity", "moe_ffn"]
+
+
+class Dispatch:
+    """One entry's share of a data-parallel batch, for one MoE layer:
+    ``tokens`` of the global batch (which sets the capacity), ``share``
+    (this entry's tokens over the global batch's), ``before`` (E,), the
+    assignments to each expert of the entries before this one, and
+    ``density`` (E,), the global batch's expert density, or ``None`` (the
+    share's own). ``counts`` (E,) records this entry's assignments at the
+    last call."""
+
+    def __init__(self, tokens: int, share: float,
+                 before: Optional[torch.Tensor] = None,
+                 density: Optional[torch.Tensor] = None):
+        self.tokens = int(tokens)
+        self.share = float(share)
+        self.before = before
+        self.density = density
+        self.counts: Optional[torch.Tensor] = None
 
 
 class MoE(nn.Module):
@@ -43,6 +71,7 @@ class MoE(nn.Module):
             self.shared_gate = ini.normal((d, sf))
             self.shared_up = ini.normal((d, sf))
             self.shared_down = ini.normal((sf, d))
+        self.dispatch: Optional[Dispatch] = None
 
 
 def init_moe(ini: Initializer, cfg: ModelConfig) -> MoE:
@@ -62,6 +91,13 @@ def route(p: MoE, xt: torch.Tensor, cfg: ModelConfig):
     return gate_vals, expert_idx, probs
 
 
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """An expert's slots for ``tokens`` routed tokens: ceil(1.25 N K / E)
+    rounded up to a multiple of 128 (at least 128)."""
+    c = -(-tokens * cfg.topk * 125 // (cfg.n_experts * 100))
+    return max(((c + 127) // 128) * 128, 128)
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss)."""
@@ -72,20 +108,32 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
     xt = x.reshape(N, d)
     gate_vals, expert_idx, probs = route(p, xt, cfg)
 
+    plan = p.dispatch
     # Switch aux loss: E * sum_e f_e * P_e
-    density = F.one_hot(expert_idx, E).float().sum(dim=1).mean(dim=0)
+    if plan is None or plan.density is None:
+        density = F.one_hot(expert_idx, E).float().sum(dim=1).mean(dim=0)
+    else:
+        density = plan.density
     aux = E * torch.sum(density * probs.mean(dim=0))
+    if plan is not None:  # this share's part of the global batch's term
+        aux = aux * plan.share
 
-    C = -(-N * K * 125 // (E * 100))                       # ceil(1.25 N K / E)
-    C = max(((C + 127) // 128) * 128, 128)
+    C = capacity(N if plan is None else plan.tokens, cfg)
     flat_expert = expert_idx.reshape(-1)                   # (N K,)
     order = torch.argsort(flat_expert, stable=True)
     sorted_e = flat_expert[order]
-    counts = torch.bincount(flat_expert, minlength=E)      # (E,)
-    start = torch.searchsorted(sorted_e, torch.arange(E, device=x.device))
+    experts = torch.arange(E, device=x.device)
+    start = torch.searchsorted(sorted_e, experts)          # group starts
+    counts = torch.searchsorted(sorted_e, experts, right=True) - start
+    kept = torch.clamp(counts, max=C)                      # (E,)
+    if plan is not None:
+        plan.counts = counts.detach()
+        if plan.before is not None:  # the slots the entries before took
+            kept = torch.minimum(counts,
+                                 torch.clamp(C - plan.before, min=0))
     ar = torch.arange(C, device=x.device)
     slot = torch.clamp(start[:, None] + ar[None, :], 0, N * K - 1)  # (E, C)
-    in_cap = ar[None, :] < torch.clamp(counts, max=C)[:, None]
+    in_cap = ar[None, :] < kept[:, None]
     src = order[slot]                                      # flat assignment id
     token_of = src // K                                    # (E, C) source token
     xs = xt[token_of.reshape(-1)].to(dt)

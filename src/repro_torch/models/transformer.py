@@ -20,12 +20,13 @@ The training knobs, as the reference reads them:
     recomputation runs each attention layer's forward again, so a training
     step launches the attention kernel twice a layer. The values are the
     same under every setting;
-  * ``grad_accum`` is read only by the reference's dry run
-    (``launch/dryrun.py``), never by its ``train``: it changes nothing
-    here either;
-  * ``residual_seq_shard`` lays the residual stream out across a mesh's
-    model axis; on one card it has no effect until the sharding rules come
-    (ROADMAP A.5.4).
+  * ``grad_accum`` is read only by the dry run's step
+    (``launch/dryrun.py`` ``make_train_step``), never by ``train``, as in
+    the reference;
+  * ``residual_seq_shard`` picks ``layers.shard_batch_seq`` over
+    ``shard_batch`` for the residual stream between blocks, as the
+    reference does; one controller has no GSPMD, so both return their
+    input and the setting changes nothing.
 
 ``prefill`` computes the reference's function (the logits of position S-1
 and a cache holding positions 0..S-1) in one forward pass that writes each
@@ -53,7 +54,8 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (Initializer, cast, cross_entropy_loss, dtype_of,
-                     gated_mlp, init_mlp, init_norm, rms_norm)
+                     gated_mlp, init_mlp, init_norm, rms_norm, shard_batch,
+                     shard_batch_seq)
 
 __all__ = ["Block", "Encoder", "Transformer", "init_model", "forward",
            "loss_fn", "encode", "init_cache", "decode_step", "prefill"]
@@ -150,8 +152,15 @@ class Transformer(nn.Module):
 def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
                policy: KernelPolicy = DEFAULT_POLICY) -> Transformer:
     """A model drawn from a CPU ``torch.Generator`` seeded with ``seed``, on
-    ``device`` (the card by default)."""
+    ``device`` (the card by default). On ``"meta"`` nothing is drawn or
+    allocated: the parameters have shapes and dtypes only (the dry run's
+    path at any size)."""
     device = resolve_device(device)
+    if device.type == "meta":
+        with torch.device("meta"):
+            return Transformer(cfg, Initializer(None,
+                                                dtype_of(cfg.param_dtype)),
+                               policy)
     gen = torch.Generator().manual_seed(int(seed))
     model = Transformer(cfg, Initializer(gen, dtype_of(cfg.param_dtype)),
                         policy)
@@ -254,13 +263,16 @@ def _run_blocks(model: Transformer, blocks, P: int, h, positions, memory,
     """``blocks`` (repeats of a pattern of ``P``) in order over ``h``;
     ``moe_aux`` plus each repeat's MoE aux loss (summed within the repeat
     first, as the reference's scan carries it)."""
+    pin = shard_batch_seq if model.cfg.residual_seq_shard else shard_batch
     for r0 in range(0, len(blocks), P):
         aux: Dict[str, Any] = {}
         for i in range(r0, r0 + P):
+            h = pin(h)
             h = _apply_block(model, blocks[i], h, positions, memory, aux,
                              None if caches is None else caches[i])
         if "moe_aux" in aux:
             moe_aux = moe_aux + aux["moe_aux"]
+        h = pin(h)
     return h, moe_aux
 
 
@@ -294,7 +306,7 @@ def _stack(model: Transformer, tokens, memory, caches: Optional[Cache] = None):
     dt = dtype_of(cfg.compute_dtype)
     tokens = _tokens(model, tokens)
     S = tokens.shape[1]
-    h = cast(model.embed, dt)[tokens]
+    h = shard_batch(cast(model.embed, dt)[tokens])
     positions = torch.arange(S, device=model.device)
     if memory is not None:
         memory = torch.as_tensor(memory, device=model.device).to(dt)
@@ -321,14 +333,16 @@ def forward(model: Transformer, tokens, memory=None
     cfg = model.cfg
     dt = dtype_of(cfg.compute_dtype)
     h, moe_aux = _stack(model, tokens, memory)
-    h = rms_norm(h, model.final_norm.scale, cfg.norm_eps)
-    return h @ _unembed(model, dt), {"moe_aux": moe_aux}
+    h = shard_batch(rms_norm(h, model.final_norm.scale, cfg.norm_eps))
+    return shard_batch(h @ _unembed(model, dt)), {"moe_aux": moe_aux}
 
 
-def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], *,
+            total=None):
     """batch: tokens (B,S), targets (B,S), optional mask (B,S), optional
     memory/frames for VLM & whisper. Differentiable: ``launch/train.py``'s
-    step takes its gradient."""
+    step takes its gradient. ``total``: for a share of a larger batch, the
+    global batch's count of counted tokens (``cross_entropy_loss``)."""
     cfg = model.cfg
     memory = batch.get("memory")
     if cfg.has_encoder and "frames" in batch:
@@ -338,7 +352,7 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor]):
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, device=model.device)
-    loss = cross_entropy_loss(logits, targets, mask)
+    loss = cross_entropy_loss(logits, targets, mask, total=total)
     if cfg.is_moe:
         loss = loss + 0.01 * aux["moe_aux"] / max(cfg.repeats, 1)
     return loss, {"loss": loss}
