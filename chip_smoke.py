@@ -33,7 +33,14 @@ kernel's autograd wrapper, with a kill and a resume; then (phase K) data
 parallelism over four entries on the card (``train`` with
 ``TrainConfig.devices``), int8 gradient compression with error feedback,
 the GPipe forward over a stage axis and the dry run
-(``launch.dryrun``). It builds
+(``launch.dryrun``); then (phase L) tile tuning: ``autotune --check`` on
+the committed ``TUNE_TABLE.json``, a sweep of every kernel's candidate
+tiles on this card into a scratch table, and every candidate instance of
+the five tuned kernels and the float32 attention kernels against its plain
+version at ragged shapes, with the checked GET and bf16 prefill at every
+candidate. Phases A-K run the tiles the committed table resolves for this
+card; each tuned kernel's ``tile`` in the kernels line counts its
+main-path launches by instance. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -414,6 +421,37 @@ def bound(nbytes: float, nops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# each tuned kernel's launches by instance (its wrapper's ``tiles``) over
+# every main-path window of the run (``launch_counts``): the kernels line's
+# ``tile``
+MAIN_TILES: dict = {}
+
+
+def reset_counts(kernels) -> None:
+    """The start of a main-path window: every kernel's ``launches`` at 0,
+    every tuned kernel's ``tiles`` empty."""
+    for f in kernels.values():
+        f.launches = 0
+        if hasattr(f, "tiles"):
+            f.tiles.clear()
+
+
+def window_tiles(kernels) -> dict:
+    """The tuned kernels' launches by instance since ``reset_counts``."""
+    return {k: dict(f.tiles) for k, f in kernels.items()
+            if getattr(f, "tiles", None)}
+
+
+def launch_counts(kernels) -> dict:
+    """The end of a main-path window: each kernel's launches in it; its
+    tuned kernels' launches by instance are added to ``MAIN_TILES``."""
+    for k, tiles in window_tiles(kernels).items():
+        into = MAIN_TILES.setdefault(k, {})
+        for tile, n in tiles.items():
+            into[tile] = into.get(tile, 0) + n
+    return {k: f.launches for k, f in kernels.items()}
+
+
 def max_abs_err(a, b) -> float:
     import torch
 
@@ -695,8 +733,7 @@ def run_ops(args, device, kernels, n_join: int):
         torch.cuda.synchronize()
 
     # -- the main path: the ops wrappers ---------------------------------------
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     ps = {"int32": ops.prefix_sum(w_i32),
           "int32 exclusive": ops.prefix_sum(w_i32, exclusive=True),
           "float32 integer-valued": ops.prefix_sum(w_f32),
@@ -713,7 +750,7 @@ def run_ops(args, device, kernels, n_join: int):
     pre32 = ops.prefill_attention(q32, k32, v32, causal=True)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = launch_counts(kernels)
     log(f"[D] launches {launches}")
     if device.type == "cuda":
         assert launches["prefix_sum"] == 2
@@ -1128,10 +1165,9 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
     launches = {}
 
     def main_path(label, fn):
-        for f in kernels.values():
-            f.launches = 0
+        reset_counts(kernels)
         out = fn()
-        launches[label] = {k: f.launches for k, f in kernels.items()}
+        launches[label] = launch_counts(kernels)
         log(f"[{label}] launches " + str({k: v for k, v in
                                           launches[label].items() if v}))
         return out
@@ -1605,10 +1641,9 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
     launches, e2e, krows, call = {}, {}, [], {}
 
     def main_path(label, fn):
-        for f in kernels.values():
-            f.launches = 0
+        reset_counts(kernels)
         out = fn()
-        launches[label] = {k: f.launches for k, f in kernels.items()}
+        launches[label] = launch_counts(kernels)
         log(f"[{label}] launches " + str({k: v for k, v in
                                           launches[label].items() if v}))
         return out
@@ -2289,11 +2324,10 @@ def run_serving(args, device, q, configs, kernels, kernel_policy):
             torch.cuda.synchronize()
 
     def main_path(label, fn):
-        for f in kernels.values():
-            f.launches = 0
+        reset_counts(kernels)
         out = fn()
         sync()
-        launches[label] = {k: f.launches for k, f in kernels.items()}
+        launches[label] = launch_counts(kernels)
         log(f"[{label}] launches " + str({k: v for k, v in
                                           launches[label].items() if v}))
         return out
@@ -2652,11 +2686,10 @@ def run_sharding(args, device, q, configs, kernels, kernel_policy):
             torch.cuda.synchronize()
 
     def main_path(label, fn):
-        for f in kernels.values():
-            f.launches = 0
+        reset_counts(kernels)
         out = fn()
         sync()
-        launches[label] = {k: f.launches for k, f in kernels.items()}
+        launches[label] = launch_counts(kernels)
         log(f"[{label}] launches " + str({k: v for k, v in
                                           launches[label].items() if v}))
         return out
@@ -3029,8 +3062,7 @@ def run_lm(args, device, kernels, kernel_policy=None):
                      (attn_mod, "blockwise_attention")]
 
     # -- the main path: serve_batch -------------------------------------------
-    for f in kernels.values():
-        f.launches = 0
+    reset_counts(kernels)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     stats = {}
@@ -3040,9 +3072,10 @@ def run_lm(args, device, kernels, kernel_policy=None):
                                  reduced=False, params=model, stats=stats)
         sync()
         cold_s = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in kernels.items()}
+    launches = launch_counts(kernels)
     log(f"[I] launches {({k: v for k, v in launches.items() if v})}; plain "
         f"attention calls {plain_calls}")
+    log(f"[I] instances (tuned tiles) {window_tiles(kernels)}")
     if on_card:
         assert launches["flash_prefill"] == L, launches
         assert launches["flash_decode"] == L * args.lm_new, launches
@@ -3353,19 +3386,19 @@ def run_training(args, device, kernels, kernel_policy=None, *,
         """``fn`` with every count at 0 before it, read after it (summed
         into the phase's launches), and the plain attention calls and the
         source's window dispatches it makes."""
-        for f in kernels.values():
-            f.launches = 0
+        reset_counts(kernels)
         with counting_calls(plain_targets + [(PoissonJoinSource,
                                               "_dispatch")]) as calls:
             out = fn()
             sync()
-        got = {k: f.launches for k, f in kernels.items()}
+        got = launch_counts(kernels)
         for k, v in got.items():
             launches[k] += v
         windows = calls.pop("PoissonJoinSource._dispatch")
         log(f"[J] {label}: launches "
             f"{ {k: v for k, v in got.items() if v} }; windows dispatched "
-            f"{windows}; plain attention calls {calls}")
+            f"{windows}; plain attention calls {calls}; instances (tuned "
+            f"tiles) {window_tiles(kernels)}")
         return out, got, windows, calls
 
     def assert_launches(got, windows, calls, steps):
@@ -3800,12 +3833,11 @@ def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     def main_path(label, fn):
         """``fn`` with every count at 0 before it, read after it (summed
         into the phase's launches)."""
-        for f in kernels.values():
-            f.launches = 0
+        reset_counts(kernels)
         with counting_calls([(PoissonJoinSource, "_dispatch")]) as calls:
             out = fn()
             sync()
-        got = {k: f.launches for k, f in kernels.items()}
+        got = launch_counts(kernels)
         for k, v in got.items():
             launches[k] += v
         log(f"[K] {label}: launches { {k: v for k, v in got.items() if v} }"
@@ -4092,6 +4124,255 @@ def parallel_summary(e2e: dict) -> dict:
     return out
 
 
+# Phase L's shapes: probe and query counts and sequence lengths that are
+# no multiple of any candidate tile (256 to 2,048 probes, 64 to 256 keys).
+TUNE_PROBES = 5 * 2048 + 37
+TUNE_SEQ = 1000
+TUNE_CHECK_SEQ = 200  # the checked prefill's smallest ragged S
+# the GET's trees beside A's three nodes: chains of these many relations,
+# which reach every tree_get instance (2, 4, 8 and 16 slots)
+TUNE_CHAINS = (2, 4, 8, 16)
+# (H, KV) a head dim: smollm-135m, llama3-405b's G = 16 over one KV head,
+# gemma3-1b
+TUNE_WIDTHS = {64: (9, 3), 128: (16, 1), 256: (4, 1)}
+# tree_get_kernel, bsearch_probe_kernel, flash_decode_tc_kernel,
+# flash_prefill_tc_kernel and flash_prefill_kernel instances each build
+# holds (the tuning's candidates at every tree size and head dim)
+TUNE_INSTANCES = {"tree_get": 15, "bsearch_probe": 4, "flash_decode": 6,
+                  "flash_prefill_tc": 10, "flash_prefill": 4}
+
+
+def chain_tables(relations: int, seed: int):
+    """A chain R0(a0, a1) |><| R1(a1, a2) |><| ... of ``relations``
+    relations, 64 rows each with keys in [0, 32) (about two matches a
+    step), from numpy: a GET tree of ``relations`` nodes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {f"R{i}": {f"a{i}": rng.integers(0, 32, 64),
+                      f"a{i + 1}": rng.integers(0, 32, 64)}
+            for i in range(relations)}
+
+
+def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
+    """Phase L, tuning: ``autotune --check`` on the committed table; a
+    sweep on this card into a scratch table (never the committed one),
+    each candidate's time logged with the card's name and power limit;
+    then every candidate instance of the five tuned kernels and of the
+    float32 attention kernels against its plain version at ragged shapes
+    (the GET and the bsearch bit for bit, with their tile models; the
+    attention kernels within phase D's tolerances), and the checked builds
+    of the GET and the bf16 prefill at every candidate on their smallest
+    ragged shape, with no access outside the operands."""
+    import torch
+
+    from repro_torch.config import backend_key
+    from repro_torch.core import (Atom, Database, JoinQuery, PagedArena,
+                                  build_shred)
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import bsearch_probe as bp_mod
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import tree_probe as tp_mod
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    out: dict = {"device": smi}
+    # -- L.check: the committed table ---------------------------------------
+    assert autotune.check_table(out=lambda m: log(f"[L.check] {m}")) == 0
+    key = backend_key(device)
+    committed = autotune.load_table().get("entries", {})
+    log(f"[L.check] entries {sorted(committed)}; this card's key {key!r}: "
+        + ("tuned" if key in committed else "no entry (the default runs)"))
+
+    # -- L.sweep: every candidate timed on this card, into a scratch table --
+    if on_card:
+        lines = []
+
+        def record(msg):
+            lines.append(msg)
+            log(f"[L.sweep] {msg} ({smi})")
+
+        scratch = build.BUILD_DIR.parent / "tune" / "TUNE_TABLE.sweep.json"
+        scratch.parent.mkdir(parents=True, exist_ok=True)
+        scratch.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        winners = autotune.sweep(device=device, rounds=2, write=True,
+                                 path=scratch, entry_key=key, out=record)
+        assert autotune.check_table(scratch, out=lambda m: log(
+            f"[L.sweep] {m}")) == 0
+        agree = {k: rows == committed.get(key, {}).get(k)
+                 for k, rows in winners.items()}
+        log(f"[L.sweep] {time.perf_counter() - t0:.1f} s; winners {winners}; "
+            f"equal to the committed entry: {agree}")
+        out["sweep"] = {"lines": lines, "winners": winners,
+                        "equal_to_committed": agree}
+
+    # -- L.host: what resolving a tile costs a kernel call on the host -----
+    autotune._resolve.cache_clear()
+    t0 = time.perf_counter()
+    first = autotune.tile_for("flash_prefill", 894, None, device)
+    cold_us = (time.perf_counter() - t0) * 1e6
+    calls = 10_000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        autotune.tile_for("flash_prefill", 894, None, device)
+    warm_us = (time.perf_counter() - t0) * 1e6 / calls
+    log(f"[L.host] tile_for('flash_prefill', 894) = {first}: the first "
+        f"call {cold_us:.1f} us (the ladder walked: the card's name, the "
+        f"table's rows), then {warm_us:.3f} us a call (the mean of "
+        f"{calls}, from the cache)")
+    out["tile_for_us"] = {"first": cold_us, "cached": warm_us}
+
+    # -- L.GET: every tree_get instance, at A's tree and the chains ---------
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed + 7)
+    cands = autotune.KERNELS["tree_probe"].candidates
+    trees = [("A", packA, nA)]
+    for r in TUNE_CHAINS:
+        q = JoinQuery(tuple(Atom.of(f"R{i}", f"a{i}", f"a{i + 1}")
+                            for i in range(r)))
+        shred = build_shred(Database.from_columns(
+            chain_tables(r, args.seed + r), device=device), q, rep="usr")
+        trees.append((f"chain of {r}", shred.packed, int(shred.join_size)))
+    seen, oob_get = set(), 0
+    for label, packed, n in trees:
+        layout = packed.layout
+        pos = torch.randint(0, n, (TUNE_PROBES,), generator=gen,
+                            device=device, dtype=torch.int32)
+        pv = PagedArena.from_packed(packed)
+        stacked, P = pv.stacked()
+        sbases = tp_mod.stacked_bases(layout, P)
+        for order, pp in (("sorted", torch.sort(pos).values),
+                          ("shuffled", pos)):
+            want = tp_mod.tree_probe_plain(packed.arena, pp, layout)
+            for br in cands:
+                items = tp_mod.items_for(layout.num_slots, br)
+                seen.add((min(s for s in (2, 3, 4, 8, 16)
+                              if s >= layout.num_slots), items))
+                got = tp_mod.tree_probe(packed.arena, pp, layout,
+                                        block_rows=br)
+                model = torch.stack(tp_mod.tree_walk_tiled(
+                    packed.arena, pp, layout, tile=tp_mod.THREADS * items))
+                assert torch.equal(got, want), (label, order, br)
+                assert torch.equal(model, want), (label, order, br)
+                for dma in (None, True):
+                    assert torch.equal(tp_mod.tree_probe_paged(
+                        pv, pp, dma=dma, block_rows=br), want), (label, br)
+                if order == "shuffled" and on_card:
+                    small = pp[:2 * tp_mod.THREADS * items + 37]
+                    for operand, bases in ((packed.arena, None),
+                                           (stacked, sbases)):
+                        oob = tp_mod.out_of_bounds(operand, small, layout,
+                                                   bases, block_rows=br)
+                        assert oob["count"] == 0, (label, br, oob)
+                        oob_get += oob["count"]
+        log(f"[L.GET] {label} ({layout.num_slots} nodes, join {n}): "
+            f"{TUNE_PROBES} sorted and shuffled probes at block_rows "
+            f"{cands} (probes a thread "
+            f"{[tp_mod.items_for(layout.num_slots, b) for b in cands]}): "
+            "tree_probe and tree_probe_paged (dma None, True) equal the "
+            "plain version and the tile model bit for bit; checked build "
+            + ("0 accesses outside the operands (arena and stacked pages, "
+               "2 tiles + 37 probes)" if on_card else "not run"))
+    # (slots of the instance, probes a thread)
+    assert len(seen) == TUNE_INSTANCES["tree_get"], sorted(seen)
+    out["tree_get_instances"] = sorted(seen)
+
+    # -- L.bsearch ----------------------------------------------------------
+    qA = torch.randint(0, int(prefA[-1]) + 1, (TUNE_PROBES,), generator=gen,
+                       device=device, dtype=torch.int32)
+    for order, qq in (("sorted", torch.sort(qA).values), ("shuffled", qA)):
+        want = bp_mod.bsearch_probe_plain(prefA, qq)
+        line = []
+        for br in autotune.KERNELS["bsearch_probe"].candidates:
+            stats, model_stats = {}, {}
+            got = bp_mod.bsearch_probe(prefA, qq, stats=stats, block_rows=br)
+            model = bp_mod.bsearch_probe_tiled(
+                prefA, qq, tile=128 * br, stats=model_stats)
+            assert torch.equal(got, want) and torch.equal(model, want), br
+            assert stats == model_stats, (br, stats, model_stats)
+            line.append(f"{br}: {stats['staged']} / {stats['fallback']}")
+        log(f"[L.bsearch] {order}, {TUNE_PROBES} queries into A's root "
+            f"prefix: equal to the plain version at every block_rows; tiles "
+            f"staged / fell back (the model's the same) {'; '.join(line)}")
+
+    # -- L.attention: every candidate at each head dim, both dtypes ---------
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs, instances, oob_pre = {}, set(), 0
+    S, Sc = TUNE_SEQ, TUNE_CHECK_SEQ
+    for D, (H, KV) in TUNE_WIDTHS.items():
+        for dtype, tol_dec, tol_pre in ((bf16, BF16_TOL, BF16_TOL),
+                                        (f32, F32_DECODE_TOL,
+                                         F32_PREFILL_TOL)):
+            name = "bf16" if dtype == bf16 else "float32"
+            q, k, v = (randn((2, H, D), dtype), randn((2, KV, S, D), dtype),
+                       randn((2, KV, S, D), dtype))
+            lens = torch.tensor([[S - 37], [S]], device=device)
+            bias = torch.where(torch.arange(S, device=device)[None] < lens,
+                               0.0, -1e30).to(f32)
+            want = dec_mod.flash_decode_plain(q, k, v, bias)
+            line = []
+            for bs in autotune.KERNELS["flash_decode"].candidates:
+                got = dec_mod.flash_decode(q, k, v, bias, block_s=bs)
+                err = close(got, want, tol_dec)
+                tk = dec_mod.decode_config(dtype, D, bs)["block_s"]
+                instances.add(("flash_decode", name, D, tk))
+                errs[("flash_decode", name, D, bs)] = err
+                line.append(f"{bs} (stages of {tk}) {err:.3g}")
+            log(f"[L.attention] flash_decode {name} D={D} H={H} KV={KV} "
+                f"S={S}, max_abs_err by block_s: {'; '.join(line)} (rtol, "
+                f"atol {tol_dec})")
+            q, k, v = (randn((1, H, S, D), dtype), randn((1, KV, S, D), dtype),
+                       randn((1, KV, S, D), dtype))
+            for causal in (True, False):
+                want = pre_mod.flash_prefill_plain(q, k, v, causal)
+                line = []
+                for cand in autotune.KERNELS["flash_prefill"].candidates:
+                    got = pre_mod.flash_prefill(q, k, v, causal, *cand)
+                    err = close(got, want, tol_pre)
+                    cfg = pre_mod.prefill_config(dtype, D, *cand)
+                    inst = (cfg["block_q"], cfg["block_k"])
+                    instances.add(("flash_prefill", name, D) + inst)
+                    errs[("flash_prefill", name, D, causal, cand)] = err
+                    line.append(f"{cand} ({inst}, {cfg['stages']} stages) "
+                                f"{err:.3g}")
+                log(f"[L.attention] flash_prefill {name} D={D} H={H} KV={KV} "
+                    f"S={S} {'causal' if causal else 'full'}, max_abs_err by "
+                    f"tile (instance): {'; '.join(line)} (rtol, atol "
+                    f"{tol_pre})")
+        if on_card:
+            q, k, v = (randn((1, H, Sc, D), bf16), randn((1, KV, Sc, D), bf16),
+                       randn((1, KV, Sc, D), bf16))
+            for cand in autotune.KERNELS["flash_prefill"].candidates:
+                oob = pre_mod.out_of_bounds(q, k, v, True, *cand)
+                assert oob["count"] == 0, (D, cand, oob)
+                oob_pre += oob["count"]
+            log(f"[L.attention] flash_prefill_tc_checked D={D} S={Sc} causal "
+                f"at every candidate: 0 stores outside the operands")
+    by_kernel = {}
+    for inst in instances:
+        by_kernel.setdefault((inst[0], inst[1]), set()).add(inst[2:])
+    counts = {f"{k} {d}": len(v) for (k, d), v in sorted(by_kernel.items())}
+    log(f"[L.attention] instances reached: {counts}")
+    assert counts == {"flash_decode bf16": TUNE_INSTANCES["flash_decode"],
+                      "flash_decode float32": 3,
+                      "flash_prefill bf16": TUNE_INSTANCES["flash_prefill_tc"],
+                      "flash_prefill float32":
+                          TUNE_INSTANCES["flash_prefill"]}, counts
+    out.update(attention_instances=counts,
+               attention_max_abs_err={str(k): v for k, v in errs.items()},
+               out_of_bounds={"tree_get_checked": oob_get,
+                              "flash_prefill_tc_checked": oob_pre})
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[L] {out['seconds']:.1f} s ({smi})")
+    return out
+
+
 def run(args, device, kernel_policy=None) -> dict:
     """Every phase after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
@@ -4115,6 +4396,7 @@ def run(args, device, kernel_policy=None) -> dict:
     from repro_torch.kernels import tree_probe as tp_mod
 
     on_card = device.type == "cuda"
+    MAIN_TILES.clear()
     kernels = {"tree_probe": tp_mod.tree_probe,
                "bsearch_probe": bp_mod.bsearch_probe,
                "fused_draw": fd_mod.fused_draw,
@@ -4148,11 +4430,6 @@ def run(args, device, kernel_policy=None) -> dict:
             text = reports.get(name) or build.ptxas_report(name)
             for entry, line in ptxas_lines(text):
                 log(f"[build] {name}: {entry}: {line}")
-        frames = [line for _, line in ptxas_lines(
-            reports.get("tree_get") or build.ptxas_report("tree_get"))
-            if "stack frame" in line]
-        log(f"[build] tree_get: {len(frames)} instances; stack frames and "
-            f"spills: {sorted(set(frames))}")
         # the draw's instances keep rows and locals in registers
         frames = [line for entry, line in ptxas_lines(
             reports.get("fused_draw") or build.ptxas_report("fused_draw"))
@@ -4164,10 +4441,16 @@ def run(args, device, kernel_policy=None) -> dict:
                               for line in frames), frames
         # the float scans' one launch, the caching walk and the float32
         # attention kernels: no frame either
+        # and every instance of the tuned kernels (TUNE_INSTANCES: each
+        # candidate tile at every tree size and head dim)
         for name, kernel in (("scan", "sc_fixed_kernel"),
                              ("csr_walk", "csr_walk_cached_kernel"),
                              ("flash_prefill", "flash_prefill_kernel"),
-                             ("flash_decode", "flash_decode_f32_kernel")):
+                             ("flash_decode", "flash_decode_f32_kernel"),
+                             ("tree_get", "tree_get_kernel"),
+                             ("bsearch_probe", "bsearch_probe_kernel"),
+                             ("flash_decode", "flash_decode_tc_kernel"),
+                             ("flash_prefill_tc", "flash_prefill_tc_kernel")):
             frames = [line for entry, line in ptxas_lines(
                 reports.get(name) or build.ptxas_report(name))
                 if kernel in entry and "stack frame" in line]
@@ -4176,6 +4459,14 @@ def run(args, device, kernel_policy=None) -> dict:
             assert frames and all(line == "0 bytes stack frame, 0 bytes "
                                   "spill stores, 0 bytes spill loads"
                                   for line in frames), (kernel, frames)
+            want = {"tree_get_kernel": "tree_get",
+                    "bsearch_probe_kernel": "bsearch_probe",
+                    "flash_decode_tc_kernel": "flash_decode",
+                    "flash_prefill_tc_kernel": "flash_prefill_tc",
+                    "flash_prefill_kernel": "flash_prefill"}.get(kernel)
+            if want is not None:
+                assert len(frames) == TUNE_INSTANCES[want], (name, kernel,
+                                                            len(frames))
         # the bf16 attention kernels' tensor-core instructions in the SASS
         for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
             log(f"[build] {name}: {sass_count(build, name, op)}")
@@ -4267,9 +4558,9 @@ def run(args, device, kernel_policy=None) -> dict:
     qA_shuffled = qA[torch.randperm(qA.numel(), generator=gen, device=device)]
     drawn = []
 
-    def record(pref, qq):
+    def record(pref, qq, **kw):
         drawn.append((pref, qq.clone()))
-        return bp_mod.bsearch_probe(pref, qq)
+        return bp_mod.bsearch_probe(pref, qq, **kw)
 
     ops_mod.bsearch_probe = record
     try:
@@ -4400,16 +4691,16 @@ def run(args, device, kernel_policy=None) -> dict:
     launches = {}
 
     # -- 4. config A: the main path, per-node route ----------------------------
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     fullA = engA.full_join(q)
     zs = []
     mean, sd = planA.expected_k(), float(estimate.sample_std(planA.w, planA.p))
     for s in range(args.keys):
         smp = engA.sample(q, threefry.key(1000 + s))
         zs.append((check_sample(smp, fullA, "A") - mean) / sd)
-    launchesA = {k: fn.launches for k, fn in kernels.items()}
+    launchesA = launch_counts(kernels)
     log(f"[A] launches {launchesA}")
+    log(f"[A] instances (tuned tiles) {window_tiles(kernels)}")
     if on_card:
         assert launchesA["tree_probe"] == 1 + args.keys  # one a call
         assert launchesA["bsearch_probe"] > 0 and launchesA["fused_draw"] == 0
@@ -4421,14 +4712,14 @@ def run(args, device, kernel_policy=None) -> dict:
     log(f"[A] cache {engA.stats}")
 
     # -- 5. config B: the main path, fused route -------------------------------
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     fullB = engB.full_join(q)
     keysB = [threefry.key(2000 + s) for s in range(args.draws)]
     smpsB = [engB.sample(q, key) for key in keysB]
     counts = [check_sample(smp, fullB, "B") for smp in smpsB]
-    launchesB = {k: fn.launches for k, fn in kernels.items()}
+    launchesB = launch_counts(kernels)
     log(f"[B] launches {launchesB}")
+    log(f"[B] instances (tuned tiles) {window_tiles(kernels)}")
     if on_card:
         assert launchesB["fused_draw"] == args.draws
         assert launchesB["tree_probe"] == 1
@@ -4445,14 +4736,14 @@ def run(args, device, kernel_policy=None) -> dict:
     assert (engB.stats.shred_builds, engB.stats.plan_misses) == (1, 1), engB.stats
 
     # -- 5b. config C: the main path, paged draw ----------------------------
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     fullC = engC.full_join(q)
     keysC = [threefry.key(3000 + s) for s in range(args.draws)]
     smpsC = [engC.sample(q, key) for key in keysC]
     counts = [check_sample(smp, fullC, "C") for smp in smpsC]
-    launchesC = {k: fn.launches for k, fn in kernels.items()}
+    launchesC = launch_counts(kernels)
     log(f"[C] launches {launchesC}")
+    log(f"[C] instances (tuned tiles) {window_tiles(kernels)}")
     if on_card:
         assert launchesC["fused_sample"] == args.draws
         assert launchesC["tree_probe_paged"] == args.draws  # one a draw
@@ -4475,8 +4766,7 @@ def run(args, device, kernel_policy=None) -> dict:
     # the paged rung, as in the reference. Its draws are held against C's.
     keysR = [threefry.key(3000 + s) for s in range(2)]
     wantR = [engC.sample(q, key) for key in keysR]
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_counts(kernels)
     pol = kernel_policy or KernelPolicy()
     engR = QueryEngine(engC.db, device=device,
                        kernel_policy=dataclasses.replace(
@@ -4490,7 +4780,7 @@ def run(args, device, kernel_policy=None) -> dict:
         assert torch.equal(a.positions, b.positions)
         for v in a.columns:
             assert torch.equal(a.columns[v], b.columns[v]), v
-    launchesR = {k: fn.launches for k, fn in kernels.items()}
+    launchesR = launch_counts(kernels)
     for v, col in fullC.items():
         assert torch.equal(fullR[v], col), v
     log(f"[C, arena_limit={pol.draw_limit}] paged index (pages "
@@ -4698,6 +4988,11 @@ def run(args, device, kernel_policy=None) -> dict:
     # -- 7h. phase K: data parallelism, compression, GPipe, the dry run
     launchesK, e2eK = run_parallel(args, device, kernels)
     e2e["parallel"] = e2eK
+    # -- 7i. phase L: tuning (the sweep and every candidate instance), after
+    # the main path's windows: its launches count in none of them
+    e2e["tuning"] = run_tuning(
+        args, device, nvidia_smi_line() if on_card else "cpu", prefA, packA,
+        nA)
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
@@ -4717,6 +5012,9 @@ def run(args, device, kernel_policy=None) -> dict:
                "tree_probe_paged_pages": "tree_probe_paged.cu",
                "csr_walk_cached": "csr_walk.cu"}
     rows = [r[:2] + (sources.get(r[0], f"{r[0]}.cu"),) + r[2:] for r in rows]
+    # the tuned kernels' launches by instance on the main path
+    tuned = {k for k, f in kernels.items() if hasattr(f, "tiles")}
+    log(f"[tiles] the main path's instances: {MAIN_TILES}")
     table = []
     for name, replaces, source, ms, plain_ms, b_ms, b_by, lib_ms in rows + rowsD:
         table.append({
@@ -4724,7 +5022,8 @@ def run(args, device, kernel_policy=None) -> dict:
             "source": "src/repro_torch/kernels/csrc/" + source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "tile": (MAIN_TILES.get(name, {}) if name in tuned else None)})
         dms = (f"; device {dev_ms[name][0]:.4f} ms in "
                f"{dev_ms[name][1]:g} operations a call"
                if name in dev_ms else "")

@@ -20,6 +20,11 @@ The port keeps three budgets of its own, all in int32 elements:
   * ``paged_limit`` — the largest arena the paged rung takes (the
     reference's ``PAGED_PACK_LIMIT``, 2^25).
 
+Kernel tiles resolve through ``kernels/autotune.tile_for``: a pin in
+``tile_overrides``, then the committed ``kernels/TUNE_TABLE.json`` under
+``backend_key()`` (then its ``default`` entry), then the kernel's builtin
+default; ``tuned=False`` skips the table.
+
 The ladders, as in the reference: an arena within ``arena_limit`` packs
 as one buffer; over it, ``pack_index`` pages it when every page fits
 ``arena_limit`` and the whole fits ``paged_limit``. The draw is ``fused``
@@ -33,7 +38,7 @@ import dataclasses
 import torch
 
 __all__ = ["KernelPolicy", "DEFAULT_POLICY", "ARENA_LIMIT", "DRAW_LIMIT",
-           "PAGED_LIMIT", "resolve_device", "device_name"]
+           "PAGED_LIMIT", "resolve_device", "device_name", "backend_key"]
 
 # Every arena offset and every probe position must fit int32.
 ARENA_LIMIT = (1 << 31) - 1
@@ -61,6 +66,14 @@ class KernelPolicy:
     paged_limit  int32 elements: the largest arena the paged rung takes.
     fused_draw   allow the kernel draws (fused, then paged) in
                  ``kernels='auto'``.
+    tuned        resolve kernel tiles through the committed
+                 ``kernels/TUNE_TABLE.json`` (per card and problem-size
+                 bucket); False pins every kernel's builtin default tile.
+    tile_overrides
+                 per-kernel tile pins that win over the table: a tuple of
+                 ``(kernel_name, value)`` pairs (a tuple, not a dict, so
+                 the policy stays hashable), e.g. ``(("tree_probe", 16),
+                 ("flash_prefill", (64, 128)))``.
     """
 
     enabled: bool = True
@@ -69,6 +82,8 @@ class KernelPolicy:
     draw_limit: int = DRAW_LIMIT
     paged_limit: int = PAGED_LIMIT
     fused_draw: bool = True
+    tuned: bool = True
+    tile_overrides: tuple = ()
 
     def preferred(self, device) -> bool:
         """Should hot paths take the kernel routes for tensors on
@@ -76,6 +91,14 @@ class KernelPolicy:
         ``prefer`` pins it."""
         kind = torch.device(device).type
         return self.enabled and (self.prefer or kind == "cuda")
+
+    def tile_override(self, kernel: str):
+        """The pinned tile for ``kernel`` from ``tile_overrides``, or
+        ``None``: the first rung of ``kernels/autotune.tile_for``."""
+        for name, value in self.tile_overrides:
+            if name == kernel:
+                return value
+        return None
 
 
 DEFAULT_POLICY = KernelPolicy()
@@ -99,3 +122,16 @@ def device_name(device=None) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return "cpu"
+
+
+def backend_key(device=None) -> str:
+    """The tuning table's entry key for ``device`` (the current card when
+    ``None`` and one is present, else the CPU): ``'cuda/<product name>'``,
+    e.g. ``'cuda/NVIDIA H100 80GB HBM3'``, or ``'cpu/cpu'`` (the
+    reference's key for its CPU backend)."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return f"cuda/{torch.cuda.get_device_name(dev)}"
+    return f"{dev.type}/{dev.type}"

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels import ops
+from repro_torch.kernels.autotune import tile_for
 from repro_torch.kernels.csr_walk import csr_walk, csr_walk_cached
 from repro_torch.kernels.fused_draw import (fused_draw, fused_draw_batch,
                                             fused_draw_batch_plain,
@@ -193,14 +194,17 @@ def usr_get_rows_fused(shred: Shred, pos: torch.Tensor,
     callers clamp pads to n - 1."""
     if not fused_available(shred, policy):
         if paged_available(shred, policy):
-            return usr_get_rows_paged(shred, pos)
+            return usr_get_rows_paged(shred, pos, policy)
         return usr_get_rows(shred, pos, policy)
     packed = shred.packed
-    out = tree_probe(packed.arena, pos.to(I32), packed.layout)
+    k = pos.numel()
+    out = tree_probe(packed.arena, pos.to(I32), packed.layout,
+                     block_rows=tile_for("tree_probe", k, policy, pos.device))
     return {name: out[i] for i, name in enumerate(packed.layout.names)}
 
 
-def usr_get_rows_paged(shred: Shred, pos: torch.Tensor
+def usr_get_rows_paged(shred: Shred, pos: torch.Tensor,
+                       policy: KernelPolicy = DEFAULT_POLICY
                        ) -> Dict[str, torch.Tensor]:
     """The paged GET: the walk of ``usr_get_rows_fused`` over the paged
     index (``tree_probe_paged``); the same rows as ``usr_get_rows``. Callers
@@ -208,7 +212,9 @@ def usr_get_rows_paged(shred: Shred, pos: torch.Tensor
     checked ``paged_available``; positions narrow to int32 as in the
     fused GET."""
     pv = paged_view(shred)
-    out = tree_probe_paged(pv, pos.to(I32))
+    k = pos.numel()
+    out = tree_probe_paged(pv, pos.to(I32), block_rows=tile_for(
+        "tree_probe_paged", k, policy, pos.device))
     return {name: out[i] for i, name in enumerate(pv.layout.names)}
 
 
@@ -329,7 +335,8 @@ def draw_fused(shred: Shred, dparams, key, *, method: str, cap: int,
 
 
 def draw_paged(shred: Shred, dparams, key, *, method: str, cap: int,
-               acap: int = 0, n: int = 0):
+               acap: int = 0, n: int = 0,
+               policy: KernelPolicy = DEFAULT_POLICY):
     """The paged draw: positions from one ``fused_sample`` launch (the
     same sampling as the fused draw, so the same positions under one
     key), then their walk over the paged index (``tree_probe_paged``). Same
@@ -339,7 +346,8 @@ def draw_paged(shred: Shred, dparams, key, *, method: str, cap: int,
                                  acap=acap, n=n)
     # Sentinel lanes walk position n - 1 (arbitrary-but-masked, as in GET).
     wpos = torch.clamp(pos, max=dparams["prefE32"][-1] - 1)
-    rows = tree_probe_paged(pv, wpos)
+    rows = tree_probe_paged(pv, wpos, block_rows=tile_for(
+        "tree_probe_paged", cap, policy, wpos.device))
     node_rows = {name: rows[i] for i, name in enumerate(pv.layout.names)}
     return node_rows, PositionSample(pos.to(I64), cnt.to(I64), ovf)
 
@@ -360,7 +368,8 @@ def draw_fused_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
 
 
 def draw_paged_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
-                     acap: int = 0, n: int = 0):
+                     acap: int = 0, n: int = 0,
+                     policy: KernelPolicy = DEFAULT_POLICY):
     """``draw_paged`` under the (B, 2) ``keys``: one batched
     ``fused_sample`` launch, then one GET over all B x cap positions (the
     walk is per lane, so each key's rows are its single paged draw's).
@@ -369,7 +378,8 @@ def draw_paged_batch(shred: Shred, dparams, keys, *, method: str, cap: int,
     pos, cnt, ovf = fused_sample_batch(keys, dparams, method=method, cap=cap,
                                        acap=acap, n=n)
     wpos = torch.clamp(pos, max=dparams["prefE32"][-1] - 1)
-    rows = tree_probe_paged(pv, wpos.reshape(-1))
+    rows = tree_probe_paged(pv, wpos.reshape(-1), block_rows=tile_for(
+        "tree_probe_paged", wpos.numel(), policy, wpos.device))
     node_rows = {name: rows[i].reshape(pos.shape)
                  for i, name in enumerate(pv.layout.names)}
     return node_rows, PositionSample(pos.to(I64), cnt.to(I64), ovf)
@@ -425,7 +435,7 @@ def get_rows(shred: Shred, pos: torch.Tensor, rep: str = None,
     if rep == "usr":
         return usr_get_rows(shred, pos, policy)
     if rep == "usr_paged":
-        return usr_get_rows_paged(shred, pos)
+        return usr_get_rows_paged(shred, pos, policy)
     return csr_get_rows(shred, pos, policy)
 
 

@@ -60,7 +60,8 @@ def _sample(shred: Shred, w, p, prefE, key, cap: int, rep: str, method: str,
     elif route == "paged":
         # The sampling launch, then the walk page by page.
         node_rows, ps = probe.draw_paged(shred, dparams, key, method=method,
-                                         cap=cap, acap=acap, n=n)
+                                         cap=cap, acap=acap, n=n,
+                                         policy=policy)
         cols = probe.gather_columns(shred, node_rows)
     else:
         ps = _positions(key, w, p, prefE, shred, cap, method, n, acap, narrow,
@@ -90,7 +91,7 @@ def _sample_batch(shred: Shred, w, p, prefE, keys, cap: int, rep: str,
     elif route == "paged":
         node_rows, ps = probe.draw_paged_batch(shred, dparams, keys,
                                                method=method, cap=cap,
-                                               acap=acap, n=n)
+                                               acap=acap, n=n, policy=policy)
         cols = probe.gather_columns(shred, node_rows)
     else:
         # Positions key by key, each from its own generators; then one GET

@@ -47,7 +47,12 @@ D's inputs from the same seeds, and calls its own wrappers on them:
     ``scaled_dot_product_attention`` in float32 on the same inputs beside
     each; the decode also over four rotated copies of its cache (67 MB,
     more than the 50 MB L2), so that its reading is of device memory.
-    ``--only attention`` times these alone;
+    the bf16 prefill, causal, at phase D's gemma3-1b widths (B 1, H 4,
+    KV 1, S 2,048, D 256), at phase I's prompts (B 8, H 9, KV 3, S 894,
+    D 64) and at phase K's pipeline microbatch (B 1, S 1,024), each at the
+    tile the checkout resolves and with ``block_q, block_k`` pinned: to
+    (128, 128) and (128, 64) at D 64, to (128, 64) and (64, 64) at D 256
+    (a checkout whose kernels have one tile ignores the pins). ``--only attention`` times these alone;
   * the upload of the 32 keys of the batched draw (``fused_draw.
     _device_keys``), and a ``MicroBatcher`` flush of 32 draws of the
     three-way join at B (``chip_smoke.py``'s serving profile, 32 requests
@@ -96,6 +101,14 @@ SMOLLM_PREFILL = (2, 9, 3, 1000, 64)     # B, H, KV, S, D
 # D 128, gemma3-1b at D 256
 WIDE_PREFILL = ((1, 16, 1, 1000, 128), (1, 4, 1, 1000, 256))
 F32_DECODE = (2, 8, 2, 4096, 128)        # B, H, KV_H, S, D
+# bf16 prefill, causal: phase D's gemma3-1b widths (D 256), phase I's
+# prompts (smollm-135m, padded to 894) and phase K's pipeline microbatch
+BF16_PREFILL = {"gemma3-1b": (1, 4, 1, 2048, 256),
+                "smollm I": (8, 9, 3, 894, 64),
+                "smollm K.pipe": (1, 9, 3, 1024, 64)}
+# the tiles pinned beside the resolved one: at D 64 the builtin and the
+# keys tile of 64; at D 256 the builtin and one consumer warpgroup
+BF16_PINS = {64: ((128, 128), (128, 64)), 256: ((128, 64), (64, 64))}
 ROTATED = 4  # decode caches in turn: 4 x 16.8 MB, more than the L2
 
 
@@ -153,6 +166,21 @@ def attention(device) -> dict:
                          chip_smoke.F32_PREFILL_TOL)
         rows[f"flash_prefill float32 H {Hw} KV {KVw} D {Dw} causal"] = (
             lambda a=(qw, kw, vw): ops.prefill_attention(*a, causal=True))
+    for label, (Bb, Hb, KVb, Sb, Db) in BF16_PREFILL.items():
+        qb, kb, vb = (randn(Bb, Hb, Sb, Db).bfloat16(),
+                      randn(Bb, KVb, Sb, Db).bfloat16(),
+                      randn(Bb, KVb, Sb, Db).bfloat16())
+        chip_smoke.close(ops.prefill_attention(qb, kb, vb, causal=True),
+                         fp.flash_prefill_plain(qb, kb, vb, True),
+                         chip_smoke.BF16_TOL)
+        rows[f"flash_prefill bf16 {label} causal"] = (
+            lambda a=(qb, kb, vb): ops.prefill_attention(*a, causal=True))
+        for pin in BF16_PINS[Db]:
+            rows[f"flash_prefill bf16 {label} causal, block_q, block_k "
+                 f"{pin}"] = (lambda a=(qb, kb, vb), t=pin:
+                              ops.prefill_attention(*a, causal=True,
+                                                    block_q=t[0],
+                                                    block_k=t[1]))
     chip_smoke.close(ops.decode_attention(qd, kd, vd, bias),
                      fd.flash_decode_plain(qd, kd, vd, bias),
                      chip_smoke.F32_DECODE_TOL)

@@ -13,6 +13,12 @@ memory when it is at most ``SPAN`` wide, else a per-lane descent whose
 first ``LEVELS`` steps read a pivot table. ``bsearch_probe_tiled`` spells
 that logic out as torch ops, and this module holds the one-vector pieces
 of it that ``tree_probe.tree_walk_tiled`` builds on.
+
+The tile is ``block_rows`` rows of 128 queries (``autotune``'s parameter:
+2, 4, 8 or 16, an instance of the kernel each, 256 threads x
+``block_rows / 2`` queries a thread); ``None`` is the builtin 8 (``TILE``,
+1,024 queries). ``ops.searchsorted_prefix`` resolves it through
+``autotune.tile_for``; a value that names no instance raises.
 """
 from __future__ import annotations
 
@@ -22,17 +28,29 @@ from typing import Dict, Optional
 import torch
 
 from . import build
+from .autotune import check_value, count_tile
 
 __all__ = ["THREADS", "ITEMS", "SPAN", "LEVELS", "steps_for",
            "bsearch_probe_plain", "bsearch_probe_tiled", "bsearch_probe",
-           "bsearch_probe_config"]
+           "bsearch_probe_config", "TILE", "items_for"]
 
 # The kernels' constants (``tests/test_torch_bsearch.py`` holds them to
 # the sources' ``#define`` lines).
 THREADS = 256   # TG_THREADS in csrc/tree_get.cuh: threads of a block
-ITEMS = 4       # BP_ITEMS in csrc/bsearch_probe.cu: queries a thread
+ITEMS = 4       # BP_ITEMS in csrc/bsearch_probe.cu: queries a thread of
+                # the builtin tile
 SPAN = 2048     # TG_SPAN: the widest bracket a tile stages in shared memory
 LEVELS = 10     # TG_LEVELS: descent steps a pivot table holds (2^LEVELS values)
+TILE = THREADS * ITEMS  # queries a tile of the builtin block_rows (8)
+
+
+def items_for(block_rows: Optional[int]) -> int:
+    """Queries a thread of the kernel's instance for ``block_rows`` (rows of
+    128 queries; ``None`` the builtin). Raises on a value that names no
+    instance."""
+    if block_rows is None:
+        return ITEMS
+    return check_value("bsearch_probe", block_rows) * 128 // THREADS
 
 
 def steps_for(length: int) -> int:
@@ -187,34 +205,42 @@ _VP = ctypes.c_void_p
 _CONFIGS: Dict[int, tuple] = {}
 
 
-def _config(index: int) -> tuple:
+def _config(index: int, items: int = ITEMS) -> tuple:
     """``bsearch_probe_config`` on card ``index`` (the current one), once
-    per card: queries a tile, blocks an SM, SMs, shared memory bytes."""
-    cfg = _CONFIGS.get(index)
+    per card and tile: queries a tile, blocks an SM, SMs, shared memory
+    bytes."""
+    cfg = _CONFIGS.get((index, items))
     if cfg is None:
         arr = (ctypes.c_int * 4)()
         build.check(build.entry("bsearch_probe", "bsearch_probe_config",
-                                [_VP])(arr), "bsearch_probe_config")
-        cfg = _CONFIGS[index] = tuple(arr)
+                                [_VP, ctypes.c_int])(arr, items),
+                    "bsearch_probe_config")
+        cfg = _CONFIGS[(index, items)] = tuple(arr)
     return cfg
 
 
-def bsearch_probe_config(device=None) -> dict:
-    """The launch shape of ``bsearch_probe`` on the card (the current one
-    unless ``device``); a launch takes min(blocks an SM x SMs, tiles)
-    blocks."""
+def bsearch_probe_config(device=None, block_rows: Optional[int] = None
+                         ) -> dict:
+    """The launch shape of ``bsearch_probe`` at ``block_rows`` (``None``
+    the builtin) on the card (the current one unless ``device``): the
+    instance's ``block_rows`` and queries a ``tile``; a launch takes
+    min(blocks an SM x SMs, tiles) blocks."""
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
+    items = items_for(block_rows)
     with build.on_device(device):
-        cfg = _config(device.index)
-    return dict(zip(("tile", "blocks_per_sm", "sms", "smem_bytes"), cfg))
+        cfg = _config(device.index, items)
+    return dict(zip(("tile", "blocks_per_sm", "sms", "smem_bytes"), cfg),
+                block_rows=THREADS * items // 128)
 
 
 def _launch(pref: torch.Tensor, q: torch.Tensor,
-            stats: Optional[Dict[str, int]]) -> torch.Tensor:
+            stats: Optional[Dict[str, int]], items: int = ITEMS
+            ) -> torch.Tensor:
     fn = build.entry("bsearch_probe", "bsearch_probe_launch",
                      [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP,
-                      ctypes.c_longlong, ctypes.c_int, _VP, _VP])
+                      ctypes.c_longlong, ctypes.c_int, _VP, _VP,
+                      ctypes.c_int])
     pref = pref.contiguous()
     qc = q.contiguous()
     n = qc.numel()
@@ -223,14 +249,14 @@ def _launch(pref: torch.Tensor, q: torch.Tensor,
     counts = torch.zeros(2, dtype=torch.int32, device=dev) \
         if stats is not None else None
     with build.on_device(dev):
-        tile, per_sm, sms, _ = _config(dev.index)
+        tile, per_sm, sms, _ = _config(dev.index, items)
         blocks = min(per_sm * sms, -(-n // tile))
         stream = build.current_stream(dev)
         build.check(fn(pref.data_ptr(), pref.shape[0],
                        steps_for(pref.shape[0]), qc.data_ptr(),
                        out.data_ptr(), n, blocks,
                        counts.data_ptr() if counts is not None else None,
-                       stream), "bsearch_probe")
+                       stream, items), "bsearch_probe")
     if counts is not None:
         staged, fallback = counts.tolist()
         stats.update(tiles=staged + fallback, staged=staged,
@@ -239,22 +265,27 @@ def _launch(pref: torch.Tensor, q: torch.Tensor,
 
 
 def bsearch_probe(pref: torch.Tensor, q: torch.Tensor,
-                  stats: Optional[Dict[str, int]] = None) -> torch.Tensor:
+                  stats: Optional[Dict[str, int]] = None,
+                  block_rows: Optional[int] = None) -> torch.Tensor:
     """pref: (NP,) int32 ascending with pref[0] == 0; q: int32, any shape.
     Returns int32 of q's shape: max j with pref[j] <= q. ``stats``, when
     given, takes the tiles that staged their bracket and that fell back
     (the kernel's own count on the card, ``bsearch_probe_tiled``'s on the
-    CPU)."""
+    CPU). ``block_rows`` is the tile (``None`` the builtin)."""
     _check(pref, q)
+    items = items_for(block_rows)
     if q.device.type == "cpu":
         if stats is not None:
-            return bsearch_probe_tiled(pref, q, stats=stats)
+            return bsearch_probe_tiled(pref, q, tile=THREADS * items,
+                                       stats=stats)
         return bsearch_probe_plain(pref, q)
     if q.device.type != "cuda":
         raise ValueError(f"bsearch_probe: unsupported device {q.device}")
-    out = _launch(pref, q, stats)
+    out = _launch(pref, q, stats, items)
     bsearch_probe.launches += 1
+    count_tile(bsearch_probe, f"block_rows={THREADS * items // 128}")
     return out
 
 
 bsearch_probe.launches = 0
+bsearch_probe.tiles = {}

@@ -13,7 +13,9 @@
 //
 //  1. A persistent grid, as many blocks as are resident, each loading the
 //     vector's pivot table (2^TG_LEVELS values) into shared memory once and
-//     then striding over tiles of TG_THREADS x BP_ITEMS queries.
+//     then striding over tiles of TG_THREADS x ITEMS queries. ITEMS is the
+//     tile (the tuning's block_rows / 2): an instance each of 1, 2, 4 and
+//     8 queries a thread; BP_ITEMS is the builtin tile's.
 //  2. Per tile: the block reduces its min and max query; warps 0 and 1
 //     find both ends' answers (pivots, then a 32-ary ballot search),
 //     skipped when the pivots already show the bracket wider than TG_SPAN.
@@ -29,6 +31,7 @@
 
 #include "tree_get.cuh"
 
+// Queries a thread of the builtin tile (block_rows 8).
 #define BP_ITEMS 4
 // Words of dynamic shared memory: the largest pivot table and one staging
 // buffer with the reduction words (tg_search over a vector without perm).
@@ -36,6 +39,7 @@
 
 // stats, when not null, counts the tiles that staged ([0]) and that fell
 // back ([1]).
+template <int ITEMS>
 __global__ void __launch_bounds__(TG_THREADS)
     bsearch_probe_kernel(const int* __restrict__ pref, int np_len, int steps,
                          const int* __restrict__ q, int* __restrict__ out,
@@ -61,42 +65,58 @@ __global__ void __launch_bounds__(TG_THREADS)
   sm.red = sm.buf0 + TG_SPAN;
   sm.bracket = sm.red + 4 * TG_WARPS;
   __syncthreads();
-  const long long tile = TG_THREADS * BP_ITEMS;
+  const long long tile = TG_THREADS * ITEMS;
   const long long tiles = (n + tile - 1) / tile;
   int phase = 0;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
     const long long base = t * tile;
     // items past n search q[n - 1], a query of the same tile
-    int qv[BP_ITEMS], j[BP_ITEMS], aj[BP_ITEMS], unused[BP_ITEMS];
+    int qv[ITEMS], j[ITEMS], aj[ITEMS], unused[ITEMS];
 #pragma unroll
-    for (int it = 0; it < BP_ITEMS; ++it)
+    for (int it = 0; it < ITEMS; ++it)
       qv[it] = __ldg(q + min(base + it * TG_THREADS + threadIdx.x, n - 1));
     const bool staged =
-        tg_search<BP_ITEMS, false>(v, qv, sm, phase, j, aj, unused);
+        tg_search<ITEMS, false>(v, qv, sm, phase, j, aj, unused);
     if (stats != nullptr && threadIdx.x == 0)
       atomicAdd(stats + (staged ? 0 : 1), 1);
 #pragma unroll
-    for (int it = 0; it < BP_ITEMS; ++it) {
+    for (int it = 0; it < ITEMS; ++it) {
       const long long i = base + it * TG_THREADS + threadIdx.x;
       if (i < n) out[i] = j[it];
     }
   }
 }
 
-// The launch shape on the current device: cfg = [queries a tile, blocks an
-// SM, SMs, shared memory bytes]. A launch takes at most blocks an SM x SMs
-// blocks. Returns a CUDA error code.
-extern "C" int bsearch_probe_config(int* cfg) {
+using BpKernel = decltype(&bsearch_probe_kernel<BP_ITEMS>);
+
+// The instance for `items` queries a thread, or null.
+static BpKernel bp_instance(int items) {
+  switch (items) {
+    case 1: return bsearch_probe_kernel<1>;
+    case 2: return bsearch_probe_kernel<2>;
+    case 4: return bsearch_probe_kernel<4>;
+    case 8: return bsearch_probe_kernel<8>;
+  }
+  return nullptr;
+}
+
+// The launch shape on the current device for `items` queries a thread:
+// cfg = [queries a tile, blocks an SM, SMs, shared memory bytes]. A launch
+// takes at most blocks an SM x SMs blocks. Returns a CUDA error code
+// (cudaErrorInvalidValue for items with no instance).
+extern "C" int bsearch_probe_config(int* cfg, int items) {
+  const BpKernel kern = bp_instance(items);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = BP_SMEM_WORDS * sizeof(int);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bsearch_probe_kernel, TG_THREADS, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        TG_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
-  cfg[0] = TG_THREADS * BP_ITEMS;
+  cfg[0] = TG_THREADS * items;
   cfg[1] = per_sm;
   cfg[2] = sms;
   cfg[3] = (int)smem;
@@ -104,15 +124,18 @@ extern "C" int bsearch_probe_config(int* cfg) {
 }
 
 // One launch of `blocks` blocks (at most the resident grid of
-// bsearch_probe_config, at most one a tile) over n queries.
+// bsearch_probe_config, at most one a tile) over n queries, `items`
+// queries a thread (the tile comes last in both entries).
 extern "C" int bsearch_probe_launch(const int* pref, int np_len, int steps,
                                     const int* q, int* out, long long n,
-                                    int blocks, int* stats, void* stream) {
+                                    int blocks, int* stats, void* stream,
+                                    int items) {
   if (n == 0) return (int)cudaGetLastError();
+  const BpKernel kern = bp_instance(items);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   if (blocks < 1 || steps < 1 || steps > 30)
     return (int)cudaErrorInvalidConfiguration;
-  bsearch_probe_kernel<<<blocks, TG_THREADS, BP_SMEM_WORDS * sizeof(int),
-                         (cudaStream_t)stream>>>(pref, np_len, steps, q, out,
-                                                 n, stats);
+  kern<<<blocks, TG_THREADS, BP_SMEM_WORDS * sizeof(int),
+         (cudaStream_t)stream>>>(pref, np_len, steps, q, out, n, stats);
   return (int)cudaGetLastError();
 }

@@ -28,13 +28,15 @@
 //     block barrier a tile releases a stage. Each warp takes its own keys
 //     of every tile with its own online softmax for all G heads, and the
 //     warps merge once, at the end of the split, in shared memory;
-//   * bf16: stages of FDT_TK keys, FDT_STAGES deep (64 KB a block at D =
-//     128, two blocks an SM); the tiles stay bf16 in shared memory, rows
-//     swizzled so ldmatrix reads them without bank conflicts. The G heads
-//     are the 16 rows of mma.sync m16n8k16 (padded); each warp takes 16
-//     keys of a tile. P goes to the P . V product as hi + lo, two bf16
-//     fragments, so it carries p to ~2^-16 (the bytes bound leaves the
-//     tensor cores idle);
+//   * bf16: stages of TK keys, FDT_STAGES deep (the tile, tuning's block_s:
+//     64, 128 or 256 keys, as far as three stages fit shared memory at the
+//     head dim; FDT_TK = 64 is the builtin, 101 KB a block at D = 128, two
+//     blocks an SM); the tiles stay bf16 in shared memory, rows swizzled so
+//     ldmatrix reads them without bank conflicts. The G heads are the 16
+//     rows of mma.sync m16n8k16 (padded); each warp takes 16 keys of every
+//     64 of a tile, one online-softmax step each. P goes to the P . V
+//     product as hi + lo, two bf16 fragments, so it carries p to ~2^-16
+//     (the bytes bound leaves the tensor cores idle);
 //   * float32: stages of 32 KB of K and V (4096 / D keys), FD_STAGES deep,
 //     so that a split of phase D's shape (64 keys) is in flight at once and
 //     two blocks share an SM. A warp's quarter of a tile: in Q . K^T each
@@ -369,19 +371,21 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ acc_part,
 
 // -- bf16: the tensor-core split kernel ---------------------------------------
 
-#define FDT_THREADS 128  // four warps: 16 keys of every tile each
-#define FDT_TK 64        // keys per ring stage
+#define FDT_THREADS 128  // four warps: 16 keys of every 64 of a tile each
+#define FDT_TK 64        // keys per ring stage of the builtin tile
 #define FDT_STAGES 3     // ring depth: two stages in flight while one computes
 #define FDT_M 16         // mma rows: the group's G <= 16 query heads, padded
+#define FDT_SMEM_MAX 232448  // shared memory a block can have
 
-template <int D>
+template <int D, int TK>
 struct FdtShape {
-  static constexpr int CH = D / 8;          // 16-byte chunks of a row
-  static constexpr int TILE = FDT_TK * CH;  // chunks of a K (or V) tile
-  static constexpr int STAGE_BYTES = 2 * TILE * 16 + FDT_TK * 4;
+  static constexpr int CH = D / 8;      // 16-byte chunks of a row
+  static constexpr int TILE = TK * CH;  // chunks of a K (or V) tile
+  static constexpr int STAGE_BYTES = 2 * TILE * 16 + TK * 4;
   static constexpr int SMEM = FDT_M * CH * 16 + FDT_STAGES * STAGE_BYTES;
   // the warps' partials at the end, in the ring: [4][16][D + 2] floats
   static_assert(4 * 16 * (D + 2) * 4 <= FDT_STAGES * STAGE_BYTES, "ring");
+  static_assert(TK % 64 == 0, "16 keys a warp a step");
 };
 
 // Chunk c of row r of a tile with CH chunks a row, swizzled: the same chunk
@@ -390,15 +394,15 @@ __device__ __forceinline__ int swz(int r, int c, int CH) {
   return r * CH + (c ^ (r & 7));
 }
 
-// Grid (nsplit, KV_H, B), FDT_THREADS threads. Partials as the float32
-// kernel's, with m in natural-log units.
-template <int D>
+// Grid (nsplit, KV_H, B), FDT_THREADS threads, stages of TK keys. Partials
+// as the float32 kernel's, with m in natural-log units.
+template <int D, int TK>
 __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
     float* __restrict__ acc_part, float* __restrict__ m_part,
     float* __restrict__ l_part, int H, int KVH, int S, float scale) {
-  using Sh = FdtShape<D>;
+  using Sh = FdtShape<D, TK>;
   constexpr int CH = Sh::CH;
   extern __shared__ uint4 smem_u4[];
   uint4* q_s = smem_u4;  // [16][CH], swizzled
@@ -409,7 +413,7 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
   const long long head0 = (long long)b * H + (long long)kvh * G;
   const int s_begin = (int)((long long)split * S / nsplit);
   const int s_end = (int)((long long)(split + 1) * S / nsplit);
-  const int ntiles = (s_end - s_begin + FDT_TK - 1) / FDT_TK;
+  const int ntiles = (s_end - s_begin + TK - 1) / TK;
   const long long kv0 = ((long long)b * KVH + kvh) * S;
   const __nv_bfloat16* kg = k + kv0 * D;
   const __nv_bfloat16* vg = v + kv0 * D;
@@ -428,7 +432,7 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
     uint4* ks = reinterpret_cast<uint4*>(ring + (t % FDT_STAGES) * Sh::STAGE_BYTES);
     uint4* vs = ks + Sh::TILE;
     float* bs = reinterpret_cast<float*>(vs + Sh::TILE);
-    const int k0 = s_begin + t * FDT_TK;
+    const int k0 = s_begin + t * TK;
     for (int c = tid; c < Sh::TILE; c += FDT_THREADS) {
       const int r = c / CH, ch = c % CH, key = k0 + r;
       const bool ok = key < s_end;
@@ -436,10 +440,10 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
       cp_async16(ks + swz(r, ch, CH), kg + off, ok ? 16 : 0);
       cp_async16(vs + swz(r, ch, CH), vg + off, ok ? 16 : 0);
     }
-    if (tid < FDT_TK) {
-      const int key = k0 + tid;
+    for (int r = tid; r < TK; r += FDT_THREADS) {
+      const int key = k0 + r;
       const bool ok = key < s_end;
-      cp_async4(bs + tid, bg + (ok ? key : s_begin), ok ? 4 : 0);
+      cp_async4(bs + r, bg + (ok ? key : s_begin), ok ? 4 : 0);
     }
   };
 #pragma unroll
@@ -455,7 +459,6 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
   float m[2] = {neg, neg}, l[2] = {0.0f, 0.0f};
-  const int kw = 16 * warp;  // this warp's keys in every tile
 
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait<FDT_STAGES - 2>();
@@ -466,75 +469,78 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
         reinterpret_cast<const uint4*>(ring + (t % FDT_STAGES) * Sh::STAGE_BYTES);
     const uint4* vs = ks + Sh::TILE;
     const float* bs = reinterpret_cast<const float*>(vs + Sh::TILE);
-    const int k0 = s_begin + t * FDT_TK;
-
-    // scores (16 heads x 16 keys) = Q . K^T
-    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const int k0 = s_begin + t * TK;
+#pragma unroll 1
+    for (int sub = 0; sub < TK / 64; ++sub) {  // one online-softmax step
+      const int kw = 16 * warp + 64 * sub;     // this warp's keys
+      // scores (16 heads x 16 keys) = Q . K^T
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], bk[4];
-      ldmatrix_x4(a, q_s + swz(lane % 8 + ((lane / 8) % 2) * 8,
-                               2 * kk + lane / 16, CH));
-      ldmatrix_x4(bk, ks + swz(kw + lane % 8 + (lane / 16) * 8,
-                               2 * kk + (lane / 8) % 2, CH));
-      mma_bf16_16816(sc[0], a, bk[0], bk[1]);
-      mma_bf16_16816(sc[1], a, bk[2], bk[3]);
-    }
-    // logits in base 2, (dot * scale + bias) * log2 e, as the reference
-    // orders them; keys past the split -inf. Element (nb, i): head lane / 4
-    // + 8 (i / 2), key kw + 8 nb + 2 (lane % 4) + i % 2.
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kt = kw + 8 * nb + 2 * (lane % 4) + (i & 1);
-        float x = -CUDART_INF_F;
-        if (k0 + kt < s_end)
-          x = __fmul_rn(__fadd_rn(__fmul_rn(sc[nb][i], scale), bs[kt]),
-                        TC_LOG2E);
-        sc[nb][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4], bk[4];
+        ldmatrix_x4(a, q_s + swz(lane % 8 + ((lane / 8) % 2) * 8,
+                                 2 * kk + lane / 16, CH));
+        ldmatrix_x4(bk, ks + swz(kw + lane % 8 + (lane / 16) * 8,
+                                 2 * kk + (lane / 8) % 2, CH));
+        mma_bf16_16816(sc[0], a, bk[0], bk[1]);
+        mma_bf16_16816(sc[1], a, bk[2], bk[3]);
       }
-    float alpha[2];
+      // logits in base 2, (dot * scale + bias) * log2 e, as the reference
+      // orders them; keys past the split -inf. Element (nb, i): head lane / 4
+      // + 8 (i / 2), key kw + 8 nb + 2 (lane % 4) + i % 2.
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = ex2(__fsub_rn(m[r], mx[r]));
-      m[r] = mx[r];
-      l[r] = __fmul_rn(l[r], alpha[r]);  // this thread's share of the sum
-    }
+      for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
+        for (int i = 0; i < 4; ++i) {
+          const int kt = kw + 8 * nb + 2 * (lane % 4) + (i & 1);
+          float x = -CUDART_INF_F;
+          if (k0 + kt < s_end)
+            x = __fmul_rn(__fadd_rn(__fmul_rn(sc[nb][i], scale), bs[kt]),
+                          TC_LOG2E);
+          sc[nb][i] = x;
+          mx[i >> 1] = fmaxf(mx[i >> 1], x);
+        }
+      float alpha[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sc[nb][i] = ex2(__fsub_rn(sc[nb][i], m[i >> 1]));
-        l[i >> 1] = __fadd_rn(l[i >> 1], sc[nb][i]);
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = ex2(__fsub_rn(m[r], mx[r]));
+        m[r] = mx[r];
+        l[r] = __fmul_rn(l[r], alpha[r]);  // this thread's share of the sum
       }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] = __fmul_rn(acc[j][0], alpha[0]);
-      acc[j][1] = __fmul_rn(acc[j][1], alpha[0]);
-      acc[j][2] = __fmul_rn(acc[j][2], alpha[1]);
-      acc[j][3] = __fmul_rn(acc[j][3], alpha[1]);
-    }
-    // P (16 x 16 keys) as the A fragment, hi + lo
-    uint32_t phi[4], plo[4];
-    split_bf16(sc[0][0], sc[0][1], phi[0], plo[0]);
-    split_bf16(sc[0][2], sc[0][3], phi[1], plo[1]);
-    split_bf16(sc[1][0], sc[1][1], phi[2], plo[2]);
-    split_bf16(sc[1][2], sc[1][3], phi[3], plo[3]);
-    // acc += P . V, V through ldmatrix.trans: two 8-column blocks a load
+      for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, vs + swz(kw + lane % 8 + ((lane / 8) % 2) * 8,
-                                     j + lane / 16, CH));
-      mma_bf16_16816(acc[j], phi, bv[0], bv[1]);
-      mma_bf16_16816(acc[j], plo, bv[0], bv[1]);
-      mma_bf16_16816(acc[j + 1], phi, bv[2], bv[3]);
-      mma_bf16_16816(acc[j + 1], plo, bv[2], bv[3]);
+        for (int i = 0; i < 4; ++i) {
+          sc[nb][i] = ex2(__fsub_rn(sc[nb][i], m[i >> 1]));
+          l[i >> 1] = __fadd_rn(l[i >> 1], sc[nb][i]);
+        }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][0] = __fmul_rn(acc[j][0], alpha[0]);
+        acc[j][1] = __fmul_rn(acc[j][1], alpha[0]);
+        acc[j][2] = __fmul_rn(acc[j][2], alpha[1]);
+        acc[j][3] = __fmul_rn(acc[j][3], alpha[1]);
+      }
+      // P (16 x 16 keys) as the A fragment, hi + lo
+      uint32_t phi[4], plo[4];
+      split_bf16(sc[0][0], sc[0][1], phi[0], plo[0]);
+      split_bf16(sc[0][2], sc[0][3], phi[1], plo[1]);
+      split_bf16(sc[1][0], sc[1][1], phi[2], plo[2]);
+      split_bf16(sc[1][2], sc[1][3], phi[3], plo[3]);
+      // acc += P . V, V through ldmatrix.trans: two 8-column blocks a load
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vs + swz(kw + lane % 8 + ((lane / 8) % 2) * 8,
+                                       j + lane / 16, CH));
+        mma_bf16_16816(acc[j], phi, bv[0], bv[1]);
+        mma_bf16_16816(acc[j], plo, bv[0], bv[1]);
+        mma_bf16_16816(acc[j + 1], phi, bv[2], bv[3]);
+        mma_bf16_16816(acc[j + 1], plo, bv[2], bv[3]);
+      }
     }
   }
 
@@ -630,24 +636,49 @@ static int fd_launch(const float* q, const float* k, const float* v,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int D>
-static int fdt_launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                      const __nv_bfloat16* v, const float* bias,
-                      __nv_bfloat16* out, float* acc_part, float* m_part,
-                      float* l_part, int B, int H, int KVH, int S, int nsplit,
-                      float scale, cudaStream_t s) {
-  const int smem = FdtShape<D>::SMEM;
+template <int D, int TK>
+static int fdt_instance(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const float* bias,
+                        __nv_bfloat16* out, float* acc_part, float* m_part,
+                        float* l_part, int B, int H, int KVH, int S, int nsplit,
+                        float scale, cudaStream_t s) {
+  const int smem = FdtShape<D, TK>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_decode_tc_kernel<D, TK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  flash_decode_tc_kernel<D><<<dim3(nsplit, KVH, B), FDT_THREADS, smem, s>>>(
+  flash_decode_tc_kernel<D, TK><<<dim3(nsplit, KVH, B), FDT_THREADS, smem, s>>>(
       q, k, v, bias, acc_part, m_part, l_part, H, KVH, S, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_decode_combine_kernel<__nv_bfloat16><<<dim3(H, B), D, 0, s>>>(
       acc_part, m_part, l_part, out, H, nsplit, D);
   return (int)cudaGetLastError();
+}
+
+// The instance of stages of `tk` keys at head dim D: 64, 128 or 256 keys
+// where three stages fit shared memory (flash_decode.py instance picks the
+// largest at or below the tile); any other tk is refused.
+template <int D>
+static int fdt_launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                      const __nv_bfloat16* v, const float* bias,
+                      __nv_bfloat16* out, float* acc_part, float* m_part,
+                      float* l_part, int B, int H, int KVH, int S, int nsplit,
+                      int tk, float scale, cudaStream_t s) {
+  if (tk == FDT_TK)
+    return fdt_instance<D, FDT_TK>(q, k, v, bias, out, acc_part, m_part,
+                                   l_part, B, H, KVH, S, nsplit, scale, s);
+  if constexpr (FdtShape<D, 128>::SMEM <= FDT_SMEM_MAX) {
+    if (tk == 128)
+      return fdt_instance<D, 128>(q, k, v, bias, out, acc_part, m_part,
+                                  l_part, B, H, KVH, S, nsplit, scale, s);
+  }
+  if constexpr (FdtShape<D, 256>::SMEM <= FDT_SMEM_MAX) {
+    if (tk == 256)
+      return fdt_instance<D, 256>(q, k, v, bias, out, acc_part, m_part,
+                                  l_part, B, H, KVH, S, nsplit, scale, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 
@@ -678,26 +709,26 @@ extern "C" int flash_decode_launch(const float* q, const float* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16, tensor cores: H / KVH <= FDT_M.
+// bf16, tensor cores: H / KVH <= FDT_M; tk keys a stage (the tile, last).
 extern "C" int flash_decode_tc_launch(const void* q, const void* k,
                                       const void* v, const float* bias,
                                       void* out, float* acc_part,
                                       float* m_part, float* l_part, int B,
                                       int H, int KVH, int S, int D, int nsplit,
-                                      float scale, void* stream) {
+                                      float scale, void* stream, int tk) {
   typedef const __nv_bfloat16* P;
   __nv_bfloat16* o = (__nv_bfloat16*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 64:
       return fdt_launch<64>((P)q, (P)k, (P)v, bias, o, acc_part, m_part,
-                            l_part, B, H, KVH, S, nsplit, scale, s);
+                            l_part, B, H, KVH, S, nsplit, tk, scale, s);
     case 128:
       return fdt_launch<128>((P)q, (P)k, (P)v, bias, o, acc_part, m_part,
-                             l_part, B, H, KVH, S, nsplit, scale, s);
+                             l_part, B, H, KVH, S, nsplit, tk, scale, s);
     case 256:
       return fdt_launch<256>((P)q, (P)k, (P)v, bias, o, acc_part, m_part,
-                             l_part, B, H, KVH, S, nsplit, scale, s);
+                             l_part, B, H, KVH, S, nsplit, tk, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

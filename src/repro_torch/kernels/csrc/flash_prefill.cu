@@ -53,6 +53,13 @@
 // Shared memory: 189 KB at D = 64, 187 KB at 128, 209 KB at 256: one block
 // of four warps an SM; the launch raises the limit with cudaFuncSetAttribute
 // once a card and sizes the grid by the occupancy it then reports.
+//
+// The tile: FP_BQ query rows an item and BK keys a tile (FpShape<D, BK>).
+// Tuning's (block_q, block_k) selects the instance with the largest BK at
+// or below block_k (flash_prefill.py instance): at D = 64 keys tiles of 128
+// (the builtin) or 64 (four row warps, as at D = 128: 90 KB); at 128 and
+// 256 the one each. Query rows stay FP_BQ: two items' Q would not fit
+// beside the ring.
 #include <math_constants.h>
 
 #include "attention.cuh"
@@ -63,25 +70,30 @@
 #define FP_NEG (-1e30f)     // the reference's mask value and initial max
 #define FP_MAX_DEVICES 64
 
-// ROW_WARPS x KEY_WARPS warps; BK keys a tile.
-template <int D>
+// ROW_WARPS x KEY_WARPS warps; BK keys a tile. An instance a specialization;
+// the first at each D is its builtin tile.
+template <int D, int BK_>
 struct FpShape;
 template <>
-struct FpShape<64> {
+struct FpShape<64, 128> {
   static constexpr int ROW_WARPS = 2, KEY_WARPS = 2, BK = 128;
 };
 template <>
-struct FpShape<128> {
+struct FpShape<64, 64> {
   static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 64;
 };
 template <>
-struct FpShape<256> {
+struct FpShape<128, 64> {
+  static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 64;
+};
+template <>
+struct FpShape<256, 32> {
   static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 32;
 };
 
-template <int D>
-struct FpTile : FpShape<D> {
-  using Sh = FpShape<D>;
+template <int D, int BK_>
+struct FpTile : FpShape<D, BK_> {
+  using Sh = FpShape<D, BK_>;
   static constexpr int WARPS = Sh::ROW_WARPS * Sh::KEY_WARPS;
   static constexpr int THREADS = 32 * WARPS;
   static constexpr int RW = FP_BQ / Sh::ROW_WARPS;  // query rows a warp
@@ -159,15 +171,16 @@ __device__ __forceinline__ void fp_softmax(float (&sc)[TM][TN], float (&m)[TM],
   }
 }
 
-// Persistent grid of FpTile<D>::THREADS-thread blocks; ticket[0] the next item,
-// ticket[1] the blocks that have left (both 0 between launches).
-template <int D>
-__global__ void __launch_bounds__(FpTile<D>::THREADS, 1) flash_prefill_kernel(
+// Persistent grid of FpTile<D, BK>::THREADS-thread blocks; ticket[0] the
+// next item, ticket[1] the blocks that have left (both 0 between launches).
+template <int D, int BK_>
+__global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
+    flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     int* __restrict__ ticket, int B, int H, int KV, int S, int causal,
     float scale_log2) {
-  using Tl = FpTile<D>;
+  using Tl = FpTile<D, BK_>;
   constexpr int BK = Tl::BK, KW = Tl::KW, RW = Tl::RW, TM = Tl::TM,
                 TN = Tl::TN, TC = Tl::TC, D4 = Tl::D4, KS4 = Tl::KS4,
                 PS = Tl::PS, ROW_WARPS = Tl::ROW_WARPS, NT = Tl::THREADS;
@@ -420,11 +433,11 @@ __global__ void __launch_bounds__(FpTile<D>::THREADS, 1) flash_prefill_kernel(
   }
 }
 
-template <int D>
-static int fp_launch(const float* q, const float* k, const float* v,
-                     float* out, int* ticket, int B, int H, int KV, int S,
-                     int causal, float scale, cudaStream_t stream) {
-  constexpr int smem = FpTile<D>::SMEM;
+template <int D, int BK>
+static int fp_instance(const float* q, const float* k, const float* v,
+                       float* out, int* ticket, int B, int H, int KV, int S,
+                       int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = FpTile<D, BK>::SMEM;
   // blocks that fit on each card at once (0 until its first launch)
   static int slots[FP_MAX_DEVICES];
   int dev = 0;
@@ -432,13 +445,13 @@ static int fp_launch(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= FP_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (slots[dev] == 0) {
-    err = cudaFuncSetAttribute(flash_prefill_kernel<D>,
+    err = cudaFuncSetAttribute(flash_prefill_kernel<D, BK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_prefill_kernel<D>, FpTile<D>::THREADS, smem);
+        &per_sm, flash_prefill_kernel<D, BK>, FpTile<D, BK>::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
@@ -447,28 +460,32 @@ static int fp_launch(const float* q, const float* k, const float* v,
   }
   const long long items = (long long)((S + FP_BQ - 1) / FP_BQ) * H * B;
   const int grid = (int)(items < slots[dev] ? items : slots[dev]);
-  flash_prefill_kernel<D><<<grid, FpTile<D>::THREADS, smem, stream>>>(
-      q, k, v, out, ticket, B, H, KV, S, causal, scale * TC_LOG2E);
+  flash_prefill_kernel<D, BK>
+      <<<grid, FpTile<D, BK>::THREADS, smem, stream>>>(
+          q, k, v, out, ticket, B, H, KV, S, causal, scale * TC_LOG2E);
   return (int)cudaGetLastError();
 }
 
 // float32 q (B, H, S, D), k / v (B, KV, S, D); D in {64, 128, 256};
 // H % KV == 0; S >= 1. ticket: two ints, 0 between launches, used by one
-// stream at a time.
+// stream at a time. bk: keys a tile of an instance at D (FpShape), last.
 extern "C" int flash_prefill_launch(const float* q, const float* k,
                                     const float* v, float* out, int* ticket,
                                     int B, int H, int KV, int S, int D,
-                                    int causal, float scale, void* stream) {
+                                    int causal, float scale, void* stream,
+                                    int bk) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 64:
-      return fp_launch<64>(q, k, v, out, ticket, B, H, KV, S, causal, scale, s);
-    case 128:
-      return fp_launch<128>(q, k, v, out, ticket, B, H, KV, S, causal, scale,
-                            s);
-    case 256:
-      return fp_launch<256>(q, k, v, out, ticket, B, H, KV, S, causal, scale,
-                            s);
-  }
+  if (D == 64 && bk == 128)
+    return fp_instance<64, 128>(q, k, v, out, ticket, B, H, KV, S, causal,
+                                scale, s);
+  if (D == 64 && bk == 64)
+    return fp_instance<64, 64>(q, k, v, out, ticket, B, H, KV, S, causal,
+                               scale, s);
+  if (D == 128 && bk == 64)
+    return fp_instance<128, 64>(q, k, v, out, ticket, B, H, KV, S, causal,
+                                scale, s);
+  if (D == 256 && bk == 32)
+    return fp_instance<256, 32>(q, k, v, out, ticket, B, H, KV, S, causal,
+                                scale, s);
   return (int)cudaErrorInvalidValue;
 }

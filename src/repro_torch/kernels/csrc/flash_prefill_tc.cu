@@ -10,10 +10,10 @@
 //
 // Bound on the card: operations, 4 * B * H * S^2 * D (half of it when
 // causal) against the tensor cores' 989 TFLOP/s. What the design does:
-//   * one block of three warpgroups per (128 query rows, head, batch row):
-//     a producer warpgroup gives up its registers (setmaxnreg) and one of
-//     its threads issues TMA loads; two consumer warpgroups own 64 query
-//     rows each. Causal grids run the query tiles heaviest first;
+//   * one block of 1 + BQ / 64 warpgroups per (BQ query rows, head, batch
+//     row): a producer warpgroup gives up its registers (setmaxnreg) and
+//     one of its threads issues TMA loads; BQ / 64 consumer warpgroups own
+//     64 query rows each. Causal grids run the query tiles heaviest first;
 //   * Q is loaded once; K and V tiles of BK keys stream through a ring of
 //     STAGES stages with full / empty mbarriers, so the next tiles land
 //     while this one is computed. Every tile is stored as 64-column panels
@@ -29,8 +29,9 @@
 //   * each consumer pipelines its own products (FA3's intra-warpgroup
 //     overlap): it issues S of tile t + 1 and O += P . V of tile t
 //     together, and runs tile t + 1's softmax while P . V is on the
-//     tensor cores; K is then needed a tile early, so the ring has three
-//     stages where shared memory allows (D <= 128);
+//     tensor cores (not at D = 256 with two consumers, whose registers
+//     cannot hold both: FptShape::OVERLAP); K is then needed a tile early,
+//     so the ring has three stages where shared memory allows;
 //   * P is rounded to bf16 for the product as hi + lo, two bf16 products,
 //     so P . V carries p to ~2^-16: a single bf16 P (2^-9) breaks the bf16
 //     tolerance on rows whose softmax sits on few keys, such as the first
@@ -41,9 +42,12 @@
 //     0, has set m, they would add exp(-1e30 - m) = 0); keys past S get
 //     -inf, so a padded key never joins the softmax; query rows past S are
 //     not written.
-// BK = 128 keys and three stages at D <= 128 (Q 32 KB and K + V 192 KB at
-// D = 128: 225 KB of the 227 KB); BK = 64 and two stages at D = 256, where
-// Q is 64 KB and two stages of K + V 128 KB.
+// The tile (BQ, BK) is tuning's (block_q, block_k): BQ 64 or 128 query
+// rows, BK 64 or 128 keys, an instance each where two stages fit shared
+// memory, three stages where three fit (FptShape). The builtin, FPT_BQ =
+// 128 and BK 128, is three stages at D <= 128 (Q 32 KB and K + V 192 KB at
+// D = 128: 225 KB of the 227 KB); D = 256 takes BK = 64 and two stages,
+// where Q is 64 KB and two stages of K + V 128 KB.
 //
 // Host side: the tensor maps are encoded with libcuda's
 // cuTensorMapEncodeTiled, fetched at run time through the runtime's
@@ -142,34 +146,65 @@ extern "C" int flash_prefill_tc_check_get(unsigned* count,
 #define FPT_STORE_OK(p, bytes) true
 #endif
 
-#define FPT_BQ 128        // query rows per block: two consumer warpgroups
-#define FPT_THREADS 384   // producer + two consumers
+#define FPT_BQ 128        // query rows per block of the builtin tile
+#define FPT_BK 128        // keys per tile of the builtin tile
+#define FPT_THREADS 384   // the most threads a block: producer + two consumers
+#define FPT_SMEM_MAX 232448  // shared memory a block can have
 #define FPT_NEG (-1e30f)  // the reference's mask value and initial max
 // Error codes beyond cudaError_t: no cuTensorMapEncodeTiled found; a tensor
 // map it refused (plus its CUresult).
 #define FPT_ERR_NO_ENCODE 9000
 #define FPT_ERR_TENSOR_MAP 10000
 
-template <int D>
+// Bytes of shared memory of a block of the (BQ, BK) tile at head dim D
+// with `stages` K / V stages: 1 KB for aligning the tiles to the swizzle
+// atom, Q, the ring, the barriers.
+constexpr int fpt_smem(int D, int BQ, int BK, int stages) {
+  return 1024 + BQ * D * 2 + 2 * stages * BK * D * 2 + 8 * (1 + 2 * stages);
+}
+
+// The shape of the (BQ, BK) tile at head dim D; FITS when two stages fit
+// shared memory (an instance exists).
+template <int D, int BQ, int BK_>
 struct FptShape {
-  static constexpr int BK = D >= 256 ? 64 : 128;  // keys per tile
-  static constexpr int STAGES = D >= 256 ? 2 : 3;  // K / V ring depth
+  static constexpr int BK = BK_;                  // keys per tile
+  static constexpr int CONSUMERS = BQ / 64;       // warpgroups of 64 rows
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  // a consumer's registers after setmaxnreg: the launch gives each lane
+  // 168 (FPT_THREADS' budget) and the producer keeps 24, so two consumers
+  // take 240 each (3 x 168 = 24 + 2 x 240) and one the most, 256
+  static constexpr int CONSUMER_REGS = CONSUMERS == 1 ? 256 : 240;
+  // Whether a consumer issues tile t + 1's scores while tile t's P . V
+  // runs: O (D / 2 floats a thread), the scores and P (BK / 2 each) live
+  // at once. At D = 256 two consumers' 240 registers hold O and one of
+  // the other two, not both (40 bytes spilled): there the scores wait.
+  static constexpr bool OVERLAP = !(D >= 256 && CONSUMERS == 2);
   static constexpr int PANELS = D / 64;           // 128-byte column panels
-  static constexpr int Q_BYTES = FPT_BQ * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;     // one K (or V) tile
-  // 1 KB for aligning the tiles to the swizzle atom; the barriers
-  static constexpr int SMEM =
-      1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 2 * STAGES);
+  // the K / V ring's depth: three stages where they fit
+  static constexpr int STAGES =
+      fpt_smem(D, BQ, BK, 3) <= FPT_SMEM_MAX ? 3 : 2;
+  static constexpr int SMEM = fpt_smem(D, BQ, BK, STAGES);
+  static constexpr bool FITS = fpt_smem(D, BQ, BK, 2) <= FPT_SMEM_MAX;
+  static_assert(BQ == 64 || BQ == 128, "one or two consumer warpgroups");
+  static_assert(BK == 64 || BK == 128, "the wgmma forms of wgmma.cuh");
 };
 
-// Grid (ceil(S / FPT_BQ), H, B), FPT_THREADS threads.
-template <int D>
+static_assert(FptShape<128, FPT_BQ, FPT_BK>::STAGES == 3 &&
+                  FptShape<256, FPT_BQ, 64>::STAGES == 2,
+              "the builtin tile's rings (three stages up to D = 128)");
+
+// Grid (ceil(S / BQ), H, B), FptShape::THREADS threads. The register
+// budget is FPT_THREADS' (168 a thread at launch) for every tile, so that
+// setmaxnreg moves the same registers from the producer to each consumer.
+template <int D, int BQ, int BK_>
 __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
     int H, int KV, int S, int causal, float scale_log2) {
-  using Sh = FptShape<D>;
+  using Sh = FptShape<D, BQ, BK_>;
   constexpr int BK = Sh::BK;
   constexpr float NEG_L2 = FPT_NEG * TC_LOG2E;  // -1e30 in base 2
   extern __shared__ unsigned char smem_raw[];
@@ -182,9 +217,9 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
   uint64_t* empty = full + Sh::STAGES;
 
   const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * FPT_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int k_end = causal ? min(S, q0 + FPT_BQ) : S;
+  const int k_end = causal ? min(S, q0 + BQ) : S;
   const int ntiles = (k_end + BK - 1) / BK;
   const int wg = threadIdx.x / 128;
 
@@ -192,7 +227,7 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
     mbar_init(q_full, 1);
     for (int s = 0; s < Sh::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * 128);  // every consumer thread arrives
+      mbar_init(&empty[s], Sh::CONSUMERS * 128);  // every consumer thread
     }
     mbar_fence_init();
   }
@@ -204,7 +239,7 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, Sh::Q_BYTES);
       for (int p = 0; p < Sh::PANELS; ++p)
-        tma_load_3d(q_s + p * FPT_BQ * 128, &tq, q_full, p * 64, q0, b * H + h);
+        tma_load_3d(q_s + p * BQ * 128, &tq, q_full, p * 64, q0, b * H + h);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % Sh::STAGES;
         mbar_wait(&empty[s], ((t / Sh::STAGES) & 1) ^ 1);
@@ -219,7 +254,7 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
     }
   } else {
     // -- consumers: 64 query rows each -------------------------------------
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<Sh::CONSUMER_REGS>();
     const int c = wg - 1;
     const int tid = threadIdx.x - 128 * wg, warp = tid / 32, lane = tid % 32;
     const int wq0 = q0 + 64 * c;          // this warpgroup's first row
@@ -245,7 +280,7 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
       for (int kk = 0; kk < D / 16; ++kk) {
         const int p = kk / 4, off = (kk % 4) * 32;
         wgmma_ss(sc,
-                 wgmma_desc(q_s + p * FPT_BQ * 128 + c * 64 * 128 + off, 16,
+                 wgmma_desc(q_s + p * BQ * 128 + c * 64 * 128 + off, 16,
                             1024),
                  wgmma_desc(ks + p * BK * 128 + off, 16, 1024), kk > 0);
       }
@@ -346,16 +381,32 @@ __global__ void __launch_bounds__(FPT_THREADS, 1) flash_prefill_tc_kernel(
     // Straight-line wgmma issue in the loop (a conditional issue makes
     // ptxas serialize the products): the last tile is peeled.
     for (int t = 0; t + 1 < n_mine; ++t) {
-      issue_scores(t + 1);
-      issue_pv(t);
-      wgmma_wait<1>();  // tile t + 1's scores, while tile t's P . V runs
-      reg_fence(sc);
-      softmax(t + 1);
-      wgmma_wait<0>();
-      reg_fence(o);
-      reg_fence(phi);
-      reg_fence(plo);
-      mbar_arrive(&empty[t % Sh::STAGES]);
+      if constexpr (Sh::OVERLAP) {
+        issue_scores(t + 1);
+        issue_pv(t);
+        wgmma_wait<1>();  // tile t + 1's scores, while tile t's P . V runs
+        reg_fence(sc);
+        softmax(t + 1);
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(phi);
+        reg_fence(plo);
+        mbar_arrive(&empty[t % Sh::STAGES]);
+      } else {
+        issue_pv(t);
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(phi);
+        reg_fence(plo);
+        mbar_arrive(&empty[t % Sh::STAGES]);
+        // the scores start anew: their last values (tile t's P) are dead
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
+        issue_scores(t + 1);
+        wgmma_wait<0>();
+        reg_fence(sc);
+        softmax(t + 1);
+      }
       rescale_and_split();
     }
     issue_pv(n_mine - 1);
@@ -431,46 +482,85 @@ static int make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr,
   return r == CUDA_SUCCESS ? 0 : FPT_ERR_TENSOR_MAP + (int)r;
 }
 
-template <int D>
+template <int D, int BQ, int BK>
 static int fpt_launch(const void* q, const void* k, const void* v, void* out,
                       int B, int H, int KV, int S, int causal, float scale,
                       void* stream) {
+  using Sh = FptShape<D, BQ, BK>;
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return FPT_ERR_NO_ENCODE;
   CUtensorMap tq, tk, tv;
-  int err = make_map(enc, &tq, q, D, S, B * H, FPT_BQ);
-  if (err == 0) err = make_map(enc, &tk, k, D, S, B * KV, FptShape<D>::BK);
-  if (err == 0) err = make_map(enc, &tv, v, D, S, B * KV, FptShape<D>::BK);
+  int err = make_map(enc, &tq, q, D, S, B * H, BQ);
+  if (err == 0) err = make_map(enc, &tk, k, D, S, B * KV, BK);
+  if (err == 0) err = make_map(enc, &tv, v, D, S, B * KV, BK);
   if (err != 0) return err;
 #ifdef FPT_CHECK_BOUNDS
   if (!fpt_map_ok(q, D, S, B * H) || !fpt_map_ok(k, D, S, B * KV) ||
       !fpt_map_ok(v, D, S, B * KV))
     return FPT_ERR_MAP_RANGE;
 #endif
-  const int smem = FptShape<D>::SMEM;
+  const int smem = Sh::SMEM;
   cudaError_t cerr = cudaFuncSetAttribute(
-      flash_prefill_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_prefill_tc_kernel<D, BQ, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return (int)cerr;
-  const dim3 grid((S + FPT_BQ - 1) / FPT_BQ, H, B);
-  flash_prefill_tc_kernel<D><<<grid, FPT_THREADS, smem, (cudaStream_t)stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, H, KV, S, causal, scale * TC_LOG2E);
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_prefill_tc_kernel<D, BQ, BK>
+      <<<grid, Sh::THREADS, smem, (cudaStream_t)stream>>>(
+          tq, tk, tv, (__nv_bfloat16*)out, H, KV, S, causal,
+          scale * TC_LOG2E);
   return (int)cudaGetLastError();
 }
 
+// The instance of the (bq, bk) tile at head dim D, where it fits
+// (flash_prefill.py instance picks the largest at or below the tile); any
+// other tile is refused.
+template <int D, int BQ>
+static int fpt_keys(const void* q, const void* k, const void* v, void* out,
+                    int B, int H, int KV, int S, int causal, float scale,
+                    void* stream, int bk) {
+  if (bk == 64)
+    return fpt_launch<D, BQ, 64>(q, k, v, out, B, H, KV, S, causal, scale,
+                                   stream);
+  if constexpr (FptShape<D, BQ, 128>::FITS) {
+    if (bk == 128)
+      return fpt_launch<D, BQ, 128>(q, k, v, out, B, H, KV, S, causal,
+                                      scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+static int fpt_rows(const void* q, const void* k, const void* v, void* out,
+                      int B, int H, int KV, int S, int causal, float scale,
+                      void* stream, int bq, int bk) {
+  if (bq == 64)
+    return fpt_keys<D, 64>(q, k, v, out, B, H, KV, S, causal, scale, stream,
+                           bk);
+  if (bq == 128)
+    return fpt_keys<D, 128>(q, k, v, out, B, H, KV, S, causal, scale, stream,
+                            bk);
+  return (int)cudaErrorInvalidValue;
+}
+
 // bf16 q (B, H, S, D), k / v (B, KV, S, D), out (B, H, S, D), all
-// contiguous and 16-byte aligned; D in {64, 128, 256}; H % KV == 0; S >= 1.
+// contiguous and 16-byte aligned; D in {64, 128, 256}; H % KV == 0; S >= 1;
+// the tile (bq, bk) last.
 extern "C" int flash_prefill_tc_launch(const void* q, const void* k,
                                        const void* v, void* out, int B, int H,
                                        int KV, int S, int D, int causal,
-                                       float scale, void* stream) {
+                                       float scale, void* stream, int bq,
+                                       int bk) {
   switch (D) {
     case 64:
-      return fpt_launch<64>(q, k, v, out, B, H, KV, S, causal, scale, stream);
+      return fpt_rows<64>(q, k, v, out, B, H, KV, S, causal, scale, stream,
+                            bq, bk);
     case 128:
-      return fpt_launch<128>(q, k, v, out, B, H, KV, S, causal, scale, stream);
+      return fpt_rows<128>(q, k, v, out, B, H, KV, S, causal, scale, stream,
+                             bq, bk);
     case 256:
-      return fpt_launch<256>(q, k, v, out, B, H, KV, S, causal, scale, stream);
+      return fpt_rows<256>(q, k, v, out, B, H, KV, S, causal, scale, stream,
+                             bq, bk);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -63,6 +63,21 @@
 // table holds (2^TG_LEVELS values).
 #define TG_SPAN 2048
 #define TG_LEVELS 10
+// Probes a thread of the builtin tile (tuning's block_rows 8: 256 x 4 =
+// 1,024 probes a tile).
+#define TG_ITEMS 4
+
+// The most probes a thread a tree of `slots` nodes walks: its rows and
+// locals (2 x slots x items words) stay in registers.
+static inline int tg_max_items(int slots) {
+  return slots <= 4 ? 8 : slots <= 8 ? 2 : 1;
+}
+
+// A store of a row that the checked build (tree_get.cu, TG_CHECK_BOUNDS)
+// holds against the operands; always made otherwise.
+#ifndef TG_STORE_OK
+#define TG_STORE_OK(p) true
+#endif
 
 // The walk's table (tree_walk.cuh) and, after it, a base per searched
 // vector (0 the root prefix, k + 1 edge k's columns) added to the layout's
@@ -407,7 +422,8 @@ __device__ __forceinline__ void tg_tile(const int* __restrict__ arena,
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       const long long i = base + it * TG_THREADS + threadIdx.x;
-      if (s <= L.num_edges && i < n) out[s * n + i] = rows[s][it];
+      if (s <= L.num_edges && i < n && TG_STORE_OK(out + s * n + i))
+        out[s * n + i] = rows[s][it];
     }
   }
 }

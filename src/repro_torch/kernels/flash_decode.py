@@ -18,6 +18,15 @@ on its own keys:
     an SM where S allows); the last block of each (batch row, KV head)
     merges the splits in the same launch: one device operation a call.
 
+The tile is ``block_s``, keys a ring stage (``autotune``'s parameter: 64,
+128 or 256; ``None`` the builtin 64). bf16 has an instance at each that
+fits shared memory at the head dim (three stages: up to 256 keys at D 64,
+128 at D 128, 64 at D 256: ``TC_INSTANCES``); float32 one a head dim, stages of 4096 / D
+keys (its registers hold a lane's share of a key's row: ``F32_TILE_KEYS``).
+Each launches its largest instance at or below ``block_s``
+(``instance``, reported by ``decode_config``); a value that names no
+instance raises. The splits stay ``decode_splits``' choice.
+
 The kernels take any S: keys past the end of the cache are left out, so no
 padding is needed. The partials (and the float32 kernel's counters, 0
 between launches) live in a scratch per (device, stream), grown as
@@ -35,11 +44,12 @@ from typing import Dict, Tuple
 import torch
 
 from . import build
+from .autotune import check_value, count_tile
 
 __all__ = ["HEAD_DIMS", "MAX_GROUP_WIDTH", "MAX_GROUP_TC", "MIN_SPLIT",
            "MIN_SPLIT_F32", "F32_WARPS", "F32_TILE_KEYS", "decode_splits",
            "decode_splits_f32", "split_bounds", "flash_decode_plain",
-           "flash_decode"]
+           "flash_decode", "TC_INSTANCES", "instance", "decode_config"]
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' instances
 MAX_GROUP_WIDTH = 4096    # float32: 128 * FD_LARGE, the most G * D a warp holds
@@ -59,12 +69,34 @@ MERGE_WORDS = 8192
 # 32 KB of K and V); each warp takes a quarter of every stage's keys
 F32_WARPS = 4
 F32_TILE_KEYS = {D: 4096 // D for D in HEAD_DIMS}
+# bf16: keys a stage of the instances at each head dim, the builtin
+# FDT_TK first (flash_decode.cu fdt_launch builds one where three stages
+# of K, V and the bias fit a block's shared memory); a ring of TC_STAGES
+TC_INSTANCES = {64: (64, 128, 256), 128: (64, 128), 256: (64,)}
+TC_STAGES = 3
+
+
+def instance(dtype, D: int, block_s=None) -> int:
+    """Keys a stage of the instance that ``dtype``'s kernel launches at
+    head dim ``D`` for ``block_s`` (``None`` the builtin 64): the largest
+    at or below it. Raises on a value that names no instance."""
+    block_s = 64 if block_s is None else check_value("flash_decode", block_s)
+    if dtype == torch.float32:
+        return min(F32_TILE_KEYS[D], block_s)
+    return max(tk for tk in TC_INSTANCES[D] if tk <= block_s)
+
+
+def decode_config(dtype, D: int, block_s=None) -> dict:
+    """The tile ``flash_decode`` launches for ``dtype`` at head dim ``D``
+    and ``block_s``: ``{"block_s": keys a stage, "stages": ring depth}``."""
+    return {"block_s": instance(dtype, D, block_s), "stages": TC_STAGES}
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # library, entry and C prototype of each dtype's kernel: (q, k, v, bias,
-# out, acc, m, l, [counters], B, H, KV_H, S, D, nsplit, scale, stream)
+# out, acc, m, l, [counters], B, H, KV_H, S, D, nsplit, scale, stream,
+# [keys a stage: bf16])
 _ENTRIES = {
     torch.bfloat16: ("flash_decode", "flash_decode_tc_launch",
-                     [_VP] * 8 + [_INT] * 6 + [ctypes.c_float, _VP]),
+                     [_VP] * 8 + [_INT] * 6 + [ctypes.c_float, _VP, _INT]),
     torch.float32: ("flash_decode", "flash_decode_launch",
                     [_VP] * 9 + [_INT] * 6 + [ctypes.c_float, _VP])}
 
@@ -131,11 +163,12 @@ def flash_decode_plain(q, k, v, bias) -> torch.Tensor:
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def flash_decode(q, k, v, bias) -> torch.Tensor:
+def flash_decode(q, k, v, bias, block_s=None) -> torch.Tensor:
     """q (B, H, D), k/v (B, KV_H, S, D), bias (B, S) float32 additive
     (0 or -1e30: padding and window masks). Returns (B, H, D) in q's
-    dtype."""
+    dtype. ``block_s`` is the tile (``None`` the builtin)."""
     B, H, KVH, S, D = _shapes(q, k, v, bias)
+    block_s = 64 if block_s is None else check_value("flash_decode", block_s)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, bias)
     if q.device.type != "cuda":
@@ -155,12 +188,16 @@ def flash_decode(q, k, v, bias) -> torch.Tensor:
         nsplit = decode_splits(B * KVH, S, _sms(q.device))
     else:
         nsplit = decode_splits_f32(B * KVH, S, _sms(q.device), G)
-    out = _launch(q, k, v, bias, nsplit)
+    tk = instance(q.dtype, D, block_s)
+    out = _launch(q, k, v, bias, nsplit, tk)
     flash_decode.launches += 1
+    count_tile(flash_decode, f"{_DTYPE_NAMES[q.dtype]} D{D} block_s={tk}")
     return out
 
 
 flash_decode.launches = 0
+flash_decode.tiles = {}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "float32"}
 _SMS: Dict[object, int] = {}
 
 
@@ -200,9 +237,10 @@ def _scratch(device, stream: int, floats: int, counters: int) -> _Scratch:
     return s
 
 
-def _launch(q, k, v, bias, nsplit: int) -> torch.Tensor:
+def _launch(q, k, v, bias, nsplit: int, tk: int = 64) -> torch.Tensor:
     """Launch q.dtype's kernel on q's stream, or raise; the partials hold
-    ``nsplit`` splits of every head."""
+    ``nsplit`` splits of every head; bf16 stages of ``tk`` keys (float32
+    has one instance a head dim)."""
     B, H, D = q.shape
     KVH, S = k.shape[1], k.shape[2]
     name, entry, argtypes = _ENTRIES[q.dtype]
@@ -219,9 +257,13 @@ def _launch(q, k, v, bias, nsplit: int) -> torch.Tensor:
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), part, part + 4 * ml * D,
                 part + 4 * ml * (D + 1))
+        tile = ()
         if q.dtype == torch.float32:
             ptrs += (s.counters.data_ptr(),)
-        err = fn(*ptrs, B, H, KVH, S, D, nsplit, 1.0 / D ** 0.5, stream)
+        else:
+            tile = (tk,)
+        err = fn(*ptrs, B, H, KVH, S, D, nsplit, 1.0 / D ** 0.5, stream,
+                 *tile)
         if err:
             # a refused launch may leave the counters mid-count
             del _SCRATCH[(dev.index, stream)]

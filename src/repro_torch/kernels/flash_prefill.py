@@ -9,8 +9,9 @@ launch a kernel. Each dtype has its own kernel, and neither stands in for
 the other:
 
   * bf16: ``csrc/flash_prefill_tc.cu``, on the tensor cores (``wgmma``):
-    one block of a TMA producer and two consumer warpgroups per 128 query
-    rows, head and batch row; K and V stream through a two-stage ring;
+    one block of a TMA producer and a consumer warpgroup per 64 of its
+    ``block_q`` query rows, a block per tile, head and batch row; K and V
+    stream through a ring of two or three stages;
   * float32: ``csrc/flash_prefill.cu``, on the CUDA cores. The reference
     computes in float32, and the tensor cores' TF32 keeps too few digits
     for its tolerances. A persistent grid (one block of four warps an SM)
@@ -23,6 +24,16 @@ the other:
 Both run an online softmax over key tiles, so no S x S score matrix
 exists, and take any S: keys past the end are left out, causal or not, so
 no padding is needed.
+
+The tile is ``(block_q, block_k)``: query rows a block (an item) and keys
+a tile (``autotune``'s parameter: (64, 64), (64, 128), (128, 64) or (128,
+128); ``None`` the builtin (128, 128)). bf16 has an instance of each
+where two stages of K and V fit shared memory (at D 256 keys tiles of 64
+only): ``TC_INSTANCES``, the sources' list; float32 keeps ``TILE_Q`` rows an item and has the keys tiles of
+``F32_INSTANCES``. Each launches its largest instance at or below the
+tile on each axis (``instance``, reported by ``prefill_config``), which
+for the builtin is the tile each head dim had before tuning; a value that
+names no instance raises.
 
 ``out_of_bounds`` runs the bf16 kernel's checked build
 (``build.VARIANTS``, ``-DFPT_CHECK_BOUNDS``) once and returns the stores
@@ -49,8 +60,11 @@ from typing import Dict, List, Tuple
 import torch
 
 from . import build
+from .autotune import check_value, count_tile
 
-__all__ = ["HEAD_DIMS", "TILE_Q", "F32_SHAPES", "work_order",
+__all__ = ["HEAD_DIMS", "TILE_Q", "F32_SHAPES", "F32_INSTANCES",
+           "TC_INSTANCES", "instance", "prefill_config",
+           "work_order",
            "flash_prefill_plain", "flash_prefill", "flash_prefill_backward",
            "FlashPrefill", "BACKWARD_RANGE", "out_of_bounds",
            "CHECK_RECORDS", "MAP_RANGE_ERROR"]
@@ -60,15 +74,51 @@ TILE_Q = 64  # query rows of a float32 work item (FP_BQ)
 # the float32 kernel's FpShape<D>: (row warps, key warps, keys a tile); a
 # warp takes TILE_Q / row warps rows and keys a tile / key warps keys
 F32_SHAPES = {64: (2, 2, 128), 128: (4, 1, 64), 256: (4, 1, 32)}
+# every float32 instance, FpShape<D, BK>: (D, keys a tile) -> its shape; the
+# builtin tile at each D is F32_SHAPES'
+F32_INSTANCES = {(64, 128): (2, 2, 128), (64, 64): (4, 1, 64),
+                 (128, 64): (4, 1, 64), (256, 32): (4, 1, 32)}
+# bf16: (head dim, query rows a block, keys a tile) of each instance ->
+# its ring's stages (flash_prefill_tc.cu FptShape: an instance where two
+# stages of K and V fit a block's shared memory, three where three fit);
+# 64 query rows a consumer warpgroup
+TC_INSTANCES = {(D, bq, bk): 3 for D in (64, 128) for bq in (64, 128)
+                for bk in (64, 128)}
+TC_INSTANCES.update({(256, 64, 64): 3, (256, 128, 64): 2})
+
+
+def instance(dtype, D: int, block_q=None, block_k=None) -> tuple:
+    """(query rows, keys a tile) of the instance that ``dtype``'s kernel
+    launches at head dim ``D`` for the tile (``None``s: the builtin (128,
+    128)): on each axis the largest at or below it. An explicit value wins
+    on its axis; one that names no instance raises."""
+    bq, bk = check_value("flash_prefill", (
+        128 if block_q is None else block_q,
+        128 if block_k is None else block_k))
+    if dtype == torch.float32:
+        return TILE_Q, max(k for d, k in F32_INSTANCES if d == D and k <= bk)
+    bq = max(r for d, r, _ in TC_INSTANCES if d == D and r <= bq)
+    return bq, max(k for d, r, k in TC_INSTANCES
+                   if d == D and r == bq and k <= bk)
+
+
+def prefill_config(dtype, D: int, block_q=None, block_k=None) -> dict:
+    """The tile ``flash_prefill`` launches for ``dtype`` at head dim ``D``:
+    ``{"block_q": ..., "block_k": ..., "stages": ring depth}``."""
+    bq, bk = instance(dtype, D, block_q, block_k)
+    stages = 2 if dtype == torch.float32 else TC_INSTANCES[(D, bq, bk)]
+    return {"block_q": bq, "block_k": bk, "stages": stages}
 _MASK = -1e30  # the reference's causal mask value
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # library, entry and C prototype of each dtype's kernel: (q, k, v, out,
-# [ticket], B, H, KV, S, D, causal, scale, stream)
+# [ticket], B, H, KV, S, D, causal, scale, stream, the tile: bf16 (rows,
+# keys), float32 keys)
 _ENTRIES = {
     torch.bfloat16: ("flash_prefill_tc", "flash_prefill_tc_launch",
-                     [_VP] * 4 + [_INT] * 6 + [ctypes.c_float, _VP]),
+                     [_VP] * 4 + [_INT] * 6 + [ctypes.c_float, _VP, _INT,
+                                               _INT]),
     torch.float32: ("flash_prefill", "flash_prefill_launch",
-                    [_VP] * 5 + [_INT] * 6 + [ctypes.c_float, _VP])}
+                    [_VP] * 5 + [_INT] * 6 + [ctypes.c_float, _VP, _INT])}
 
 
 def work_order(S: int, H: int, B: int) -> List[Tuple[int, int, int]]:
@@ -117,10 +167,14 @@ def flash_prefill_plain(q, k, v, causal: bool = True) -> torch.Tensor:
     return out.to(q.dtype)
 
 
-def flash_prefill(q, k, v, causal: bool = True) -> torch.Tensor:
+def flash_prefill(q, k, v, causal: bool = True, block_q=None,
+                  block_k=None) -> torch.Tensor:
     """q (B, H, S, D), k/v (B, KV, S, D). Returns (B, H, S, D) in q's
-    dtype."""
+    dtype. ``(block_q, block_k)`` is the tile (``None`` the builtin's on
+    that axis)."""
     B, H, KV, S, D = _shapes(q, k, v)
+    check_value("flash_prefill", (128 if block_q is None else block_q,
+                                  128 if block_k is None else block_k))
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, causal)
     if q.device.type != "cuda":
@@ -131,12 +185,16 @@ def flash_prefill(q, k, v, causal: bool = True) -> torch.Tensor:
     if D not in HEAD_DIMS or S < 1:
         raise ValueError(f"flash_prefill: the kernels take D in {HEAD_DIMS} "
                          f"and S >= 1; got D={D}, S={S}")
-    out = _launch(q, k, v, causal)
+    tile = instance(q.dtype, D, block_q, block_k)
+    out = _launch(q, k, v, causal, tile)
     flash_prefill.launches += 1
+    count_tile(flash_prefill, f"{_DTYPE_NAMES[q.dtype]} D{D} {tile}")
     return out
 
 
 flash_prefill.launches = 0
+flash_prefill.tiles = {}
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "float32"}
 
 
 # float32 elements of one (B, H, rows, S) block of the backward's scores
@@ -193,8 +251,8 @@ class FlashPrefill(torch.autograd.Function):
     ``flash_prefill_backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        out = flash_prefill(q, k, v, causal)
+    def forward(ctx, q, k, v, causal: bool, block_q=None, block_k=None):
+        out = flash_prefill(q, k, v, causal, block_q, block_k)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, out)
         return out
@@ -205,21 +263,24 @@ class FlashPrefill(torch.autograd.Function):
         with torch.profiler.record_function(BACKWARD_RANGE):
             dq, dk, dv = flash_prefill_backward(q, k, v, out, d_out,
                                                 ctx.causal)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None, None
 
 
 CHECK_RECORDS = 64  # FPT_CHECK_RECORDS: the accesses a checked launch keeps
 MAP_RANGE_ERROR = 20000  # FPT_ERR_MAP_RANGE: a map that is not its operand
 
 
-def out_of_bounds(q, k, v, causal: bool = True) -> dict:
-    """One launch of the bf16 kernel's checked build on CUDA operands, its
-    output stores held against q, k, v and the output: ``{"count": ...,
-    "loads": [(source line, operand, byte offset, the operand's bytes,
-    access bytes), ...]}``, the first ``CHECK_RECORDS`` recorded. Raises if
-    the host finds a tensor map whose base and dims are not exactly q's,
-    k's or v's bytes. Not counted in ``launches``."""
+def out_of_bounds(q, k, v, causal: bool = True, block_q=None,
+                  block_k=None) -> dict:
+    """One launch of the bf16 kernel's checked build on CUDA operands at
+    the tile ``(block_q, block_k)`` (``None`` the builtin's), its output
+    stores held against q, k, v and the output: ``{"count": ..., "loads":
+    [(source line, operand, byte offset, the operand's bytes, access
+    bytes), ...]}``, the first ``CHECK_RECORDS`` recorded. Raises if the
+    host finds a tensor map whose base and dims are not exactly q's, k's or
+    v's bytes. Not counted in ``launches``."""
     B, H, KV, S, D = _shapes(q, k, v)
+    tile = instance(torch.bfloat16, D, block_q, block_k)
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
         raise ValueError("out_of_bounds: the checked build is the bf16 "
                          "kernel's, on the card")
@@ -231,7 +292,8 @@ def out_of_bounds(q, k, v, causal: bool = True) -> dict:
 
     def launch(stream):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 H, KV, S, D, int(bool(causal)), 1.0 / D ** 0.5, stream)
+                 H, KV, S, D, int(bool(causal)), 1.0 / D ** 0.5, stream,
+                 *tile)
         if err == MAP_RANGE_ERROR:
             raise RuntimeError("out_of_bounds: a tensor map of q, k or v "
                                "does not span its operand's bytes")
@@ -249,8 +311,11 @@ def out_of_bounds(q, k, v, causal: bool = True) -> dict:
 _TICKETS: Dict[Tuple[object, int], torch.Tensor] = {}
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    """Launch q.dtype's kernel on q's stream, or raise."""
+def _launch(q, k, v, causal: bool, tile=None) -> torch.Tensor:
+    """Launch q.dtype's kernel on q's stream at ``tile`` (an ``instance``;
+    ``None`` the builtin's), or raise."""
+    if tile is None:
+        tile = instance(q.dtype, q.shape[3])
     B, H, S, D = q.shape
     name, entry, argtypes = _ENTRIES[q.dtype]
     fn = build.entry(name, entry, argtypes)
@@ -266,8 +331,10 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
                 ticket = _TICKETS[(dev.index, stream)] = torch.zeros(
                     2, dtype=torch.int32, device=dev)
             args.append(ticket.data_ptr())
+        # bf16 takes (rows, keys); float32 its keys (its rows are TILE_Q)
         err = fn(*args, B, H, k.shape[1], S, D, int(bool(causal)),
-                 1.0 / D ** 0.5, stream)
+                 1.0 / D ** 0.5, stream,
+                 *(tile if q.dtype == torch.bfloat16 else tile[1:]))
         if err and q.dtype == torch.float32:
             # a refused launch may leave the ticket mid-count
             del _TICKETS[(dev.index, stream)]

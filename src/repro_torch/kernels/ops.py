@@ -18,10 +18,18 @@ bf16 runs the tensor-core kernels (``wgmma`` prefill, ``mma.sync``
 decode), float32 the CUDA-core ones, as the reference computes in float32
 and TF32 would not keep its tolerances.
 
-The kernels choose their own tiles (named constants in ``csrc/``, with
-their reasons). ``block_s``, ``block_q`` and ``block_k`` keep the
-reference's signatures and are checked, but have no effect: nothing maps
-them onto tiles yet, so tuning against them changes nothing.
+Tiles resolve as in the reference, through ``autotune.tile_for``: the
+policy's ``tile_overrides``, then the committed ``TUNE_TABLE.json`` under
+the card's key (then its ``default`` entry), by the problem's size bucket,
+then the kernel's builtin. ``searchsorted_prefix`` resolves
+``bsearch_probe``'s ``block_rows`` by the number of queries;
+``decode_attention`` ``flash_decode``'s ``block_s`` by S; and
+``prefill_attention`` ``flash_prefill``'s ``(block_q, block_k)`` by S. An
+explicit ``block_s``, ``block_q`` or ``block_k`` pins its axis over the
+ladder; each kernel then launches its largest instance at or below the
+tile for the dtype and head dim (``flash_decode.decode_config``,
+``flash_prefill.prefill_config``), and a value that names no instance
+raises.
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 
 from . import ref
+from .autotune import tile_for
 from .bsearch_probe import bsearch_probe
 from .flash_decode import flash_decode
 from .flash_prefill import FlashPrefill
@@ -60,7 +69,8 @@ def searchsorted_prefix(pref: torch.Tensor, q: torch.Tensor,
     if (pref.dtype != torch.int32 or q.dtype != torch.int32
             or not policy.enabled):
         return torch.clamp(torch.searchsorted(pref, q, right=True) - 1, min=0)
-    return bsearch_probe(pref, q)
+    return bsearch_probe(pref, q, block_rows=tile_for(
+        "bsearch_probe", q.numel(), policy, q.device))
 
 
 def prefix_sum(x: torch.Tensor, exclusive: bool = False, *,
@@ -86,24 +96,23 @@ def geo_positions_fused(u: torch.Tensor, p, *,
     return geo_gaps_tiles(u, p)
 
 
-def _check_block(name: str, value: Optional[int]) -> None:
-    if value is not None and (not isinstance(value, int) or value < 1):
-        raise ValueError(f"{name} must be a positive int or None, got {value!r}")
-
-
 def decode_attention(q, k, v, bias=None, *, block_s: Optional[int] = None,
                      policy: KernelPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """Online-softmax decode attention: q (B, H, D), k/v (B, KV_H, S, D),
     bias (B, S) additive float32 (zeros when None). bf16 takes the
-    tensor-core kernel, float32 the CUDA-core one. ``block_s`` is checked
-    and has no effect (the kernels' tiles and splits are their own)."""
-    _check_block("block_s", block_s)
+    tensor-core kernel, float32 the CUDA-core one. ``block_s`` (keys a
+    ring stage) pins the tile; ``None`` resolves it through the ladder
+    (``tile_for('flash_decode', S)``). The splits stay the kernel
+    wrapper's choice."""
+    S = k.shape[2]
+    if block_s is None:
+        block_s = tile_for("flash_decode", S, policy, q.device)
     if bias is None:
-        bias = torch.zeros((q.shape[0], k.shape[2]), dtype=torch.float32,
+        bias = torch.zeros((q.shape[0], S), dtype=torch.float32,
                            device=q.device)
     if not policy.enabled:
         return ref.flash_decode_ref(q, k, v, bias)
-    return flash_decode(q, k, v, bias)
+    return flash_decode(q, k, v, bias, block_s)
 
 
 def prefill_attention(q, k, v, *, causal: bool = True,
@@ -113,11 +122,13 @@ def prefill_attention(q, k, v, *, causal: bool = True,
     """Causal (or full) flash attention over full sequences: q (B, H, S,
     D), k/v (B, KV, S, D). bf16 takes the tensor-core kernel, float32 the
     CUDA-core one, through ``flash_prefill.FlashPrefill``: the kernel's
-    launch, with a gradient when autograd records one. ``block_q`` and
-    ``block_k`` are checked and have no effect (the kernels' tiles are
-    fixed)."""
-    _check_block("block_q", block_q)
-    _check_block("block_k", block_k)
+    launch, with a gradient when autograd records one. ``(block_q,
+    block_k)`` (query rows a block, keys a tile) resolves through the
+    ladder (``tile_for('flash_prefill', S)``); an explicit value pins its
+    axis."""
+    tq, tk = tile_for("flash_prefill", q.shape[2], policy, q.device)
+    block_q = tq if block_q is None else block_q
+    block_k = tk if block_k is None else block_k
     if not policy.enabled:
         return ref.flash_prefill_ref(q, k, v, causal=causal)
-    return FlashPrefill.apply(q, k, v, causal)
+    return FlashPrefill.apply(q, k, v, causal, block_q, block_k)

@@ -15,6 +15,14 @@ table (``layout_table``), at most ``MAX_SLOTS`` tree nodes, with a base per
 searched vector, so that the same kernel walks the whole arena, a paged
 arena's buffer and its stacked pages.
 
+The tile is ``block_rows`` rows of 128 probes (``autotune``'s parameter:
+2, 4, 8 or 16; 256 threads x ``block_rows / 2`` probes a thread); ``None``
+is the builtin 8, 1,024 probes. A tree of more than four nodes keeps fewer
+probes a thread in registers (``max_items``: 2 up to eight nodes, 1 up to
+sixteen) and takes its largest instance at or below the value
+(``items_for``). ``core/probe.py`` resolves the tile through
+``autotune.tile_for``; a value that names no instance raises.
+
 ``tree_probe_paged`` is the same GET over a paged arena (``PagedArena``:
 the root prefix, then one page per tree edge). On CUDA its default
 (``dma=None``) is one launch of ``tree_get.cu`` over the pages' buffer,
@@ -34,13 +42,16 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from . import build
+from .autotune import check_value, count_tile
 from .bsearch_probe import LEVELS, SPAN, THREADS, _search, steps_for
 
 __all__ = ["MAX_SLOTS", "THREADS", "SPAN", "LEVELS", "layout_table",
-           "stacked_bases", "items_for", "tree_walk", "tree_walk_tiled",
+           "stacked_bases", "max_items", "items_for", "tree_walk",
+           "tree_walk_tiled",
            "tree_probe_plain", "tree_probe", "tree_get", "tree_get_config",
            "tree_probe_paged_plain", "tree_probe_paged",
-           "tree_probe_paged_dma", "tree_probe_paged_pages"]
+           "tree_probe_paged_dma", "tree_probe_paged_pages",
+           "out_of_bounds", "CHECK_RECORDS"]
 
 # The kernels' constants (``tests/test_torch_tree_get.py`` holds them to
 # the sources' ``#define`` lines); THREADS, SPAN and LEVELS, the constants
@@ -89,9 +100,20 @@ def stacked_bases(layout, P: int) -> tuple:
                         for k, e in enumerate(layout.edges))
 
 
-def items_for(num_slots: int) -> int:
-    """Probes a thread of ``tree_get.cu`` walks (its instance by slots)."""
-    return 4 if num_slots <= 4 else 2 if num_slots <= 8 else 1
+def max_items(num_slots: int) -> int:
+    """The most probes a thread ``tree_get.cu`` walks for a tree of
+    ``num_slots`` nodes (``tg_max_items``)."""
+    return 8 if num_slots <= 4 else 2 if num_slots <= 8 else 1
+
+
+def items_for(num_slots: int, block_rows: Optional[int] = None) -> int:
+    """Probes a thread of ``tree_get.cu``'s instance for a tree of
+    ``num_slots`` nodes at ``block_rows`` (``None`` the builtin 8): the
+    largest the tree takes at or below the tile. Raises on a value that
+    names no instance (``tree_probe``'s grid, ``tree_probe_paged``'s
+    too)."""
+    rows = 8 if block_rows is None else check_value("tree_probe", block_rows)
+    return min(rows * 128 // THREADS, max_items(num_slots))
 
 
 def _descend(arena: torch.Tensor, off: int, length: int, q: torch.Tensor):
@@ -218,31 +240,31 @@ def _ctable(layout, bases):
 
 
 @functools.lru_cache(maxsize=64)
-def _config(layout, device: int) -> tuple:
-    """``tree_get_config`` on the current card, once per layout."""
-    fn = build.entry("tree_get", "tree_get_config", [_VP, _VP])
+def _config(layout, device: int, items: int) -> tuple:
+    """``tree_get_config`` on the current card, once per layout and tile."""
+    fn = build.entry("tree_get", "tree_get_config", [_VP, _VP, ctypes.c_int])
     cfg = (ctypes.c_int * 4)()
-    build.check(fn(_ctable(layout, None), cfg), "tree_get_config")
+    build.check(fn(_ctable(layout, None), cfg, items), "tree_get_config")
     return tuple(cfg)
 
 
-def tree_get_config(layout, *, device=None) -> dict:
-    """The launch shape of ``tree_get`` on the card (the current one
-    unless ``device``): probes a thread, blocks an SM, SMs, shared memory
-    bytes; a launch takes min(blocks an SM x SMs, tiles) blocks."""
+def tree_get_config(layout, *, device=None, block_rows: Optional[int] = None
+                    ) -> dict:
+    """The launch shape of ``tree_get`` at ``block_rows`` (``None`` the
+    builtin) on the card (the current one unless ``device``): probes a
+    thread, blocks an SM, SMs, shared memory bytes, and the instance's
+    ``block_rows``; a launch takes min(blocks an SM x SMs, tiles)
+    blocks."""
     device = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
+    items = items_for(layout.num_slots, block_rows)
     with torch.cuda.device(device):
-        cfg = _config(layout, device.index)
-    return dict(zip(("items", "blocks_per_sm", "sms", "smem_bytes"), cfg))
+        cfg = _config(layout, device.index, items)
+    return dict(zip(("items", "blocks_per_sm", "sms", "smem_bytes"), cfg),
+                block_rows=THREADS * items // 128)
 
 
-def tree_get(operand: torch.Tensor, q: torch.Tensor, layout,
-             bases: Optional[tuple] = None) -> torch.Tensor:
-    """One launch of ``csrc/tree_get.cu`` over ``operand`` (CUDA, int32,
-    read with ``layout_table(layout, bases)``'s addressing); counts
-    nothing: the GET's wrappers count their calls. Returns (num_slots,) +
-    q.shape int32."""
+def _get_args(operand, q, layout, bases, check: bool):
     if operand.device.type != "cuda" or q.device != operand.device:
         raise ValueError(f"tree_get runs on the card: operand on "
                          f"{operand.device}, q on {q.device}")
@@ -250,41 +272,100 @@ def tree_get(operand: torch.Tensor, q: torch.Tensor, layout,
         raise TypeError(f"tree_get takes int32, got {operand.dtype}/{q.dtype}")
     if not operand.is_contiguous():
         raise ValueError("tree_get: the operand must be contiguous")
-    fn = build.entry("tree_get", "tree_get_launch",
-                [_VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP])
-    ctable = _ctable(layout, bases)
+    fn = build.entry("tree_get_checked" if check else "tree_get",
+                     "tree_get_launch",
+                     [_VP, _VP, _VP, _VP, _LL, ctypes.c_int, _VP,
+                      ctypes.c_int])
     qc = q.contiguous()
-    n = qc.numel()
     out = torch.empty((layout.num_slots,) + tuple(q.shape), dtype=torch.int32,
                       device=q.device)
+    return fn, _ctable(layout, bases), qc, out
+
+
+def tree_get(operand: torch.Tensor, q: torch.Tensor, layout,
+             bases: Optional[tuple] = None, items: Optional[int] = None
+             ) -> torch.Tensor:
+    """One launch of ``csrc/tree_get.cu`` over ``operand`` (CUDA, int32,
+    read with ``layout_table(layout, bases)``'s addressing), ``items``
+    probes a thread (``items_for``; ``None`` the builtin tile's); counts
+    nothing: the GET's wrappers count their calls. Returns (num_slots,) +
+    q.shape int32."""
+    if items is None:
+        items = items_for(layout.num_slots)
+    fn, ctable, qc, out = _get_args(operand, q, layout, bases, False)
+    n = qc.numel()
     with torch.cuda.device(q.device):
-        items, per_sm, sms, _ = _config(layout, torch.cuda.current_device())
+        _, per_sm, sms, _ = _config(layout, torch.cuda.current_device(), items)
         blocks = min(per_sm * sms, -(-n // (THREADS * items)))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.check(fn(operand.data_ptr(), ctable, qc.data_ptr(),
-                       out.data_ptr(), n, blocks, stream), "tree_get")
+                       out.data_ptr(), n, blocks, stream, items), "tree_get")
     return out
 
 
-def tree_probe(arena: torch.Tensor, q: torch.Tensor, layout) -> torch.Tensor:
+CHECK_RECORDS = 64  # TG_CHECK_RECORDS: the accesses a checked launch keeps
+
+
+def out_of_bounds(operand: torch.Tensor, q: torch.Tensor, layout,
+                  bases: Optional[tuple] = None,
+                  block_rows: Optional[int] = None) -> dict:
+    """One launch of the GET's checked build (``build.VARIANTS``
+    ``tree_get_checked``, ``-DTG_CHECK_BOUNDS``) as ``tree_get`` would
+    launch it at ``block_rows``, every load and row store held against
+    the operand, the probes and the output: ``{"count": the accesses
+    outside them, "loads": [(source line, operand, byte offset, the
+    operand's bytes, access bytes), ...]}``, the first ``CHECK_RECORDS``.
+    A measurement: not counted in any ``launches``."""
+    items = items_for(layout.num_slots, block_rows)
+    fn, ctable, qc, out = _get_args(operand, q, layout, bases, True)
+    n = qc.numel()
+    lib = "tree_get_checked"
+    cfg = build.entry(lib, "tree_get_config", [_VP, _VP, ctypes.c_int])
+    arr = (ctypes.c_int * 4)()
+    with torch.cuda.device(q.device):
+        build.check(cfg(_ctable(layout, None), arr, items), "tree_get_config")
+    blocks = min(arr[1] * arr[2], -(-max(n, 1) // (THREADS * items)))
+
+    def launch(stream):
+        build.check(fn(operand.data_ptr(), ctable, qc.data_ptr(),
+                       out.data_ptr(), n, blocks, stream, items),
+                    "tree_get (checked)")
+
+    return build.checked_run(
+        build.entry(lib, "tree_get_check_set", [_VP, _VP, ctypes.c_int]),
+        launch, build.entry(lib, "tree_get_check_get", [_VP, _VP]),
+        (("operand", operand), ("q", qc), ("out", out)), q.device,
+        CHECK_RECORDS)
+
+
+def tree_probe(arena: torch.Tensor, q: torch.Tensor, layout,
+               block_rows: Optional[int] = None) -> torch.Tensor:
     """arena: (layout.size,) int32; q: int32 probe positions in
-    [0, join size), any shape. Returns (num_slots,) + q.shape int32."""
+    [0, join size), any shape. Returns (num_slots,) + q.shape int32.
+    ``block_rows`` is the tile (``None`` the builtin)."""
     if arena.dtype != torch.int32 or q.dtype != torch.int32:
         raise TypeError(f"tree_probe takes int32, got {arena.dtype}/{q.dtype}")
     if arena.shape != (layout.size,):
         raise ValueError(f"arena {tuple(arena.shape)} vs layout size {layout.size}")
     if arena.device != q.device:
         raise ValueError(f"arena on {arena.device}, q on {q.device}")
+    items = items_for(layout.num_slots, block_rows)
     if q.device.type == "cpu":
         return tree_probe_plain(arena, q, layout)
     if q.device.type != "cuda":
         raise ValueError(f"tree_probe: unsupported device {q.device}")
-    out = tree_get(arena.contiguous(), q, layout)
+    out = tree_get(arena.contiguous(), q, layout, items=items)
     tree_probe.launches += 1
+    count_tile(tree_probe, _tile_name(items))
     return out
 
 
 tree_probe.launches = 0
+tree_probe.tiles = {}
+
+
+def _tile_name(items: int) -> str:
+    return f"block_rows={THREADS * items // 128}"
 
 
 # ---------------------------------------------------------------------------
@@ -340,44 +421,57 @@ def _check_paged(paged, q: torch.Tensor) -> None:
         raise ValueError(f"tree_probe_paged: unsupported device {q.device}")
 
 
-def tree_probe_paged(paged, q: torch.Tensor, dma=None) -> torch.Tensor:
+def tree_probe_paged(paged, q: torch.Tensor, dma=None,
+                     block_rows: Optional[int] = None) -> torch.Tensor:
     """paged: a ``PagedArena``; q: int32 probe positions in [0, join
     size), any shape. Returns (num_slots,) + q.shape int32, equal to
     ``tree_probe`` on the whole arena. ``dma=None`` is one launch over the
     pages' buffer; ``dma=True`` one launch over the stacked pages;
-    ``dma=False`` one launch per page. ``launches`` counts every launch."""
+    ``dma=False`` one launch per page. ``launches`` counts every launch.
+    ``block_rows`` is the tile of the one-launch forms (``None`` the
+    builtin); the per-page form takes a thread a probe."""
     _check_paged(paged, q)
+    items = items_for(paged.layout.num_slots, block_rows)
     if dma is not None:
-        run = tree_probe_paged_dma if dma else tree_probe_paged_pages
-        return run(paged, q)
+        if dma:
+            return tree_probe_paged_dma(paged, q, block_rows)
+        return tree_probe_paged_pages(paged, q)
     if q.device.type == "cpu":
         return tree_probe_plain(paged.buffer, q, paged.layout)
-    out = tree_get(paged.buffer, q, paged.layout)
+    out = tree_get(paged.buffer, q, paged.layout, items=items)
     tree_probe_paged.launches += 1
+    count_tile(tree_probe_paged, _tile_name(items))
     return out
 
 
 tree_probe_paged.launches = 0
+tree_probe_paged.tiles = {}
 
 
-def tree_probe_paged_dma(paged, q: torch.Tensor) -> torch.Tensor:
+def tree_probe_paged_dma(paged, q: torch.Tensor,
+                         block_rows: Optional[int] = None) -> torch.Tensor:
     """The one-launch paged walk over ``paged.stacked()`` (built once per
     ``PagedArena``), ``tree_probe_paged(..., dma=True)``: ``tree_get.cu``
-    with the stacked pages' bases."""
+    with the stacked pages' bases, at ``block_rows``."""
     _check_paged(paged, q)
+    items = items_for(paged.layout.num_slots, block_rows)
     if q.device.type == "cpu":
         return tree_probe_paged_plain(paged, q, dma=True)
     stacked, P = paged.stacked()
     if stacked.numel() >= 2**31:
         raise ValueError(f"stacked pages of {stacked.numel()} words exceed "
                          "int32 offsets")
-    out = tree_get(stacked, q, paged.layout, stacked_bases(paged.layout, P))
+    out = tree_get(stacked, q, paged.layout, stacked_bases(paged.layout, P),
+                   items)
     tree_probe_paged_dma.launches += 1
     tree_probe_paged.launches += 1
+    count_tile(tree_probe_paged_dma, _tile_name(items))
+    count_tile(tree_probe_paged, _tile_name(items))
     return out
 
 
 tree_probe_paged_dma.launches = 0
+tree_probe_paged_dma.tiles = {}
 
 
 @functools.lru_cache(maxsize=64)

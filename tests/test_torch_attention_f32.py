@@ -72,10 +72,11 @@ def _online(state, x, vb):
     return m_new, l * alpha + p.sum(-1, keepdim=True), acc * alpha + p @ vb
 
 
-def prefill_f32_emulated(q, k, v, causal: bool):
+def prefill_f32_emulated(q, k, v, causal: bool, shape=None):
     """flash_prefill.cu's arithmetic on float32 q (B, H, S, D), k/v (B, KV,
     S, D): items of TILE_Q query rows; within an item each warp owns its
-    rows and its key block of every tile of BK keys (``F32_SHAPES``), skips
+    rows and its key block of every tile of BK keys (``shape``, an
+    ``F32_INSTANCES`` value; ``F32_SHAPES[D]`` by default), skips
     blocks past S or wholly above its rows, and keeps its own online
     softmax: scores times c = scale log2 e, -1e30 above the diagonal and
     -inf past S where a block needs a mask; without one, the raw max times
@@ -83,7 +84,7 @@ def prefill_f32_emulated(q, k, v, causal: bool):
     B, H, S, D = q.shape
     KV = k.shape[1]
     G = H // KV
-    row_warps, key_warps, bk = t_fp.F32_SHAPES[D]
+    row_warps, key_warps, bk = shape or t_fp.F32_SHAPES[D]
     rw_rows, kw_keys = t_fp.TILE_Q // row_warps, bk // key_warps
     c = float(np.float32(np.float32(1.0 / D ** 0.5) * LOG2E))
     out = torch.empty((B, H, S, D), dtype=torch.float32)
@@ -309,10 +310,17 @@ def _source(name: str) -> str:
 def test_mirrors_match_the_sources():
     pre = _source("flash_prefill.cu")
     assert re.search(r"#define FP_BQ (\d+)", pre).group(1) == str(t_fp.TILE_Q)
-    shapes = {int(d): tuple(int(x) for x in v) for d, *v in re.findall(
-        r"struct FpShape<(\d+)> \{\s*static constexpr int ROW_WARPS = (\d+), "
-        r"KEY_WARPS = (\d+), BK = (\d+);", pre)}
-    assert shapes == t_fp.F32_SHAPES
+    # every instance FpShape<D, BK>; the first at each D is its builtin
+    found = [((int(d), int(bk)), tuple(int(x) for x in v))
+             for d, bk, *v in re.findall(
+        r"struct FpShape<(\d+), (\d+)> \{\s*static constexpr int "
+        r"ROW_WARPS = (\d+), KEY_WARPS = (\d+), BK = (\d+);", pre)]
+    assert dict(found) == t_fp.F32_INSTANCES
+    assert all(shape[2] == bk for (_, bk), shape in found)
+    builtin = {}
+    for (d, _), shape in found:
+        builtin.setdefault(d, shape)
+    assert builtin == t_fp.F32_SHAPES
     dec = _source("flash_decode.cu")
     assert re.search(r"#define FD_WARPS (\d+)", dec).group(1) == str(
         t_fd.F32_WARPS)
