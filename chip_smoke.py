@@ -38,7 +38,11 @@ the committed ``TUNE_TABLE.json``, a sweep of every kernel's candidate
 tiles on this card into a scratch table, and every candidate instance of
 the five tuned kernels and the float32 attention kernels against its plain
 version at ragged shapes, with the checked GET and bf16 prefill at every
-candidate. Phases A-K run the tiles the committed table resolves for this
+candidate; then (phase M) EpiQL and the seven architectures that fit the
+card, each at its published config through ``serve_batch`` (its
+attention through ``flash_prefill`` and ``flash_decode``, the checked
+builds of both at each of its shapes), and ``serve --mode lm --full``.
+Phases A-K and M run the tiles the committed table resolves for this
 card; each tuned kernel's ``tile`` in the kernels line counts its
 main-path launches by instance. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
@@ -183,6 +187,26 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        launches). K.dryrun: ``launch.dryrun --all`` on
                        ``meta`` (every cell, both meshes) and ``--paper``
                        on the card. Its sizes are constants.
+  M  archs             EpiQL (the paper's Example 1.1) at 100,000 people,
+                       5 days (the contact join 133 M tuples, a draw a
+                       day; day 0 again against its plain version and
+                       the CPU's; two days again per node); gemma3-1b,
+                       zamba2-1.2b, whisper-small, olmoe-1b-7b, rwkv6-7b,
+                       starcoder2-7b and llama-3.2-vision-11b at their
+                       published configs (``configs/*``; 35.8 B float32
+                       parameters in all, drawn from ``--seed``; bf16
+                       compute; not cut): ``serve_batch`` of 4 prompts of
+                       128-512 tokens, 16 greedy tokens each, every
+                       route's calls a layer as ``ARCH_ROUTES`` and no
+                       plain attention call; each kernel route's first
+                       and last layer against its plain version and
+                       through its checked build at the resolved tile;
+                       the kernel path's
+                       logits against the plain path's; at float32
+                       ``prefill`` and a ``decode_step`` against
+                       ``forward`` (``ARCH_F32_CHECK``); ``serve --mode lm
+                       --full --arch gemma3_1b`` in a child process. Its
+                       sizes are constants (``ARCH_*``).
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32; float64), the
                        float scans bit for bit against ``scan_order`` at
@@ -205,8 +229,10 @@ It needs one CUDA card and exits non-zero without one. ``--every-card``
 instead holds the batched draws on each visible card in turn against their
 plain versions (a machine with several cards) and prints ``CARDS {...}``. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
-launches, agreement and times; the line before that is the card's name and
-power limit as ``nvidia-smi`` reports them.
+launches, agreement and times (the checked builds of phase M too, with no
+main-path launches); the line before that is the card's name and power
+limit as ``nvidia-smi`` reports them, after the ``ARCHS``, ``TRAINING``
+and ``PARALLEL`` summaries.
 """
 from __future__ import annotations
 
@@ -3038,6 +3064,7 @@ def run_lm(args, device, kernels, kernel_policy=None):
     L = cfg.n_layers
     # what earlier phases still hold, left out of phase I's peak
     held = torch.cuda.memory_allocated(device) if on_card else 0
+    e2e["held_bytes"] = held
     t0 = time.perf_counter()
     model = init_model(cfg, args.seed, device=device, policy=policy)
     sync()
@@ -3282,6 +3309,990 @@ def run_lm(args, device, kernels, kernel_policy=None):
     if on_card:
         torch.cuda.empty_cache()
     return launches, e2e
+
+
+# Phase M: the seven architectures that fit one H100 (configs/*, their
+# published configs, not cut), distinct code paths first and the biggest
+# model last; llama3-405b (756 GiB) and llama4-scout (201 GiB) need several
+# cards.
+ARCHS_M = ("gemma3_1b", "zamba2_1p2b", "whisper_small", "olmoe_1b_7b",
+           "rwkv6_7b", "starcoder2_7b", "llama32_vision_11b")
+# Each architecture's attention calls at its published config (the port's
+# ``attention_calls``, models/transformer.py): (causal, non-causal,
+# blockwise) a prefill and decodes a step. gemma3-1b: 21 local
+# layers (window 512) and 5 global; zamba2: its shared block at 2 of 38
+# layers; whisper: 12 encoder layers over 1,500 frames and 12 cross layers;
+# llama-3.2-vision: 32 dense layers and 8 cross layers over 6,400 tokens.
+ARCH_ROUTES = {"gemma3_1b": (5, 0, 21, 26), "zamba2_1p2b": (2, 0, 0, 2),
+               "whisper_small": (12, 12, 12, 24),
+               "olmoe_1b_7b": (16, 0, 0, 16), "rwkv6_7b": (0, 0, 0, 0),
+               "starcoder2_7b": (32, 0, 0, 32),
+               "llama32_vision_11b": (40, 0, 8, 48)}
+# Check (c) runs on these: the windowed cache, the Mamba2 and RWKV6 states
+# and the cross cache; over B 2 x ARCH_CHECK_SEQ tokens, past gemma3-1b's
+# window (512) and two Mamba2 chunks (256)
+ARCH_F32_CHECK = ("gemma3_1b", "zamba2_1p2b", "whisper_small", "rwkv6_7b")
+ARCH_CHECK_SEQ = 600
+# phase M's requests: prompts of 128-512 tokens, greedy tokens each
+ARCH_REQUESTS, ARCH_PROMPT_MIN, ARCH_PROMPT_MAX, ARCH_NEW = 4, 128, 512, 16
+# EpiQL on the card (the paper's Example 1.1)
+EPIQL_POP, EPIQL_DAYS = 100_000, 5
+# EpiQL's day 0 on the card against the CPU's plain pipeline, a fraction
+# of E[k] (the CPU test holds that pipeline to the reference's within it)
+EPIQL_ROUTE_TOL = 1e-4
+# models drawn on the host at once (each by one CPU generator), and the
+# host memory left free while another is drawn
+DRAW_WORKERS, HOST_RESERVE = 2, 16 << 30
+
+
+def proc_bytes(path: str, key: str):
+    """A ``key: N kB`` line of ``path`` in bytes (``MemAvailable`` of
+    ``/proc/meminfo``, ``VmHWM`` of ``/proc/self/status``), or ``None``
+    where the file does not say."""
+    try:
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key + ":"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def host_available():
+    """The host's available memory in bytes, or ``None``."""
+    return proc_bytes("/proc/meminfo", "MemAvailable")
+
+
+class ranged:
+    """Runs each ``(module, attr, label)`` function of ``targets`` inside a
+    ``torch.profiler`` range named ``label`` while active."""
+
+    def __init__(self, targets):
+        self.targets, self.saved = targets, []
+
+    def __enter__(self):
+        import torch
+
+        for mod, attr, label in self.targets:
+            fn = getattr(mod, attr)
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+        return False
+
+
+def run_archs(args, device, kernels, kernel_policy=None, *, held=None,
+              reduced=False, requests=ARCH_REQUESTS,
+              prompt=(ARCH_PROMPT_MIN, ARCH_PROMPT_MAX), new=ARCH_NEW,
+              check_seq=ARCH_CHECK_SEQ, archs=ARCHS_M,
+              epiql=(EPIQL_POP, EPIQL_DAYS)) -> tuple:
+    """Phase M: ``serve_batch`` of each architecture of ``archs`` at its
+    published config (``reduced`` serves ``configs.reduced``: the CPU's
+    rehearsal), parameters drawn from ``--seed``, bf16 compute, after EpiQL
+    at ``epiql`` (population, days). For each: ``requests`` prompts of
+    ``prompt`` tokens (from ``--seed``, the same for every architecture:
+    within the smallest vocabulary), ``new`` greedy tokens each; the calls
+    by route against ``ARCH_ROUTES`` (and ``attention_calls``), the launches,
+    no plain attention call; (a) at the first and last layer of each
+    kernel route (causal and non-causal prefill, self and memory decode)
+    the kernel's output on the model's own q, k, v against its plain
+    version (``BF16_TOL``), each route's shape through the checked builds
+    (``flash_prefill.out_of_bounds``, ``flash_decode.out_of_bounds``); (b)
+    the prefill's logits on the kernel path against the plain path's,
+    within ``LM_PATH_TOL`` or twice the spread one bf16 ulp of attention
+    noise gives on the same model, an MoE model's routing replayed; (c)
+    for ``ARCH_F32_CHECK``, at float32 compute,
+    ``prefill`` and a ``decode_step`` against ``forward`` over ``check_seq``
+    tokens (``LM_PREFILL_TOL``); the times of a warm ``serve_batch``; each
+    kernel at the architecture's shapes beside its plain version and SDPA
+    (random operands, the error held too); with ``--profile`` a prefill's
+    and a step's device time by kind. An architecture that fails is
+    logged and the next one runs; the phase then fails. Parameters are
+    drawn on the host (``init_model(cfg, seed, device='cpu')``, the values
+    ``init_model`` puts on the card), the next ones while this one is
+    served (``DRAW_WORKERS`` at once where the host has room).
+    ``held``: the bytes phase I found earlier phases holding; M starts with
+    no more. Returns (launches, the numbers)."""
+    import concurrent.futures
+    import dataclasses
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.config import DEFAULT_POLICY, KernelPolicy
+    from repro_torch.engine import QueryEngine
+    from repro_torch.examples import epiql_contact_sim
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import fused_draw as fd_mod
+    from repro_torch.kernels import ops, ref, threefry
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, forward, init_model, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import attention_calls
+    from repro_torch.models import ssm as ssm_mod
+
+    on_card = device.type == "cuda"
+    policy = kernel_policy or DEFAULT_POLICY
+    e2e = {"archs": {}}
+    launches = {k: 0 for k in kernels}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    failures = []
+    gc_cuda(on_card)
+    if on_card:
+        before = torch.cuda.memory_allocated(device)
+        # cuBLAS keeps a workspace for each (handle, stream) that ran a
+        # product, through the caching allocator: earlier phases' threads
+        # and streams left theirs
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is None:
+            log("[M] this torch cannot release cuBLAS's workspaces")
+        else:
+            clear()
+        gc_cuda(on_card)
+        now = torch.cuda.memory_allocated(device)
+        log(f"[M] earlier phases hold {now / 2**30:.2f} GiB at M's start "
+            f"({before / 2**30:.2f} GiB before cuBLAS's workspaces were "
+            "released)" + ("" if held is None else
+                           f"; phase I found {held / 2**30:.2f} GiB"))
+        if held is not None and now > held:
+            failures.append(f"held: {now} bytes at M's start, {held} at I's")
+            log(f"[M] FAILED: earlier phases hold {now - held} bytes more "
+                f"than at I's start; live CUDA tensors by shape: "
+                f"{cuda_census()}")
+        e2e["held_bytes"] = now
+    # the CLI, in a child process while the first architectures run
+    cli = None
+    if on_card and not reduced:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
+             "--full", "--arch", "gemma3_1b"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent / "src")))
+
+    # -- EpiQL: the contact join's index once, a Poisson draw a day -----------
+    pop, days = epiql
+    t0 = time.perf_counter()
+    reset_counts(kernels)
+    epi = epiql_contact_sim.simulate(pop, days=days, device=device)
+    got = launch_counts(kernels)
+    ks = [k for _, k, _, _ in epi["days"]]
+    log(f"[M.epiql] population {pop}: contact join {epi['join_size']:,} "
+        f"tuples (never materialized), draw route {epi['route']}, E[k] "
+        f"{epi['expected_k']:.1f} (sd {epi['sd_k']:.1f}); contacts a day "
+        f"{ks}; new infections {[n for _, _, n, _ in epi['days']]}; ms a day "
+        f"{[round(ms, 3) for _, _, _, ms in epi['days']]}; attack rate "
+        f"{epi['attack_rate']:.4f}; launches "
+        f"{ {k: v for k, v in got.items() if v} }; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if on_card and epi["route"] == "fused":
+        assert got["fused_draw"] == days, got
+    for k, v in got.items():
+        launches[k] += v
+    # Its days by distribution: the count within Z_LIMIT sd of E[k] where
+    # the float32 kernel draw resolves a cell (its arrival sum's ulp at the
+    # total mass Lam under the smallest cell rate lam); where it does not,
+    # arrivals a ulp apart merge into one cell and the count falls short:
+    # the reference's float32 draw, whose routing (by arena size) the port
+    # keeps (ROADMAP C). Two days drawn again through the per-node route
+    # (float64 arrivals) hold the rule at any size.
+    db, q = epiql_contact_sim.build_population(pop, 75, 6, 0, device=device)
+    plan = QueryEngine(db, device=device).compile(q)
+    dp = plan.draw_params
+    coarse = None
+    if dp is not None:
+        R = dp["w32"].shape[0]
+        ulp = float(np.spacing(np.float32(dp["massE"][R].item())))
+        lam_min = float(dp["lam"][dp["w32"] > 0].min())
+        coarse = (ulp, lam_min) if ulp > lam_min else None
+    E, sd = epi["expected_k"], epi["sd_k"]
+    z = [(k - E) / sd for k in ks]
+    if coarse is None:
+        assert all(abs(x) <= Z_LIMIT for x in z), (z, epi)
+    t0 = time.perf_counter()
+    pernode = [int(plan.sample(threefry.fold_in(threefry.key(42), d),
+                               rep=plan.rep_default).count) for d in range(2)]
+    sync()
+    pernode_ms = (time.perf_counter() - t0) * 1e3 / 2
+    zp = [(k - E) / sd for k in pernode]
+    log(f"[check] M.epiql daily contacts against E[k]: "
+        f"{[round(x, 2) for x in z]} sd on the {epi['route']} route"
+        + ("" if coarse is None else
+           f" (mean {100 * (sum(ks) / len(ks) / E - 1):.2f}%: the float32 "
+           f"draw's resolution, ulp(Lam) {coarse[0]:g} over the smallest "
+           f"cell rate {coarse[1]:.4g}, merges arrivals; held below to its "
+           f"plain pipeline, not to E[k])")
+        + f"; days 0-1 through the per-node route {pernode} "
+        f"({[round(x, 2) for x in zp]} sd, {pernode_ms:.1f} ms a day; held "
+        f"within {Z_LIMIT} sd)")
+    assert all(abs(x) <= Z_LIMIT for x in zp), (zp, pernode)
+    # The route the example takes, held at any size, on day 0 again: its
+    # rows, positions and count bit for bit against the route's plain
+    # version on the card's own tables, and its count against the port's
+    # plain pipeline on the CPU under the same key (its own tables, built
+    # on the CPU) within EPIQL_ROUTE_TOL x E[k]. Tables of the two devices
+    # that round apart by an ulp move arrivals between neighbouring cells
+    # where the float32 draw is coarse: the rows the card drew that the
+    # CPU did not are logged, not held
+    key0 = threefry.fold_in(threefry.key(42), 0)
+    got0 = plan.sample(key0)
+    k0 = int(got0.count)
+    assert k0 == ks[0], (k0, ks)
+    plain0 = "no kernel on the per-node route"
+    if plan.route == "fused":
+        pack = plan.shred.packed
+        rows, pos, cnt, ovf = fd_mod.fused_draw_plain(
+            pack.arena, key0, dp, layout=pack.layout, method=plan.method,
+            cap=plan.default_capacity(), acap=plan.arrival_capacity())
+        assert int(cnt) == k0 and not bool(ovf), (int(cnt), k0)
+        assert torch.equal(got0.positions[:k0], pos[:k0].long()), k0
+        plain0 = f"rows and positions equal its plain version's ({int(cnt)})"
+        del rows, pos
+    cdb, cq = epiql_contact_sim.build_population(pop, 75, 6, 0, device="cpu")
+    # the CPU takes the kernel routes' plain versions only where preferred
+    cplan = QueryEngine(cdb, device="cpu", kernel_policy=KernelPolicy(
+        prefer=plan.route != "pernode")).compile(cq)
+    assert cplan.route == plan.route, (cplan.route, plan.route)
+    want0 = cplan.sample(key0)
+    kc = int(want0.count)
+    cdp = cplan.draw_params
+    table_diff = {} if dp is None or cdp is None else {
+        name: float((dp[name].double().cpu() - cdp[name].double()).abs()
+                    .max()) for name in ("massE", "lam")}
+
+    def pairs(s, k):
+        return (s.columns["per1"][:k].long().cpu() * pop
+                + s.columns["per2"][:k].long().cpu())
+
+    only_card = int((~torch.isin(pairs(got0, k0), pairs(want0, kc))).sum())
+    bound = EPIQL_ROUTE_TOL * E
+    log(f"[check] M.epiql day 0 on the {plan.route} route: {plain0}; "
+        f"{k0} contacts against {kc} on the CPU's plain pipeline (held "
+        f"within {EPIQL_ROUTE_TOL:g} x E[k] = {bound:.1f}); {only_card} rows "
+        f"drawn on the card alone, the tables' largest differences "
+        f"{table_diff} (not held)")
+    assert abs(k0 - kc) <= bound, (k0, kc)
+    del db, plan, dp, cdb, cplan, cdp, got0, want0
+    e2e["epiql"] = dict(epi, z=z, pernode=pernode, pernode_z=zp,
+                        pernode_ms=pernode_ms,
+                        float32_resolution=coarse, day0_cpu=kc,
+                        day0_card_only=only_card, day0_tables=table_diff)
+
+    # the same prompts for every architecture, within the smallest vocabulary
+    cfgs = {a: configs.get_config(a) for a in archs}
+    if reduced:
+        cfgs = {a: configs.reduced(c) for a, c in cfgs.items()}
+    vocab = min(c.vocab for c in cfgs.values())
+    rng = np.random.default_rng(args.seed + 29)
+    lens = rng.integers(prompt[0], prompt[1] + 1, requests)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in lens]
+    check_toks = rng.integers(1, vocab, (2, check_seq))
+    S = int(max(lens))
+    B = len(prompts)
+    total = S + new + 1
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p)
+    toks = toks.to(device)
+
+    def new_requests():
+        return [serve.Request(prompt=list(p), max_new=new) for p in prompts]
+
+    plain_targets = [(dec_mod, "flash_decode_plain"),
+                     (pre_mod, "flash_prefill_plain"),
+                     (ref, "flash_decode_ref"), (ref, "flash_prefill_ref")]
+    route_targets = [(attn_mod, "blockwise_attention")]
+
+    class routes:
+        """Counts ``ops.prefill_attention`` by ``causal`` and
+        ``ops.decode_attention`` by whether a bias masks it (self) or not
+        (memory), and keeps each kind's first and last call (operands,
+        output) when ``keep``."""
+
+        def __init__(self, keep=False):
+            self.keep, self.n, self.calls = keep, {}, {}
+
+        def __enter__(self):
+            self.saved = ops.prefill_attention, ops.decode_attention
+
+            def record(kind, a, kw, out):
+                self.n[kind] = self.n.get(kind, 0) + 1
+                if self.keep:
+                    first, _ = self.calls.get(kind, (None, None))
+                    self.calls[kind] = (first or (a, kw, out), (a, kw, out))
+
+            def prefill_(*a, _fn=self.saved[0], **kw):
+                out = _fn(*a, **kw)
+                record("prefill causal" if kw.get("causal", True)
+                       else "prefill full", a, kw, out)
+                return out
+
+            def decode_(*a, _fn=self.saved[1], **kw):
+                out = _fn(*a, **kw)
+                masked = len(a) > 3 or kw.get("bias") is not None
+                record("decode self" if masked else "decode memory", a, kw,
+                       out)
+                return out
+
+            ops.prefill_attention, ops.decode_attention = prefill_, decode_
+            return self
+
+        def __exit__(self, *exc):
+            ops.prefill_attention, ops.decode_attention = self.saved
+            return False
+
+    def draw_on_host(cfg):
+        t = time.perf_counter()
+        m = init_model(cfg, args.seed, device="cpu", policy=policy)
+        return m, time.perf_counter() - t
+
+    def bias_of(a, kw):
+        """A recorded decode call's bias (zeros for a memory's)."""
+        bias = a[3] if len(a) > 3 else kw.get("bias")
+        if bias is None:
+            bias = torch.zeros((a[0].shape[0], a[1].shape[2]),
+                               dtype=torch.float32, device=a[0].device)
+        return bias
+
+    def plain_of(kind, a, kw):
+        if kind.startswith("prefill"):
+            return pre_mod.flash_prefill_plain(a[0], a[1], a[2],
+                                               kw.get("causal", True))
+        return dec_mod.flash_decode_plain(a[0], a[1], a[2], bias_of(a, kw))
+
+    def serve_arch(arch, cfg, model, out, draw_s, move_s):
+        """One architecture of phase M on ``model``: the main path,
+        the checks, the times; its numbers go into ``out``."""
+        marks = [("start", time.perf_counter())]
+        n_params = sum(p.numel() for p in model.parameters())
+        want = attention_calls(cfg)
+        if not reduced:
+            assert want == ARCH_ROUTES[arch], (arch, want)
+        log(f"[M] {cfg.name}: {cfg.n_layers} layers {cfg.pattern[:6]}"
+            f"{'...' if len(cfg.pattern) > 6 else ''} x {cfg.repeats}"
+            f"{f' + {cfg.enc_layers} encoder' if cfg.has_encoder else ''}"
+            f", d_model {cfg.d_model}, H {cfg.n_heads}, KV "
+            f"{cfg.n_kv_heads}, head dim {cfg.hd}, vocab {cfg.vocab}; "
+            f"{n_params:,} {cfg.param_dtype} parameters (seed "
+            f"{args.seed}) drawn on the host in {draw_s:.1f} s (waited "
+            f"{out['draw_wait_s']:.1f} s for it), moved in {move_s:.1f} s; "
+            f"{cfg.compute_dtype} compute")
+        out.update(params=n_params, draw_s=draw_s, move_s=move_s)
+
+        # -- the main path: serve_batch ------------------------------------
+        reset_counts(kernels)
+        if on_card:
+            before = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        stats = {}
+        with counting_calls(plain_targets) as plain_calls, \
+                counting_calls(route_targets) as blockwise, \
+                routes() as seen:
+            t0 = time.perf_counter()
+            done = serve.serve_batch(arch, new_requests(), seed=args.seed,
+                                     reduced=reduced, params=model,
+                                     stats=stats)
+            sync()
+            cold_s = time.perf_counter() - t0
+        got = launch_counts(kernels)
+        calls = (seen.n.get("prefill causal", 0),
+                 seen.n.get("prefill full", 0),
+                 blockwise["attention.blockwise_attention"],
+                 (seen.n.get("decode self", 0)
+                  + seen.n.get("decode memory", 0)) // new)
+        log(f"[M] {arch} launches "
+            f"{ {k: v for k, v in got.items() if v} }; calls by route "
+            f"{seen.n}, blockwise {calls[2]}; plain attention calls "
+            f"{plain_calls}; instances {window_tiles(kernels)}")
+        assert calls == want, (arch, calls, want)
+        assert sum(seen.n.get(k, 0) for k in ("decode self",
+                                              "decode memory")) \
+            == want[3] * new, (arch, seen.n)
+        if on_card:
+            assert got["flash_prefill"] == want[0] + want[1], got
+            assert got["flash_decode"] == want[3] * new, got
+            assert all(v == 0 for k, v in got.items()
+                       if k not in ("flash_prefill", "flash_decode")), got
+            assert all(v == 0 for v in plain_calls.values()), plain_calls
+            out["peak_bytes"] = int(
+                torch.cuda.max_memory_allocated(device)) - before
+            out["model_bytes"] = before
+        for k, v in got.items():
+            launches[k] += v
+        assert all(len(r.out) == new and
+                   all(0 <= t < cfg.vocab for t in r.out) for r in done)
+        log(f"[M] {arch} served {B} requests (prompts "
+            f"{sorted(int(n) for n in lens)} tokens, padded to {S}; cache "
+            f"{stats['cache_len']}), {new} tokens each, cold in "
+            f"{cold_s:.2f} s; request 0 -> {done[0].out[:8]}")
+        out.update(cold_s=cold_s, launches=got, routes=calls)
+
+        marks.append(("main path", time.perf_counter()))
+        # -- (a) and (b): an architecture without attention layers (rwkv6)
+        # has no kernel on its path, and its two paths are one computation
+        if not any(want):
+            log(f"[check] M {arch}: no attention layer, no kernel route: (a) "
+                "and (b) compare nothing")
+        else:
+            # -- (a) each kernel route's first and last layer; checked builds
+            with torch.no_grad(), routes(keep=True) as rec:
+                mem = serve.batch_memory(model, B)
+                with routing() as routed_k:
+                    logits_k, cache = prefill(model, toks, total, mem)
+                decode_step(model, cache, toks[:, -1:], S)
+            sync()
+            errs = {}
+            for kind, ends in sorted(rec.calls.items()):
+                for end, (a, kw, got_out) in zip(("first", "last"), ends):
+                    err = close(got_out, plain_of(kind, a, kw), BF16_TOL)
+                    name = f"flash_{kind.split()[0]}"
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    log(f"[check] M {arch} {kind} {end} layer on the model's "
+                        f"own q {tuple(a[0].shape)}, k {tuple(a[1].shape)}: "
+                        f"kernel vs plain max_abs_err {err:.3g} (rtol, atol "
+                        f"{BF16_TOL})")
+                if on_card:
+                    # the checked build at the tile the main path resolved
+                    # (ops' ladder, tile_for, at this S), not the builtin
+                    a, kw, _ = ends[0]
+                    t0 = time.perf_counter()
+                    if kind.startswith("prefill"):
+                        tq, tk = autotune.tile_for(
+                            "flash_prefill", a[0].shape[2], model.policy,
+                            device)
+                        tile = (kw.get("block_q") or tq,
+                                kw.get("block_k") or tk)
+                        oob = pre_mod.out_of_bounds(
+                            a[0], a[1], a[2], kw.get("causal", True), *tile)
+                        lib = "flash_prefill_tc_checked"
+                    else:
+                        tile = (kw.get("block_s") or autotune.tile_for(
+                            "flash_decode", a[1].shape[2], model.policy,
+                            device),)
+                        oob = dec_mod.out_of_bounds(a[0], a[1], a[2],
+                                                    bias_of(a, kw), *tile)
+                        lib = "flash_decode_checked"
+                    oob_ms = (time.perf_counter() - t0) * 1e3
+                    err = close(oob["out"], plain_of(kind, a, kw), BF16_TOL)
+                    checked[lib].append(dict(
+                        arch=arch, kind=kind, count=oob["count"],
+                        ms=oob_ms, err=err, tile=list(tile),
+                        shape=[tuple(a[0].shape), tuple(a[1].shape)]))
+                    log(f"[check] M {arch} {lib} at the {kind} shape q "
+                        f"{tuple(a[0].shape)}, k {tuple(a[1].shape)}, "
+                        f"{str(a[0].dtype)[6:]}, tile {tile}: "
+                        f"{oob['count']} accesses outside the operands "
+                        f"{oob['loads'][:4]}; its output vs plain "
+                        f"{err:.3g}")
+                    assert oob["count"] == 0, (arch, kind, oob)
+            assert (rec.n.get("prefill causal", 0),
+                    rec.n.get("prefill full", 0)) == want[:2], rec.n
+            del rec, cache, mem
+            out["attention_errs"] = errs
+
+            # -- (b) the kernel path's prefill logits against the plain path's.
+            # An MoE layer's top-k is not continuous in its input: an ulp of
+            # attention noise flips a near-tie between two experts. For an MoE
+            # model the bound holds with the kernel path's routing replayed in
+            # the plain path; the unpinned error and the flips are reported.
+            # The bound: LM_PATH_TOL, or twice the spread that one bf16 ulp of
+            # noise on a random half of every flash_prefill output gives on the
+            # plain path (the derivation of LM_PATH_TOL at smollm-135m's
+            # widths), where that is larger: the logits' scale and the depth
+            # set it.
+            model.policy = KernelPolicy(enabled=False)
+            try:
+                with torch.no_grad():
+                    mem = serve.batch_memory(model, B)
+                    with routing() as routed_p:
+                        logits_p, _ = prefill(model, toks, total, mem)
+                    replay = routed_k or None
+                    if routed_k:
+                        with routing(replay=replay):
+                            logits_pin, _ = prefill(model, toks, total, mem)
+                    saved = ops.prefill_attention
+                    ops.prefill_attention = ulp_noise(saved, args.seed + 31)
+                    try:
+                        with routing(replay=replay):
+                            logits_n, _ = prefill(model, toks, total, mem)
+                    finally:
+                        ops.prefill_attention = saved
+                    del mem
+            finally:
+                model.policy = policy
+            spread = float((logits_n - logits_p).abs().max())
+            tol = max(LM_PATH_TOL, 2 * spread)
+            out.update(bf16_noise_spread=spread, bf16_path_bound=tol)
+            del logits_n
+            err_path = float((logits_k - logits_p).abs().max())
+            agree = float((logits_k.argmax(-1) == logits_p.argmax(-1)
+                           ).float().mean())
+            sd = float(logits_p.float().std())
+            out.update(bf16_path_err=err_path, bf16_path_argmax_agree=agree,
+                       logits_sd=sd)
+            pinned = ""
+            if routed_k:
+                flips = sum(int((ek.sort(-1).values != ep.sort(-1).values)
+                                .any(-1).sum())
+                            for (_, ek, _), (_, ep, _)
+                            in zip(routed_k, routed_p))
+                err_pin = float((logits_k - logits_pin).abs().max())
+                out.update(bf16_path_err_pinned=err_pin, routing_flips=flips)
+                pinned = (f"; {flips} of {len(routed_k) * B * S} "
+                          "token-layer routings chose other experts on the "
+                          "plain path; with the kernel path's routing "
+                          f"replayed {err_pin:.4g}")
+                del logits_pin
+            log(f"[check] M {arch} bf16 prefill logits, kernel path vs plain "
+                f"path (B {B}, S {S}): max_abs_err {err_path:.4g}{pinned} "
+                f"(bound {tol:.4g}: LM_PATH_TOL {LM_PATH_TOL}, one ulp of "
+                f"attention noise spreads {spread:.4g}; logits' sd {sd:.3f}), "
+                f"argmax agree on {agree:.3f} of the rows")
+            assert out.get("bf16_path_err_pinned", err_path) <= tol, \
+                (arch, out)
+            del logits_k, logits_p, routed_k, routed_p
+
+        marks.append(("(a), (b)", time.perf_counter()))
+        # -- (c) float32: prefill and a decode step against forward ---------
+        if arch in ARCH_F32_CHECK:
+            model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+            gen = torch.Generator(device=device).manual_seed(args.seed)
+            frames = (torch.randn((2, cfg.n_memory_tokens,
+                                   cfg.enc_d_model), generator=gen,
+                                  device=device)
+                      if cfg.has_encoder else None)
+            t2 = torch.as_tensor(check_toks, device=device)
+            Sc = t2.shape[1]
+            try:
+                with torch.no_grad():
+                    mem = serve.batch_memory(model, 2, frames)
+                    lp, c32 = prefill(model, t2, Sc + 2, mem)
+                    lf, _ = forward(model, t2, mem)
+                    err_pre = float((lp[:, 0] - lf[:, -1]).abs().max())
+                    nxt = lp[:, -1].argmax(-1, keepdim=True)
+                    ld, _ = decode_step(model, c32, nxt, Sc)
+                    del lf, c32
+                    lf2, _ = forward(model, torch.cat([t2, nxt], dim=1),
+                                     mem)
+                    err_dec = float((ld[:, 0] - lf2[:, -1]).abs().max())
+                    del lp, ld, lf2, mem
+            finally:
+                model.cfg = cfg
+            log(f"[check] M {arch} float32 at full width and depth, B 2, "
+                f"S {Sc}{' (random frames)' if frames is not None else ''}"
+                f": prefill's last logits vs forward's max_abs_err "
+                f"{err_pre:.3g}; a decode_step at {Sc} vs forward over "
+                f"{Sc + 1} tokens {err_dec:.3g} (bound {LM_PREFILL_TOL})")
+            assert err_pre <= LM_PREFILL_TOL and \
+                err_dec <= LM_PREFILL_TOL, (arch, err_pre, err_dec)
+            out.update(float32_prefill_err=err_pre,
+                       float32_decode_err=err_dec)
+            sync()
+
+        marks.append(("(c)", time.perf_counter()))
+        # -- times: a warm serve_batch -----------------------------------
+        stats = {}
+        t0 = time.perf_counter()
+        serve.serve_batch(arch, new_requests(), params=model, stats=stats)
+        sync()
+        wall_s = time.perf_counter() - t0
+        dec = stats["decode_ms"]
+        out.update(wall_s=wall_s, prefill_ms=stats["prefill_ms"],
+                   decode_step_mean_ms=sum(dec) / len(dec),
+                   decode_step_ms=dec, tokens_per_s=B * new / wall_s)
+        log(f"[time] M {arch} serve_batch (warm): {wall_s * 1e3:.2f} ms "
+            f"for {B * new} new tokens ({out['tokens_per_s']:.1f} "
+            f"tokens/s); prefill of {B} x {S} {stats['prefill_ms']:.3f} "
+            f"ms; decode step mean {out['decode_step_mean_ms']:.3f} ms "
+            f"(min {min(dec):.3f}, max {max(dec):.3f})"
+            + (f"; peak device memory of the cold run "
+               f"{out['peak_bytes'] / 2**30:.2f} GiB over the "
+               f"{out['model_bytes'] / 2**30:.2f} GiB the model and "
+               "earlier phases hold" if on_card else ""))
+
+        # -- the kernels at this architecture's shapes, beside SDPA --------
+        out["kernel_times"] = arch_kernel_times(
+            args, device, cfg, B, S, total, want, reduced)
+
+        marks.append(("times", time.perf_counter()))
+        # -- --profile: a prefill's and a step's device time by kind -------
+        if on_card and args.profile:
+            kinds = {"blockwise_attention": "blockwise",
+                     "moe_ffn": "moe_dispatch/",
+                     "_ssd_chunked": "scans", "_wkv6_scan": "scans"}
+            with torch.no_grad(), ranged(
+                    [(attn_mod, "blockwise_attention",
+                      "blockwise_attention"),
+                     (moe_mod, "moe_ffn", "moe_ffn"),
+                     (ssm_mod, "_ssd_chunked", "_ssd_chunked"),
+                     (ssm_mod, "_wkv6_scan", "_wkv6_scan")]):
+                mem = serve.batch_memory(model, B)
+                _, cache = prefill(model, toks, total, mem)
+                sync()
+                nxt = toks[:, -1:]
+                windows = {
+                    "prefill": lambda: prefill(model, toks, total, mem),
+                    "decode step": lambda: decode_step(model, cache, nxt,
+                                                       S)}
+                for label, fn in windows.items():
+                    wall = wall_ms(fn, device)
+                    events = profiled(fn, 1).events()
+                    split = profile_by_kind(events, kinds)
+                    busy = sum(split.values())
+                    prof = dict(split, busy_ms=busy, wall_ms=wall,
+                                idle_share=1 - busy / wall)
+                    out[f"profile_{label}"] = prof
+                    log(f"[profile] M {arch} {label}: device busy "
+                        f"{busy:.3f} ms of {wall:.3f} ms warm wall (idle "
+                        f"share {prof['idle_share']:.3f}): "
+                        + ", ".join(f"{k} {v:.3f}"
+                                    for k, v in split.items()))
+                del cache, mem
+        marks.append(("profile", time.perf_counter()))
+        out["seconds"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+        log(f"[M] {arch} in {marks[-1][1] - marks[0][1]:.1f} s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
+
+    class routing:
+        """Records each ``moe.route`` call's (gates, experts, probs) in
+        order; given ``replay`` (such a record), returns its entries in
+        place of the calls' own."""
+
+        def __init__(self, replay=None):
+            self.replay, self.calls = replay, []
+
+        def __enter__(self):
+            self.saved = moe_mod.route
+
+            def route(*a, **kw):
+                self.calls.append(self.saved(*a, **kw))
+                return self.calls[-1] if self.replay is None else \
+                    self.replay[len(self.calls) - 1]
+
+            moe_mod.route = route
+            return self.calls
+
+        def __exit__(self, *exc):
+            moe_mod.route = self.saved
+            return False
+
+    checked = {"flash_prefill_tc_checked": [], "flash_decode_checked": []}
+    # Draws on the host, up to DRAW_WORKERS at once while the host has room
+    # for another model (MemAvailable less the models in flight, less
+    # HOST_RESERVE); the next model to serve is drawn in any case.
+    sizes = {a: 4 * sum(p.numel() for p in init_model(
+        c, device="meta").parameters()) for a, c in cfgs.items()}
+    pool = concurrent.futures.ThreadPoolExecutor(DRAW_WORKERS)
+    drawing, queue = {}, list(archs)
+
+    def refill(need=None):
+        while queue and sum(not f.done() for f in drawing.values()) \
+                < DRAW_WORKERS:
+            flight = sum(sizes[a] for a, f in drawing.items()
+                         if not f.done())
+            room = host_available()
+            if queue[0] != need and (room is None or room - flight
+                                     < sizes[queue[0]] + HOST_RESERVE):
+                return
+            drawing[queue[0]] = pool.submit(draw_on_host, cfgs[queue[0]])
+            queue.pop(0)
+
+    room = host_available()
+    log(f"[M] the models' float32 parameters {sum(sizes.values()) / 2**30:.1f}"
+        f" GiB; the host has "
+        + ("an unknown amount" if room is None else f"{room / 2**30:.1f} GiB")
+        + f" available; {DRAW_WORKERS} draws at most at once")
+    try:
+        for i, arch in enumerate(archs):
+            cfg = cfgs[arch]
+            out = {}
+            t0 = time.perf_counter()
+            refill(need=arch)
+            model, draw_s = drawing.pop(arch).result()
+            out["draw_wait_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            model = model.to(device)
+            sync()
+            move_s = time.perf_counter() - t0
+            refill()
+            try:
+                serve_arch(arch, cfg, model, out, draw_s, move_s)
+                e2e["archs"][arch] = out
+            except Exception:  # the next architecture still runs
+                failures.append(f"{arch}: {traceback.format_exc()}")
+                log(f"[M] {arch} FAILED:\n{failures[-1]}")
+            finally:
+                del model
+                gc_cuda(on_card)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    hwm = proc_bytes("/proc/self/status", "VmHWM")
+    if hwm is not None:
+        log(f"[M] the process's peak resident memory {hwm / 2**30:.1f} GiB")
+        e2e["host_peak_bytes"] = hwm
+    if cli is not None:
+        text, _ = cli.communicate(timeout=600)
+        for line in text.splitlines()[-8:]:
+            log(f"[M.cli] {line}")
+        log(f"[M.cli] python -m repro_torch.launch.serve --mode lm --full "
+            f"--arch gemma3_1b exited {cli.returncode}")
+        assert cli.returncode == 0, text[-2000:]
+        e2e["cli_rc"] = cli.returncode
+    e2e["checked"] = checked
+    assert not failures, "phase M failed for " + "; ".join(
+        f.split(":")[0] for f in failures)
+    return launches, e2e
+
+
+def ulp_noise(fn, seed: int):
+    """``fn`` (an attention wrapper) with each output moved one bf16 ulp
+    up or down on a random half of its elements, from a generator seeded
+    with ``seed`` on the output's device."""
+    import torch
+
+    gens = {}
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        gen = gens.get(out.device)
+        if gen is None:
+            gen = gens[out.device] = torch.Generator(
+                device=out.device).manual_seed(seed)
+        _, e = torch.frexp(out.float())
+        ulp = torch.ldexp(torch.ones_like(out, dtype=torch.float32), e - 8)
+        u = torch.rand(out.shape, generator=gen, device=out.device)
+        step = torch.where(u < 0.25, -1.0, torch.where(u < 0.5, 1.0, 0.0))
+        return (out.float() + step * ulp).to(out.dtype)
+
+    return wrapped
+
+
+def cuda_census(top: int = 8) -> list:
+    """The live CUDA tensors the garbage collector finds, summed by shape
+    and dtype, the largest ``top``: (shape, dtype, count, bytes)."""
+    import collections
+    import gc
+
+    import torch
+
+    gc.collect()
+    count, nbytes = collections.Counter(), collections.Counter()
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            key = (tuple(o.shape), str(o.dtype))
+            count[key] += 1
+            nbytes[key] += o.untyped_storage().nbytes()
+    return [(k[0], k[1], count[k], b) for k, b in nbytes.most_common(top)]
+
+
+def gc_cuda(on_card: bool) -> None:
+    """Collect what was released and return the card's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def profile_by_kind(events, kinds: dict) -> dict:
+    """Device ms of a ``torch.profiler`` trace's kernels by kind: those
+    launched inside a range named in ``kinds`` (label -> kind) count to its
+    kind, except, for a kind ending in ``/``, its matrix products; every
+    other kernel by ``kernel_kind`` (attention kernels, matrix products,
+    the rest)."""
+    from torch.autograd import DeviceType
+
+    spans = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+
+    def kernels(e):
+        return [k for k in e.kernels if k.name not in spans] + [
+            k for c in e.cpu_children for k in kernels(c)]
+
+    split = {"attention": 0.0, "matmul": 0.0, "rest": 0.0}
+    split.update({k.rstrip("/"): 0.0 for k in kinds.values()})
+    for e in events:
+        if is_device_work(e) and e.name not in spans:
+            split[kernel_kind(e.name)] += e.self_device_time_total / 1e3
+    for e in events:
+        kind = kinds.get(e.name)
+        if kind is None or e.device_type != DeviceType.CPU:
+            continue
+        for k in kernels(e):
+            by = kernel_kind(k.name)
+            if kind.endswith("/") and by == "matmul":
+                continue
+            split[by] -= k.duration / 1e3
+            split[kind.rstrip("/")] += k.duration / 1e3
+    return split
+
+
+def arch_kernel_times(args, device, cfg, B: int, S: int, total: int,
+                      want: tuple, reduced: bool) -> list:
+    """Each kernel route of ``cfg`` at its serving shapes on random bf16
+    operands: the wrapper's ms (CUDA events), its device ms (calls queued
+    back to back behind a sleep of the card, ``autotune._default_timer``:
+    the profiler loses events late in a long process), its plain version's
+    ms and error against it (``BF16_TOL``),
+    SDPA's ms (``None`` where SDPA refuses the shape), the bound, and the
+    launches a prefill or a step (``want``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+
+    on_card = device.type == "cuda"
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    M = cfg.n_memory_tokens
+    gen = torch.Generator(device=device).manual_seed(args.seed + 30)
+    dt = torch.bfloat16 if not reduced else torch.float32
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+
+    cases = []
+    if want[0]:
+        cases.append(("prefill causal", S, True, want[0]))
+    if want[1]:
+        cases.append(("prefill full", M, False, want[1]))
+    n_cross = cfg.repeats * cfg.pattern.count("cross")
+    if want[3] - n_cross:
+        cases.append(("decode self", total, None, want[3] - n_cross))
+    if n_cross and M:
+        cases.append(("decode memory", M, None, n_cross))
+    rows = []
+    for kind, T, causal, per in cases:
+        if kind.startswith("prefill"):
+            q, k, v = randn(B, H, T, D), randn(B, KV, T, D), randn(B, KV, T, D)
+            fn = (lambda q=q, k=k, v=v, c=causal:
+                  ops.prefill_attention(q, k, v, causal=c))
+            plain = (lambda q=q, k=k, v=v, c=causal:
+                     pre_mod.flash_prefill_plain(q, k, v, c))
+            lib = (lambda q=q, k=k, v=v, c=causal:
+                   F.scaled_dot_product_attention(q, k, v, is_causal=c,
+                                                  enable_gqa=True))
+            pairs = T * (T + 1) / 2 if causal else T * T
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            nops = 4 * B * H * D * pairs
+        else:
+            q, k, v = randn(B, H, D), randn(B, KV, T, D), randn(B, KV, T, D)
+            bias = (attn_mod.decode_bias(B, T, S, 0, device)
+                    if kind == "decode self" else
+                    torch.zeros((B, T), dtype=torch.float32, device=device))
+            fn = (lambda q=q, k=k, v=v, b=bias:
+                  ops.decode_attention(q, k, v, b))
+            plain = (lambda q=q, k=k, v=v, b=bias:
+                     dec_mod.flash_decode_plain(q, k, v, b))
+            lib = (lambda q=q, k=k, v=v, b=bias:
+                   F.scaled_dot_product_attention(
+                       q[:, :, None], k, v, attn_mask=(b == 0)[:, None, None],
+                       enable_gqa=True))
+            nbytes = 2 * (k.numel() + v.numel() + 2 * q.numel()) \
+                + 4 * bias.numel()
+            nops = 4 * q.numel() * T
+        err = close(fn(), plain(), BF16_TOL if dt == torch.bfloat16
+                    else F32_PREFILL_TOL)
+        b_ms, b_by = bound(nbytes, nops, BF16_TC_OPS_PER_S)
+        row = dict(kind=kind, B=B, H=H, KV=KV, keys=T, D=D, causal=causal,
+                   per=per, err=err,
+                   ms=timed(fn, args.reps, device),
+                   plain_ms=timed(plain, 1, device),
+                   library_ms=library_timed(
+                       lib, args.reps, device,
+                       f"M {cfg.name} {kind} SDPA"),
+                   bound_ms=b_ms, bound_by=b_by,
+                   device_ms=(autotune._default_timer(fn) / 1e3 if on_card
+                              else None))
+        rows.append(row)
+        lib_ms = ("refused" if row["library_ms"] is None
+                  else f"{row['library_ms']:.4f}")
+        dev = ("" if row["device_ms"] is None else
+               f"; device {row['device_ms']:.4f} ms (calls queued behind a "
+               "sleep)")
+        pre = kind.startswith("prefill")
+        log(f"[time] M {cfg.name} {kind}: B {B}, H {H}, KV {KV}, {T} "
+            f"{'queries and keys' if pre else 'keys'}, D {D}: "
+            f"{row['ms']:.4f} ms{dev} (plain {row['plain_ms']:.3f}, SDPA "
+            f"{lib_ms}, bound {b_ms:.4f} by {b_by}); {per} a "
+            f"{'prefill' if pre else 'step'}; error vs plain {err:.3g}")
+        del q, k, v
+    return rows
+
+
+def checked_rows(e2e: dict) -> list:
+    """The kernels line's rows of the checked builds that phase M ran at
+    each architecture's shapes: not on the main path (no launches there);
+    their ms is a checked call's (the ranges set, the launch, the count
+    read back) at the last shape checked, beside the production kernel's
+    plain, bound and SDPA there."""
+    rows = []
+    for name, runs in e2e["checked"].items():
+        if not runs:
+            continue
+        last = runs[-1]
+        at = next(r for r in e2e["archs"][last["arch"]]["kernel_times"]
+                  if r["kind"] == last["kind"])
+        decode = "decode" in name
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "flash_decode.cu" if decode else "flash_prefill_tc.cu"),
+            "replaces": ("src/repro/kernels/flash_decode.py:62" if decode
+                         else "src/repro/kernels/flash_prefill.py:71"),
+            "launches": 0, "max_abs_err": max(r["err"] for r in runs),
+            "ms": last["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at["library_ms"], "tile": None})
+        log(f"[time] {name}: {last['ms']:.4f} ms a checked call at M's "
+            f"{last['arch']} {last['kind']} shape; "
+            f"{sum(r['count'] for r in runs)} accesses outside the operands "
+            f"over {len(runs)} shapes")
+    return rows
+
+
+def archs_summary(e2e: dict) -> dict:
+    """Phase M's figures for one line near the end of the output: each
+    architecture's serving times, peak memory, checks and, with
+    ``--profile``, device time by kind; EpiQL's days; the checked builds'
+    counts."""
+    keys = ("params", "draw_s", "cold_s", "wall_s", "prefill_ms",
+            "decode_step_mean_ms", "tokens_per_s", "peak_bytes",
+            "bf16_path_err", "float32_prefill_err", "float32_decode_err",
+            "profile_prefill", "profile_decode step")
+    out = {a: {k: r[k] for k in keys if k in r}
+           for a, r in e2e["archs"].items()}
+    epi = e2e["epiql"]
+    out["epiql"] = {"join_size": epi["join_size"],
+                    "expected_k": epi["expected_k"],
+                    "k": [k for _, k, _, _ in epi["days"]],
+                    "ms": [ms for _, _, _, ms in epi["days"]]}
+    out["out_of_bounds"] = {name: sum(r["count"] for r in runs)
+                            for name, runs in e2e["checked"].items()}
+    return out
 
 
 # Phase J's gradient bound, set before its first run on the card: the
@@ -4163,7 +5174,8 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
     (the GET and the bsearch bit for bit, with their tile models; the
     attention kernels within phase D's tolerances), and the checked builds
     of the GET and the bf16 prefill at every candidate on their smallest
-    ragged shape, with no access outside the operands."""
+    ragged shape and of the decode (both dtypes) on its ragged shape, with
+    no access outside the operands."""
     import torch
 
     from repro_torch.config import backend_key
@@ -4241,7 +5253,9 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
         layout = packed.layout
         pos = torch.randint(0, n, (TUNE_PROBES,), generator=gen,
                             device=device, dtype=torch.int32)
-        pv = PagedArena.from_packed(packed)
+        # a view of its own, not the one kept with the index
+        # (``from_packed``): A's stacked pages (0.9 GiB) go with it
+        pv = PagedArena(packed.arena, packed.layout)
         stacked, P = pv.stacked()
         sbases = tp_mod.stacked_bases(layout, P)
         for order, pp in (("sorted", torch.sort(pos).values),
@@ -4303,7 +5317,7 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
         return torch.randn(shape, generator=gen, device=device).to(dtype)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    errs, instances, oob_pre = {}, set(), 0
+    errs, instances, oob_pre, oob_dec = {}, set(), 0, 0
     S, Sc = TUNE_SEQ, TUNE_CHECK_SEQ
     for D, (H, KV) in TUNE_WIDTHS.items():
         for dtype, tol_dec, tol_pre in ((bf16, BF16_TOL, BF16_TOL),
@@ -4327,6 +5341,16 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
             log(f"[L.attention] flash_decode {name} D={D} H={H} KV={KV} "
                 f"S={S}, max_abs_err by block_s: {'; '.join(line)} (rtol, "
                 f"atol {tol_dec})")
+            if on_card:
+                # the checked build at every candidate, on the same ragged
+                # operands: each instance's staged addressing
+                for bs in autotune.KERNELS["flash_decode"].candidates:
+                    oob = dec_mod.out_of_bounds(q, k, v, bias, block_s=bs)
+                    assert oob["count"] == 0, (name, D, bs, oob)
+                    close(oob["out"], want, tol_dec)
+                    oob_dec += oob["count"]
+                log(f"[L.attention] flash_decode_checked {name} D={D} S={S} "
+                    f"at every candidate: 0 accesses outside the operands")
             q, k, v = (randn((1, H, S, D), dtype), randn((1, KV, S, D), dtype),
                        randn((1, KV, S, D), dtype))
             for causal in (True, False):
@@ -4367,14 +5391,38 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
     out.update(attention_instances=counts,
                attention_max_abs_err={str(k): v for k, v in errs.items()},
                out_of_bounds={"tree_get_checked": oob_get,
-                              "flash_prefill_tc_checked": oob_pre})
+                              "flash_prefill_tc_checked": oob_pre,
+                              "flash_decode_checked": oob_dec})
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[L] {out['seconds']:.1f} s ({smi})")
     return out
 
 
+def run_with_archs(args, device, kernel_policy=None) -> dict:
+    """``run`` (phases A-L), then phase M once ``run``'s engines, indexes
+    and data are released: the largest model needs the card's memory they
+    hold. Phase M's launches, errors, instances and checked builds join
+    the kernels line."""
+    result = run(args, device, kernel_policy)
+    kernels = result.pop("wrappers")
+    held = result["end_to_end"]["lm"]["held_bytes"]
+    launches, e2e = run_archs(args, device, kernels, kernel_policy,
+                              held=held)
+    result.update(archs=e2e, phase_m_launches=launches)
+    for row in result["kernels"]:
+        name = row["name"]
+        row["launches"] += launches.get(name, 0)
+        if row["tile"] is not None:
+            row["tile"] = MAIN_TILES.get(name, {})
+        for arch in e2e["archs"].values():
+            err = arch.get("attention_errs", {}).get(name, 0.0)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    result["kernels"] += checked_rows(e2e)
+    return result
+
+
 def run(args, device, kernel_policy=None) -> dict:
-    """Every phase after the device check; ``main`` passes the card.
+    """Phases A-L after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
     runs the plain versions: a rehearsal, with no launches to count.)"""
     import numpy as np
@@ -4470,7 +5518,6 @@ def run(args, device, kernel_policy=None) -> dict:
         # the bf16 attention kernels' tensor-core instructions in the SASS
         for name, op in (("flash_prefill_tc", "HGMMA"), ("flash_decode", "HMMA")):
             log(f"[build] {name}: {sass_count(build, name, op)}")
-
     q = JoinQuery((Atom.of("Title", "t", "kind", "p"),
                    Atom.of("Cast", "t", "person"),
                    Atom.of("Comp", "t", "comp")), prob_var="p")
@@ -4982,17 +6029,29 @@ def run(args, device, kernel_policy=None) -> dict:
     e2e["lm"] = e2eI
     for name, err in e2eI["attention_errs"].items():
         errs[name] = max(errs[name], err)
+    if on_card:
+        log(f"[memory] after phase I: "
+            f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB held")
     # -- 7g. phase J: LM training
     launchesJ, e2eJ = run_training(args, device, kernels, kernel_policy)
     e2e["training"] = e2eJ
+    if on_card:
+        log(f"[memory] after phase J: "
+            f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB held")
     # -- 7h. phase K: data parallelism, compression, GPipe, the dry run
     launchesK, e2eK = run_parallel(args, device, kernels)
     e2e["parallel"] = e2eK
+    if on_card:
+        log(f"[memory] after phase K: "
+            f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB held")
     # -- 7i. phase L: tuning (the sweep and every candidate instance), after
     # the main path's windows: its launches count in none of them
     e2e["tuning"] = run_tuning(
         args, device, nvidia_smi_line() if on_card else "cpu", prefA, packA,
         nA)
+    if on_card:
+        log(f"[memory] after phase L: "
+            f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB held")
     for k in kernels:
         launches[k] = (launchesA[k] + launchesB[k] + launchesC[k]
                        + launchesR[k] + launchesD[k]
@@ -5049,7 +6108,7 @@ def run(args, device, kernel_policy=None) -> dict:
             "phase_h_launches": launchesH,
             "phase_i_launches": launchesI,
             "phase_j_launches": launchesJ,
-            "phase_k_launches": launchesK,
+            "phase_k_launches": launchesK, "wrappers": kernels,
             "sizes": {k: {"join": c[2].join_size,
                           "arena": c[2].shred.packed.layout.size,
                           "cap": c[2].default_capacity(),
@@ -5137,12 +6196,13 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     t0 = time.perf_counter()
-    result = run(args, device)
+    result = run_with_archs(args, device)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     if args.json_out:
         out = Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(result, device=smi), indent=1))
+    print("ARCHS " + json.dumps(archs_summary(result["archs"])))
     print("TRAINING " + json.dumps(training_summary(
         result["end_to_end"]["training"])))
     print("PARALLEL " + json.dumps(parallel_summary(

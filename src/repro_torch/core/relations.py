@@ -8,9 +8,12 @@ by the index build rather than compacted, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.config import resolve_device
 
 __all__ = ["Relation", "pack_keys", "dense_keys"]
 
@@ -25,6 +28,10 @@ class Relation:
     columns: Dict[str, torch.Tensor]
 
     @property
+    def attrs(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.columns))
+
+    @property
     def num_rows(self) -> int:
         if not self.columns:
             return 0
@@ -35,6 +42,29 @@ class Relation:
 
     def project(self, attrs: Sequence[str]) -> "Relation":
         return Relation({a: self.columns[a] for a in attrs})
+
+    def rename(self, mapping: Mapping[str, str]) -> "Relation":
+        return Relation({mapping.get(a, a): v for a, v in self.columns.items()})
+
+    def take(self, rows: torch.Tensor) -> "Relation":
+        """Gather rows (positional); rows may repeat (bag semantics)."""
+        return Relation({a: v[rows] for a, v in self.columns.items()})
+
+    def concat(self, other: "Relation") -> "Relation":
+        assert set(self.columns) == set(other.columns)
+        return Relation({a: torch.cat([self.columns[a], other.columns[a]])
+                         for a in self.columns})
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        return {a: v.cpu().numpy() for a, v in self.columns.items()}
+
+    @staticmethod
+    def from_numpy(cols: Mapping[str, np.ndarray], device=None) -> "Relation":
+        """Columns from numpy arrays, on ``device`` (the card by
+        default)."""
+        device = resolve_device(device)
+        return Relation({a: torch.as_tensor(np.asarray(v), device=device)
+                         for a, v in cols.items()})
 
     def validate(self) -> None:
         lens = {v.shape[0] for v in self.columns.values()}

@@ -56,5 +56,13 @@ class CapacityPolicy:
         mean = n * p
         return self.plan(mean, (mean * max(1.0 - p, 0.0)) ** 0.5)
 
+    def flatten_capacity(self, max_shard_join: int) -> int:
+        """Static per-shard probe capacity for a sharded full join: the
+        largest shard's join size, lane-rounded (the reference's; the
+        port's sharded full join concatenates each shard's join at its own
+        size and needs no such cap)."""
+        return estimate.round_up(max(int(max_shard_join), 1),
+                                 self.lane_multiple)
+
 
 DEFAULT_POLICY = CapacityPolicy()

@@ -7,7 +7,7 @@ name carries a digest of every source in ``csrc/``, so an edited source
 is never served by a stale build. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together. ``VARIANTS`` are
 other builds of a source with flags of their own (the checked fused
-draw, bf16 prefill and GET).
+draw, bf16 prefill, GET and decode).
 
 No source links ``libcuda``: ``flash_prefill_tc.cu`` fetches
 ``cuTensorMapEncodeTiled`` at run time through the runtime's entry-point
@@ -41,11 +41,14 @@ SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
 # Other builds of a source, each with its own flags and library: name ->
 # (source, extra nvcc flags). The checked builds hold every load of a launch
 # against its operands (fused_draw.out_of_bounds,
-# flash_prefill.out_of_bounds, tree_probe.out_of_bounds), a measurement.
+# flash_prefill.out_of_bounds, tree_probe.out_of_bounds,
+# flash_decode.out_of_bounds), a measurement.
 VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",)),
             "flash_prefill_tc_checked": ("flash_prefill_tc",
                                          ("-DFPT_CHECK_BOUNDS",)),
-            "tree_get_checked": ("tree_get", ("-DTG_CHECK_BOUNDS",))}
+            "tree_get_checked": ("tree_get", ("-DTG_CHECK_BOUNDS",)),
+            "flash_decode_checked": ("flash_decode",
+                                     ("-DFDT_CHECK_BOUNDS",))}
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -59,6 +59,97 @@
 #include "attention.cuh"
 #include "tensor_core.cuh"
 
+// The checked build (-DFDT_CHECK_BOUNDS; flash_decode.py out_of_bounds):
+// every cp.async source that reads (a copy of 0 bytes reads nothing), every
+// __ldcg and every global load and store of both dtypes' kernels and of the
+// combine kernel is held against the byte ranges of the launch's operands
+// (q, k, v, the bias, the output, the partials and the counters), which the
+// host sets before it (flash_decode_check_set). An access outside them is
+// not made (a copy zero-fills, a load reads 0) but counted, and the first
+// FDT_CHECK_RECORDS are kept as (address, bytes, source line)
+// (flash_decode_check_get). The kernels are otherwise these ones: the same
+// instances, tiles, splits and launch shapes.
+#ifdef FDT_CHECK_BOUNDS
+#define FDT_CHECK_RANGES 10
+#define FDT_CHECK_RECORDS 64
+__device__ unsigned long long fdt_check_lo[FDT_CHECK_RANGES];
+__device__ unsigned long long fdt_check_hi[FDT_CHECK_RANGES];
+__device__ int fdt_check_n;
+__device__ unsigned fdt_check_count;
+__device__ unsigned long long fdt_check_rec[FDT_CHECK_RECORDS][3];
+
+__device__ __noinline__ void fdt_check_fail(const void* p, int bytes,
+                                            int line) {
+  const unsigned k = atomicAdd(&fdt_check_count, 1u);
+  if (k < FDT_CHECK_RECORDS) {
+    fdt_check_rec[k][0] = (unsigned long long)p;
+    fdt_check_rec[k][1] = (unsigned long long)bytes;
+    fdt_check_rec[k][2] = (unsigned long long)line;
+  }
+}
+
+__device__ __forceinline__ bool fdt_check(const void* p, int bytes,
+                                          int line) {
+  const unsigned long long a = (unsigned long long)p;
+  for (int i = 0; i < fdt_check_n; ++i)
+    if (a >= fdt_check_lo[i] && a + bytes <= fdt_check_hi[i]) return true;
+  fdt_check_fail(p, bytes, line);
+  return false;
+}
+
+__device__ __forceinline__ void fdt_checked_cp16(void* dst, const void* src,
+                                                 int n, int line) {
+  cp_async16(dst, src, n == 0 || fdt_check(src, 16, line) ? n : 0);
+}
+__device__ __forceinline__ void fdt_checked_cp4(void* dst, const void* src,
+                                                int n, int line) {
+  cp_async4(dst, src, n == 0 || fdt_check(src, 4, line) ? n : 0);
+}
+template <typename T>
+__device__ __forceinline__ T fdt_checked_ld(const T* p, int line) {
+  return fdt_check(p, sizeof(T), line) ? *p : T();
+}
+template <typename T>
+__device__ __forceinline__ T fdt_checked_ldcg(const T* p, int line) {
+  return fdt_check(p, sizeof(T), line) ? (__ldcg)(p) : T();
+}
+
+#define cp_async16(d, s, n) fdt_checked_cp16((d), (s), (n), __LINE__)
+#define cp_async4(d, s, n) fdt_checked_cp4((d), (s), (n), __LINE__)
+#define __ldcg(p) fdt_checked_ldcg((p), __LINE__)
+#define FDT_LD(p) fdt_checked_ld((p), __LINE__)
+#define FDT_ST(p) fdt_check((p), sizeof(*(p)), __LINE__)
+
+// The operands' byte ranges [lo, hi) of the next launch, and a zero count.
+extern "C" int flash_decode_check_set(const unsigned long long* lo,
+                                      const unsigned long long* hi, int n) {
+  if (n < 0 || n > FDT_CHECK_RANGES) return (int)cudaErrorInvalidValue;
+  const unsigned zero = 0;
+  cudaError_t e = cudaMemcpyToSymbol(fdt_check_lo, lo, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fdt_check_hi, hi, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fdt_check_n, &n, sizeof(int));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(fdt_check_count, &zero, sizeof(unsigned));
+  // landed before the launch, whatever stream it takes
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+
+// The last launch's count of accesses outside the ranges and its records
+// (FDT_CHECK_RECORDS x 3 words), after the launch has finished.
+extern "C" int flash_decode_check_get(unsigned* count,
+                                      unsigned long long* rec) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(count, fdt_check_count, sizeof(unsigned));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(rec, fdt_check_rec, sizeof(fdt_check_rec));
+  return (int)e;
+}
+#else
+#define FDT_LD(p) (*(p))
+#define FDT_ST(p) true
+#endif
+
 #define FD_NEG (-1e30f)  // the reference's initial running max
 #define FD_LN2 0.6931471805599453f
 #define FD_MAX_DEVICES 64
@@ -275,10 +366,11 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_f32_kernel(
       den = __fmaf_rn(e, w_all[w * WSZ + G * LS + G + g], den);
     }
     const long long slot = (head0 + g) * nsplit + split;
-    reinterpret_cast<float4*>(acc_part + slot * D)[f % D4] = num;
+    float4* dst = reinterpret_cast<float4*>(acc_part + slot * D) + f % D4;
+    if (FDT_ST(dst)) *dst = num;
     if (f % D4 == 0) {
-      m_part[slot] = mx;
-      l_part[slot] = den;
+      if (FDT_ST(m_part + slot)) m_part[slot] = mx;
+      if (FDT_ST(l_part + slot)) l_part[slot] = den;
     }
   }
 
@@ -287,7 +379,8 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_f32_kernel(
   __threadfence();  // this block's partials are visible before its ticket
   __syncthreads();
   int* counter = counters + (long long)b * KVH + kvh;
-  if (tid == 0) last_s = atomicAdd(counter, 1) == nsplit - 1;
+  if (tid == 0)
+    last_s = FDT_ST(counter) && atomicAdd(counter, 1) == nsplit - 1;
   __syncthreads();
   if (!last_s) return;
   __threadfence();
@@ -336,11 +429,12 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_f32_kernel(
       for (int s = 0; s < nsplit; ++s) add(s);
     }
     den = fmaxf(den, 1e-30f);
-    reinterpret_cast<float4*>(out + (head0 + g) * D)[f % D4] =
-        make_float4(__fdiv_rn(num.x, den), __fdiv_rn(num.y, den),
-                    __fdiv_rn(num.z, den), __fdiv_rn(num.w, den));
+    float4* dst = reinterpret_cast<float4*>(out + (head0 + g) * D) + f % D4;
+    if (FDT_ST(dst))
+      *dst = make_float4(__fdiv_rn(num.x, den), __fdiv_rn(num.y, den),
+                         __fdiv_rn(num.z, den), __fdiv_rn(num.w, den));
   }
-  if (tid == 0) *counter = 0;
+  if (tid == 0 && FDT_ST(counter)) *counter = 0;
 }
 
 // Grid (H, B), D threads: out = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30)
@@ -358,14 +452,16 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ acc_part,
   const float* m = m_part + head * nsplit;
   const float* l = l_part + head * nsplit;
   float mx = -CUDART_INF_F;
-  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, m[s]);
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, FDT_LD(m + s));
   float num = 0.0f, den = 0.0f;
   for (int s = 0; s < nsplit; ++s) {
-    const float e = expf(m[s] - mx);
-    num = __fmaf_rn(e, acc_part[(head * nsplit + s) * D + d], num);
-    den = __fmaf_rn(e, l[s], den);
+    const float e = expf(FDT_LD(m + s) - mx);
+    num = __fmaf_rn(e, FDT_LD(acc_part + (head * nsplit + s) * D + d), num);
+    den = __fmaf_rn(e, FDT_LD(l + s), den);
   }
-  out[head * D + d] = from_f(__fdiv_rn(num, fmaxf(den, 1e-30f)), (T*)nullptr);
+  if (FDT_ST(out + head * D + d))
+    out[head * D + d] =
+        from_f(__fdiv_rn(num, fmaxf(den, 1e-30f)), (T*)nullptr);
 }
 
 
@@ -583,10 +679,10 @@ __global__ void __launch_bounds__(FDT_THREADS) flash_decode_tc_kernel(
       den = __fadd_rn(den, __fmul_rn(f, row[D + 1]));
     }
     const long long slot = (head0 + g) * nsplit + split;
-    acc_part[slot * D + d] = num;
+    if (FDT_ST(acc_part + slot * D + d)) acc_part[slot * D + d] = num;
     if (d == 0) {
-      m_part[slot] = __fmul_rn(mx, FD_LN2);
-      l_part[slot] = den;
+      if (FDT_ST(m_part + slot)) m_part[slot] = __fmul_rn(mx, FD_LN2);
+      if (FDT_ST(l_part + slot)) l_part[slot] = den;
     }
   }
 }

@@ -32,6 +32,11 @@ padding is needed. The partials (and the float32 kernel's counters, 0
 between launches) live in a scratch per (device, stream), grown as
 needed, so a call allocates nothing but its output.
 
+``out_of_bounds`` runs the checked build (``build.VARIANTS``
+``flash_decode_checked``, ``-DFDT_CHECK_BOUNDS``) once and returns the
+accesses that fall outside q, k, v, the bias, the output, the partials and
+the counters: a measurement, not counted in ``launches``.
+
 The plain version is the dense oracle. It groups q as ``(B, KV_H, G, D)``
 and walks the KV heads, so its float32 temporaries stay one head of the
 cache at a time (no ``repeat_interleave`` of the cache).
@@ -49,7 +54,8 @@ from .autotune import check_value, count_tile
 __all__ = ["HEAD_DIMS", "MAX_GROUP_WIDTH", "MAX_GROUP_TC", "MIN_SPLIT",
            "MIN_SPLIT_F32", "F32_WARPS", "F32_TILE_KEYS", "decode_splits",
            "decode_splits_f32", "split_bounds", "flash_decode_plain",
-           "flash_decode", "TC_INSTANCES", "instance", "decode_config"]
+           "flash_decode", "TC_INSTANCES", "instance", "decode_config",
+           "out_of_bounds", "CHECK_RECORDS"]
 
 HEAD_DIMS = (64, 128, 256)  # the kernels' instances
 MAX_GROUP_WIDTH = 4096    # float32: 128 * FD_LARGE, the most G * D a warp holds
@@ -176,6 +182,17 @@ def flash_decode(q, k, v, bias, block_s=None) -> torch.Tensor:
     if q.dtype not in _ENTRIES:
         raise TypeError(f"flash_decode: the kernels take float32 or bfloat16, "
                         f"got {q.dtype}")
+    nsplit = _splits(q, B, H, KVH, S, D)
+    tk = instance(q.dtype, D, block_s)
+    out = _launch(q, k, v, bias, nsplit, tk)
+    flash_decode.launches += 1
+    count_tile(flash_decode, f"{_DTYPE_NAMES[q.dtype]} D{D} block_s={tk}")
+    return out
+
+
+def _splits(q, B: int, H: int, KVH: int, S: int, D: int) -> int:
+    """The splits of a launch at these shapes on q's card; raises where
+    q.dtype's kernel takes no such shape."""
     G = H // KVH
     fits = G <= MAX_GROUP_TC if q.dtype == torch.bfloat16 else \
         G * D <= MAX_GROUP_WIDTH
@@ -185,14 +202,8 @@ def flash_decode(q, k, v, bias, block_s=None) -> torch.Tensor:
                          f"<= {MAX_GROUP_WIDTH} (float32), and S >= 1; got "
                          f"D={D}, G={G}, S={S}")
     if q.dtype == torch.bfloat16:
-        nsplit = decode_splits(B * KVH, S, _sms(q.device))
-    else:
-        nsplit = decode_splits_f32(B * KVH, S, _sms(q.device), G)
-    tk = instance(q.dtype, D, block_s)
-    out = _launch(q, k, v, bias, nsplit, tk)
-    flash_decode.launches += 1
-    count_tile(flash_decode, f"{_DTYPE_NAMES[q.dtype]} D{D} block_s={tk}")
-    return out
+        return decode_splits(B * KVH, S, _sms(q.device))
+    return decode_splits_f32(B * KVH, S, _sms(q.device), G)
 
 
 flash_decode.launches = 0
@@ -269,3 +280,51 @@ def _launch(q, k, v, bias, nsplit: int, tk: int = 64) -> torch.Tensor:
             del _SCRATCH[(dev.index, stream)]
         build.check(err, entry)
     return out
+
+
+CHECK_RECORDS = 64  # FDT_CHECK_RECORDS: the accesses a checked launch keeps
+
+
+def out_of_bounds(q, k, v, bias, block_s=None) -> dict:
+    """One launch of the checked build on CUDA operands at the tile
+    ``block_s`` (``None`` the builtin), with the splits ``flash_decode``
+    takes and partials of exactly their size, each access held against q,
+    k, v, the bias, the output, the partials (acc, m and l apart) and the
+    float32 kernel's counters: ``{"count": ..., "loads": [(source line,
+    operand, byte offset, the operand's bytes, access bytes), ...], "out":
+    the output}``, the first ``CHECK_RECORDS`` accesses recorded. Not
+    counted in ``launches``."""
+    B, H, KVH, S, D = _shapes(q, k, v, bias)
+    if q.device.type != "cuda" or q.dtype not in _ENTRIES:
+        raise ValueError("out_of_bounds: the checked build runs the kernels "
+                         "on the card, in float32 or bfloat16")
+    block_s = 64 if block_s is None else check_value("flash_decode", block_s)
+    nsplit = _splits(q, B, H, KVH, S, D)
+    tk = instance(q.dtype, D, block_s)
+    lib = "flash_decode_checked"
+    q, k, v, bias = (build.vector_operand(t) for t in (q, k, v, bias))
+    dev, f32 = q.device, torch.float32
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    ml = B * H * nsplit
+    acc = torch.empty(ml * D, dtype=f32, device=dev)
+    m, l = (torch.empty(ml, dtype=f32, device=dev) for _ in range(2))
+    counters = (torch.zeros(B * KVH, dtype=torch.int32, device=dev)
+                if q.dtype == f32 else None)
+    _, entry, argtypes = _ENTRIES[q.dtype]
+    fn = build.entry(lib, entry, argtypes)
+
+    def launch(stream):
+        ptrs = [t.data_ptr() for t in (q, k, v, bias, out, acc, m, l)]
+        if counters is not None:
+            ptrs.append(counters.data_ptr())
+        tile = (tk,) if q.dtype == torch.bfloat16 else ()
+        build.check(fn(*ptrs, B, H, KVH, S, D, nsplit, 1.0 / D ** 0.5,
+                       stream, *tile), entry)
+
+    found = build.checked_run(
+        build.entry(lib, "flash_decode_check_set", [_VP, _VP, _INT]),
+        launch, build.entry(lib, "flash_decode_check_get", [_VP, _VP]),
+        (("q", q), ("k", k), ("v", v), ("bias", bias), ("out", out),
+         ("acc", acc), ("m", m), ("l", l), ("counters", counters)), dev,
+        CHECK_RECORDS)
+    return dict(found, out=out)

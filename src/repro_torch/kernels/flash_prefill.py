@@ -276,9 +276,9 @@ def out_of_bounds(q, k, v, causal: bool = True, block_q=None,
     the tile ``(block_q, block_k)`` (``None`` the builtin's), its output
     stores held against q, k, v and the output: ``{"count": ..., "loads":
     [(source line, operand, byte offset, the operand's bytes, access
-    bytes), ...]}``, the first ``CHECK_RECORDS`` recorded. Raises if the
-    host finds a tensor map whose base and dims are not exactly q's, k's or
-    v's bytes. Not counted in ``launches``."""
+    bytes), ...], "out": the output}``, the first ``CHECK_RECORDS``
+    recorded. Raises if the host finds a tensor map whose base and dims are
+    not exactly q's, k's or v's bytes. Not counted in ``launches``."""
     B, H, KV, S, D = _shapes(q, k, v)
     tile = instance(torch.bfloat16, D, block_q, block_k)
     if q.device.type != "cuda" or q.dtype != torch.bfloat16:
@@ -299,11 +299,12 @@ def out_of_bounds(q, k, v, causal: bool = True, block_q=None,
                                "does not span its operand's bytes")
         build.check(err, entry)
 
-    return build.checked_run(
+    found = build.checked_run(
         build.entry(lib, "flash_prefill_tc_check_set", [_VP, _VP, _INT]),
         launch, build.entry(lib, "flash_prefill_tc_check_get", [_VP, _VP]),
         (("q", q), ("k", k), ("v", v), ("out", out)), q.device,
         CHECK_RECORDS)
+    return dict(found, out=out)
 
 
 # the float32 kernel's ticket per (device index, stream): [next item,

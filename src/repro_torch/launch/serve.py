@@ -39,9 +39,9 @@ from repro_torch.launch.metrics import percentile
 from repro_torch.models import (Transformer, decode_step, encode, init_model,
                                 prefill)
 
-__all__ = ["Request", "serve_batch", "JoinSampleRequest", "MicroBatcher",
-           "Rejected", "UpdateRequest", "serve_fleet", "serve_join_samples",
-           "main"]
+__all__ = ["Request", "batch_memory", "serve_batch", "JoinSampleRequest",
+           "MicroBatcher", "Rejected", "UpdateRequest", "serve_fleet",
+           "serve_join_samples", "main"]
 
 
 @dataclasses.dataclass
@@ -54,6 +54,25 @@ class Request:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def batch_memory(params: Transformer, batch: int,
+                 frames: Optional[torch.Tensor] = None
+                 ) -> Optional[torch.Tensor]:
+    """The memory a batch of ``batch`` requests attends to, as the
+    reference serves it: a cross-attention model's ``n_memory_tokens``
+    zero tokens (B, M, d); an encoder model's encoder over ``frames`` (zero
+    frames (B, M, enc_d) when ``None``); ``None`` for the others."""
+    cfg, dev = params.cfg, params.device
+    if cfg.has_encoder:
+        if frames is None:
+            frames = torch.zeros((batch, cfg.n_memory_tokens,
+                                  cfg.enc_d_model), device=dev)
+        return encode(params, frames)
+    if cfg.n_memory_tokens:
+        return torch.zeros((batch, cfg.n_memory_tokens, cfg.d_model),
+                           device=dev)
+    return None
 
 
 @torch.no_grad()
@@ -92,13 +111,7 @@ def serve_batch(arch: str, requests: List[Request], seed: int = 0,
         toks[i, :len(r.prompt)] = torch.as_tensor(r.prompt, dtype=torch.long)
     toks = toks.to(dev)
 
-    mem = None
-    if cfg.n_memory_tokens and not cfg.has_encoder:
-        mem = torch.zeros((B, cfg.n_memory_tokens, cfg.d_model), device=dev)
-    if cfg.has_encoder:
-        frames = torch.zeros((B, cfg.n_memory_tokens, cfg.enc_d_model),
-                             device=dev)
-        mem = encode(params, frames)
+    mem = batch_memory(params, B)
 
     timed = stats is not None
     if timed:

@@ -58,7 +58,8 @@ from .layers import (Initializer, cast, cross_entropy_loss, dtype_of,
                      shard_batch_seq)
 
 __all__ = ["Block", "Encoder", "Transformer", "init_model", "forward",
-           "loss_fn", "encode", "init_cache", "decode_step", "prefill"]
+           "loss_fn", "encode", "init_cache", "decode_step", "prefill",
+           "ATTENTION_CALLS", "attention_calls"]
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -170,6 +171,30 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device=None,
 # ---------------------------------------------------------------------------
 # Forward (and prefill: the same pass, writing the caches)
 # ---------------------------------------------------------------------------
+
+# A layer's attention calls by block type, as ``_apply_block`` and
+# ``_decode_block`` make them: causal and non-causal
+# ``ops.prefill_attention`` (the flash_prefill kernel) and
+# ``blockwise_attention`` (plain torch: a window or a memory) a prefill,
+# ``ops.decode_attention`` (flash_decode) a decode step. A cross layer
+# attends to itself, then to its memory; an encoder layer attends to its
+# frames both ways; the SSM layers call none.
+ATTENTION_CALLS = {"dense": (1, 0, 0, 1), "moe": (1, 0, 0, 1),
+                   "shared_attn": (1, 0, 0, 1), "local": (0, 0, 1, 1),
+                   "cross": (1, 0, 1, 2), "enc": (0, 1, 0, 0),
+                   "mamba": (0, 0, 0, 0), "rwkv": (0, 0, 0, 0)}
+
+
+def attention_calls(cfg: ModelConfig) -> tuple:
+    """(causal, non-causal, blockwise) calls a prefill and decode calls a
+    step of ``cfg``'s layers (its encoder's too): ``ATTENTION_CALLS``
+    summed."""
+    per = [ATTENTION_CALLS[bt] for _ in range(cfg.repeats)
+           for bt in cfg.pattern]
+    per += [ATTENTION_CALLS["enc"]] * (cfg.enc_layers if cfg.has_encoder
+                                       else 0)
+    return tuple(sum(r[i] for r in per) for i in range(4))
+
 
 def _apply_block(model: Transformer, bp: Block, h, positions, memory,
                  aux: Dict[str, Any], cache: Optional[Dict] = None):

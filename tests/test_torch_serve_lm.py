@@ -48,7 +48,9 @@ def _port_model(arch: str):
 
 
 @pytest.mark.parametrize("arch", ["smollm_135m", "olmoe_1b_7b",
-                                  "zamba2_1p2b"])
+                                  "zamba2_1p2b", "gemma3_1b", "whisper_small",
+                                  "rwkv6_7b", "starcoder2_7b",
+                                  "llama32_vision_11b"])
 def test_serve_batch_equals_the_reference(arch):
     lens, max_new = (5, 11, 8), (6, 4, 6)
     vocab = rc.reduced(rc.get_config(arch)).vocab
