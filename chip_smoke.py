@@ -36,15 +36,18 @@ the GPipe forward over a stage axis and the dry run
 (``launch.dryrun``); then (phase L) tile tuning: ``autotune --check`` on
 the committed ``TUNE_TABLE.json``, a sweep of every kernel's candidate
 tiles on this card into a scratch table, and every candidate instance of
-the five tuned kernels and the float32 attention kernels against its plain
-version at ragged shapes, with the checked GET and bf16 prefill at every
-candidate; then (phase M) EpiQL and the seven architectures that fit the
-card, each at its published config through ``serve_batch`` (its
-attention through ``flash_prefill`` and ``flash_decode``, the checked
-builds of both at each of its shapes), and ``serve --mode lm --full``.
-Phases A-K and M run the tiles the committed table resolves for this
-card; each tuned kernel's ``tile`` in the kernels line counts its
-main-path launches by instance. It builds
+the five tuned kernels and the float32 attention kernels (D 16 too)
+against its plain version at ragged shapes, with the checked GET and bf16
+prefill at every candidate; then (phase M) EpiQL and the seven
+architectures that fit the card, each at its published config through
+``serve_batch`` (its attention through ``flash_prefill`` and
+``flash_decode``, the checked builds of both at each of its shapes), and
+``serve --mode lm --full``; then (phase N) the reduced config of each of
+the ten architectures (head dim 16, float32: the float32 attention
+kernels' D 16 instances), ``serve --mode lm`` with its defaults and a
+reduced ``train``. Phases A-K, M and N run the tiles the committed table
+resolves for this card; each tuned kernel's ``tile`` in the kernels line
+counts its main-path launches by instance. It builds
 every kernel from ``src/repro_torch/kernels/csrc/``, holds each against
 its plain PyTorch version on the card (the GET kernel on A's sorted,
 shuffled and sampled positions, one probe and a ragged last tile; the
@@ -185,8 +188,10 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        1,024, against ``reference_forward`` and the forward
                        pass (``PIPE_TOL``; (8 + 4) x 30 ``flash_prefill``
                        launches). K.dryrun: ``launch.dryrun --all`` on
-                       ``meta`` (every cell, both meshes) and ``--paper``
-                       on the card. Its sizes are constants.
+                       ``meta`` (every cell, both meshes; each record's
+                       collective bytes and dominant roofline term held
+                       present) and ``--paper`` on the card. Its sizes are
+                       constants.
   M  archs             EpiQL (the paper's Example 1.1) at 100,000 people,
                        5 days (the contact join 133 M tuples, a draw a
                        day; day 0 again against its plain version and
@@ -207,6 +212,21 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        ``forward`` (``ARCH_F32_CHECK``); ``serve --mode lm
                        --full --arch gemma3_1b`` in a child process. Its
                        sizes are constants (``ARCH_*``).
+  N  reduced           the ten architectures' reduced configs
+                       (``configs.reduced``: head dim 16, float32, two
+                       repeats of each block type; llama3-405b and
+                       llama4-scout run on the card only here):
+                       ``serve_batch`` of 2 prompts of 8-24 tokens, 8
+                       greedy tokens each, every route's calls as
+                       ``ARCH_ROUTES_N`` and no plain attention call; the
+                       prefill's and every step's logits against the plain
+                       path's, teacher-forced (``LM_PREFILL_TOL``); each
+                       route's first call through the float32 checked
+                       builds; ``serve --mode lm`` with its defaults in a
+                       child process; ``launch.train`` on the reduced
+                       smollm-135m, 3 steps, and its gradients against the
+                       plain route's (``TRAIN_GRAD_TOL``). Its sizes are
+                       constants (``REDUCED_*``).
   D  ops               prefix sums over Cast's 36,244,344 weights (int32,
                        inclusive and exclusive; float32; float64), the
                        float scans bit for bit against ``scan_order`` at
@@ -219,24 +239,26 @@ cardinalities of the Join Order Benchmark's IMDB tables ``title``,
                        float32; prefill attention at llama3-405b widths
                        (train_4k's S = 4,096, causal and full; prefill_32k's
                        S = 32,768, causal, three heads checked), smollm-135m
-                       widths (S = 1,000, ragged, float32 and bf16) and
-                       gemma3-1b widths (D = 256, S = 2,048). bf16 attention
-                       runs the tensor-core kernels, float32 the CUDA-core
-                       ones (timed too).
+                       widths (S = 1,000, ragged, float32 and bf16; the
+                       float32 kernel's checked build there) and gemma3-1b
+                       widths (D = 256, S = 2,048). bf16 attention runs the
+                       tensor-core kernels, float32 the CUDA-core ones
+                       (timed too).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and exits non-zero without one. ``--every-card``
 instead holds the batched draws on each visible card in turn against their
 plain versions (a machine with several cards) and prints ``CARDS {...}``. The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists each kernel's
-launches, agreement and times (the checked builds of phase M too, with no
-main-path launches); the line before that is the card's name and power
-limit as ``nvidia-smi`` reports them, after the ``ARCHS``, ``TRAINING``
-and ``PARALLEL`` summaries.
+launches, agreement and times (the checked builds of phases M and N too,
+with no main-path launches); the line before that is the card's name and
+power limit as ``nvidia-smi`` reports them, after the ``ARCHS``,
+``REDUCED``, ``TRAINING`` and ``PARALLEL`` summaries.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import math
@@ -966,6 +988,20 @@ def run_ops(args, device, kernels, n_join: int):
             f"{h} (KV head {j}): kernel vs plain max_abs_err {err:.3g} "
             f"(rtol, atol {BF16_TOL})")
     del dec, pre, pre32
+    checked_f32 = {}
+    if device.type == "cuda":
+        # the float32 kernel's checked build at the smollm-135m S 1,000 rows
+        for causal in (True, False):
+            oob = pre_mod.out_of_bounds(qs, ks, vs, causal)
+            err = close(oob["out"], pre_mod.flash_prefill_plain(qs, ks, vs,
+                                                                causal),
+                        F32_PREFILL_TOL)
+            log(f"[check] flash_prefill_checked float32 smollm-135m B=2 "
+                f"S=1000 {'causal' if causal else 'full'}: {oob['count']} "
+                f"accesses outside the operands {oob['loads'][:4]}; its "
+                f"output vs plain {err:.3g}")
+            assert oob["count"] == 0, oob
+            checked_f32["causal" if causal else "full"] = oob["count"]
 
     # -- times ------------------------------------------------------------------
     # (the scans at least 50 calls, as in run())
@@ -1085,6 +1121,7 @@ def run_ops(args, device, kernels, n_join: int):
              "prefill_32k": {"S": S32, "ms": ms32, "library_ms": lib32,
                              "bound_ms": b32[0], "bound_by": b32[1],
                              "plain_one_head_ms": plain32_ms},
+             "flash_prefill_checked": checked_f32,
              "float32_ms": {"flash_decode": f32_dec_ms,
                             "flash_prefill": f32_pre_ms,
                             "flash_decode_plain": f32_dec_plain,
@@ -3391,6 +3428,99 @@ class ranged:
         return False
 
 
+class attention_routes:
+    """Counts ``ops.prefill_attention`` by ``causal`` and
+    ``ops.decode_attention`` by whether a bias masks it (self) or not
+    (memory), and keeps each kind's first and last call (operands, output)
+    when ``keep``."""
+
+    def __init__(self, keep=False):
+        self.keep, self.n, self.calls = keep, {}, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.saved = ops, (ops.prefill_attention,
+                                     ops.decode_attention)
+
+        def record(kind, a, kw, out):
+            self.n[kind] = self.n.get(kind, 0) + 1
+            if self.keep:
+                first, _ = self.calls.get(kind, (None, None))
+                self.calls[kind] = (first or (a, kw, out), (a, kw, out))
+
+        def prefill_(*a, _fn=self.saved[0], **kw):
+            out = _fn(*a, **kw)
+            record("prefill causal" if kw.get("causal", True)
+                   else "prefill full", a, kw, out)
+            return out
+
+        def decode_(*a, _fn=self.saved[1], **kw):
+            out = _fn(*a, **kw)
+            record("decode self" if attention_bias(a, kw, None) is not None
+                   else "decode memory", a, kw, out)
+            return out
+
+        ops.prefill_attention, ops.decode_attention = prefill_, decode_
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.prefill_attention, self.ops.decode_attention = self.saved
+        return False
+
+
+_ZEROS = object()
+
+
+def attention_bias(a, kw, missing=_ZEROS):
+    """A recorded ``ops.decode_attention`` call's bias; a memory's (no
+    bias) as zeros, or ``missing`` where that is given."""
+    import torch
+
+    bias = a[3] if len(a) > 3 else kw.get("bias")
+    if bias is None and missing is _ZEROS:
+        bias = torch.zeros((a[0].shape[0], a[1].shape[2]),
+                           dtype=torch.float32, device=a[0].device)
+    return missing if bias is None else bias
+
+
+def attention_plain(kind, a, kw):
+    """The plain version's output of a recorded attention call."""
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+
+    if kind.startswith("prefill"):
+        return pre_mod.flash_prefill_plain(a[0], a[1], a[2],
+                                           kw.get("causal", True))
+    return dec_mod.flash_decode_plain(a[0], a[1], a[2], attention_bias(a, kw))
+
+
+class moe_routing:
+    """Records each ``moe.route`` call's (gates, experts, probs) in order;
+    given ``replay`` (such a record), returns its entries in place of the
+    calls' own."""
+
+    def __init__(self, replay=None):
+        self.replay, self.calls = replay, []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+
+        self.mod, self.saved = moe_mod, moe_mod.route
+
+        def route(*a, **kw):
+            self.calls.append(self.saved(*a, **kw))
+            return self.calls[-1] if self.replay is None else \
+                self.replay[len(self.calls) - 1]
+
+        moe_mod.route = route
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.mod.route = self.saved
+        return False
+
+
 def run_archs(args, device, kernels, kernel_policy=None, *, held=None,
               reduced=False, requests=ARCH_REQUESTS,
               prompt=(ARCH_PROMPT_MIN, ARCH_PROMPT_MAX), new=ARCH_NEW,
@@ -3622,62 +3752,14 @@ def run_archs(args, device, kernels, kernel_policy=None, *, held=None,
                      (ref, "flash_decode_ref"), (ref, "flash_prefill_ref")]
     route_targets = [(attn_mod, "blockwise_attention")]
 
-    class routes:
-        """Counts ``ops.prefill_attention`` by ``causal`` and
-        ``ops.decode_attention`` by whether a bias masks it (self) or not
-        (memory), and keeps each kind's first and last call (operands,
-        output) when ``keep``."""
-
-        def __init__(self, keep=False):
-            self.keep, self.n, self.calls = keep, {}, {}
-
-        def __enter__(self):
-            self.saved = ops.prefill_attention, ops.decode_attention
-
-            def record(kind, a, kw, out):
-                self.n[kind] = self.n.get(kind, 0) + 1
-                if self.keep:
-                    first, _ = self.calls.get(kind, (None, None))
-                    self.calls[kind] = (first or (a, kw, out), (a, kw, out))
-
-            def prefill_(*a, _fn=self.saved[0], **kw):
-                out = _fn(*a, **kw)
-                record("prefill causal" if kw.get("causal", True)
-                       else "prefill full", a, kw, out)
-                return out
-
-            def decode_(*a, _fn=self.saved[1], **kw):
-                out = _fn(*a, **kw)
-                masked = len(a) > 3 or kw.get("bias") is not None
-                record("decode self" if masked else "decode memory", a, kw,
-                       out)
-                return out
-
-            ops.prefill_attention, ops.decode_attention = prefill_, decode_
-            return self
-
-        def __exit__(self, *exc):
-            ops.prefill_attention, ops.decode_attention = self.saved
-            return False
+    routes = attention_routes
 
     def draw_on_host(cfg):
         t = time.perf_counter()
         m = init_model(cfg, args.seed, device="cpu", policy=policy)
         return m, time.perf_counter() - t
 
-    def bias_of(a, kw):
-        """A recorded decode call's bias (zeros for a memory's)."""
-        bias = a[3] if len(a) > 3 else kw.get("bias")
-        if bias is None:
-            bias = torch.zeros((a[0].shape[0], a[1].shape[2]),
-                               dtype=torch.float32, device=a[0].device)
-        return bias
-
-    def plain_of(kind, a, kw):
-        if kind.startswith("prefill"):
-            return pre_mod.flash_prefill_plain(a[0], a[1], a[2],
-                                               kw.get("causal", True))
-        return dec_mod.flash_decode_plain(a[0], a[1], a[2], bias_of(a, kw))
+    bias_of, plain_of = attention_bias, attention_plain
 
     def serve_arch(arch, cfg, model, out, draw_s, move_s):
         """One architecture of phase M on ``model``: the main path,
@@ -3972,28 +4054,7 @@ def run_archs(args, device, kernels, kernel_policy=None, *, held=None,
         log(f"[M] {arch} in {marks[-1][1] - marks[0][1]:.1f} s: "
             + ", ".join(f"{k} {v:.1f}" for k, v in out["seconds"].items()))
 
-    class routing:
-        """Records each ``moe.route`` call's (gates, experts, probs) in
-        order; given ``replay`` (such a record), returns its entries in
-        place of the calls' own."""
-
-        def __init__(self, replay=None):
-            self.replay, self.calls = replay, []
-
-        def __enter__(self):
-            self.saved = moe_mod.route
-
-            def route(*a, **kw):
-                self.calls.append(self.saved(*a, **kw))
-                return self.calls[-1] if self.replay is None else \
-                    self.replay[len(self.calls) - 1]
-
-            moe_mod.route = route
-            return self.calls
-
-        def __exit__(self, *exc):
-            moe_mod.route = self.saved
-            return False
+    routing = moe_routing
 
     checked = {"flash_prefill_tc_checked": [], "flash_decode_checked": []}
     # Draws on the host, up to DRAW_WORKERS at once while the host has room
@@ -4059,6 +4120,347 @@ def run_archs(args, device, kernels, kernel_policy=None, *, held=None,
         e2e["cli_rc"] = cli.returncode
     e2e["checked"] = checked
     assert not failures, "phase M failed for " + "; ".join(
+        f.split(":")[0] for f in failures)
+    return launches, e2e
+
+
+# Phase N: the reduced config (``configs.reduced``: head dim 16, float32,
+# two repeats of each block type, vocabulary 256) of each of the ten
+# architectures, the reference's default for ``serve`` and ``train``, on
+# the float32 attention kernels' D 16 instances. llama3-405b and
+# llama4-scout run on the card only here.
+ARCHS_N = ("smollm_135m", "starcoder2_7b", "gemma3_1b", "llama3_405b",
+           "llama32_vision_11b", "llama4_scout_17b_16e", "olmoe_1b_7b",
+           "whisper_small", "rwkv6_7b", "zamba2_1p2b")
+# each reduced config's attention calls (``attention_calls``): (causal,
+# non-causal, blockwise) a prefill, decodes a step
+ARCH_ROUTES_N = {"smollm_135m": (2, 0, 0, 2), "starcoder2_7b": (2, 0, 0, 2),
+                 "gemma3_1b": (2, 0, 2, 4), "llama3_405b": (2, 0, 0, 2),
+                 "llama32_vision_11b": (4, 0, 2, 6),
+                 "llama4_scout_17b_16e": (2, 0, 0, 2),
+                 "olmoe_1b_7b": (2, 0, 0, 2), "whisper_small": (2, 2, 2, 4),
+                 "rwkv6_7b": (0, 0, 0, 0), "zamba2_1p2b": (2, 0, 0, 2)}
+# phase N's requests: prompts of 8-24 tokens, greedy tokens each; the
+# reduced train's steps (``launch.train``'s defaults otherwise)
+REDUCED_REQUESTS, REDUCED_PROMPT_MIN, REDUCED_PROMPT_MAX = 2, 8, 24
+REDUCED_NEW, REDUCED_TRAIN_STEPS = 8, 3
+
+
+def run_reduced(args, device, kernels, kernel_policy=None, *,
+                train_steps=REDUCED_TRAIN_STEPS) -> tuple:
+    """Phase N: ``serve_batch`` of each architecture's reduced config
+    (``ARCHS_N``), parameters drawn from ``--seed`` on the card, float32:
+    ``REDUCED_REQUESTS`` prompts of ``REDUCED_PROMPT_MIN`` to
+    ``REDUCED_PROMPT_MAX`` tokens, ``REDUCED_NEW`` greedy tokens each; its
+    calls by route against ``ARCH_ROUTES_N``, one ``flash_prefill`` launch a
+    prefill call and one ``flash_decode`` a decode call, no plain attention
+    call. Checks: the prefill's logits and every decode step's, teacher-
+    forced on the kernel path's tokens, on the kernel path against the
+    plain path (``KernelPolicy(enabled=False)``, an MoE model's routing
+    replayed) within ``LM_PREFILL_TOL``; each route's first call through
+    the float32 checked builds (``flash_prefill.out_of_bounds``,
+    ``flash_decode.out_of_bounds``) at the tile the main path resolved,
+    none outside the operands; each kernel at the architecture's shapes
+    beside its plain version and SDPA. Then ``python -m
+    repro_torch.launch.serve --mode lm`` with its defaults in a child
+    process, and ``launch.train.main`` on the reduced smollm-135m for
+    ``train_steps`` steps (one ``flash_prefill`` a layer a step) and its
+    gradients on the kernel route against the plain route's
+    (``TRAIN_GRAD_TOL``). An architecture that fails is logged and the next
+    one runs; the phase then fails. Returns (launches, the numbers)."""
+    import shutil
+    import tempfile
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.config import DEFAULT_POLICY, KernelPolicy
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import flash_decode as dec_mod
+    from repro_torch.kernels import flash_prefill as pre_mod
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import decode_step, init_model, loss_fn, prefill
+    from repro_torch.models.transformer import attention_calls
+
+    on_card = device.type == "cuda"
+    policy = kernel_policy or DEFAULT_POLICY
+    t_phase = time.perf_counter()
+    e2e = {"archs": {}}
+    launches = {k: 0 for k in kernels}
+    checked = {"flash_prefill_checked": [], "flash_decode_checked": []}
+    failures = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gc_cuda(on_card)
+    # the CLI with its defaults (the reduced smollm-135m), in a child
+    # process while the architectures run
+    cli = None
+    if on_card:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+             "lm"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=dict(os.environ, PYTHONPATH=str(
+                Path(__file__).resolve().parent / "src")))
+
+    rng = np.random.default_rng(args.seed + 37)
+    lens = rng.integers(REDUCED_PROMPT_MIN, REDUCED_PROMPT_MAX + 1,
+                        REDUCED_REQUESTS)
+    vocab = min(configs.reduced(configs.get_config(a)).vocab
+                for a in ARCHS_N)
+    prompts = [rng.integers(1, vocab, n).tolist() for n in lens]
+    B, S, new = len(prompts), int(max(lens)), REDUCED_NEW
+    total = S + new + 1
+    toks = torch.zeros((B, S), dtype=torch.long)
+    for i, pr in enumerate(prompts):
+        toks[i, :len(pr)] = torch.as_tensor(pr)
+    toks = toks.to(device)
+    plain_targets = [(dec_mod, "flash_decode_plain"),
+                     (pre_mod, "flash_prefill_plain"),
+                     (ref, "flash_decode_ref"), (ref, "flash_prefill_ref")]
+    bias_of, plain_of = attention_bias, attention_plain
+
+    def path(model, feed=None, replay=None):
+        """The prefill's logits and ``new`` decode steps', each step fed
+        the last one's argmax or ``feed``'s token; the tokens fed, the MoE
+        routing (``replay``'s where given) and each route's first call."""
+        out, fed = [], []
+        with torch.no_grad(), moe_routing(replay) as routed, \
+                attention_routes(keep=True) as seen:
+            mem = serve.batch_memory(model, B)
+            logits, cache = prefill(model, toks, total, mem)
+            out.append(logits)
+            for t in range(new):
+                fed.append(logits[:, -1].argmax(-1, keepdim=True)
+                           if feed is None else feed[t])
+                logits, cache = decode_step(model, cache, fed[-1], S + t)
+                out.append(logits)
+        sync()
+        return out, fed, routed, {k: v[0][:2] for k, v in seen.calls.items()}
+
+    def one(arch):
+        t_arch = time.perf_counter()
+        cfg = configs.reduced(configs.get_config(arch))
+        want = attention_calls(cfg)
+        assert want == ARCH_ROUTES_N[arch], (arch, want)
+        model = init_model(cfg, args.seed, device=device, policy=policy)
+        out = {"params": sum(p.numel() for p in model.parameters())}
+        # -- the main path: serve_batch ------------------------------------
+        reset_counts(kernels)
+        stats = {}
+        with counting_calls(plain_targets) as plain_calls, \
+                counting_calls([(attn_mod, "blockwise_attention")]) as \
+                blockwise, attention_routes() as seen:
+            done = serve.serve_batch(
+                arch, [serve.Request(prompt=list(pr), max_new=new)
+                       for pr in prompts], seed=args.seed, reduced=True,
+                params=model, stats=stats)
+            sync()
+        got = launch_counts(kernels)
+        calls = (seen.n.get("prefill causal", 0),
+                 seen.n.get("prefill full", 0),
+                 blockwise["attention.blockwise_attention"],
+                 (seen.n.get("decode self", 0)
+                  + seen.n.get("decode memory", 0)) // new)
+        log(f"[N] {cfg.name}: {cfg.n_layers} layers {cfg.pattern}, "
+            f"d_model {cfg.d_model}, H {cfg.n_heads}, KV {cfg.n_kv_heads}, "
+            f"head dim {cfg.hd}, {out['params']:,} parameters; launches "
+            f"{ {k: v for k, v in got.items() if v} }; calls by route "
+            f"{seen.n}, blockwise {calls[2]}; plain attention calls "
+            f"{plain_calls}; instances {window_tiles(kernels)}; request 0 "
+            f"-> {done[0].out}")
+        assert calls == want and sum(
+            seen.n.get(k, 0) for k in ("decode self", "decode memory")) \
+            == want[3] * new, (arch, seen.n, calls, want)
+        assert all(len(r.out) == new and
+                   all(0 <= t < cfg.vocab for t in r.out) for r in done)
+        if on_card:
+            assert got["flash_prefill"] == want[0] + want[1], got
+            assert got["flash_decode"] == want[3] * new, got
+            assert all(v == 0 for k, v in got.items()
+                       if k not in ("flash_prefill", "flash_decode")), got
+            assert all(v == 0 for v in plain_calls.values()), plain_calls
+        for k, v in got.items():
+            launches[k] += v
+        out.update(launches=got, prefill_ms=stats["prefill_ms"],
+                   decode_step_mean_ms=sum(stats["decode_ms"])
+                   / len(stats["decode_ms"]))
+        # -- the kernel path against the plain path, teacher-forced --------
+        logits_k, fed, routed, firsts = path(model)
+        model.policy = KernelPolicy(enabled=False)
+        try:
+            logits_p, _, _, _ = path(model, fed, routed or None)
+        finally:
+            model.policy = policy
+        errs = [float((a - b).abs().max()) for a, b in zip(logits_k,
+                                                           logits_p)]
+        log(f"[check] N {arch} float32 logits, kernel path vs plain path "
+            f"(B {B}, S {S}, {new} steps fed the kernel path's tokens"
+            f"{', MoE routing replayed' if routed else ''}): prefill "
+            f"max_abs_err {errs[0]:.3g}, decode steps {max(errs[1:]):.3g} "
+            f"(bound {LM_PREFILL_TOL})")
+        assert max(errs) <= LM_PREFILL_TOL, (arch, errs)
+        out.update(prefill_err=errs[0], decode_err=max(errs[1:]))
+        # -- each route's first call through the checked builds -----------
+        for kind, (a, kw) in sorted(firsts.items() if on_card else ()):
+            want_out = plain_of(kind, a, kw)
+            t0 = time.perf_counter()
+            if kind.startswith("prefill"):
+                tile = autotune.tile_for("flash_prefill", a[0].shape[2],
+                                         model.policy, device)
+                err = close(pre_mod.flash_prefill(
+                    a[0], a[1], a[2], kw.get("causal", True), *tile),
+                    want_out, F32_PREFILL_TOL)
+                t0 = time.perf_counter()
+                oob = pre_mod.out_of_bounds(a[0], a[1], a[2],
+                                            kw.get("causal", True), *tile)
+                lib, tol = "flash_prefill_checked", F32_PREFILL_TOL
+            else:
+                tile = (autotune.tile_for("flash_decode", a[1].shape[2],
+                                          model.policy, device),)
+                err = close(dec_mod.flash_decode(
+                    a[0], a[1], a[2], bias_of(a, kw), *tile), want_out,
+                    F32_DECODE_TOL)
+                t0 = time.perf_counter()
+                oob = dec_mod.out_of_bounds(a[0], a[1], a[2],
+                                            bias_of(a, kw), *tile)
+                lib, tol = "flash_decode_checked", F32_DECODE_TOL
+            oob_ms = (time.perf_counter() - t0) * 1e3
+            err_c = close(oob["out"], want_out, tol)
+            checked[lib].append(dict(
+                arch=f"{arch} (reduced)", kind=kind, count=oob["count"],
+                ms=oob_ms, err=err_c, tile=list(tile),
+                shape=[tuple(a[0].shape), tuple(a[1].shape)]))
+            log(f"[check] N {arch} {kind}: q {tuple(a[0].shape)}, k "
+                f"{tuple(a[1].shape)} float32: kernel vs plain {err:.3g}; "
+                f"{lib} at tile {tile}: {oob['count']} accesses outside the "
+                f"operands {oob['loads'][:4]}, its output vs plain "
+                f"{err_c:.3g}")
+            assert oob["count"] == 0, (arch, kind, oob)
+        del firsts
+        # -- the kernels at this architecture's shapes, beside SDPA --------
+        out["kernel_times"] = arch_kernel_times(
+            args, device, cfg, B, S, total, want, True, phase="N")
+        out["attention_errs"] = {}
+        for r in out["kernel_times"]:
+            name = "flash_prefill" if r["kind"].startswith("prefill") \
+                else "flash_decode"
+            out["attention_errs"][name] = max(
+                out["attention_errs"].get(name, 0.0), r["err"])
+        out["seconds"] = time.perf_counter() - t_arch
+        log(f"[N] {arch} in {out['seconds']:.1f} s")
+        return out
+
+    for arch in ARCHS_N:
+        try:
+            e2e["archs"][arch] = one(arch)
+        except Exception:  # the next architecture still runs
+            failures.append(f"{arch}: {traceback.format_exc()}")
+            log(f"[N] {arch} FAILED:\n{failures[-1]}")
+        gc_cuda(on_card)
+
+    # -- launch.train on the reduced config -----------------------------------
+    work = Path(tempfile.mkdtemp(prefix="phase_n_"))
+    try:
+        cfg = configs.reduced(configs.get_config(TRAIN_ARCH))
+        argv = ["--steps", str(train_steps), "--ckpt-dir",
+                str(work / "cli"), "--device", str(device)]
+        t0 = time.perf_counter()
+        reset_counts(kernels)
+        with counting_calls(plain_targets) as plain_calls:
+            trained = train_mod.main(argv)
+            sync()
+        got = launch_counts(kernels)
+        for k, v in got.items():
+            launches[k] += v
+        log(f"[N] launch.train.main({' '.join(argv)}): launches "
+            f"{ {k: v for k, v in got.items() if v} }; plain attention "
+            f"calls {plain_calls}; losses {trained['losses']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        assert len(trained["losses"]) == train_steps and all(
+            math.isfinite(x) for x in trained["losses"])
+        if on_card:
+            runs = 1 if cfg.remat == "none" else 2
+            assert got["flash_prefill"] == runs * cfg.n_layers * \
+                train_steps, got
+            assert got["flash_decode"] == 0, got
+            assert all(v == 0 for v in plain_calls.values()), plain_calls
+        e2e["train"] = {"losses": trained["losses"], "launches": got}
+        del trained
+        # the gradients: the kernel route against the plain route
+        model = init_model(cfg, args.seed, device=device, policy=policy)
+        gen = torch.Generator().manual_seed(args.seed + 38)
+        batch = {k: torch.randint(0, cfg.vocab, (8, 64), generator=gen
+                                  ).to(device)
+                 for k in ("tokens", "targets")}
+
+        def grads():
+            model.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            sync()
+            return {n: p.grad.detach().clone()
+                    for n, p in model.named_parameters()}
+
+        g_k = grads()
+        model.policy = KernelPolicy(enabled=False)
+        g_p = grads()
+        model.policy = policy
+        rel = {n: float((g_k[n] - g_p[n]).norm() / g_p[n].norm())
+               for n in g_p if float(g_p[n].abs().max()) > 0}
+        worst = max(rel.values())
+        log(f"[check] N train gradients of {len(rel)} parameters, kernel "
+            f"route vs plain route (B 8, S 64, float32): largest "
+            f"||g_k - g_p|| / ||g_p|| {worst:.3g} (bound {TRAIN_GRAD_TOL})")
+        assert worst <= TRAIN_GRAD_TOL, sorted(rel.items(),
+                                               key=lambda kv: -kv[1])[:4]
+        e2e["train"]["grad_rel_err"] = worst
+        del model, g_k, g_p
+    except Exception:
+        failures.append(f"train: {traceback.format_exc()}")
+        log(f"[N] launch.train FAILED:\n{failures[-1]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    if cli is not None:
+        text, _ = cli.communicate(timeout=300)
+        for line in text.splitlines()[-6:]:
+            log(f"[N.cli] {line}")
+        log(f"[N.cli] python -m repro_torch.launch.serve --mode lm exited "
+            f"{cli.returncode}")
+        if cli.returncode != 0:
+            failures.append(f"serve --mode lm: exit {cli.returncode}")
+        e2e["cli_rc"] = cli.returncode
+        # its own count of the D 16 kernels' launches: one prefill and
+        # every decode step through them, as the reduced smollm's routes
+        try:
+            line = next(ln for ln in text.splitlines()
+                        if ln.startswith("[serve] kernels "))
+            ran = json.loads(line[len("[serve] kernels "):])
+            routes = ARCH_ROUTES_N["smollm_135m"]
+            want = {"flash_prefill": routes[0] + routes[1],
+                    "flash_decode": routes[3] * ran["decode_steps"]}
+            for k, n in want.items():
+                tiles = ran[k]["instances"]
+                assert ran[k]["launches"] == n and ran["decode_steps"] > 0 \
+                    and tiles and all(t.startswith("float32 D16")
+                                      for t in tiles), (k, n, ran)
+            e2e["cli_kernels"] = ran
+        except Exception:
+            failures.append(f"serve --mode lm kernels: "
+                            f"{traceback.format_exc()}")
+            log(f"[N.cli] FAILED:\n{failures[-1]}")
+    e2e["checked"] = checked
+    e2e["seconds"] = time.perf_counter() - t_phase
+    log(f"[N] {e2e['seconds']:.1f} s")
+    assert not failures, "phase N failed for " + "; ".join(
         f.split(":")[0] for f in failures)
     return launches, e2e
 
@@ -4148,13 +4550,15 @@ def profile_by_kind(events, kinds: dict) -> dict:
 
 
 def arch_kernel_times(args, device, cfg, B: int, S: int, total: int,
-                      want: tuple, reduced: bool) -> list:
+                      want: tuple, reduced: bool, phase: str = "M") -> list:
     """Each kernel route of ``cfg`` at its serving shapes on random bf16
-    operands: the wrapper's ms (CUDA events), its device ms (calls queued
-    back to back behind a sleep of the card, ``autotune._default_timer``:
-    the profiler loses events late in a long process), its plain version's
-    ms and error against it (``BF16_TOL``),
-    SDPA's ms (``None`` where SDPA refuses the shape), the bound, and the
+    operands (float32 for a ``reduced`` config): the wrapper's ms (CUDA
+    events), its device ms (calls queued back to back behind a sleep of
+    the card, ``autotune._default_timer``: the profiler loses events late
+    in a long process), its plain version's ms and error against it
+    (``BF16_TOL``; float32 ``F32_PREFILL_TOL``, ``F32_DECODE_TOL``),
+    SDPA's ms (``None`` where SDPA refuses the shape), the bound (float32:
+    4-byte elements and the rate outside the tensor cores), and the
     launches a prefill or a step (``want``)."""
     import torch
     import torch.nn.functional as F
@@ -4196,7 +4600,8 @@ def arch_kernel_times(args, device, cfg, B: int, S: int, total: int,
                    F.scaled_dot_product_attention(q, k, v, is_causal=c,
                                                   enable_gqa=True))
             pairs = T * (T + 1) / 2 if causal else T * T
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            nbytes = q.element_size() * (2 * q.numel() + k.numel()
+                                         + v.numel())
             nops = 4 * B * H * D * pairs
         else:
             q, k, v = randn(B, H, D), randn(B, KV, T, D), randn(B, KV, T, D)
@@ -4211,19 +4616,21 @@ def arch_kernel_times(args, device, cfg, B: int, S: int, total: int,
                    F.scaled_dot_product_attention(
                        q[:, :, None], k, v, attn_mask=(b == 0)[:, None, None],
                        enable_gqa=True))
-            nbytes = 2 * (k.numel() + v.numel() + 2 * q.numel()) \
-                + 4 * bias.numel()
+            nbytes = q.element_size() * (k.numel() + v.numel()
+                                         + 2 * q.numel()) + 4 * bias.numel()
             nops = 4 * q.numel() * T
-        err = close(fn(), plain(), BF16_TOL if dt == torch.bfloat16
-                    else F32_PREFILL_TOL)
-        b_ms, b_by = bound(nbytes, nops, BF16_TC_OPS_PER_S)
+        bf16 = dt == torch.bfloat16
+        err = close(fn(), plain(), BF16_TOL if bf16 else F32_PREFILL_TOL
+                    if kind.startswith("prefill") else F32_DECODE_TOL)
+        b_ms, b_by = bound(nbytes, nops, BF16_TC_OPS_PER_S if bf16
+                           else SCALAR_OPS_PER_S)
         row = dict(kind=kind, B=B, H=H, KV=KV, keys=T, D=D, causal=causal,
                    per=per, err=err,
                    ms=timed(fn, args.reps, device),
                    plain_ms=timed(plain, 1, device),
                    library_ms=library_timed(
                        lib, args.reps, device,
-                       f"M {cfg.name} {kind} SDPA"),
+                       f"{phase} {cfg.name} {kind} SDPA"),
                    bound_ms=b_ms, bound_by=b_by,
                    device_ms=(autotune._default_timer(fn) / 1e3 if on_card
                               else None))
@@ -4234,7 +4641,7 @@ def arch_kernel_times(args, device, cfg, B: int, S: int, total: int,
                f"; device {row['device_ms']:.4f} ms (calls queued behind a "
                "sleep)")
         pre = kind.startswith("prefill")
-        log(f"[time] M {cfg.name} {kind}: B {B}, H {H}, KV {KV}, {T} "
+        log(f"[time] {phase} {cfg.name} {kind}: B {B}, H {H}, KV {KV}, {T} "
             f"{'queries and keys' if pre else 'keys'}, D {D}: "
             f"{row['ms']:.4f} ms{dev} (plain {row['plain_ms']:.3f}, SDPA "
             f"{lib_ms}, bound {b_ms:.4f} by {b_by}); {per} a "
@@ -4244,11 +4651,15 @@ def arch_kernel_times(args, device, cfg, B: int, S: int, total: int,
 
 
 def checked_rows(e2e: dict) -> list:
-    """The kernels line's rows of the checked builds that phase M ran at
-    each architecture's shapes: not on the main path (no launches there);
+    """The kernels line's rows of the checked builds that phases M and N
+    ran at each architecture's shapes: not on the main path (no launches
+    there);
     their ms is a checked call's (the ranges set, the launch, the count
     read back) at the last shape checked, beside the production kernel's
     plain, bound and SDPA there."""
+    sources = {"flash_prefill_tc_checked": "flash_prefill_tc.cu",
+               "flash_prefill_checked": "flash_prefill.cu",
+               "flash_decode_checked": "flash_decode.cu"}
     rows = []
     for name, runs in e2e["checked"].items():
         if not runs:
@@ -4259,16 +4670,15 @@ def checked_rows(e2e: dict) -> list:
         decode = "decode" in name
         rows.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/" + (
-                "flash_decode.cu" if decode else "flash_prefill_tc.cu"),
+            "source": "src/repro_torch/kernels/csrc/" + sources[name],
             "replaces": ("src/repro/kernels/flash_decode.py:62" if decode
                          else "src/repro/kernels/flash_prefill.py:71"),
             "launches": 0, "max_abs_err": max(r["err"] for r in runs),
             "ms": last["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
             "library_ms": at["library_ms"], "tile": None})
-        log(f"[time] {name}: {last['ms']:.4f} ms a checked call at M's "
-            f"{last['arch']} {last['kind']} shape; "
+        log(f"[time] {name}: {last['ms']:.4f} ms a checked call at "
+            f"{last['arch']}'s {last['kind']} shape; "
             f"{sum(r['count'] for r in runs)} accesses outside the operands "
             f"over {len(runs)} shapes")
     return rows
@@ -4292,6 +4702,21 @@ def archs_summary(e2e: dict) -> dict:
                     "ms": [ms for _, _, _, ms in epi["days"]]}
     out["out_of_bounds"] = {name: sum(r["count"] for r in runs)
                             for name, runs in e2e["checked"].items()}
+    return out
+
+
+def reduced_summary(e2e: dict) -> dict:
+    """Phase N's figures for one line near the end of the output: each
+    architecture's prefill and step ms and its kernel-vs-plain path
+    errors, the reduced train's losses and gradient error, the CLI's exit
+    code, the checked builds' counts and the phase's seconds."""
+    keys = ("prefill_ms", "decode_step_mean_ms", "prefill_err",
+            "decode_err")
+    out = {a: {k: r[k] for k in keys} for a, r in e2e["archs"].items()}
+    out.update(train=e2e.get("train"), cli_rc=e2e.get("cli_rc"),
+               seconds=e2e["seconds"], out_of_bounds={
+                   name: sum(r["count"] for r in runs)
+                   for name, runs in e2e["checked"].items()})
     return out
 
 
@@ -4758,7 +5183,7 @@ PIPE_TOL = 2.0 ** -8
 def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                  steps=DP_STEPS, stages=PIPE_STAGES, micro=PIPE_MICRO,
                  pipe_seq=PIPE_SEQ, reduced=False, dryrun_argv=("--all",),
-                 paper_scale=200_000):
+                 paper_scale=200_000, defer_dryrun=False):
     """Phase K: data parallelism, compression, the GPipe forward and the
     dry run, at smollm-135m's published widths (as J: bf16 compute, remat
     ``"full"``, parameters from ``--seed``).
@@ -4788,8 +5213,13 @@ def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     K.dryrun: ``python -m repro_torch.launch.dryrun`` with
     ``dryrun_argv`` on ``meta`` (a line a cell, a record each) in a child
     process at the lowest priority, started after K.dp's timed run (with
-    ``--profile``, after the profiled step) and joined last; ``--paper``
-    on the card (launches counted).
+    ``--profile``, after the profiled step) and joined last: each cell's
+    collective bytes and dominant roofline term printed, every run cell's
+    record held to carry the reference's five collective types, their
+    total, the collective seconds and a dominant of the three terms;
+    ``--paper`` on the card (launches counted; its gather's bytes). With
+    ``defer_dryrun`` the child is left running and ``e2e["dryrun_pending"]``
+    holds it for ``join_dryrun`` (the caller's, after later phases).
 
     The keywords shrink it for a CPU rehearsal only; on the card it runs at
     the constants. Returns the main paths' launches and the numbers."""
@@ -4829,6 +5259,7 @@ def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     launches = {k: 0 for k in kernels}
     work = Path(tempfile.mkdtemp(prefix="phase_k_"))
     dry = None  # the dry run's child process
+    dry_log = Path(tempfile.mkdtemp(prefix="phase_k_dryrun_")) / "dryrun.log"
     was_deterministic = torch.are_deterministic_algorithms_enabled()
 
     t_phase = time.perf_counter()
@@ -4862,8 +5293,8 @@ def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
 
     def start_dryrun():
         """The dry run in a child process at the lowest priority, its
-        output to ``work / "dryrun.log"``."""
-        with open(work / "dryrun.log", "w") as out:
+        output to ``dry_log``."""
+        with open(dry_log, "w") as out:
             child = subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  *dryrun_argv], stdout=out, stderr=subprocess.STDOUT,
@@ -5073,13 +5504,56 @@ def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 f"entries)", lambda: dryrun.run_paper_cell(
                     multi, scale=paper_scale, device=device))
             assert rec["per_shard_capacity"] > 0 and rec["join_size"] > 0
+            assert rec["collective_total_bytes"] > 0, rec
             paper.append(rec)
         e2e["paper"] = paper
+        e2e["dryrun_pending"] = dict(child=dry, started=t_dry, log=dry_log,
+                                     argv=tuple(dryrun_argv))
+        if defer_dryrun:  # a later failure's exit stops it too
+            atexit.register(stop_child, dry)
+        else:
+            join_dryrun(e2e)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        if "dryrun_pending" not in e2e and dry is not None:
+            # an earlier step failed: the child goes too
+            stop_child(dry)
+            shutil.rmtree(dry_log.parent, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    return launches, e2e
+
+
+def stop_child(child) -> None:
+    """Kill ``child`` (a ``subprocess.Popen``) if it still runs, and reap
+    it."""
+    if child.poll() is None:
+        child.kill()
+        child.wait()
+
+
+def join_dryrun(e2e: dict) -> None:
+    """K.dryrun's end: waits for the child ``run_parallel`` started
+    (``e2e.pop("dryrun_pending")``), logs its lines, holds its records (the
+    state of every run cell fits 80 GB a device; each carries the
+    reference's five collective types, their total, the collective
+    seconds and a dominant of three terms) and adds the figures to
+    phase K's ``e2e``. The child is killed if this fails."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+
+    pending = e2e.pop("dryrun_pending")
+    dry, t_dry, dryrun_argv = (pending["child"], pending["started"],
+                               pending["argv"])
+    try:
         t_wait = time.perf_counter()
         rc = dry.wait(timeout=900)
         waited = time.perf_counter() - t_wait
         dry_s = time.perf_counter() - t_dry
-        for line in (work / "dryrun.log").read_text().splitlines():
+        for line in pending["log"].read_text().splitlines():
             if line.strip():
                 log(f"[K.dryrun] {line}")
         assert rc == 0, rc
@@ -5099,19 +5573,44 @@ def run_parallel(args, device, kernels, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             f"shape_applicable; the child ran {dry_s:.1f} s ({waited:.1f} s "
             f"waited for at the end); every cell's state fits 80 GB a "
             f"device: {all(r['fits_80gb'] for r in run_cells)}; one card "
-            f"alone holds {one} {at()}")
+            f"alone holds {one}")
         assert all(r["fits_80gb"] for r in run_cells)
+        # the collective bytes (launch/comm_cost.py): every run cell's
+        # record carries them, under the reference's names and kinds
+        coll = {}
+        for r in run_cells:
+            roof = r["roofline"]
+            ok = (sorted(r.get("collective_bytes") or ()) ==
+                  sorted(dryrun.COLLECTIVES)
+                  and r.get("collective_total_bytes") is not None
+                  and roof.get("collective_s") is not None
+                  and roof.get("dominant") in ("compute", "memory",
+                                               "collective"))
+            assert ok, r
+            coll[f"{r['arch']} {r['shape']} {r['mesh']}"] = [
+                r["collective_total_bytes"], roof["dominant"]]
+            counted = r["collectives_counted"]
+            log(f"[K.dryrun] {r['arch']} {r['shape']} {r['mesh']}: "
+                f"collective_total_bytes {r['collective_total_bytes']:.4e} "
+                f"a device (collective {roof['collective_s']:.4g} s at "
+                f"{roof['link_bytes_per_s']:.3g} B/s"
+                f"{'; an upper bound' if counted['upper_bound'] else ''}), "
+                f"dominant {roof['dominant']}")
+        dominant = {d: sum(v[1] == d for v in coll.values())
+                    for d in ("compute", "memory", "collective")}
+        log(f"[check] K.dryrun: {len(coll)} run cells carry collective "
+            f"bytes, their total, collective_s and a dominant of three, "
+            f"counted on torch "
+            f"{sorted({r['collectives_counted']['torch'] for r in run_cells})}"
+            f"; "
+            f"cells by dominant term {dominant}; the paper cell's gather "
+            f"{[r['collective_total_bytes'] for r in e2e['paper']]} bytes")
         e2e.update(dryrun_cells=len(run_cells), dryrun_records=len(recs),
-                   dryrun_one_card=one, dryrun_s=dry_s, dryrun_waited_s=waited)
+                   dryrun_one_card=one, dryrun_s=dry_s, dryrun_waited_s=waited,
+                   dryrun_collectives=coll)
     finally:
-        torch.use_deterministic_algorithms(was_deterministic)
-        if dry is not None and dry.poll() is None:
-            dry.kill()
-            dry.wait()
-        shutil.rmtree(work, ignore_errors=True)
-        if on_card:
-            torch.cuda.empty_cache()
-    return launches, e2e
+        stop_child(dry)
+        shutil.rmtree(pending["log"].parent, ignore_errors=True)
 
 
 def parallel_summary(e2e: dict) -> dict:
@@ -5123,14 +5622,15 @@ def parallel_summary(e2e: dict) -> dict:
             "compress_accumulated_over_scale", "pipe_ticks", "pipe_launches",
             "pipe_err_reference", "pipe_err_forward", "pipe_ms",
             "dryrun_cells", "dryrun_records", "dryrun_one_card", "dryrun_s",
-            "dryrun_waited_s", "device")
+            "dryrun_waited_s", "dryrun_collectives", "device")
     out = {k: e2e[k] for k in keys if k in e2e}
     if "profile_step" in e2e:
         out["profile_step"] = {k: e2e["profile_step"][k]
                                for k in ("busy_ms", "idle_share", "wall_ms")}
     out["paper"] = [{k: r[k] for k in ("mesh", "entries", "join_size",
                                        "draw_ms", "peak_device_bytes",
-                                       "per_shard_capacity", "build_s")}
+                                       "per_shard_capacity", "build_s",
+                                       "collective_total_bytes")}
                     for r in e2e.get("paper", [])]
     return out
 
@@ -5144,13 +5644,13 @@ TUNE_CHECK_SEQ = 200  # the checked prefill's smallest ragged S
 # which reach every tree_get instance (2, 4, 8 and 16 slots)
 TUNE_CHAINS = (2, 4, 8, 16)
 # (H, KV) a head dim: smollm-135m, llama3-405b's G = 16 over one KV head,
-# gemma3-1b
-TUNE_WIDTHS = {64: (9, 3), 128: (16, 1), 256: (4, 1)}
+# gemma3-1b; at D 16 (float32 only) llama3-405b's reduced config
+TUNE_WIDTHS = {64: (9, 3), 128: (16, 1), 256: (4, 1), 16: (16, 1)}
 # tree_get_kernel, bsearch_probe_kernel, flash_decode_tc_kernel,
 # flash_prefill_tc_kernel and flash_prefill_kernel instances each build
 # holds (the tuning's candidates at every tree size and head dim)
 TUNE_INSTANCES = {"tree_get": 15, "bsearch_probe": 4, "flash_decode": 6,
-                  "flash_prefill_tc": 10, "flash_prefill": 4}
+                  "flash_prefill_tc": 10, "flash_prefill": 5}
 
 
 def chain_tables(relations: int, seed: int):
@@ -5323,6 +5823,8 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
         for dtype, tol_dec, tol_pre in ((bf16, BF16_TOL, BF16_TOL),
                                         (f32, F32_DECODE_TOL,
                                          F32_PREFILL_TOL)):
+            if D not in pre_mod.HEAD_DIMS[dtype]:
+                continue
             name = "bf16" if dtype == bf16 else "float32"
             q, k, v = (randn((2, H, D), dtype), randn((2, KV, S, D), dtype),
                        randn((2, KV, S, D), dtype))
@@ -5369,7 +5871,7 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
                     f"S={S} {'causal' if causal else 'full'}, max_abs_err by "
                     f"tile (instance): {'; '.join(line)} (rtol, atol "
                     f"{tol_pre})")
-        if on_card:
+        if on_card and D in pre_mod.HEAD_DIMS[bf16]:
             q, k, v = (randn((1, H, Sc, D), bf16), randn((1, KV, Sc, D), bf16),
                        randn((1, KV, Sc, D), bf16))
             for cand in autotune.KERNELS["flash_prefill"].candidates:
@@ -5384,7 +5886,7 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
     counts = {f"{k} {d}": len(v) for (k, d), v in sorted(by_kernel.items())}
     log(f"[L.attention] instances reached: {counts}")
     assert counts == {"flash_decode bf16": TUNE_INSTANCES["flash_decode"],
-                      "flash_decode float32": 3,
+                      "flash_decode float32": 4,
                       "flash_prefill bf16": TUNE_INSTANCES["flash_prefill_tc"],
                       "flash_prefill float32":
                           TUNE_INSTANCES["flash_prefill"]}, counts
@@ -5401,30 +5903,50 @@ def run_tuning(args, device, smi: str, prefA, packA, nA: int) -> dict:
 def run_with_archs(args, device, kernel_policy=None) -> dict:
     """``run`` (phases A-L), then phase M once ``run``'s engines, indexes
     and data are released: the largest model needs the card's memory they
-    hold. Phase M's launches, errors, instances and checked builds join
-    the kernels line."""
-    result = run(args, device, kernel_policy)
+    hold; then phase N, and then the end of phase K's dry run, whose child
+    runs on the host meanwhile (``join_dryrun``). Phases M's and N's
+    launches, errors, instances and checked builds join the kernels
+    line."""
+    result = run(args, device, kernel_policy, defer_dryrun=True)
     kernels = result.pop("wrappers")
     held = result["end_to_end"]["lm"]["held_bytes"]
-    launches, e2e = run_archs(args, device, kernels, kernel_policy,
-                              held=held)
-    result.update(archs=e2e, phase_m_launches=launches)
+    parallel = result["end_to_end"]["parallel"]
+    try:
+        launches, e2e = run_archs(args, device, kernels, kernel_policy,
+                                  held=held)
+        launchesN, e2eN = run_reduced(args, device, kernels, kernel_policy)
+    except BaseException:
+        stop_child(parallel.pop("dryrun_pending")["child"])
+        raise
+    join_dryrun(parallel)
+    result.update(archs=e2e, phase_m_launches=launches, reduced=e2eN,
+                  phase_n_launches=launchesN)
     for row in result["kernels"]:
         name = row["name"]
-        row["launches"] += launches.get(name, 0)
+        row["launches"] += launches.get(name, 0) + launchesN.get(name, 0)
         if row["tile"] is not None:
             row["tile"] = MAIN_TILES.get(name, {})
-        for arch in e2e["archs"].values():
+        for arch in list(e2e["archs"].values()) + list(
+                e2eN["archs"].values()):
             err = arch.get("attention_errs", {}).get(name, 0.0)
             row["max_abs_err"] = max(row["max_abs_err"], err)
-    result["kernels"] += checked_rows(e2e)
+    # the checked builds of both phases; N's architectures by their
+    # reduced names
+    both = {"archs": dict(e2e["archs"], **{
+        f"{a} (reduced)": r for a, r in e2eN["archs"].items()}),
+        "checked": dict(e2e["checked"])}
+    for name, runs in e2eN["checked"].items():
+        both["checked"][name] = both["checked"].get(name, []) + runs
+    result["kernels"] += checked_rows(both)
     return result
 
 
-def run(args, device, kernel_policy=None) -> dict:
+def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
     """Phases A-L after the device check; ``main`` passes the card.
     (On the CPU, with ``KernelPolicy(prefer=True)``, the same control flow
-    runs the plain versions: a rehearsal, with no launches to count.)"""
+    runs the plain versions: a rehearsal, with no launches to count.)
+    ``defer_dryrun`` leaves K's dry-run child running for the caller's
+    ``join_dryrun``."""
     import numpy as np
     import torch
 
@@ -6039,7 +6561,8 @@ def run(args, device, kernel_policy=None) -> dict:
         log(f"[memory] after phase J: "
             f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB held")
     # -- 7h. phase K: data parallelism, compression, GPipe, the dry run
-    launchesK, e2eK = run_parallel(args, device, kernels)
+    launchesK, e2eK = run_parallel(args, device, kernels,
+                                   defer_dryrun=defer_dryrun)
     e2e["parallel"] = e2eK
     if on_card:
         log(f"[memory] after phase K: "
@@ -6203,6 +6726,7 @@ def main(argv=None) -> int:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(result, device=smi), indent=1))
     print("ARCHS " + json.dumps(archs_summary(result["archs"])))
+    print("REDUCED " + json.dumps(reduced_summary(result["reduced"])))
     print("TRAINING " + json.dumps(training_summary(
         result["end_to_end"]["training"])))
     print("PARALLEL " + json.dumps(parallel_summary(

@@ -23,8 +23,10 @@ contract:
     PYTHONPATH=src python -m repro_torch.examples.train_lm_joinsampled \\
         --device cpu
 
-On the card (the default device), ``--full`` trains smollm-135m at its
-published widths. Plain training (no kill/resume verification):
+On the card (the default device) it trains the reduced config too (the
+float32 prefill kernel's D 16 instance), and ``--full`` trains
+smollm-135m at its published widths. Plain training (no kill/resume
+verification):
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm_joinsampled \\
         --train-only --steps 300 --full

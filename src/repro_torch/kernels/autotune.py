@@ -54,7 +54,11 @@ at or below it on each axis (``flash_decode.instance``,
 decode takes stages of at most 256 / 128 / 64 keys at D 64 / 128 / 256,
 and the float32 kernels (swept through the same row, since attention is
 tuned in bf16) keep 64 query rows an item, keys tiles of at most 128 / 64
-/ 32 and stages of 4096 / D keys. So each builtin default above, one value
+/ 32 at D 64 / 128 / 256 and of 64 at D 16 (the reduced configs' head
+dim, float32 only), and stages of 4096 / D keys, at most 128. A D 16
+instance has no row of its own: it resolves from the table like any other
+head dim (the ``default`` entry where the card's entry has no row). So
+each builtin default above, one value
 a kernel, resolves to the tile each head dim and dtype had before tuning:
 ``_normalize`` writes a default down as that one value, checked like any
 other.

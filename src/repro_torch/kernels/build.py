@@ -7,7 +7,7 @@ name carries a digest of every source in ``csrc/``, so an edited source
 is never served by a stale build. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together. ``VARIANTS`` are
 other builds of a source with flags of their own (the checked fused
-draw, bf16 prefill, GET and decode).
+draw, bf16 and float32 prefill, GET and decode).
 
 No source links ``libcuda``: ``flash_prefill_tc.cu`` fetches
 ``cuTensorMapEncodeTiled`` at run time through the runtime's entry-point
@@ -48,7 +48,9 @@ VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",)),
                                          ("-DFPT_CHECK_BOUNDS",)),
             "tree_get_checked": ("tree_get", ("-DTG_CHECK_BOUNDS",)),
             "flash_decode_checked": ("flash_decode",
-                                     ("-DFDT_CHECK_BOUNDS",))}
+                                     ("-DFDT_CHECK_BOUNDS",)),
+            "flash_prefill_checked": ("flash_prefill",
+                                      ("-DFP_CHECK_BOUNDS",))}
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}

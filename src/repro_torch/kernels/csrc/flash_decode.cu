@@ -37,17 +37,18 @@
 //     64 of a tile, one online-softmax step each. P goes to the P . V
 //     product as hi + lo, two bf16 fragments, so it carries p to ~2^-16
 //     (the bytes bound leaves the tensor cores idle);
-//   * float32: stages of 32 KB of K and V (4096 / D keys), FD_STAGES deep,
-//     so that a split of phase D's shape (64 keys) is in flight at once and
-//     two blocks share an SM. A warp's quarter of a tile: in Q . K^T each
-//     key takes 32 / (keys a warp) lanes, which hold its K row in registers
-//     and sum their slices of each dot by shuffles; the softmax runs a lane
-//     a head over the warp's keys; in P . V a lane owns float4 columns of
-//     the group's G x D output. The last block of each (batch row, KV head)
-//     to finish, found by an atomic ticket after a __threadfence that
-//     publishes its partials, merges the splits as the combine kernel does
-//     and resets its counter. Partials and counters live in a scratch that
-//     the wrapper keeps per (device, stream).
+//   * float32: stages of 32 KB of K and V (4096 / D keys; at D = 16, 128
+//     keys, 16 KB, so that a warp's 32 keys give each lane one), FD_STAGES
+//     deep, so that a split of phase D's shape (64 keys) is in flight at
+//     once and two blocks share an SM. A warp's quarter of a tile: in
+//     Q . K^T each key takes 32 / (keys a warp) lanes, which hold its K row
+//     in registers and sum their slices of each dot by shuffles; the
+//     softmax runs a lane a head over the warp's keys; in P . V a lane owns
+//     float4 columns of the group's G x D output. The last block of each
+//     (batch row, KV head) to finish, found by an atomic ticket after a
+//     __threadfence that publishes its partials, merges the splits as the
+//     combine kernel does and resets its counter. Partials and counters
+//     live in a scratch that the wrapper keeps per (device, stream).
 //
 // Online softmax as the reference: m starts at -1e30 (not -inf), so a row
 // whose every key carries the -1e30 mask averages V as the reference does
@@ -165,7 +166,9 @@ extern "C" int flash_decode_check_get(unsigned* count,
 
 template <int D>
 struct FdShape {
-  static constexpr int TK = 4096 / D;        // keys a stage: 32 KB of K and V
+  // keys a stage: 32 KB of K and V, at most a key a lane of each warp
+  static constexpr int TK =
+      4096 / D < 32 * FD_WARPS ? 4096 / D : 32 * FD_WARPS;
   static constexpr int KPW = TK / FD_WARPS;  // keys a warp a tile
   static constexpr int P = 32 / KPW;         // lanes a key in Q . K^T
   static constexpr int D4 = D / 4;
@@ -174,15 +177,21 @@ struct FdShape {
   static constexpr int NK4 = D4 / P;    // float4s of a K row a lane holds
   static constexpr int LS = KPW + 1;    // a head's logits in a warp's tile
   static constexpr int STAGE4 = TK * KS4 + TK * D4 + TK / 4;  // K, V, bias
-  static constexpr int RING = 16 * FD_STAGES * STAGE4;
+  // the stages, or the warps' accumulators at the end where those need
+  // more (D = 16: 56 KB of stages, 64 KB of accumulators at G D = 4096)
+  static constexpr int MERGE = FD_WARPS * 4096 * 4;
+  static constexpr int RING = 16 * FD_STAGES * STAGE4 > MERGE
+                                  ? 16 * FD_STAGES * STAGE4
+                                  : MERGE;
   // bytes for G heads: the ring, q, and each warp's logits, m, l, alpha
   static constexpr int smem(int G) {
     return RING + 16 * G * D4 + 4 * FD_WARPS * G * (LS + 3);
   }
   // the warps' accumulators meet in the ring at the end, then the merge's
   // e and l
-  static_assert(FD_WARPS * 4096 * 4 <= RING, "merge area");
+  static_assert(MERGE <= RING, "merge area");
   static_assert(2 * FD_MERGE_WORDS * 4 <= RING, "merge words");
+  static_assert(P >= 1 && D4 % P == 0, "lanes a key");
 };
 
 // Grid (nsplit, KV_H, B). Partials acc (B, H, nsplit, D), m (base 2) and l
@@ -204,7 +213,7 @@ __global__ void __launch_bounds__(FD_THREADS) flash_decode_f32_kernel(
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int nsplit = gridDim.x, G = H / KVH, GD4 = G * D4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float4* q_s = ring + FD_STAGES * Sh::STAGE4;  // [G][D4]
+  float4* q_s = ring + Sh::RING / 16;  // [G][D4]
   // warp w's logits [G][LS], then its m, l and alpha [G] each
   float* w_all = reinterpret_cast<float*>(q_s + GD4);
   const int WSZ = G * (LS + 3);
@@ -778,7 +787,8 @@ static int fdt_launch(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }
 
 
-// The wrapper checks the shapes: H % KVH == 0, D in {64, 128, 256},
+// The wrapper checks the shapes: H % KVH == 0, D in {64, 128, 256} (and 16
+// in float32),
 // 1 <= nsplit <= S. Partials (16-byte aligned): acc B * H * nsplit * D
 // floats, then m and l B * H * nsplit floats each.
 // float32, CUDA cores: (H / KVH) * D <= 128 * FD_LARGE, (H / KVH) * nsplit
@@ -792,6 +802,9 @@ extern "C" int flash_decode_launch(const float* q, const float* k,
                                    float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 16:
+      return fd_launch<16>(q, k, v, bias, out, acc_part, m_part, l_part,
+                           counters, B, H, KVH, S, nsplit, scale, s);
     case 64:
       return fd_launch<64>(q, k, v, bias, out, acc_part, m_part, l_part,
                            counters, B, H, KVH, S, nsplit, scale, s);

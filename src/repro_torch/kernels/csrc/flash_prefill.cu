@@ -29,12 +29,15 @@
 //     once at the end of the item in shared memory);
 //   * register tiles: in Q . K^T a thread owns TM rows x TN keys of scores
 //     (8 x 8 at D = 64; 4 x 8 at 128 and 4 x 4 at 256, where the output
-//     tile takes the registers) and reads Q and K as float4s, 16 FMAs a
-//     float4 at D = 64; it issues them component by component, so a
-//     score's four FMAs stand 2 TM apart. Q rows are stored with their
+//     tile takes the registers; 4 x 8 at 16) and reads Q and K as float4s,
+//     16 FMAs a float4 at D = 64; it issues them component by component, so
+//     a score's four FMAs stand 2 TM apart. Q rows are stored with their
 //     float4 columns swizzled by row group, K rows padded, so each load
 //     reads distinct bank groups. In P . V it owns TM rows x D / 8 columns
-//     and reads P as float4s from its warp's key-major tile, V as float4s;
+//     and reads P as float4s from its warp's key-major tile, V as float4s.
+//     At D = 16 a row has four float4 columns for its eight lanes: two
+//     lanes share a column, each takes every other key of the tile, and
+//     the pair sums its accumulators by one shuffle at the end of the item;
 //   * the softmax in registers: each score row stays in the 8 lanes that
 //     computed it, row max by shuffles, each lane's share of the row sum
 //     summed once at the end. In base 2, as flash_prefill_tc.cu: blocks
@@ -51,19 +54,95 @@
 //     or not: a padded key never joins the softmax. Query rows past S are
 //     not written.
 // Shared memory: 189 KB at D = 64, 187 KB at 128, 209 KB at 256: one block
-// of four warps an SM; the launch raises the limit with cudaFuncSetAttribute
-// once a card and sizes the grid by the occupancy it then reports.
+// of four warps an SM; 43 KB at 16 (the reduced configs' head dim): five.
+// The launch raises the limit with cudaFuncSetAttribute once a card and
+// sizes the grid by the occupancy it then reports.
 //
 // The tile: FP_BQ query rows an item and BK keys a tile (FpShape<D, BK>).
 // Tuning's (block_q, block_k) selects the instance with the largest BK at
 // or below block_k (flash_prefill.py instance): at D = 64 keys tiles of 128
 // (the builtin) or 64 (four row warps, as at D = 128: 90 KB); at 128 and
-// 256 the one each. Query rows stay FP_BQ: two items' Q would not fit
-// beside the ring.
+// 256 the one each; at 16 keys tiles of 64 (four row warps, 43 KB; 128
+// keys would put 76 KB of P beside 2 stages for no fewer tile steps at the
+// short sequences of the reduced configs). Query rows stay FP_BQ: two
+// items' Q would not fit beside the ring.
 #include <math_constants.h>
 
 #include "attention.cuh"
 #include "tensor_core.cuh"
+
+// The checked build (-DFP_CHECK_BOUNDS; flash_prefill.py out_of_bounds):
+// every cp.async source that reads (a copy of 0 bytes reads nothing), every
+// output store and the ticket's atomics are held against the byte ranges of
+// the launch's operands (q, k, v, the output and the ticket), which the host
+// sets before it (flash_prefill_check_set). An access outside them is not
+// made (a copy zero-fills, a store is dropped) but counted, and the first
+// FP_CHECK_RECORDS are kept as (address, bytes, source line)
+// (flash_prefill_check_get). The kernel is otherwise this one: the same
+// instances, tiles and launch shapes.
+#ifdef FP_CHECK_BOUNDS
+#define FP_CHECK_RANGES 8
+#define FP_CHECK_RECORDS 64
+__device__ unsigned long long fp_check_lo[FP_CHECK_RANGES];
+__device__ unsigned long long fp_check_hi[FP_CHECK_RANGES];
+__device__ int fp_check_n;
+__device__ unsigned fp_check_count;
+__device__ unsigned long long fp_check_rec[FP_CHECK_RECORDS][3];
+
+__device__ __noinline__ void fp_check_fail(const void* p, int bytes,
+                                           int line) {
+  const unsigned k = atomicAdd(&fp_check_count, 1u);
+  if (k < FP_CHECK_RECORDS) {
+    fp_check_rec[k][0] = (unsigned long long)p;
+    fp_check_rec[k][1] = (unsigned long long)bytes;
+    fp_check_rec[k][2] = (unsigned long long)line;
+  }
+}
+
+__device__ __forceinline__ bool fp_check(const void* p, int bytes, int line) {
+  const unsigned long long a = (unsigned long long)p;
+  for (int i = 0; i < fp_check_n; ++i)
+    if (a >= fp_check_lo[i] && a + bytes <= fp_check_hi[i]) return true;
+  fp_check_fail(p, bytes, line);
+  return false;
+}
+
+__device__ __forceinline__ void fp_checked_cp16(void* dst, const void* src,
+                                                int n, int line) {
+  cp_async16(dst, src, n == 0 || fp_check(src, 16, line) ? n : 0);
+}
+
+#define cp_async16(d, s, n) fp_checked_cp16((d), (s), (n), __LINE__)
+#define FP_ST(p) fp_check((p), sizeof(*(p)), __LINE__)
+
+// The operands' byte ranges [lo, hi) of the next launch, and a zero count.
+extern "C" int flash_prefill_check_set(const unsigned long long* lo,
+                                       const unsigned long long* hi, int n) {
+  if (n < 0 || n > FP_CHECK_RANGES) return (int)cudaErrorInvalidValue;
+  const unsigned zero = 0;
+  cudaError_t e = cudaMemcpyToSymbol(fp_check_lo, lo, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fp_check_hi, hi, 8 * n);
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(fp_check_n, &n, sizeof(int));
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(fp_check_count, &zero, sizeof(unsigned));
+  // landed before the launch, whatever stream it takes
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+
+// The last launch's count of accesses outside the ranges and its records
+// (FP_CHECK_RECORDS x 3 words), after the launch has finished.
+extern "C" int flash_prefill_check_get(unsigned* count,
+                                       unsigned long long* rec) {
+  cudaError_t e =
+      cudaMemcpyFromSymbol(count, fp_check_count, sizeof(unsigned));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(rec, fp_check_rec, sizeof(fp_check_rec));
+  return (int)e;
+}
+#else
+#define FP_ST(p) true
+#endif
 
 #define FP_BQ 64            // query rows an item
 #define FP_STAGES 2         // ring depth: one tile in flight while one computes
@@ -90,6 +169,10 @@ template <>
 struct FpShape<256, 32> {
   static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 32;
 };
+template <>
+struct FpShape<16, 64> {
+  static constexpr int ROW_WARPS = 4, KEY_WARPS = 1, BK = 64;
+};
 
 template <int D, int BK_>
 struct FpTile : FpShape<D, BK_> {
@@ -100,8 +183,12 @@ struct FpTile : FpShape<D, BK_> {
   static constexpr int KW = Sh::BK / Sh::KEY_WARPS;  // keys a warp a tile
   static constexpr int TM = RW / 4;                  // rows a thread
   static constexpr int TN = KW / 8;                  // keys a thread
-  static constexpr int TC = D / 32;                  // output float4s a row
   static constexpr int D4 = D / 4;
+  // in P . V a row's 8 lanes own CL float4 columns (8; D4 = 4 at D = 16),
+  // KH lanes a column, each taking every KH-th key; TC float4s a lane
+  static constexpr int CL = D4 < 8 ? D4 : 8;
+  static constexpr int KH = 8 / CL;
+  static constexpr int TC = D4 / CL;
   // Q and K rows: D + 4 floats, so the 8 key lanes of a float4 load sit on
   // distinct 16-byte bank groups; V rows are read one at a time (D floats)
   static constexpr int KS4 = D4 + 1;
@@ -114,6 +201,8 @@ struct FpTile : FpShape<D, BK_> {
   static_assert(Sh::KEY_WARPS == 1 ||
                     FP_BQ * (D + 4) <= 4 * FP_STAGES * STAGE4, "merge area");
   static_assert(TM % 4 == 0, "P^T float4s");
+  static_assert(D4 >= 4 && D4 % CL == 0, "column groups");
+  static_assert(Sh::KEY_WARPS == 1 || KH == 1, "merge columns");
 };
 
 // Item n of the ticket order: query tile T - 1 - n / (H B), then batch row
@@ -183,7 +272,8 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
   using Tl = FpTile<D, BK_>;
   constexpr int BK = Tl::BK, KW = Tl::KW, RW = Tl::RW, TM = Tl::TM,
                 TN = Tl::TN, TC = Tl::TC, D4 = Tl::D4, KS4 = Tl::KS4,
-                PS = Tl::PS, ROW_WARPS = Tl::ROW_WARPS, NT = Tl::THREADS;
+                PS = Tl::PS, ROW_WARPS = Tl::ROW_WARPS, NT = Tl::THREADS,
+                CL = Tl::CL, KH = Tl::KH;
   constexpr float NEG_L2 = FP_NEG * TC_LOG2E;  // -1e30 in base 2
   extern __shared__ float4 smem4[];
   float4* q_s = smem4;                         // [FP_BQ][KS4], swizzled
@@ -194,6 +284,8 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rw = warp % ROW_WARPS, kw = warp / ROW_WARPS;
   const int rg = lane >> 3, cg = lane & 7;  // row group, key / column group
+  // P . V: this lane's float4 columns col + CL c, its keys kp + KH n
+  const int col = KH == 1 ? cg : cg % CL, kp = KH == 1 ? 0 : cg / CL;
   float* p_s = p_all + warp * KW * PS;      // this warp's P^T [KW][PS]
   const int T = (S + FP_BQ - 1) / FP_BQ;
   const int n_items = T * H * B;
@@ -205,7 +297,7 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
 
   for (;;) {
     __syncthreads();  // the previous item's shared memory is consumed
-    if (tid == 0) item_s = atomicAdd(ticket, 1);
+    if (tid == 0) item_s = FP_ST(ticket) ? atomicAdd(ticket, 1) : n_items;
     __syncthreads();
     const int item = item_s;
     if (item >= n_items) break;
@@ -329,9 +421,9 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
 #pragma unroll
         for (int c = 0; c < TC; ++c) acc[i][c] = scale4(acc[i][c], alpha[i]);
       __syncwarp();
-      // acc[i][c] += sum_key p[row i][key] v[key][float4 cg + 8 c]
+      // acc[i][c] += sum_key p[row i][key] v[key][float4 col + CL c]
 #pragma unroll 4
-      for (int kk = 0; kk < KW; ++kk) {
+      for (int kk = kp; kk < KW; kk += KH) {
         float p[TM];
 #pragma unroll
         for (int i = 0; i < TM; i += 4) {
@@ -344,7 +436,7 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
         }
         float4 vv[TC];
 #pragma unroll
-        for (int c = 0; c < TC; ++c) vv[c] = vs[(kb + kk) * D4 + cg + 8 * c];
+        for (int c = 0; c < TC; ++c) vv[c] = vs[(kb + kk) * D4 + col + CL * c];
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -359,19 +451,35 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
       l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 2));
       l[i] = __fadd_rn(l[i], __shfl_xor_sync(0xffffffffu, l[i], 4));
     }
+    // the lanes that share a column add their keys' halves
+    if constexpr (KH > 1) {
+      static_assert(KH == 2, "one shuffle a pair");
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int c = 0; c < TC; ++c) {
+          float4& a = acc[i][c];
+          a.x = __fadd_rn(a.x, __shfl_xor_sync(0xffffffffu, a.x, CL));
+          a.y = __fadd_rn(a.y, __shfl_xor_sync(0xffffffffu, a.y, CL));
+          a.z = __fadd_rn(a.z, __shfl_xor_sync(0xffffffffu, a.z, CL));
+          a.w = __fadd_rn(a.w, __shfl_xor_sync(0xffffffffu, a.w, CL));
+        }
+    }
     float* om = out + ((long long)b * H + h) * S * D;
     if constexpr (Tl::KEY_WARPS == 1) {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const int row = q0 + row0 + i;
-        if (row >= S) continue;
+        if (row >= S || kp != 0) continue;
         const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
         for (int c = 0; c < TC; ++c) {
           const float4 a = acc[i][c];
-          *reinterpret_cast<float4*>(om + (long long)row * D + (cg + 8 * c) * 4) =
-              make_float4(__fdiv_rn(a.x, den), __fdiv_rn(a.y, den),
-                          __fdiv_rn(a.z, den), __fdiv_rn(a.w, den));
+          float4* dst = reinterpret_cast<float4*>(
+              om + (long long)row * D + (col + CL * c) * 4);
+          if (FP_ST(dst))
+            *dst = make_float4(__fdiv_rn(a.x, den), __fdiv_rn(a.y, den),
+                               __fdiv_rn(a.z, den), __fdiv_rn(a.w, den));
         }
       }
     } else {
@@ -411,8 +519,9 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
             const float4 a = acc[i][c];
             const float4 o = *reinterpret_cast<const float4*>(
                 rr + (cg + 8 * c) * 4);
-            *reinterpret_cast<float4*>(om + (long long)row * D +
-                                       (cg + 8 * c) * 4) = make_float4(
+            float4* dst = reinterpret_cast<float4*>(
+                om + (long long)row * D + (cg + 8 * c) * 4);
+            if (FP_ST(dst)) *dst = make_float4(
                 __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.x), __fmul_rn(f1, o.x)), den),
                 __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.y), __fmul_rn(f1, o.y)), den),
                 __fdiv_rn(__fadd_rn(__fmul_rn(f0, a.z), __fmul_rn(f1, o.z)), den),
@@ -424,7 +533,7 @@ __global__ void __launch_bounds__(FpTile<D, BK_>::THREADS, 1)
   }
   cp_async_wait<0>();
   // the last block to leave resets the ticket for the next launch
-  if (tid == 0) {
+  if (tid == 0 && FP_ST(ticket + 1)) {
     __threadfence();
     if (atomicAdd(ticket + 1, 1) == (int)gridDim.x - 1) {
       atomicExch(ticket, 0);
@@ -466,7 +575,7 @@ static int fp_instance(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-// float32 q (B, H, S, D), k / v (B, KV, S, D); D in {64, 128, 256};
+// float32 q (B, H, S, D), k / v (B, KV, S, D); D in {16, 64, 128, 256};
 // H % KV == 0; S >= 1. ticket: two ints, 0 between launches, used by one
 // stream at a time. bk: keys a tile of an instance at D (FpShape), last.
 extern "C" int flash_prefill_launch(const float* q, const float* k,
@@ -487,5 +596,8 @@ extern "C" int flash_prefill_launch(const float* q, const float* k,
   if (D == 256 && bk == 32)
     return fp_instance<256, 32>(q, k, v, out, ticket, B, H, KV, S, causal,
                                 scale, s);
+  if (D == 16 && bk == 64)
+    return fp_instance<16, 64>(q, k, v, out, ticket, B, H, KV, S, causal,
+                               scale, s);
   return (int)cudaErrorInvalidValue;
 }

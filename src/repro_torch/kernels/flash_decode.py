@@ -22,7 +22,9 @@ The tile is ``block_s``, keys a ring stage (``autotune``'s parameter: 64,
 128 or 256; ``None`` the builtin 64). bf16 has an instance at each that
 fits shared memory at the head dim (three stages: up to 256 keys at D 64,
 128 at D 128, 64 at D 256: ``TC_INSTANCES``); float32 one a head dim, stages of 4096 / D
-keys (its registers hold a lane's share of a key's row: ``F32_TILE_KEYS``).
+keys, at most 128 (its registers hold a lane's share of a key's row:
+``F32_TILE_KEYS``). Head dims: ``HEAD_DIMS[dtype]``; float32 also takes
+D 16, the reduced configs' (bf16 at D 16 raises: no config asks for it).
 Each launches its largest instance at or below ``block_s``
 (``instance``, reported by ``decode_config``); a value that names no
 instance raises. The splits stay ``decode_splits``' choice.
@@ -57,7 +59,8 @@ __all__ = ["HEAD_DIMS", "MAX_GROUP_WIDTH", "MAX_GROUP_TC", "MIN_SPLIT",
            "flash_decode", "TC_INSTANCES", "instance", "decode_config",
            "out_of_bounds", "CHECK_RECORDS"]
 
-HEAD_DIMS = (64, 128, 256)  # the kernels' instances
+# each dtype's head dims (its kernel's instances)
+HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (16, 64, 128, 256)}
 MAX_GROUP_WIDTH = 4096    # float32: 128 * FD_LARGE, the most G * D a warp holds
 MAX_GROUP_TC = 16         # bf16: FDT_M, the mma rows that hold a group's heads
 MIN_SPLIT = 256           # fewest keys a split keeps (S allowing)
@@ -72,9 +75,11 @@ BLOCKS_PER_SM_F32 = 2
 # a group in shared memory: G * nsplit <= MERGE_WORDS (FD_MERGE_WORDS)
 MERGE_WORDS = 8192
 # the float32 kernel's warps (FD_WARPS) and keys a ring stage (4096 / D:
-# 32 KB of K and V); each warp takes a quarter of every stage's keys
+# 32 KB of K and V, at most a key a lane of each warp); each warp takes a
+# quarter of every stage's keys
 F32_WARPS = 4
-F32_TILE_KEYS = {D: 4096 // D for D in HEAD_DIMS}
+F32_TILE_KEYS = {D: min(4096 // D, 32 * F32_WARPS)
+                 for D in HEAD_DIMS[torch.float32]}
 # bf16: keys a stage of the instances at each head dim, the builtin
 # FDT_TK first (flash_decode.cu fdt_launch builds one where three stages
 # of K, V and the bias fit a block's shared memory); a ring of TC_STAGES
@@ -85,10 +90,11 @@ TC_STAGES = 3
 def instance(dtype, D: int, block_s=None) -> int:
     """Keys a stage of the instance that ``dtype``'s kernel launches at
     head dim ``D`` for ``block_s`` (``None`` the builtin 64): the largest
-    at or below it. Raises on a value that names no instance."""
+    at or below it (float32: its one instance at D, ``F32_TILE_KEYS[D]``).
+    Raises on a value that names no instance."""
     block_s = 64 if block_s is None else check_value("flash_decode", block_s)
     if dtype == torch.float32:
-        return min(F32_TILE_KEYS[D], block_s)
+        return F32_TILE_KEYS[D]
     return max(tk for tk in TC_INSTANCES[D] if tk <= block_s)
 
 
@@ -196,11 +202,11 @@ def _splits(q, B: int, H: int, KVH: int, S: int, D: int) -> int:
     G = H // KVH
     fits = G <= MAX_GROUP_TC if q.dtype == torch.bfloat16 else \
         G * D <= MAX_GROUP_WIDTH
-    if D not in HEAD_DIMS or not fits or S < 1:
+    if D not in HEAD_DIMS[q.dtype] or not fits or S < 1:
         raise ValueError(f"flash_decode: the {q.dtype} kernel takes D in "
-                         f"{HEAD_DIMS}, G <= {MAX_GROUP_TC} (bf16) or G * D "
-                         f"<= {MAX_GROUP_WIDTH} (float32), and S >= 1; got "
-                         f"D={D}, G={G}, S={S}")
+                         f"{HEAD_DIMS[q.dtype]}, G <= {MAX_GROUP_TC} (bf16) "
+                         f"or G * D <= {MAX_GROUP_WIDTH} (float32), and S >= "
+                         f"1; got D={D}, G={G}, S={S}")
     if q.dtype == torch.bfloat16:
         return decode_splits(B * KVH, S, _sms(q.device))
     return decode_splits_f32(B * KVH, S, _sms(q.device), G)

@@ -12,7 +12,8 @@ the other:
     one block of a TMA producer and a consumer warpgroup per 64 of its
     ``block_q`` query rows, a block per tile, head and batch row; K and V
     stream through a ring of two or three stages;
-  * float32: ``csrc/flash_prefill.cu``, on the CUDA cores. The reference
+  * float32: ``csrc/flash_prefill.cu``, on the CUDA cores (D 16, 64,
+    128 and 256: ``HEAD_DIMS``; D 16 is the reduced configs'). The reference
     computes in float32, and the tensor cores' TF32 keeps too few digits
     for its tolerances. A persistent grid (one block of four warps an SM)
     takes work items of ``TILE_Q`` query rows, head and batch row from a
@@ -35,11 +36,13 @@ tile on each axis (``instance``, reported by ``prefill_config``), which
 for the builtin is the tile each head dim had before tuning; a value that
 names no instance raises.
 
-``out_of_bounds`` runs the bf16 kernel's checked build
-(``build.VARIANTS``, ``-DFPT_CHECK_BOUNDS``) once and returns the stores
-that fall outside q, k, v and the output; it raises if a tensor map does
-not span its operand's bytes (TMA reads nothing outside its map): a
-measurement, not counted in ``launches``.
+``out_of_bounds`` runs q.dtype's checked build once (``build.VARIANTS``:
+bf16 ``-DFPT_CHECK_BOUNDS``, float32 ``-DFP_CHECK_BOUNDS``) and returns
+the accesses that fall outside q, k, v and the output (bf16: the stores,
+and it raises if a tensor map does not span its operand's bytes, since TMA
+reads nothing outside its map; float32: every ``cp.async`` source, store
+and ticket atomic, the ticket a range of its own): a measurement, not
+counted in ``launches``.
 
 The plain version is the dense oracle. It walks batch rows and KV heads,
 so its float32 scores are one group's ``(G, S, S)`` at a time.
@@ -69,15 +72,19 @@ __all__ = ["HEAD_DIMS", "TILE_Q", "F32_SHAPES", "F32_INSTANCES",
            "FlashPrefill", "BACKWARD_RANGE", "out_of_bounds",
            "CHECK_RECORDS", "MAP_RANGE_ERROR"]
 
-HEAD_DIMS = (64, 128, 256)  # the kernels' instances
+# each dtype's head dims (its kernel's instances): float32 also takes D 16,
+# the reduced configs'; no config asks for bf16 at D 16
+HEAD_DIMS = {torch.bfloat16: (64, 128, 256), torch.float32: (16, 64, 128, 256)}
 TILE_Q = 64  # query rows of a float32 work item (FP_BQ)
 # the float32 kernel's FpShape<D>: (row warps, key warps, keys a tile); a
 # warp takes TILE_Q / row warps rows and keys a tile / key warps keys
-F32_SHAPES = {64: (2, 2, 128), 128: (4, 1, 64), 256: (4, 1, 32)}
+F32_SHAPES = {16: (4, 1, 64), 64: (2, 2, 128), 128: (4, 1, 64),
+              256: (4, 1, 32)}
 # every float32 instance, FpShape<D, BK>: (D, keys a tile) -> its shape; the
 # builtin tile at each D is F32_SHAPES'
 F32_INSTANCES = {(64, 128): (2, 2, 128), (64, 64): (4, 1, 64),
-                 (128, 64): (4, 1, 64), (256, 32): (4, 1, 32)}
+                 (128, 64): (4, 1, 64), (256, 32): (4, 1, 32),
+                 (16, 64): (4, 1, 64)}
 # bf16: (head dim, query rows a block, keys a tile) of each instance ->
 # its ring's stages (flash_prefill_tc.cu FptShape: an instance where two
 # stages of K and V fit a block's shared memory, three where three fit);
@@ -182,9 +189,9 @@ def flash_prefill(q, k, v, causal: bool = True, block_q=None,
     if q.dtype not in _ENTRIES:
         raise TypeError(f"flash_prefill: the kernels take float32 or "
                         f"bfloat16, got {q.dtype}")
-    if D not in HEAD_DIMS or S < 1:
-        raise ValueError(f"flash_prefill: the kernels take D in {HEAD_DIMS} "
-                         f"and S >= 1; got D={D}, S={S}")
+    if D not in HEAD_DIMS[q.dtype] or S < 1:
+        raise ValueError(f"flash_prefill: the {q.dtype} kernel takes D in "
+                         f"{HEAD_DIMS[q.dtype]} and S >= 1; got D={D}, S={S}")
     tile = instance(q.dtype, D, block_q, block_k)
     out = _launch(q, k, v, causal, tile)
     flash_prefill.launches += 1
@@ -266,44 +273,55 @@ class FlashPrefill(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-CHECK_RECORDS = 64  # FPT_CHECK_RECORDS: the accesses a checked launch keeps
+CHECK_RECORDS = 64  # FPT_ / FP_CHECK_RECORDS: the accesses a launch keeps
 MAP_RANGE_ERROR = 20000  # FPT_ERR_MAP_RANGE: a map that is not its operand
+# each dtype's checked build (build.VARIANTS) and its C entries' prefix
+_CHECKED = {torch.bfloat16: ("flash_prefill_tc_checked", "flash_prefill_tc"),
+            torch.float32: ("flash_prefill_checked", "flash_prefill")}
 
 
 def out_of_bounds(q, k, v, causal: bool = True, block_q=None,
                   block_k=None) -> dict:
-    """One launch of the bf16 kernel's checked build on CUDA operands at
-    the tile ``(block_q, block_k)`` (``None`` the builtin's), its output
-    stores held against q, k, v and the output: ``{"count": ..., "loads":
-    [(source line, operand, byte offset, the operand's bytes, access
-    bytes), ...], "out": the output}``, the first ``CHECK_RECORDS``
-    recorded. Raises if the host finds a tensor map whose base and dims are
-    not exactly q's, k's or v's bytes. Not counted in ``launches``."""
+    """One launch of q.dtype's checked build on CUDA operands at the tile
+    ``(block_q, block_k)`` (``None`` the builtin's), its accesses held
+    against q, k, v and the output (and the float32 kernel's ticket, a
+    fresh one): ``{"count": ..., "loads": [(source line, operand, byte
+    offset, the operand's bytes, access bytes), ...], "out": the output}``,
+    the first ``CHECK_RECORDS`` recorded. bf16 raises if the host finds a
+    tensor map whose base and dims are not exactly q's, k's or v's bytes.
+    Not counted in ``launches``."""
     B, H, KV, S, D = _shapes(q, k, v)
-    tile = instance(torch.bfloat16, D, block_q, block_k)
-    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
-        raise ValueError("out_of_bounds: the checked build is the bf16 "
-                         "kernel's, on the card")
-    lib = "flash_prefill_tc_checked"
+    if q.device.type != "cuda" or q.dtype not in _CHECKED:
+        raise ValueError("out_of_bounds: the checked builds run the kernels "
+                         "on the card, in bf16 or float32")
+    if D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"out_of_bounds: the {q.dtype} kernel takes D in "
+                         f"{HEAD_DIMS[q.dtype]}; got D={D}")
+    tile = instance(q.dtype, D, block_q, block_k)
+    lib, prefix = _CHECKED[q.dtype]
     q, k, v = (build.vector_operand(t) for t in (q, k, v))
     out = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
-    _, entry, argtypes = _ENTRIES[torch.bfloat16]
+    ticket = (torch.zeros(2, dtype=torch.int32, device=q.device)
+              if q.dtype == torch.float32 else None)
+    _, entry, argtypes = _ENTRIES[q.dtype]
     fn = build.entry(lib, entry, argtypes)
 
     def launch(stream):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 H, KV, S, D, int(bool(causal)), 1.0 / D ** 0.5, stream,
-                 *tile)
-        if err == MAP_RANGE_ERROR:
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+        if ticket is not None:
+            ptrs.append(ticket.data_ptr())
+        err = fn(*ptrs, B, H, KV, S, D, int(bool(causal)), 1.0 / D ** 0.5,
+                 stream, *(tile if ticket is None else tile[1:]))
+        if err == MAP_RANGE_ERROR and ticket is None:
             raise RuntimeError("out_of_bounds: a tensor map of q, k or v "
                                "does not span its operand's bytes")
         build.check(err, entry)
 
     found = build.checked_run(
-        build.entry(lib, "flash_prefill_tc_check_set", [_VP, _VP, _INT]),
-        launch, build.entry(lib, "flash_prefill_tc_check_get", [_VP, _VP]),
-        (("q", q), ("k", k), ("v", v), ("out", out)), q.device,
-        CHECK_RECORDS)
+        build.entry(lib, f"{prefix}_check_set", [_VP, _VP, _INT]),
+        launch, build.entry(lib, f"{prefix}_check_get", [_VP, _VP]),
+        (("q", q), ("k", k), ("v", v), ("out", out), ("ticket", ticket)),
+        q.device, CHECK_RECORDS)
     return dict(found, out=out)
 
 

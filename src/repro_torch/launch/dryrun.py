@@ -43,22 +43,44 @@ holds and what the step computes. Records land in
     ``main`` counts the cells in worker processes, one a core. Recorded
     as the total, the total over the chips, and ``6 N_active tokens``
     beside them, as the reference does;
+  * **collective bytes**: a device's bytes of each of the reference's
+    five collective types (``collective_bytes``; all-reduce counted
+    twice) and their total (``collective_total_bytes``), counted by
+    ``launch/comm_cost.py`` over the step run on ``meta`` DTensors on the
+    cell's mesh (the port's counterpart of the reference's HLO count,
+    ``launch/hlo_cost.py``). Cut and scaled as the FLOPs are, exactly:
+    over the repeats beyond two and the encoder's layers beyond two, and
+    for RWKV (its token loop) over the sequence, counted at
+    ``RWKV_COUNT_SEQ`` tokens and twice that, affine in the tokens (at 32
+    DTensor chose a layout that 64 and more do not). The rows are counted
+    in full: no DTensor operation loops over them, so the count costs the
+    same at any batch, and DTensor's layouts depend on the sizes
+    (``step_collectives``). DTensor chooses its own layouts between the
+    reference's constraints, and they change between torch versions, so a
+    record names the version (``collectives_counted.torch``). Held against
+    the reference's ``HloCost`` of the same step on a (4, 2) mesh
+    (``tests/test_torch_dryrun_collectives.py``, reduced configs, B 8,
+    S 64): dense train and prefill come to 1.01x and 0.79x of it; the MoE
+    layers (the dispatch gathers every token, gate and contribution to
+    every device) and decode steps (every weight gathered over the data
+    axes at its use) come to 1.5x-2.4x. Read those as the counting
+    route's upper bounds (``collectives_counted.upper_bound``), not as
+    what a partitioner must move;
   * **a roofline** from the H100's own constants (``PEAK_FLOPS``,
-    ``HBM_BW``): compute seconds (a device's FLOPs at the bf16 peak) and
-    memory seconds (a device's resident bytes read once: a lower bound);
-  * **collective bytes: null.** The reference reads them from the compiled
-    XLA HLO (``collective_bytes``, ``launch/hlo_cost.py``); the port
-    compiles no HLO and has no model of its collectives.
+    ``HBM_BW``, ``LINK_BW``): compute seconds (a device's FLOPs at the
+    bf16 peak), memory seconds (a device's resident bytes read once: a
+    lower bound) and collective seconds (a device's collective bytes over
+    one direction of NVLink), and the ``dominant`` of the three.
 
-``launch/hlo_cost.py`` (it parses XLA HLO) and ``compat.py`` (jax version
-shims) are not ported: the port has neither HLO nor jax.
+``compat.py`` (jax version shims) is not ported: the port has no jax.
 
 ``--paper`` (``run_paper_cell``): the paper's own pipeline, the port's
 ``ShardedPoissonSampler`` on the EpiQL-like contact query at ``scale``
 persons, root block-partitioned over a mesh of the production data
 axis's entries (16, or 2 x 16) on the card: peak device memory, one warm
-draw's time and ``per_shard_capacity``, where the reference only
-compiles.
+draw's time, ``per_shard_capacity`` and, as ``collective_total_bytes``,
+the bytes a warm draw's gather moves from the other entries to the
+engine's (``ShardedPlan._gather``), where the reference only compiles.
 """
 from __future__ import annotations
 
@@ -79,16 +101,18 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
 from repro_torch.config import KernelPolicy, resolve_device
+from repro_torch.launch.comm_cost import COLLECTIVES, count_collectives
 from repro_torch.launch.mesh import batch_axes, make_mesh, make_production_mesh
 from repro_torch.models import convert, layers, transformer
 from repro_torch.models.layers import P, PartitionSpec
 from repro_torch.models.moe import capacity
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["OUT_DIR", "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "batch_shardings",
-           "cache_shardings", "reference_leaves", "state_bytes",
-           "make_train_step", "make_prefill", "make_serve_step",
-           "step_flops", "count_cells", "run_cell", "run_paper_cell",
+__all__ = ["OUT_DIR", "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "LINK_BW",
+           "batch_shardings", "cache_shardings", "reference_leaves",
+           "state_bytes", "make_train_step", "make_prefill",
+           "make_serve_step", "step_flops", "step_collectives",
+           "count_cells", "run_cell", "gather_bytes", "run_paper_cell",
            "main"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun"
@@ -97,8 +121,14 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun"
 PEAK_FLOPS = 989e12      # bf16 tensor cores, FLOP/s
 HBM_BW = 3.35e12         # HBM3, bytes/s
 HBM_BYTES = 80e9         # HBM3 capacity
+# NVLink 4 of the H100 SXM, one direction (data sheet: 900 GB/s both ways
+# to the other cards of a host). An axis that spans hosts runs at the
+# InfiniBand rate instead (a 400 Gb/s port: 50 GB/s a card), 9 times
+# slower: the collective seconds are a lower bound.
+LINK_BW = 450e9          # bytes/s
 
 RWKV_SEQ = 32            # an RWKV step's counted tokens (scaled to S)
+RWKV_COUNT_SEQ = 64      # ... for its collectives, and twice that
 PLAIN = KernelPolicy(enabled=False)
 
 
@@ -367,6 +397,50 @@ def step_flops(cfg, kind: str, B: int, S: int) -> Dict:
             "seconds": time.perf_counter() - t0}
 
 
+def step_collectives(cfg, kind: str, B: int, S: int, mesh) -> Dict:
+    """A step's collective bytes on ``mesh`` (a production mesh, its shape
+    and axis names) at batch ``B`` and sequence ``S`` (decode: a cache of
+    ``S``), counted by ``comm_cost.count_collectives`` on a cut step and
+    scaled as ``step_flops`` scales (the module docstring): ``{"bytes":
+    {type: a device's bytes}, "seq", "runs", "seconds"}``. The batch
+    takes the data axes when ``B`` >= 32, as ``run_cell`` sets them."""
+    t0 = time.perf_counter()
+    layers.set_batch_axes(batch_axes(mesh) if B >= 32 else ())
+    layers.set_moe_ep(getattr(cfg, "moe_ep", False))
+    P_len = len(cfg.pattern)
+    R, E = cfg.repeats, cfg.enc_layers
+    r0, e0 = (1 if R > 2 else R), (1 if E > 2 else E)
+    seq = S
+    if kind != "decode" and set(cfg.pattern) == {"rwkv"}:
+        seq = min(S, RWKV_COUNT_SEQ)
+    runs = 0
+
+    def count(r, e, s):
+        nonlocal runs
+        runs += 1
+        return count_collectives(
+            dataclasses.replace(cfg, n_layers=r * P_len, enc_layers=e),
+            kind, B, s, mesh)["bytes"]
+
+    def total(s):
+        base = count(r0, e0, s)
+        out = {k: float(v) for k, v in base.items()}
+        for extra, (r, e) in ((R - r0, (r0 + 1, e0)),
+                              (E - e0, (r0, e0 + 1))):
+            if extra:
+                more = count(r, e, s)
+                for k in out:
+                    out[k] += extra * (more[k] - base[k])
+        return out
+
+    got = total(seq)
+    if seq != S:  # affine in the tokens: counted at seq and 2 seq
+        twice = total(2 * seq)
+        got = {k: got[k] + (S / seq - 1) * (twice[k] - got[k]) for k in got}
+    return {"bytes": got, "seq": seq, "runs": runs,
+            "seconds": time.perf_counter() - t0}
+
+
 # ---------------------------------------------------------------------------
 # one cell
 # ---------------------------------------------------------------------------
@@ -379,11 +453,14 @@ def _write(tag: str, rec: Dict, out_dir: Path) -> None:
 
 def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
              flops_cache: Optional[Dict] = None,
-             out_dir: Path = OUT_DIR) -> Dict:
+             out_dir: Path = OUT_DIR,
+             collectives_cache: Optional[Dict] = None) -> Dict:
     """One (arch x shape) cell on one production mesh: its record (a skip
     record where ``configs.shape_applicable`` rejects the cell), also
     written to ``out_dir``. ``flops_cache`` keeps a cell's count for the
-    other mesh (the count does not depend on the mesh)."""
+    other mesh (the count does not depend on the mesh);
+    ``collectives_cache`` holds counts made elsewhere (``count_cells``),
+    by (arch, shape, multi_pod)."""
     cfg = configs.get_config(arch)
     skip = configs.shape_applicable(cfg, shape)
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -416,16 +493,25 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
         counted = step_flops(cfg, sp.kind, sp.batch, sp.seq)
         if flops_cache is not None:
             flops_cache[key] = counted
+    ckey = (arch, shape, multi_pod)
+    if collectives_cache is not None and ckey in collectives_cache:
+        coll = collectives_cache[ckey]
+    else:
+        coll = step_collectives(cfg, sp.kind, sp.batch, sp.seq, mesh)
+    layers.set_batch_axes(batch_axes(mesh) if sp.batch >= 32 else ())
+    coll_total = sum(coll["bytes"].values())
     flops = counted["flops"]
     per_dev = flops / n_chips
     t_compute = per_dev / PEAK_FLOPS
     t_memory = mem["total"] / HBM_BW
+    t_coll = coll_total / LINK_BW
     ntok = sp.batch * (1 if sp.kind == "decode" else sp.seq)
     model_flops = 6 * cfg.active_param_count() * ntok
     rec = {
         "arch": arch, "shape": shape, "mesh": mesh_name, "chips": n_chips,
         "kind": sp.kind, "seq": sp.seq, "batch": sp.batch,
         "count_s": round(counted["seconds"], 2),
+        "collective_count_s": round(coll["seconds"], 2),
         "memory_per_device": mem,
         "fits_80gb": mem["total"] <= HBM_BYTES,
         "one_card": {"total": one["total"],
@@ -433,12 +519,21 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
         "flops_total": flops,
         "flops_per_device": per_dev,
         "flops_counted": {k: counted[k] for k in ("rows", "seq", "runs")},
-        "collective_bytes": None,
+        "collective_bytes": {k: coll["bytes"][k] for k in COLLECTIVES},
+        "collective_total_bytes": coll_total,
+        "collectives_counted": {
+            **{k: coll[k] for k in ("seq", "runs")},
+            # DTensor's layouts, so the bytes, differ between versions
+            "torch": torch.__version__,
+            "upper_bound": sp.kind == "decode" or bool(cfg.n_experts)},
         "roofline": {
             "compute_s": t_compute, "memory_s": t_memory,
-            "collective_s": None,
-            "dominant": "compute" if t_compute >= t_memory else "memory",
-            "peak_flops": PEAK_FLOPS, "hbm_bytes_per_s": HBM_BW},
+            "collective_s": t_coll,
+            "dominant": max((("compute", t_compute), ("memory", t_memory),
+                             ("collective", t_coll)),
+                            key=lambda kv: kv[1])[0],
+            "peak_flops": PEAK_FLOPS, "hbm_bytes_per_s": HBM_BW,
+            "link_bytes_per_s": LINK_BW},
         "model_flops_total": model_flops,
         "model_flops_per_device": model_flops / n_chips,
         "useful_flops_ratio": model_flops / flops if flops else None,
@@ -454,8 +549,22 @@ def run_cell(arch: str, shape: str, multi_pod: bool, verbose: bool = True,
               + f"; one card alone {one['total'] / 2**30:.1f} GiB), FLOPs "
               f"{flops:.4e} ({per_dev:.4e} a device, 6ND "
               f"{model_flops:.4e}), compute {t_compute:.4g} s, memory "
-              f"{t_memory:.4g} s; counted in {counted['seconds']:.1f} s")
+              f"{t_memory:.4g} s, collective {t_coll:.4g} s "
+              f"({coll_total:.4e} bytes a device; dominant "
+              f"{rec['roofline']['dominant']}); counted in "
+              f"{counted['seconds']:.1f} s and {coll['seconds']:.1f} s")
     return rec
+
+
+def gather_bytes(shards) -> int:
+    """The bytes ``ShardedPlan._gather`` moves between entries for one
+    draw of ``shards`` (the shards' samples, shard i on entry i): every
+    buffer of every shard but shard 0, whose entry is the engine's (its
+    count, columns, positions and overflow, whole: the compaction moves
+    the buffers, not the valid lanes)."""
+    return sum(t.numel() * t.element_size() for s in shards[1:]
+               for t in (s.count, s.positions, s.overflow,
+                         *s.columns.values()))
 
 
 def run_paper_cell(multi_pod: bool, scale: int = 200_000, device=None,
@@ -465,7 +574,9 @@ def run_paper_cell(multi_pod: bool, scale: int = 200_000, device=None,
     entry on ``device`` (the card by default), over an EpiQL-like contact
     query (``Q_c``: a star join of ``ContactProb`` with two ``Person``
     aliases) at ``scale`` persons. Records the index's build, peak device
-    memory, one warm draw's time and ``per_shard_capacity``."""
+    memory, one warm draw's time, ``per_shard_capacity`` and the bytes
+    that draw's gather moves between entries (``gather_bytes``, as
+    ``collective_total_bytes``)."""
     from repro_torch.core import Atom, Database, JoinQuery
     from repro_torch.core.distributed import ShardedPoissonSampler
     from repro_torch.kernels import threefry
@@ -521,6 +632,7 @@ def run_paper_cell(multi_pod: bool, scale: int = 200_000, device=None,
         "peak_device_bytes": (int(torch.cuda.max_memory_allocated(device))
                               - held if on_card else None),
         "per_shard_capacity": int(s.cap),
+        "collective_total_bytes": gather_bytes(shards),
     }
     _write(f"paper_qc_sampler__scale{scale}__{mesh_name}", rec, out_dir)
     print(f"[dryrun] paper sampler {mesh_name} on {device}: {mesh.size} "
@@ -528,27 +640,39 @@ def run_paper_cell(multi_pod: bool, scale: int = 200_000, device=None,
           f"{draw_ms:.3f} ms ({rec['sample_count']} tuples), peak "
           + ("not measured" if rec["peak_device_bytes"] is None else
              f"{rec['peak_device_bytes'] / 2**30:.3f} GiB")
-          + f", per-shard capacity {rec['per_shard_capacity']}")
+          + f", per-shard capacity {rec['per_shard_capacity']}, its gather "
+          f"{rec['collective_total_bytes']:,} bytes between entries")
     return rec
 
 
-def count_cells(cells) -> Dict:
+def count_cells(cells, meshes=(False, True)) -> tuple:
     """``step_flops`` of each (arch, shape) of ``cells`` that
-    ``configs.shape_applicable`` runs, in spawned worker processes, one a
-    core: {(arch, shape): its count}."""
+    ``configs.shape_applicable`` runs, and its ``step_collectives`` on
+    each mesh of ``meshes`` (``multi_pod`` flags), in spawned worker
+    processes, one a core, the slowest first: ({(arch, shape): its
+    count}, {(arch, shape, multi_pod): its collectives})."""
     cells = [(a, s) for a, s in cells
              if not configs.shape_applicable(configs.get_config(a), s)]
     if not cells:
-        return {}
-    workers = min(len(cells), os.cpu_count() or 1)
+        return {}, {}
+    jobs = [(step_collectives, (a, s, mp)) for a, s in cells
+            for mp in meshes] + [(step_flops, (a, s)) for a, s in cells]
+    on = {mp: make_production_mesh(multi_pod=mp) for mp in meshes}
+    # the train steps' counts first: they take the longest
+    jobs.sort(key=lambda j: configs.SHAPES[j[1][1]].kind != "train")
+    workers = min(len(jobs), os.cpu_count() or 1)
     with ProcessPoolExecutor(max_workers=workers,
                              mp_context=get_context("spawn")) as pool:
-        jobs = {(a, s): pool.submit(step_flops, configs.get_config(a),
-                                    configs.SHAPES[s].kind,
-                                    configs.SHAPES[s].batch,
-                                    configs.SHAPES[s].seq)
-                for a, s in cells}
-        return {k: f.result() for k, f in jobs.items()}
+        futures = {}
+        for fn, key in jobs:
+            sp = configs.SHAPES[key[1]]
+            futures[(fn, key)] = pool.submit(
+                fn, configs.get_config(key[0]), sp.kind, sp.batch, sp.seq,
+                *(on[mp] for mp in key[2:]))
+        flops, colls = {}, {}
+        for (fn, key), f in futures.items():
+            (flops if fn is step_flops else colls)[key] = f.result()
+        return flops, colls
 
 
 def main(argv=None) -> int:
@@ -580,13 +704,15 @@ def main(argv=None) -> int:
         else [args.arch]
     shapes = list(configs.SHAPES) if (args.all or not args.shape) \
         else [args.shape]
-    flops_cache = count_cells([(a, s) for a in archs for s in shapes])
+    flops_cache, colls = count_cells([(a, s) for a in archs for s in shapes],
+                                     meshes)
     failures = []
     for a in archs:
         for s in shapes:
             for mp in meshes:
                 try:
-                    run_cell(a, s, mp, flops_cache=flops_cache)
+                    run_cell(a, s, mp, flops_cache=flops_cache,
+                             collectives_cache=colls)
                 except Exception as e:  # noqa: BLE001 — report all at the end
                     failures.append((a, s, mp, repr(e)[:300]))
                     print(f"[dryrun] FAIL {a} {s} multi_pod={mp}: {e}",

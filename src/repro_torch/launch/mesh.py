@@ -11,10 +11,14 @@ runs four real shards on it: the port's counterpart of the reference's
 ``make_production_mesh`` gives the reference's production meshes (one pod
 of 16 x 16, or two) with every entry on the ``meta`` device: on one host
 they are shape arithmetic for the dry run (``launch/dryrun.py``), not
-devices to run on.
+devices to run on. ``device_mesh`` gives such a mesh's
+``torch.distributed`` counterpart, a ``DeviceMesh`` over a process group of
+the ``fake`` backend (no process but this one, no communication), on
+which the dry run counts a step's collectives (``launch/comm_cost.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 from typing import Dict, List, Sequence, Tuple, Union
 
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_production_mesh",
-           "batch_axes"]
+           "device_mesh", "batch_axes"]
 
 Devices = Union[None, str, torch.device, Sequence[Union[str, torch.device]]]
 
@@ -139,6 +143,53 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_mesh(shape, axes, devices="meta")
+
+
+@contextlib.contextmanager
+def device_mesh(mesh: Mesh, rank: int = 0):
+    """A ``torch.distributed.device_mesh.DeviceMesh`` of ``mesh``'s shape
+    and axis names, as this process's ``rank`` (default 0) of a process
+    group of the ``fake`` backend with world size ``mesh.size`` and a
+    ``HashStore``: collectives on its DTensors are issued (and counted) but
+    move nothing, and every entry is shape arithmetic, as
+    ``make_production_mesh``'s ``meta`` entries are. The group lives in
+    this process for the ``with`` block only and is taken down after it,
+    so that one count does not meet another's (tests under xdist, the dry
+    run's workers). Raises if a group already exists."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("device_mesh: a process group already exists in "
+                           "this process")
+    _register_fake_backend()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=mesh.size)
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.devices.shape),
+                               mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def _register_fake_backend() -> None:
+    """Registers torch's ``fake`` process-group backend. On purpose this
+    imports a module of ``torch.testing._internal``, which has no
+    compatibility promise: the backend is registered by that import, and
+    by nothing public (``init_process_group`` makes the same import itself
+    when it is given no store, in the versions that do). If the module
+    moves, this raises saying so (``tests/test_torch_dryrun_collectives.py``
+    ``test_device_mesh_on_the_fake_backend`` holds it)."""
+    try:
+        import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    except ImportError as e:
+        import torch
+
+        raise RuntimeError(
+            f"device_mesh: torch {torch.__version__} has no "
+            "torch.testing._internal.distributed.fake_pg, whose import "
+            "registers the 'fake' process-group backend that the dry run "
+            "counts collectives on") from e
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:

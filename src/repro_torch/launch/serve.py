@@ -4,7 +4,7 @@ micro-batching (with ``--devices N``, through the engine's sharded plan
 over a mesh of N entries), or, with ``--replicas N``, a replicated fleet
 behind a router with log-shipped deltas and an injected replica crash.
 
-    python -m repro_torch.launch.serve --mode lm --full [--arch smollm_135m]
+    python -m repro_torch.launch.serve --mode lm [--full] [--arch smollm_135m]
     python -m repro_torch.launch.serve --mode lm --device cpu
     python -m repro_torch.launch.serve --mode join [--devices 4]
     python -m repro_torch.launch.serve --mode join --replicas 4 [--updates 4]
@@ -15,14 +15,16 @@ it and re-exports the single-engine names (``MicroBatcher`` & co.). It
 runs on the card (a mesh round-robin over the visible cards);
 ``--device cpu`` runs it on the CPU.
 
-``--mode lm`` serves the reduced config of ``--arch`` (head dim 16, which
-no attention kernel takes: on the card it asks for ``--full``) or, with
-``--full``, the published one, from random weights drawn from a seed.
+``--mode lm`` serves the reduced config of ``--arch`` (head dim 16, float32:
+the float32 attention kernels' D 16 instances on the card), as the
+reference's default does, or, with ``--full``, the published one, from
+random weights drawn from a seed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Dict, List, Optional
 
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.config import resolve_device
+from repro_torch.kernels import flash_decode, flash_prefill
 from repro_torch.launch.fleet import (  # noqa: F401  (re-exported public API)
     JoinSampleRequest, MicroBatcher, Rejected, UpdateRequest,
     serve_fleet, serve_join_samples,
@@ -159,6 +162,13 @@ def _lm_demo(arch: str, batch: int, max_new: int, full: bool,
           f"{sum(decode) / max(len(decode), 1):.2f} ms")
     for i, r in enumerate(done):
         print(f"  req{i}: prompt[:4]={r.prompt[:4]} -> out[:8]={r.out[:8]}")
+    # the attention kernels' launches in this process, by instance (0 on
+    # the CPU, where the plain versions run)
+    print("[serve] kernels " + json.dumps(
+        {"decode_steps": len(decode),
+         **{f.__name__: {"launches": f.launches, "instances": f.tiles}
+            for f in (flash_prefill.flash_prefill,
+                      flash_decode.flash_decode)}}))
 
 # The demo corpus: make_corpus_db's sizes in the reference's demo.
 DEMO_CORPUS = dict(n_docs=20_000, n_clusters=64, seq_len=8, vocab=256)
@@ -323,8 +333,7 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
                     help="lm mode: new tokens a request")
     ap.add_argument("--full", action="store_true",
                     help="lm mode: serve the published config, not the "
-                         "reduced one (needed on the card: the attention "
-                         "kernels take head dims 64, 128 and 256)")
+                         "reduced one")
     ap.add_argument("--devices", type=int, default=1,
                     help="join mode: serve through the engine's sharded "
                          "plan over a mesh of this many entries")
@@ -354,11 +363,6 @@ def main(argv: Optional[List[str]] = None, *, kernel_policy=None) -> int:
                      f"and {args.max_new}")
         if args.arch not in configs.ARCHS and args.arch not in configs.ALIASES:
             ap.error(f"--arch must be one of {', '.join(configs.ARCHS)}")
-        on_card = torch.device(args.device or "cuda").type == "cuda"
-        if on_card and not args.full:
-            ap.error("--mode lm on the card needs --full: the reduced "
-                     "configs' head dim 16 is not one the attention kernels "
-                     "take (64, 128, 256); --device cpu serves them")
         _lm_demo(args.arch, args.batch, args.max_new, args.full,
                  resolve_device(args.device))
         return 0

@@ -2,12 +2,14 @@
 checkpoint/resume, the straggler watchdog, elastic data parallelism, and
 the Poisson-join data pipeline.
 
+    python -m repro_torch.launch.train [--steps 20]
     python -m repro_torch.launch.train --full --seq-len 2048 --batch 8 \
         [--devices 4]
 
-(with ``PYTHONPATH=src``; the card by default, ``--device cpu`` runs the
-reduced config here). Without ``--full`` it trains the reduced config,
-whose head dim 16 has no attention kernel: on the card that raises.
+(with ``PYTHONPATH=src``; the card by default, ``--device cpu`` runs here).
+Without ``--full`` it trains the reduced config (head dim 16, float32: the
+float32 prefill kernel's D 16 instance on the card), as the reference's
+default does; ``--full`` trains the published one.
 
 Elastic mesh, as the reference's: the data-parallel degree is re-derived
 from the mesh's entries at every (re)start (``TrainConfig.devices``:

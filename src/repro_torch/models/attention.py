@@ -42,8 +42,8 @@ from repro_torch.config import DEFAULT_POLICY, KernelPolicy
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import (Initializer, cast, dtype_of, rope, shard_batch,
-                     shard_batch_seq)
+from .layers import (Initializer, cast, dtype_of, merge_last, rope,
+                     shard_batch, shard_batch_seq, unflatten)
 
 NEG_INF = -1e30
 
@@ -80,9 +80,9 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
     dt = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ cast(p.wq, dt)).reshape(B, S, H, hd)
-    k = (x @ cast(p.wk, dt)).reshape(B, S, KV, hd)
-    v = (x @ cast(p.wv, dt)).reshape(B, S, KV, hd)
+    q = unflatten(x @ cast(p.wq, dt), -1, (H, hd))
+    k = unflatten(x @ cast(p.wk, dt), -1, (KV, hd))
+    v = unflatten(x @ cast(p.wv, dt), -1, (KV, hd))
     return q, k, v
 
 
@@ -204,7 +204,7 @@ def self_attention(
         out = _prefill_route(q, k, v, cfg.n_kv_heads, causal, head_shard,
                              policy)
     dt = dtype_of(cfg.compute_dtype)
-    out = out.reshape(B, S, -1)
+    out = merge_last(out)
     if cfg.attn_seq_shard:
         out = shard_batch(out)  # S gathered back before the row-parallel wo
     return out @ cast(p.wo, dt), (k, v)
@@ -218,11 +218,11 @@ def cross_attention(p: Attention, x: torch.Tensor, memory_kv, cfg: ModelConfig
     H, hd = cfg.n_heads, cfg.hd
     mk, mv = memory_kv  # (B, M, KV, hd)
     M = mk.shape[1]
-    q = (x @ cast(p.c_wq, dt)).reshape(B, S, H, hd)
+    q = unflatten(x @ cast(p.c_wq, dt), -1, (H, hd))
     out = blockwise_attention(q, mk, mv, torch.arange(S, device=x.device),
                               torch.arange(M, device=x.device), causal=False,
                               chunk=cfg.attn_chunk)
-    return out.reshape(B, S, -1) @ cast(p.c_wo, dt)
+    return merge_last(out) @ cast(p.c_wo, dt)
 
 
 def memory_kv(p: Attention, memory: torch.Tensor, cfg: ModelConfig):
@@ -231,8 +231,8 @@ def memory_kv(p: Attention, memory: torch.Tensor, cfg: ModelConfig):
     dt = dtype_of(cfg.compute_dtype)
     B, M, _ = memory.shape
     KV, hd = cfg.n_kv_heads, cfg.hd
-    mk = (memory @ cast(p.c_wk, dt)).reshape(B, M, KV, hd)
-    mv = (memory @ cast(p.c_wv, dt)).reshape(B, M, KV, hd)
+    mk = unflatten(memory @ cast(p.c_wk, dt), -1, (KV, hd))
+    mv = unflatten(memory @ cast(p.c_wv, dt), -1, (KV, hd))
     return mk, mv
 
 
@@ -285,6 +285,6 @@ def decode_cross_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.hd
     ck, cv = cache["ck"], cache["cv"]
-    q = (x @ cast(p.c_wq, dt)).reshape(B, H, hd)
+    q = unflatten(x @ cast(p.c_wq, dt), -1, (H, hd))[:, 0]
     out = ops.decode_attention(q.to(ck.dtype), ck, cv, policy=policy)
     return out.reshape(B, 1, H * hd).to(x.dtype) @ cast(p.c_wo, dt)

@@ -27,13 +27,15 @@ block of a parameter on the port's ``launch.mesh.Mesh``; the dry run
 One controller drives the port's meshes, with no GSPMD to propagate a
 constraint: ``shard_batch``, ``shard_batch_seq`` and
 ``shard_replicated_model`` return their input, at the reference's call
-sites. ``set_batch_axes`` records the data-parallel axes, which the
-training step reads to split the batch over the mesh's entries
-(``launch/train.py``).
+sites (the dry run's collective count swaps in versions that pin a
+DTensor's layout, ``launch/comm_cost.py``). ``set_batch_axes`` records the
+data-parallel axes, which the training step reads to split the batch over
+the mesh's entries (``launch/train.py``).
 """
 from __future__ import annotations
 
 import re
+import sys
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -47,8 +49,10 @@ __all__ = ["dtype_of", "cast", "Initializer", "Norm", "MLP", "rms_norm",
            "rope", "gated_mlp", "init_mlp", "init_norm", "cross_entropy_loss",
            "PartitionSpec", "P", "NamedSharding", "set_moe_ep",
            "spec_for_path", "param_specs", "shardings_for",
-           "sanitize_pspecs", "set_batch_axes", "get_batch_axes",
-           "shard_batch", "shard_batch_seq", "shard_replicated_model"]
+           "sanitize_pspecs", "placements", "set_batch_axes",
+           "get_batch_axes", "shard_batch", "shard_batch_seq",
+           "shard_replicated_model", "is_dtensor", "unflatten",
+           "merge_last", "lookup", "rejoin", "gathered"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -321,6 +325,128 @@ def sanitize_pspecs(pspecs: Mapping[str, PartitionSpec], shapes, mesh
     return out
 
 
+def placements(spec: PartitionSpec, mesh) -> list:
+    """``spec`` (a ``sanitize_pspecs`` entry) as DTensor placements on
+    ``mesh`` (the port's ``Mesh`` or a ``DeviceMesh``), one a mesh axis:
+    ``Shard(d)`` on each axis that ``spec`` puts on dimension d, else
+    ``Replicate()``. DTensor shards a dimension over its mesh axes left to
+    right, the first most significant, as ``NamedSharding`` reads a tuple
+    entry; an entry whose axes run against the mesh's order, or an axis
+    used twice, raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(getattr(mesh, "axis_names", None)
+                  or getattr(mesh, "mesh_dim_names"))
+    out = [Replicate() for _ in names]
+    seen = set()
+    for d, entry in enumerate(spec):
+        idx = [names.index(a) for a in _axes(entry)]
+        if idx != sorted(idx) or seen & set(idx):
+            raise ValueError(f"placements: {spec!r} on mesh axes {names}: "
+                             "a dimension's axes out of the mesh's order, "
+                             "or an axis used twice")
+        seen.update(idx)
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+# --- DTensors ----------------------------------------------------------------
+# The dry run counts a step's collectives over DTensors on ``meta``
+# (``launch/comm_cost.py``, which swaps in its own versions of the
+# functions whose DTensor form differs); every other route holds plain
+# tensors, on which these are the plain operation. Where DTensor has no
+# rule for a view or an index, they make the redistribution explicit, and
+# the count includes it.
+
+def is_dtensor(x) -> bool:
+    """``x`` is a ``torch.distributed.tensor.DTensor`` (none exists before
+    that module is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int]
+              ) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``. A DTensor is first gathered over the
+    mesh axes on ``dim``, from the last, until those left divide
+    ``sizes[0]`` (3 heads on a model axis of 2; 16 rows on 256 entries):
+    DTensor splits no dimension unevenly."""
+    dim = dim % x.ndim
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        on = [i for i, p in enumerate(x.placements) if p.is_shard(dim)]
+        while on and sizes[0] % int(np.prod([x.device_mesh.size(i)
+                                             for i in on])):
+            on.pop()
+        drop = [i for i, p in enumerate(x.placements)
+                if p.is_shard(dim) and i not in on]
+        if drop:
+            x = x.redistribute(placements=[
+                Replicate() if i in drop else p
+                for i, p in enumerate(x.placements)])
+    return x.unflatten(dim, tuple(sizes))
+
+
+def merge_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., H, hd) as (..., H hd). A DTensor sharded over hd is
+    gathered first; its result is redistributed to its own layout, which
+    does nothing forward and brings the gradient back to that layout: a
+    gradient sharded over H hd would otherwise split unevenly into the
+    heads (``unflatten``)."""
+    if is_dtensor(x) and any(p.is_shard(x.ndim - 1) for p in x.placements):
+        from torch.distributed.tensor import Replicate
+
+        # hd sharded (a decode cache's head dim): gathered before the
+        # merge, which no DTensor version makes of an inner shard
+        x = x.redistribute(placements=[
+            Replicate() if p.is_shard(x.ndim - 1) else p
+            for p in x.placements])
+    y = x.flatten(-2)
+    if is_dtensor(y) and y.requires_grad:
+        y = y.redistribute(placements=y.placements)
+    return y
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: the rows of ``ids``. A DTensor table (the dry run's
+    count) takes them as the product of the ids' one-hot rows with the
+    table, the same rows, through operations every DTensor version has
+    rules for (indexing's backward has none in some); over a vocabulary
+    sharded on "model" that is a sum of partial rows, summed at once (an
+    all-reduce)."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Replicate
+
+    vocab = torch.arange(table.shape[0], device=table.device)
+    out = (ids[..., None] == vocab).to(table.dtype) @ table
+    return out.redistribute(placements=[
+        Replicate() if p.is_partial() else p for p in out.placements])
+
+
+def rejoin(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Plain ``x`` as a replicated DTensor on ``like``'s mesh when
+    ``like`` is a DTensor (the dry run's count: a ``gathered`` result
+    meeting DTensors again, whose gradient then comes back as one), else
+    ``x``."""
+    if not is_dtensor(like) or is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def gathered(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole, as a plain tensor: a DTensor's ``full_tensor()`` (an
+    all-gather the count includes), for index arithmetic DTensor has no
+    rule for (``argsort``, ``searchsorted``); a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 # --- activation sharding -----------------------------------------------------
 # The reference pins every major activation to a batch-sharded layout with
 # GSPMD constraints. One controller has no GSPMD: the functions below
@@ -395,6 +521,11 @@ def gated_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return u @ cast(p.w_down, dt)
 
 
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The logit of each target: ``logits[..., targets]``."""
+    return torch.gather(logits, -1, targets[..., None].long())[..., 0]
+
+
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        z_loss: float = 1e-4,
@@ -406,8 +537,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     losses and gradients sum to the global batch's."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = lse - gold
+    nll = lse - _gold(logits, targets)
     if z_loss:
         nll = nll + z_loss * lse ** 2
     if mask is None:

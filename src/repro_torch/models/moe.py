@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ModelConfig
-from .layers import Initializer, cast, dtype_of
+from .layers import (Initializer, cast, dtype_of, gathered, rejoin,
+                     unflatten)
 
 __all__ = ["MoE", "Dispatch", "init_moe", "route", "capacity", "moe_ffn"]
 
@@ -109,6 +110,11 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
     gate_vals, expert_idx, probs = route(p, xt, cfg)
 
     plan = p.dispatch
+    # the dry run's count: the dispatch's index arithmetic, gathers and
+    # scatters on whole tensors (all-gathers), which DTensor has no rules
+    # for, rejoined as replicated DTensors; the experts' products stay
+    # sharded
+    expert_idx = gathered(expert_idx)
     # Switch aux loss: E * sum_e f_e * P_e
     if plan is None or plan.density is None:
         density = F.one_hot(expert_idx, E).float().sum(dim=1).mean(dim=0)
@@ -136,21 +142,24 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig
     in_cap = ar[None, :] < kept[:, None]
     src = order[slot]                                      # flat assignment id
     token_of = src // K                                    # (E, C) source token
-    xs = xt[token_of.reshape(-1)].to(dt)
-    xs = torch.where(in_cap.reshape(-1, 1), xs, 0).reshape(E, C, d)
+    xs = gathered(xt)[token_of.reshape(-1)].to(dt)
+    xs = rejoin(torch.where(in_cap.reshape(-1, 1), xs, 0).reshape(E, C, d),
+                xt)
 
     g = torch.bmm(xs, cast(p.experts_gate, dt))
     u = torch.bmm(xs, cast(p.experts_up, dt))
     y = torch.bmm(F.silu(g) * u, cast(p.experts_down, dt))
 
-    gates_bucket = torch.where(in_cap, gate_vals.reshape(-1)[src], 0.0)
+    gates_bucket = rejoin(torch.where(
+        in_cap, gathered(gate_vals).reshape(-1)[src], 0.0), xt)
     contrib = y.float() * gates_bucket[..., None]
     out = torch.zeros((N, d), dtype=torch.float32, device=x.device)
-    out.index_add_(0, token_of.reshape(-1), contrib.reshape(-1, d))
+    out.index_add_(0, token_of.reshape(-1), gathered(contrib).reshape(-1, d))
+    out = rejoin(out, xt)
 
     if cfg.shared_expert_dff:
         sg = xt @ cast(p.shared_gate, dt)
         su = xt @ cast(p.shared_up, dt)
         out = out + ((F.silu(sg) * su) @ cast(p.shared_down, dt)).float()
 
-    return out.reshape(B, S, d).to(x.dtype), aux
+    return unflatten(out, 0, (B, S)).to(x.dtype), aux

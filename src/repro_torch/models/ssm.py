@@ -130,6 +130,18 @@ def _ssd_chunked(xh, dt, B, C, A, chunk: int):
     return y, state
 
 
+def _ssd_step(state, dt, xh, B, C, A):
+    """One token's recurrence: S' = S * exp(dt A) + dt B x^T, y = C . S'.
+    state (Bt, H, hd, n); dt (Bt, 1, H); xh (Bt, 1, H, hd); B, C (Bt, 1,
+    n). Returns y (Bt, 1, H, hd) and S'."""
+    da = torch.exp(dt[:, 0] * A[None, :])                         # (B,H)
+    upd = torch.einsum("bh,bhd,bn->bhdn", dt[:, 0], xh[:, 0],
+                       B[:, 0].float())
+    state = state * da[:, :, None, None] + upd
+    y = torch.einsum("bn,bhdn->bhd", C[:, 0].float(), state)[:, None]
+    return y, state
+
+
 def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
                 decode_cache: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
@@ -153,13 +165,7 @@ def mamba_mixer(p: Mamba, x: torch.Tensor, cfg: ModelConfig,
     if decode_cache is None:
         y, state = _ssd_chunked(xh, dt, Bv.float(), Cv.float(), A, _SSD_CHUNK)
     else:
-        # one-step recurrence: S' = S * exp(dt*A) + dt * B x^T ; y = C . S'
-        state = decode_cache["state"]
-        da = torch.exp(dt[:, 0] * A[None, :])                     # (B,H)
-        upd = torch.einsum("bh,bhd,bn->bhdn", dt[:, 0], xh[:, 0],
-                           Bv[:, 0].float())
-        state = state * da[:, :, None, None] + upd
-        y = torch.einsum("bn,bhdn->bhd", Cv[:, 0].float(), state)[:, None]
+        y, state = _ssd_step(decode_cache["state"], dt, xh, Bv, Cv, A)
 
     y = y + xh * p.D.float()[None, None, :, None]
     y = y.reshape(B_, S, din).to(dt_) * F.silu(z)

@@ -54,8 +54,8 @@ from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (Initializer, cast, cross_entropy_loss, dtype_of,
-                     gated_mlp, init_mlp, init_norm, rms_norm, shard_batch,
-                     shard_batch_seq)
+                     gated_mlp, init_mlp, init_norm, lookup, rms_norm,
+                     shard_batch, shard_batch_seq)
 
 __all__ = ["Block", "Encoder", "Transformer", "init_model", "forward",
            "loss_fn", "encode", "init_cache", "decode_step", "prefill",
@@ -331,7 +331,7 @@ def _stack(model: Transformer, tokens, memory, caches: Optional[Cache] = None):
     dt = dtype_of(cfg.compute_dtype)
     tokens = _tokens(model, tokens)
     S = tokens.shape[1]
-    h = shard_batch(cast(model.embed, dt)[tokens])
+    h = shard_batch(lookup(cast(model.embed, dt), tokens))
     positions = torch.arange(S, device=model.device)
     if memory is not None:
         memory = torch.as_tensor(memory, device=model.device).to(dt)
@@ -471,7 +471,7 @@ def decode_step(model: Transformer, cache: Cache, tokens, cur
     dt = dtype_of(cfg.compute_dtype)
     cur = int(cur)
     tokens = _tokens(model, tokens)
-    h = cast(model.embed, dt)[tokens]
+    h = lookup(cast(model.embed, dt), tokens)
     B = tokens.shape[0]
     biases = {}  # one mask a window, shared by the layers
     for i, bp in enumerate(model.blocks):

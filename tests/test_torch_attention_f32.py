@@ -326,7 +326,9 @@ def test_mirrors_match_the_sources():
         t_fd.F32_WARPS)
     assert re.search(r"#define FD_MERGE_WORDS (\d+)", dec).group(1) == str(
         t_fd.MERGE_WORDS)
-    assert "static constexpr int TK = 4096 / D;" in dec
-    assert t_fd.F32_TILE_KEYS == {D: 4096 // D for D in t_fd.HEAD_DIMS}
+    assert ("static constexpr int TK =\n      4096 / D < 32 * FD_WARPS ? "
+            "4096 / D : 32 * FD_WARPS;") in dec
+    assert t_fd.F32_TILE_KEYS == {D: min(4096 // D, 32 * t_fd.F32_WARPS)
+                                  for D in t_fd.HEAD_DIMS[torch.float32]}
     assert t_fd.MAX_GROUP_WIDTH == 128 * int(
         re.search(r"#define FD_LARGE (\d+)", dec).group(1))

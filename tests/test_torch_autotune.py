@@ -298,16 +298,17 @@ def test_default_entry_is_the_sources_tiles():
     src = (build.CSRC / "flash_prefill_tc.cu").read_text()
     assert "fpt_smem(D, BQ, BK, 3) <= FPT_SMEM_MAX ? 3 : 2" in src
     bf16, f32t = torch.bfloat16, torch.float32
-    assert {D: t_fp.prefill_config(bf16, D) for D in t_fp.HEAD_DIMS} == {
+    assert {D: t_fp.prefill_config(bf16, D)
+            for D in t_fp.HEAD_DIMS[bf16]} == {
         64: {"block_q": 128, "block_k": 128, "stages": 3},
         128: {"block_q": 128, "block_k": 128, "stages": 3},
         256: {"block_q": 128, "block_k": 64, "stages": 2}}
-    assert {D: t_fp.instance(f32t, D) for D in t_fp.HEAD_DIMS} == {
+    assert {D: t_fp.instance(f32t, D) for D in t_fp.HEAD_DIMS[f32t]} == {
         D: (f32["FP_BQ"], bk) for D, (_, _, bk) in t_fp.F32_SHAPES.items()}
-    assert {D: t_fd.instance(bf16, D) for D in t_fd.HEAD_DIMS} == {
-        D: dec["FDT_TK"] for D in t_fd.HEAD_DIMS}
-    assert {D: t_fd.instance(f32t, D) for D in t_fd.HEAD_DIMS} == \
-        t_fd.F32_TILE_KEYS
+    assert {D: t_fd.instance(bf16, D) for D in t_fd.HEAD_DIMS[bf16]} == {
+        D: dec["FDT_TK"] for D in t_fd.HEAD_DIMS[bf16]}
+    assert {D: t_fd.instance(f32t, D)
+            for D in t_fd.HEAD_DIMS[f32t]} == t_fd.F32_TILE_KEYS
 
 
 def test_instances_mirror_the_sources():
@@ -331,7 +332,7 @@ def test_instances_mirror_the_sources():
     assert t_fd.TC_STAGES == dd["FDT_STAGES"]
     assert t_fd.TC_INSTANCES == {D: tuple(
         t for t in (64, 128, 256) if dec_smem(D, t) <= dd["FDT_SMEM_MAX"])
-        for D in t_fd.HEAD_DIMS}
+        for D in t_fd.HEAD_DIMS[torch.bfloat16]}
     pre = (build.CSRC / "flash_prefill_tc.cu").read_text()
     assert ("return 1024 + BQ * D * 2 + 2 * stages * BK * D * 2 + "
             "8 * (1 + 2 * stages);") in pre
@@ -343,11 +344,12 @@ def test_instances_mirror_the_sources():
     cap = pd["FPT_SMEM_MAX"]
     assert t_fp.TC_INSTANCES == {
         (D, bq, bk): 3 if pre_smem(D, bq, bk, 3) <= cap else 2
-        for D in t_fp.HEAD_DIMS for bq in (64, 128) for bk in (64, 128)
+        for D in t_fp.HEAD_DIMS[torch.bfloat16] for bq in (64, 128)
+        for bk in (64, 128)
         if pre_smem(D, bq, bk, 2) <= cap}
     assert {D: sorted({t_fp.instance(torch.bfloat16, D, *c)
                        for c in t_at.KERNELS["flash_prefill"].candidates})
-            for D in t_fp.HEAD_DIMS} == {
+            for D in t_fp.HEAD_DIMS[torch.bfloat16]} == {
         64: [(64, 64), (64, 128), (128, 64), (128, 128)],
         128: [(64, 64), (64, 128), (128, 64), (128, 128)],
         256: [(64, 64), (128, 64)]}

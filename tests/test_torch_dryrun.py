@@ -23,6 +23,7 @@ from functools import partial
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -177,7 +178,13 @@ def test_run_cell_writes_its_record(tmp_path):
     on_disk = json.loads((tmp_path / "smollm_135m__train_4k__16x16.json")
                          .read_text())
     assert on_disk == json.loads(json.dumps(rec))
-    assert rec["chips"] == 256 and rec["collective_bytes"] is None
+    assert rec["chips"] == 256 and rec["collective_total_bytes"] > 0
+    assert sorted(rec["collective_bytes"]) == sorted(dryrun.COLLECTIVES)
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        rec["collective_total_bytes"] / dryrun.LINK_BW)
+    assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+    assert rec["collectives_counted"]["torch"] == torch.__version__
+    assert rec["collectives_counted"]["upper_bound"] is False  # dense train
     assert rec["flops_per_device"] * 256 == pytest.approx(rec["flops_total"])
     assert rec["fits_80gb"] and rec["memory_per_device"]["opt"] > 0
     skip = dryrun.run_cell("smollm_135m", "long_500k", True, verbose=False,
@@ -191,3 +198,4 @@ def test_paper_cell_runs_the_sharded_sampler(tmp_path):
     assert rec["entries"] == 16 and rec["per_shard_capacity"] > 0
     assert rec["join_size"] > 0 and rec["sample_count"] >= 0
     assert rec["peak_device_bytes"] is None
+    assert rec["collective_total_bytes"] > 0
