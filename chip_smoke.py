@@ -62,6 +62,22 @@ and the samples against the join and their expected size, and times each
 kernel beside its bound: its wrapper by CUDA events, then, after every
 timing, its device time by ``torch.profiler``.
 
+Each CUDA source's checked build (``kernels/build.py`` ``VARIANTS``: every
+load and store of a launch held against the launch's operands) runs in
+the phases that launch its kernel, on the same inputs, at the tile the
+main path resolves, and its output is held against the plain version:
+the GET at A's every position and the bsearch kernel at each of A's
+cases (phase A), the per-page GET at C (phase C), the draw at each of
+phase E's batches and the float64 scan at A's masses (E), the scans at
+phase D's sizes (D), the walks at A's full join, one draw and the skewed
+edge (F); each of the four newer builds also at ragged sizes (one
+element, a tile less one and plus one, a view one element into its
+allocation; the scans on streams of their own, whose scratch grows), and
+each with one operand's range left out, which must count (the negative
+control). Each run prints ``[check] <kernel>.out_of_bounds count=<n>``,
+each phase asserts its counts 0, and the kernels line has a row per
+checked build beside the row whose call it repeats.
+
 Data (numpy, from ``--seed``): the schema and probabilities of
 ``benchmarks/workloads.py`` ``job_like`` (Title(t, kind, p) |><|
 Cast(t, person) |><| Comp(t, comp), p ~ Beta(2, 10), keys uniform), at the
@@ -665,6 +681,283 @@ def library_timed(fn, reps: int, device, label: str):
         return None
 
 
+# The checked builds that phases A-F run (build.VARIANTS, one a source;
+# phase L's GET and attention candidates and phases M's and N's attention
+# builds report through their own lines): build -> its runs, each a dict
+# of the kernel, the shape, the accesses outside the operands ("count"),
+# the checked call's ms (the ranges set, the launch, the count read back),
+# its output's error against the plain version ("err") and the main-path
+# row whose shape and call it repeats ("row", or None).
+CHECKED: dict = {}
+CHECKED_SOURCES = {"fused_draw_checked": "fused_draw.cu",
+                   "tree_get_checked": "tree_get.cu",
+                   "bsearch_probe_checked": "bsearch_probe.cu",
+                   "tree_probe_paged_checked": "tree_probe_paged.cu",
+                   "scan_checked": "scan.cu",
+                   "csr_walk_checked": "csr_walk.cu"}
+
+
+def bounds_checked(build_name: str, kernel: str, label: str, fn, want=None,
+                   row=None) -> dict:
+    """One checked launch, ``fn()`` (an ``out_of_bounds`` wrapper; called
+    twice when ``row`` names the main-path row it repeats, the second call
+    timed, so that no library load counts). Logs ``[check]
+    <kernel>.out_of_bounds count=<n>``, with the first records when n > 0,
+    and the output against ``want`` (the plain version's; a tuple item by
+    item, None items skipped); keeps the run in ``CHECKED``; returns the
+    wrapper's result. The phase asserts the counts
+    (``assert_in_bounds``)."""
+    if row is not None:
+        fn()
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = None
+    if want is not None:
+        got = out["out"]
+        pairs = (zip(got, want) if isinstance(want, (tuple, list))
+                 else ((got, want),))
+        err = max(max_abs_err(g, w) for g, w in pairs if w is not None)
+    CHECKED.setdefault(build_name, []).append(dict(
+        kernel=kernel, label=label, count=out["count"], ms=ms, err=err,
+        row=row))
+    notes = {k: out[k] for k in ("grown", "words", "tile", "launches")
+             if k in out}
+    log(f"[check] {kernel}.out_of_bounds count={out['count']} at {label}"
+        + (f" {notes}" if notes else "")
+        + (f"; output vs plain {err}" if err is not None else "")
+        + (f"; first records (line, operand, byte offset, operand bytes, "
+           f"access bytes) {out['loads'][:8]}" if out["count"] else ""))
+    return out
+
+
+def assert_in_bounds(*names) -> None:
+    """Every run of the checked builds ``names`` so far counted no access
+    outside its operands, and every output equals the plain version's."""
+    runs = [(n, r) for n in names for r in CHECKED.get(n, [])]
+    assert runs, names
+    bad = [(r["kernel"], r["label"], r["count"], r["err"]) for _, r in runs
+           if r["count"] or r["err"]]
+    assert not bad, bad
+
+
+def checked_build_rows(table) -> list:
+    """The kernels line's rows of the builds in ``CHECKED``: not on the
+    main path (no launches); ms is the checked calls' that repeat a
+    main-path row's call (summed where that call is several launches),
+    beside that row's plain, bound and library times."""
+    by_name = {r["name"]: r for r in table}
+    rows = []
+    for name, runs in CHECKED.items():
+        mine = [r for r in runs if r["row"] is not None]
+        if not mine:
+            continue
+        at = by_name[mine[0]["row"]]
+        ms = sum(r["ms"] for r in mine)
+        errs = [r["err"] for r in runs if r["err"] is not None]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + CHECKED_SOURCES[name],
+            "replaces": at["replaces"], "launches": 0,
+            "max_abs_err": max(errs) if errs else None, "ms": ms,
+            "plain_ms": at["plain_ms"], "bound_ms": at["bound_ms"],
+            "bound_by": at["bound_by"], "library_ms": at["library_ms"],
+            "tile": None})
+        log(f"[time] {name}: {ms:.4f} ms a checked call at "
+            f"{mine[0]['kernel']} {mine[0]['label']}"
+            + (f" ({len(mine)} launches)" if len(mine) > 1 else "")
+            + f" (the row {at['name']}: {at['ms']:.4f} ms); "
+            f"{sum(r['count'] for r in runs)} accesses outside the operands "
+            f"over {len(runs)} launches")
+    return rows
+
+
+def bounds_controls(device, pv, pos) -> dict:
+    """The negative control of the checked builds that take
+    ``csrc/bounds_check.cuh``: each launched with one operand's range left
+    out of the ranges it sets, as if its kernel read or wrote past that
+    operand, must count accesses, and end (a next link read as 0 once sent
+    the checked walk round row 0 for ever). The per-page GET runs on the
+    paged arena ``pv`` at positions ``pos``. Returns the counts; none of
+    these runs joins ``CHECKED``."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import bsearch_probe as bp_mod
+    from repro_torch.kernels import csr_walk as cw_mod
+    from repro_torch.kernels import geo_gaps as geo_mod
+    from repro_torch.kernels import prefix_sum as ps_mod
+    from repro_torch.kernels import tree_probe as tp_mod
+
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    x = torch.randint(0, 9, (20_000,), generator=g, device=device,
+                      dtype=torch.int32)
+    xf = torch.rand((20_000,), generator=g, device=device,
+                    dtype=torch.float64)
+    u = torch.rand((20_000,), generator=g, device=device)
+    w = torch.randint(0, 30, (100_000,), generator=g, device=device,
+                      dtype=torch.int32)
+    pref = torch.cat([w.new_zeros(1), torch.cumsum(w, 0, dtype=torch.int32)])
+    q = torch.sort(torch.randint(0, int(pref[-1]), (5_000,), generator=g,
+                                 device=device, dtype=torch.int32)).values
+    # chains of ten rows; row 0 of weight 0
+    wt = torch.randint(0, 3, (1_000,), generator=g, device=device)
+    wt[0] = 0
+    rows = torch.arange(1_000, device=device)
+    nxt = torch.where(rows % 10 == 9, -1, rows + 1).to(torch.int32)
+    hd = (torch.arange(300, device=device) // 30 * 10).to(torch.int32)
+    idx = torch.randint(0, 12, (300,), generator=g, device=device)
+    cases = (
+        ("scan_i32", "status", lambda: ps_mod.out_of_bounds(x)),
+        ("scan_i32", "out", lambda: ps_mod.out_of_bounds(x)),
+        ("scan_f64", "status", lambda: ps_mod.out_of_bounds(xf)),
+        ("scan_f64", "x", lambda: ps_mod.out_of_bounds(xf)),
+        ("geo_gaps", "x", lambda: geo_mod.out_of_bounds(u, GEO_P)),
+        ("bsearch_probe", "pref", lambda: bp_mod.out_of_bounds(pref, q)),
+        ("bsearch_probe", "out", lambda: bp_mod.out_of_bounds(pref, q)),
+        ("csr_walk", "nxt", lambda: cw_mod.out_of_bounds(wt, nxt, hd, idx)),
+        ("csr_walk_cached", "nxt",
+         lambda: cw_mod.out_of_bounds(wt, nxt, hd, idx, True)),
+        ("csr_walk_cached", "row",
+         lambda: cw_mod.out_of_bounds(wt, nxt, hd, idx, True)),
+        ("tree_probe_paged_pages", "page 1",
+         lambda: tp_mod.paged_out_of_bounds(pv, pos)))
+    real = build.checked_run
+    counts = {}
+    try:
+        for kernel, left_out, fn in cases:
+            build.checked_run = (lambda left_out: lambda cs, launch, cg, ops,
+                                 dev, records: real(cs, launch, cg, [
+                                     (n, t) for n, t in ops if n != left_out],
+                                     dev, records))(left_out)
+            out = fn()
+            counts[f"{kernel} without {left_out}"] = out["count"]
+            log(f"[check] negative control: {kernel}.out_of_bounds with the "
+                f"range of {left_out} left out: count={out['count']}; first "
+                f"records {out['loads'][:2]}")
+    finally:
+        build.checked_run = real
+    assert all(counts.values()), counts
+    return counts
+
+
+def scan_bounds_ragged(device, gen, extra=()) -> None:
+    """The scan's checked build at ragged sizes, each entry on a stream of
+    its own, whose scratch the first launch makes and each larger size
+    grows: one element, each tile of the entry less one and plus one (the
+    floats' ``TILE``, the look-back's two tiles), the ``extra`` sizes;
+    then, at two of its largest tiles, an input and an output that each
+    start one element into their allocations (4 bytes, 8 in float64: the
+    scalar load and store paths)."""
+    import torch
+
+    from repro_torch.kernels import geo_gaps as geo_mod
+    from repro_torch.kernels import prefix_sum as ps_mod
+
+    T, Ts, Tf = (ps_mod.LOOK_BACK_TILE, ps_mod.LOOK_BACK_SMALL_TILE,
+                 ps_mod.TILE)
+    cases = {"scan_i32": (torch.int32, (Ts, T)),
+             "geo_gaps": (torch.float32, (Ts, T)),
+             "scan_f32": (torch.float32, (Tf,)),
+             "scan_f64": (torch.float64, (Tf,))}
+    main_stream = torch.cuda.current_stream(device)
+    for entry, (dt, tiles) in cases.items():
+        geo = entry == "geo_gaps"
+
+        def data(m):
+            if dt == torch.int32:
+                return torch.randint(-2**31, 2**31, (m,), generator=gen,
+                                     device=device, dtype=dt)
+            return torch.rand((m,), generator=gen, device=device, dtype=dt)
+
+        sizes = sorted({1, *(t + d for t in tiles for d in (-1, 1)),
+                        *extra})
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main_stream)
+        with torch.cuda.stream(side):
+            for m in sizes + [None]:
+                out = None
+                label = f"n {m}"
+                if m is None:
+                    m = 2 * max(tiles)
+                    x = data(m + 1)[1:]
+                    out = torch.empty(m + 1, device=device, dtype=(
+                        torch.int32 if geo else dt))[1:]
+                    label = (f"n {m}, input and output one element into "
+                             "their allocations")
+                else:
+                    x = data(m)
+                want = (geo_mod.geo_gaps_plain(x, GEO_P) if geo
+                        else ps_mod.prefix_sum_plain(x))
+                bounds_checked(
+                    "scan_checked", entry, label + " (a stream of its own)",
+                    (lambda: geo_mod.out_of_bounds(x, GEO_P, out)) if geo
+                    else (lambda: ps_mod.out_of_bounds(x, out)), want)
+        main_stream.wait_stream(side)
+        side.synchronize()
+
+
+def bsearch_bounds_ragged(pref, q, device, policy=None) -> None:
+    """The bsearch kernel's checked build on slices of the sorted queries
+    ``q`` at each instance's tile (256, 512, 1,024 and 2,048 queries) less
+    one and plus one, at one query, and on a view one query into its
+    allocation, each at the tile ``autotune.tile_for`` resolves for its
+    size."""
+    from repro_torch.kernels import bsearch_probe as bp_mod
+    from repro_torch.kernels.autotune import tile_for
+
+    cases = {f"n {m}": q[:m] for m in (1, 255, 257, 511, 513, 1023, 1025,
+                                       2047, 2049)}
+    cases["n 3109, a view one query into its allocation"] = q[1:3110]
+    for label, qq in cases.items():
+        br = tile_for("bsearch_probe", qq.numel(), policy, device)
+        bounds_checked("bsearch_probe_checked", "bsearch_probe",
+                       f"{label} (block_rows {br})",
+                       lambda: bp_mod.out_of_bounds(pref, qq, br),
+                       bp_mod.bsearch_probe_plain(pref, qq))
+
+
+def paged_bounds_ragged(pv, pos) -> None:
+    """The per-page GET's checked build on slices of the positions
+    ``pos``: one probe, a block of 256 less one and plus one, and a view
+    one probe into its allocation."""
+    from repro_torch.kernels import tree_probe as tp_mod
+
+    cases = {f"n {m}": pos[:m] for m in (1, 255, 257)}
+    cases["n 1000, a view one probe into its allocation"] = pos[1:1001]
+    for label, pp in cases.items():
+        bounds_checked("tree_probe_paged_checked", "tree_probe_paged_pages",
+                       label, lambda: tp_mod.paged_out_of_bounds(pv, pp),
+                       tp_mod.tree_probe_plain(pv.buffer, pp, pv.layout))
+
+
+def csr_bounds_ragged(weight, nxt, hd, idx) -> None:
+    """Both CSR walk kernels' checked build on the first and the last
+    probes of an edge: one probe, the caching kernel's tile (128) and the
+    plain walk's block (256) less one and plus one, and a view one probe
+    into its allocation."""
+    from repro_torch.kernels import csr_walk as cw_mod
+
+    m_all = hd.numel()
+    cases = {}
+    for m in (1, 127, 129, 255, 257):
+        if m <= m_all:
+            cases[f"the first {m} probes"] = (hd[:m], idx[:m])
+            cases[f"the last {m} probes"] = (hd[m_all - m:], idx[m_all - m:])
+    m = min(1000, m_all - 1)
+    cases[f"{m} probes, a view one probe into its allocation"] = (
+        hd[1:m + 1], idx[1:m + 1])
+    for label, (h, i) in cases.items():
+        want = cw_mod.csr_walk_plain(weight, nxt, h, i)
+        for cached in (False, True):
+            bounds_checked(
+                "csr_walk_checked",
+                "csr_walk_cached" if cached else "csr_walk", label,
+                lambda: cw_mod.out_of_bounds(weight, nxt, h, i, cached,
+                                             stats=cached), want)
+
+
 def run_ops(args, device, kernels, n_join: int):
     """Phase D: the kernel-ops entry point (``repro_torch.kernels.ops``) at
     the sizes of the configurations the repo has, each kernel held against
@@ -939,6 +1232,23 @@ def run_ops(args, device, kernels, n_join: int):
         f"{int(wrong_geo)} / {int(wrong_f64)} elements differ from the first "
         f"calls (float64: from scan_order); {side_note}")
     del first, first_geo
+    if device.type == "cuda":
+        # The scan's checked build at the phase's sizes (int32 as the
+        # prefix_sum row's call; float32, float64 and GEO's lanes), then at
+        # ragged sizes and across the look-back's switch of tile, each
+        # entry on a stream of its own whose scratch grows
+        for entry, x, want in (("scan_i32", w_i32, want_i32),
+                               ("scan_f32", w_rand, want_rand),
+                               ("scan_f64", w_rand64, want_rand64)):
+            bounds_checked("scan_checked", entry, f"D, n {n}",
+                           lambda: ps_mod.out_of_bounds(x), want,
+                           row="prefix_sum" if entry == "scan_i32" else None)
+        bounds_checked("scan_checked", "geo_gaps", f"D, {lanes} lanes",
+                       lambda: geo_mod.out_of_bounds(u0, GEO_P),
+                       geo_mod.geo_gaps_plain(u0, GEO_P))
+        scan_bounds_ragged(device, gen, extra=(33 * T + 7, switch - 1,
+                                               switch))
+        assert_in_bounds("scan_checked")
 
     errs["geo_gaps"] = errs["threefry_uniforms"] = 0.0
     off_lanes, near, zs = 0, 0, []
@@ -1405,14 +1715,24 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
                 None, None, plan.draw_params, keys=keys, **kw)
             assert all(c == counts["model"] for c in counts.values()), counts
             # the checked build: every load inside the launch's operands
+            scalars = torch.stack([want[2].to(torch.int32),
+                                   want[3].to(torch.int32)], 1)
             for arena in (pk.arena, None):
-                out = fd_mod.out_of_bounds(
-                    arena, None, plan.draw_params,
-                    layout=None if arena is None else pk.layout, keys=keys,
-                    **kw)
+                out = bounds_checked(
+                    "fused_draw_checked", "fused_draw_batch" if arena
+                    is not None else "fused_sample_batch",
+                    f"{label} ({len(keys)} keys, {method})",
+                    lambda: fd_mod.out_of_bounds(
+                        arena, None, plan.draw_params,
+                        layout=None if arena is None else pk.layout,
+                        keys=keys, **kw),
+                    (want[0] if arena is not None else None, want[1],
+                     scalars),
+                    row=("fused_draw_batch" if arena is not None
+                         and label == "B" else None))
                 bounds["launches"] += 1
                 bounds["loads"] += out["count"]
-                assert out["count"] == 0, (label, arena is None, out)
+            del scalars
         for k in tiles:
             tiles[k] += counts["model"][k]
         log(f"[check] fused_draw_batch / fused_sample_batch at {label} "
@@ -1428,6 +1748,7 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
             f"{bounds['launches']} launches, fused_draw_batch and "
             f"fused_sample_batch: {bounds['loads']} loads outside their "
             f"operands")
+        assert_in_bounds("fused_draw_checked")
     assert tiles["staged"] > 0 and tiles["fallback"] > 0, tiles
     del planS, planTC, plan5, planQ, planQD, demo
     if on_card:
@@ -1549,6 +1870,12 @@ def run_batched(args, device, q, configs, fulls, kernels, errs, steps):
     log(f"[check] prefix_sum float64 at A's {xA.numel()} masses: kernel vs "
         f"plain max_abs_err {errs['prefix_sum_f64']}")
     assert errs["prefix_sum_f64"] == 0.0
+    if on_card:
+        bounds_checked("scan_checked", "scan_f64",
+                       f"A's {xA.numel()} masses",
+                       lambda: ps_mod.out_of_bounds(xA),
+                       ps_mod.prefix_sum_plain(xA))
+        assert_in_bounds("scan_checked")
     # What the fixed order repairs: the library scan repeated on the same
     # masses (off the port's path since this change), and its float32 cast,
     # which the fused draw's tables take.
@@ -1916,6 +2243,32 @@ def run_updates(args, device, q, configs, kernels, errs, dev_ms):
         "probes": skew[2].numel(), "longest_chain": SKEW_ROWS,
         "longest_run": longest_run(skew[2]), "runs": tiles}
     assert errs["csr_walk"] == 0.0 and errs["csr_walk_cached"] == 0.0, errs
+    if on_card:
+        # the walks' checked build, both modes: every edge of the full
+        # join (csr_walk's row repeats its call) and of the draw, the
+        # skewed edge (with the run counts), ragged slices of it
+        for label, edges in (("full join", edges_full), ("draw", edges_draw)):
+            for e in edges:
+                for cached in (False, True):
+                    bounds_checked(
+                        "csr_walk_checked",
+                        "csr_walk_cached" if cached else "csr_walk",
+                        f"F.CSR at A, {label}, edge {e.name} "
+                        f"({e.hd.numel()} probes)",
+                        lambda: cw_mod.out_of_bounds(
+                            e.child.weight, e.child.nxt, e.hd, e.idx,
+                            cached), (e.row, e.rem),
+                        row=("csr_walk" if label == "full join"
+                             and not cached else None))
+        for cached in (False, True):
+            bounds_checked(
+                "csr_walk_checked", "csr_walk_cached" if cached
+                else "csr_walk", f"F.CSR, the skewed edge ({skew[2].numel()} "
+                "probes, run counts on)",
+                lambda: cw_mod.out_of_bounds(*skew, cached, stats=True),
+                plain)
+        csr_bounds_ragged(*skew)
+        assert_in_bounds("csr_walk_checked")
     del plain, crow, crem, mrow, mrem, wrow, wrem
     # the cached plain version (a host loop) on the draw's positions
     t0 = time.perf_counter()
@@ -5964,9 +6317,11 @@ def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
     from repro_torch.kernels import prefix_sum as ps_mod
     from repro_torch.kernels import threefry
     from repro_torch.kernels import tree_probe as tp_mod
+    from repro_torch.kernels.autotune import tile_for
 
     on_card = device.type == "cuda"
     MAIN_TILES.clear()
+    CHECKED.clear()
     kernels = {"tree_probe": tp_mod.tree_probe,
                "bsearch_probe": bp_mod.bsearch_probe,
                "fused_draw": fd_mod.fused_draw,
@@ -6170,8 +6525,32 @@ def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
             f"tiles staged / fell back: kernel {stats['staged']} / "
             f"{stats['fallback']}, plain model {model_stats['staged']} / "
             f"{model_stats['fallback']} of {stats['tiles']}")
+        if on_card:
+            # the checked build on the same queries, at the main path's
+            # tile; the tile counts' stores too, but in the call the row
+            # repeats (the main path's, without them)
+            br = tile_for("bsearch_probe", qq.numel(), kernel_policy, device)
+            bounds_checked(
+                "bsearch_probe_checked", "bsearch_probe",
+                f"A, {name} ({qq.numel()} queries, block_rows {br}"
+                f"{'' if name == 'sorted' else ', tile counts on'})",
+                lambda: bp_mod.out_of_bounds(pref, qq, br,
+                                             stats=name != "sorted"), want,
+                row="bsearch_probe" if name == "sorted" else None)
         del got, want, model
     del probes_bs
+    if on_card:
+        # the checked GET over every position of A, and the checked bsearch
+        # at ragged sizes: no access outside the operands
+        brA = tile_for("tree_probe", nA, kernel_policy, device)
+        bounds_checked("tree_get_checked", "tree_probe",
+                       f"A, all {nA} positions (block_rows {brA})",
+                       lambda: tp_mod.out_of_bounds(packA.arena, posA, layA,
+                                                    block_rows=brA),
+                       tp_mod.tree_probe_plain(packA.arena, posA, layA),
+                       row="tree_probe")
+        bsearch_bounds_ragged(prefA, qA, device, kernel_policy)
+        assert_in_bounds("tree_get_checked", "bsearch_probe_checked")
     packB = planB.shred.packed
     capB, acapB = planB.default_capacity(), planB.arrival_capacity()
     keyB = threefry.key(args.seed)
@@ -6238,8 +6617,21 @@ def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
                 errs[kname] = max(errs.get(kname, 0.0), err)
                 log(f"[check] {kname} (dma={dma}) at {label}, {name} "
                     f"({pos.numel()} probes): vs plain max_abs_err {err}")
+            if on_card:
+                # the per-page form's checked build, each launch against
+                # its own page
+                bounds_checked(
+                    "tree_probe_paged_checked", "tree_probe_paged_pages",
+                    f"{label}, {name} ({pos.numel()} probes)",
+                    lambda: tp_mod.paged_out_of_bounds(pv, pos), want,
+                    row=("tree_probe_paged_pages" if label == "C" and
+                         name == "one draw's positions" else None))
 
     check_paged(pvC, "C")
+    if on_card:
+        paged_bounds_ragged(pvC, posS)
+        assert_in_bounds("tree_probe_paged_checked")
+        bounds_control = bounds_controls(device, pvC, posS[:1000])
     u_dev = threefry.uniforms(keyB, acapB, 0, device)
     u_plain = threefry.uniforms_plain(keyB, acapB, 0, device)
     errs["threefry_uniforms"] = max_abs_err(u_dev, u_plain)
@@ -6366,6 +6758,8 @@ def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
     check_paged(planR.shred.paged, "C, arena_limit=draw_limit")
     for kname, _ in paged_forms:
         assert errs[kname] == 0.0, kname
+    if on_card:
+        assert_in_bounds("tree_probe_paged_checked")
 
     # -- 5d. phase E: batched draws, uniform samplers, facades, repeats -------
     launchesE, rowsE, callE, e2eE, windowsE, phasesE = run_batched(
@@ -6613,6 +7007,8 @@ def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
             f"{b_ms:.4f} by {b_by}"
             + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
             + f"){dms}")
+    # the checked builds of phases A-F beside the rows whose calls they repeat
+    table += checked_build_rows(table)
     for name in ("flash_decode_f32", "flash_prefill_f32", "flash_prefill_32k"):
         if name in dev_ms:
             log(f"[time] {name}: device {dev_ms[name][0]:.4f} ms in "
@@ -6625,7 +7021,9 @@ def run(args, device, kernel_policy=None, defer_dryrun=False) -> dict:
             f"A-C)")
     return {"kernels": table, "end_to_end": e2e, "ops_sizes": sizesD,
             "draw_grids": grids, "device_ms": dev_ms,
-            "bsearch_tiles_A": tiles_bs, "phase_e_launches": launchesE,
+            "bsearch_tiles_A": tiles_bs, "checked_builds": dict(CHECKED),
+            "checked_controls": bounds_control if on_card else {},
+            "phase_e_launches": launchesE,
             "phase_f_launches": launchesF,
             "phase_g_launches": launchesG,
             "phase_h_launches": launchesH,

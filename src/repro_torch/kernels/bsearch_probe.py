@@ -19,6 +19,10 @@ The tile is ``block_rows`` rows of 128 queries (``autotune``'s parameter:
 ``block_rows / 2`` queries a thread); ``None`` is the builtin 8 (``TILE``,
 1,024 queries). ``ops.searchsorted_prefix`` resolves it through
 ``autotune.tile_for``; a value that names no instance raises.
+
+``out_of_bounds`` launches the kernel's checked build
+(``build.VARIANTS`` ``bsearch_probe_checked``) as ``bsearch_probe``
+launches the kernel: a measurement, counted in no ``launches``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from .autotune import check_value, count_tile
 
 __all__ = ["THREADS", "ITEMS", "SPAN", "LEVELS", "steps_for",
            "bsearch_probe_plain", "bsearch_probe_tiled", "bsearch_probe",
-           "bsearch_probe_config", "TILE", "items_for"]
+           "bsearch_probe_config", "TILE", "items_for", "out_of_bounds"]
 
 # The kernels' constants (``tests/test_torch_bsearch.py`` holds them to
 # the sources' ``#define`` lines).
@@ -234,13 +238,14 @@ def bsearch_probe_config(device=None, block_rows: Optional[int] = None
                 block_rows=THREADS * items // 128)
 
 
+_LAUNCH_ARGS = [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP, ctypes.c_longlong,
+                ctypes.c_int, _VP, _VP, ctypes.c_int]
+
+
 def _launch(pref: torch.Tensor, q: torch.Tensor,
             stats: Optional[Dict[str, int]], items: int = ITEMS
             ) -> torch.Tensor:
-    fn = build.entry("bsearch_probe", "bsearch_probe_launch",
-                     [_VP, ctypes.c_int, ctypes.c_int, _VP, _VP,
-                      ctypes.c_longlong, ctypes.c_int, _VP, _VP,
-                      ctypes.c_int])
+    fn = build.entry("bsearch_probe", "bsearch_probe_launch", _LAUNCH_ARGS)
     pref = pref.contiguous()
     qc = q.contiguous()
     n = qc.numel()
@@ -289,3 +294,40 @@ def bsearch_probe(pref: torch.Tensor, q: torch.Tensor,
 
 bsearch_probe.launches = 0
 bsearch_probe.tiles = {}
+
+
+def out_of_bounds(pref: torch.Tensor, q: torch.Tensor,
+                  block_rows: Optional[int] = None, stats: bool = False
+                  ) -> dict:
+    """One launch of the checked build (``bsearch_probe_checked``,
+    ``-DBP_CHECK_BOUNDS``) at ``block_rows`` (``None`` the builtin), with
+    the production build's grid for it (``bsearch_probe_config``), every
+    load and store held against the prefix vector, the queries, the
+    answers and (``stats``) the tile counts: ``build.checked_run``'s count
+    and records, with the answers ``out``. Raises off the card."""
+    _check(pref, q)
+    items = items_for(block_rows)
+    pref, qc = pref.contiguous(), q.contiguous()
+    n = qc.numel()
+    dev = qc.device
+    if dev.type != "cuda":
+        raise ValueError(f"out_of_bounds: the checked build runs on the "
+                         f"card, not on {dev}")
+    out = torch.empty_like(qc)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev) if stats else None
+    with build.on_device(dev):
+        tile, per_sm, sms, _ = _config(dev.index, items)
+    blocks = min(per_sm * sms, -(-n // tile))
+    lib = "bsearch_probe_checked"
+    fn = build.entry(lib, "bsearch_probe_launch", _LAUNCH_ARGS)
+
+    def launch(stream):
+        build.check(fn(pref.data_ptr(), pref.shape[0],
+                       steps_for(pref.shape[0]), qc.data_ptr(),
+                       out.data_ptr(), n, blocks,
+                       counts.data_ptr() if counts is not None else None,
+                       stream, items), "bsearch_probe (checked)")
+
+    found = build.bounds_check(lib, launch, (
+        ("pref", pref), ("q", qc), ("out", out), ("stats", counts)), dev)
+    return dict(found, out=out)

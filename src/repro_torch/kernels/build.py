@@ -6,8 +6,8 @@ repository's ``build/kernels/`` directory (git-ignored). A library's file
 name carries a digest of every source in ``csrc/``, so an edited source
 is never served by a stale build. ``build_all`` starts one ``nvcc`` per
 source, all at once, and waits for them together. ``VARIANTS`` are
-other builds of a source with flags of their own (the checked fused
-draw, bf16 and float32 prefill, GET and decode).
+other builds of a source with flags of their own: the checked build of
+each of the nine sources.
 
 No source links ``libcuda``: ``flash_prefill_tc.cu`` fetches
 ``cuTensorMapEncodeTiled`` at run time through the runtime's entry-point
@@ -31,7 +31,8 @@ import torch
 
 __all__ = ["SOURCES", "VARIANTS", "BUILD_DIR", "build_all", "library",
            "library_path", "entry", "check", "on_device", "current_stream",
-           "ptxas_report", "vector_operand", "checked_run"]
+           "ptxas_report", "vector_operand", "checked_run", "bounds_check",
+           "CHECK_RECORDS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -39,10 +40,13 @@ SOURCES = ("bsearch_probe", "tree_get", "tree_probe_paged", "fused_draw",
            "scan", "flash_decode", "flash_prefill", "flash_prefill_tc",
            "csr_walk")
 # Other builds of a source, each with its own flags and library: name ->
-# (source, extra nvcc flags). The checked builds hold every load of a launch
-# against its operands (fused_draw.out_of_bounds,
+# (source, extra nvcc flags). The checked builds, one a source, hold every
+# access of a launch against its operands (fused_draw.out_of_bounds,
 # flash_prefill.out_of_bounds, tree_probe.out_of_bounds,
-# flash_decode.out_of_bounds), a measurement.
+# flash_decode.out_of_bounds; and, through csrc/bounds_check.cuh,
+# prefix_sum.out_of_bounds and geo_gaps.out_of_bounds,
+# bsearch_probe.out_of_bounds, csr_walk.out_of_bounds and
+# tree_probe.paged_out_of_bounds), a measurement.
 VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",)),
             "flash_prefill_tc_checked": ("flash_prefill_tc",
                                          ("-DFPT_CHECK_BOUNDS",)),
@@ -50,7 +54,15 @@ VARIANTS = {"fused_draw_checked": ("fused_draw", ("-DFD_CHECK_BOUNDS",)),
             "flash_decode_checked": ("flash_decode",
                                      ("-DFDT_CHECK_BOUNDS",)),
             "flash_prefill_checked": ("flash_prefill",
-                                      ("-DFP_CHECK_BOUNDS",))}
+                                      ("-DFP_CHECK_BOUNDS",)),
+            "scan_checked": ("scan", ("-DSC_CHECK_BOUNDS",)),
+            "bsearch_probe_checked": ("bsearch_probe", ("-DBP_CHECK_BOUNDS",)),
+            "csr_walk_checked": ("csr_walk", ("-DCW_CHECK_BOUNDS",)),
+            "tree_probe_paged_checked": ("tree_probe_paged",
+                                         ("-DTPP_CHECK_BOUNDS",))}
+# BC_CHECK_RECORDS in csrc/bounds_check.cuh: the accesses a checked launch
+# of its builds keeps
+CHECK_RECORDS = 64
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -209,3 +221,21 @@ def checked_run(check_set, launch, check_get, operands, device,
         loads.append((int(line), name, int(addr - a), int(b - a),
                       int(nbytes)))
     return {"count": count.value, "loads": loads}
+
+
+def bounds_check(lib: str, launch, operands, device) -> dict:
+    """``checked_run`` of a build that takes ``csrc/bounds_check.cuh``
+    (``VARIANTS[lib]``, whose entries are ``<source>_check_set`` and
+    ``<source>_check_get``) on the card ``device``; raises for any other
+    device: a checked build never runs the plain version instead."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{lib}: the checked build runs on the card, not "
+                         f"on {device}")
+    source = VARIANTS[lib][0]
+    return checked_run(
+        entry(lib, f"{source}_check_set", [ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int]),
+        launch, entry(lib, f"{source}_check_get", [ctypes.c_void_p,
+                                                   ctypes.c_void_p]),
+        operands, device, CHECK_RECORDS)

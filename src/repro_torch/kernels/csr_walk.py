@@ -18,7 +18,9 @@ run, for test sizes. ``csr_walk_cached_tiled`` is the plain model of the
 caching kernel's tiles: the runs of equal heads of each tile, one walk a
 run staging its chain prefix within the tile's budget, a search a probe,
 and the fallback of runs that do not fit. Each wrapper's ``launches``
-counts its kernel launches.
+counts its kernel launches. ``out_of_bounds`` launches the kernels'
+checked build (``build.VARIANTS`` ``csr_walk_checked``) as the wrappers
+launch them: a measurement, counted in no ``launches``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 from . import build
 
 __all__ = ["TILE", "BUDGET", "csr_walk_plain", "csr_walk_cached_plain",
-           "csr_walk_cached_tiled", "csr_walk", "csr_walk_cached"]
+           "csr_walk_cached_tiled", "csr_walk", "csr_walk_cached",
+           "out_of_bounds"]
 
 I32 = torch.int32
 I64 = torch.int64
@@ -207,13 +210,13 @@ def csr_walk_cached_tiled(weight: torch.Tensor, nxt: torch.Tensor,
 
 
 _VP = ctypes.c_void_p
+_LAUNCH_ARGS = [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+                _VP, _VP]
 
 
 def _launch(weight, nxt, hd, idx, cached: bool,
             stats: Optional[Dict[str, int]] = None):
-    fn = build.entry("csr_walk", "csr_walk_launch",
-                     [_VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong,
-                      ctypes.c_int, _VP, _VP])
+    fn = build.entry("csr_walk", "csr_walk_launch", _LAUNCH_ARGS)
     weight, nxt = weight.contiguous(), nxt.contiguous()
     hd, idx = hd.contiguous(), idx.contiguous()
     dev = hd.device
@@ -278,3 +281,39 @@ def csr_walk_cached(weight: torch.Tensor, nxt: torch.Tensor,
 
 
 csr_walk_cached.launches = 0
+
+
+def out_of_bounds(weight: torch.Tensor, nxt: torch.Tensor, hd: torch.Tensor,
+                  idx: torch.Tensor, cached: bool = False,
+                  stats: bool = False) -> dict:
+    """One launch of the checked build (``csr_walk_checked``,
+    ``-DCW_CHECK_BOUNDS``) of ``csr_walk`` (or, ``cached``,
+    ``csr_walk_cached``) on the same operands and grid, every load and
+    store held against the weights, the chain, the heads, the offsets, the
+    two results and (``stats``) the run counts: ``build.checked_run``'s
+    count and records, with ``out`` = (row, rem). Raises off the card."""
+    _check(weight, nxt, hd, idx)
+    dev = hd.device
+    if dev.type != "cuda":
+        raise ValueError(f"out_of_bounds: the checked build runs on the "
+                         f"card, not on {dev}")
+    weight, nxt = weight.contiguous(), nxt.contiguous()
+    hd, idx = hd.contiguous(), idx.contiguous()
+    row = torch.empty_like(hd)
+    rem = torch.empty_like(idx)
+    counts = torch.zeros(len(_STATS), dtype=I64, device=dev) \
+        if stats else None
+    lib = "csr_walk_checked"
+    fn = build.entry(lib, "csr_walk_launch", _LAUNCH_ARGS)
+
+    def launch(stream):
+        build.check(fn(weight.data_ptr(), nxt.data_ptr(), hd.data_ptr(),
+                       idx.data_ptr(), row.data_ptr(), rem.data_ptr(),
+                       hd.numel(), int(cached),
+                       counts.data_ptr() if counts is not None else None,
+                       stream), "csr_walk (checked)")
+
+    found = build.bounds_check(lib, launch, (
+        ("weight", weight), ("nxt", nxt), ("hd", hd), ("idx", idx),
+        ("row", row), ("rem", rem), ("stats", counts)), dev)
+    return dict(found, out=(row, rem))

@@ -27,9 +27,20 @@
 // for queries in any order; sorted queries (every caller on the main path)
 // make the brackets narrow: a tile of 1,024 sorted queries at JOB scale
 // spans a few hundred words of the root prefix.
+//
+// The checked build (-DBP_CHECK_BOUNDS; bsearch_probe.out_of_bounds) holds
+// every load (the pivot table, the queries, tg_search's warp searches,
+// staged slices and descents) and every store of an answer or a count
+// against the launch's operands (bounds_check.cuh).
 #include <cuda_runtime.h>
 
+#ifdef BP_CHECK_BOUNDS
+#define BC_CHECK_BOUNDS
+#endif
+#include "bounds_check.cuh"
 #include "tree_get.cuh"
+
+BC_CHECK_ENTRIES(bsearch_probe)
 
 // Queries a thread of the builtin tile (block_rows 8).
 #define BP_ITEMS 4
@@ -77,12 +88,13 @@ __global__ void __launch_bounds__(TG_THREADS)
       qv[it] = __ldg(q + min(base + it * TG_THREADS + threadIdx.x, n - 1));
     const bool staged =
         tg_search<ITEMS, false>(v, qv, sm, phase, j, aj, unused);
-    if (stats != nullptr && threadIdx.x == 0)
+    if (stats != nullptr && threadIdx.x == 0 &&
+        BC_OK(stats + (staged ? 0 : 1), 4))
       atomicAdd(stats + (staged ? 0 : 1), 1);
 #pragma unroll
     for (int it = 0; it < ITEMS; ++it) {
       const long long i = base + it * TG_THREADS + threadIdx.x;
-      if (i < n) out[i] = j[it];
+      if (i < n) BC_ST(out + i, j[it]);
     }
   }
 }

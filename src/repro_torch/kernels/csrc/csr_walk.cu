@@ -59,7 +59,20 @@
 //    tiles' counts of staged runs, of runs that fell back and of runs of
 //    one probe (csr_walk.py csr_walk_cached_tiled is the plain model of
 //    the tiles, the staging and the fallback).
+//
+// The checked build (-DCW_CHECK_BOUNDS; csr_walk.out_of_bounds) holds every
+// load of a chain link, a head or an offset and every store of a result or
+// a count against the launch's operands (bounds_check.cuh). A next link
+// outside them reads as -1, the chain's end: read as 0 it would send the
+// walk back to row 0, and round a chain of weight-0 rows forever.
 #include <cuda_runtime.h>
+
+#ifdef CW_CHECK_BOUNDS
+#define BC_CHECK_BOUNDS
+#endif
+#include "bounds_check.cuh"
+
+BC_CHECK_ENTRIES(csr_walk)
 
 #define CW_THREADS 256
 // csr_walk_cached: threads a block, probes a tile (CW_ITEMS a thread) and
@@ -82,7 +95,7 @@ __device__ __forceinline__ void cw_step(const long long* __restrict__ weight,
     if (rem < w) break;
     rem -= w;
     used += w;
-    row = __ldg(nxt + row);
+    row = BC_LDG_OR(nxt + row, -1);
   }
 }
 
@@ -96,8 +109,8 @@ __global__ void __launch_bounds__(CW_THREADS)
   int row = __ldg(hd + i);
   long long rem = __ldg(idx + i), used = 0;
   cw_step(weight, nxt, row, rem, used);
-  row_out[i] = row;
-  rem_out[i] = rem;
+  BC_ST(row_out + i, row);
+  BC_ST(rem_out + i, rem);
 }
 
 // The caching walk over tiles of CW_TILE probes (the design above).
@@ -216,7 +229,7 @@ __global__ void __launch_bounds__(CW_WALKERS)
         if (inc > hi) break;
       }
       cum = inc;
-      row = __ldg(nxt + row);
+      row = BC_LDG_OR(nxt + row, -1);
     }
     s_hd[a] = over ? row : -1;
     s_hd[a + 1] = w | (cnt << 11) | ((int)over << 30);
@@ -228,7 +241,8 @@ __global__ void __launch_bounds__(CW_WALKERS)
   if (stats != nullptr && t == 0) {
 #pragma unroll
     for (int c = 0; c < 3; ++c)
-      if (s_count[c]) atomicAdd(stats + c, (unsigned long long)s_count[c]);
+      if (s_count[c] && BC_OK(stats + c, 8))
+        atomicAdd(stats + c, (unsigned long long)s_count[c]);
   }
   // Every lane: its run's first lane, then its result.
 #pragma unroll
@@ -271,8 +285,8 @@ __global__ void __launch_bounds__(CW_WALKERS)
         cw_step(weight, nxt, row, rem, used);
       }
     }
-    row_out[base + e] = row;
-    rem_out[base + e] = rem;
+    BC_ST(row_out + base + e, row);
+    BC_ST(rem_out + base + e, rem);
   }
 }
 

@@ -74,10 +74,24 @@
 //
 // GEO keeps the reference's divide (geo_gaps.py:31-34): floor() turns a
 // last-ulp difference of a reciprocal multiply into an off-by-one position.
+//
+// The checked build (-DSC_CHECK_BOUNDS; prefix_sum.out_of_bounds,
+// geo_gaps.out_of_bounds) holds every load and store of the input, the
+// output, the ticket and the status words against the launch's operands
+// (bounds_check.cuh). There a status word outside them reads as an empty
+// inclusive prefix, so that no wait on it spins, and scan_check_tile sets
+// the look-back's tile to the production build's choice for n, whatever
+// the checked instance's own occupancy.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifdef SC_CHECK_BOUNDS
+#define BC_CHECK_BOUNDS
+#endif
+#include "bounds_check.cuh"
 #include "scan.cuh"
+
+BC_CHECK_ENTRIES(scan)
 
 #define SC_THREADS 256
 #define SC_ITEMS 16
@@ -106,9 +120,9 @@ struct LoadVecU32 {
   const uint32_t* x;
   bool aligned;
   __device__ bool vec_ok() const { return aligned; }
-  __device__ uint32_t operator()(long long i) const { return x[i]; }
+  __device__ uint32_t operator()(long long i) const { return BC_LD(x + i); }
   __device__ void load4(long long i, uint32_t q[4]) const {
-    const uint4 w = *reinterpret_cast<const uint4*>(x + i);
+    const uint4 w = BC_LD(reinterpret_cast<const uint4*>(x + i));
     q[0] = w.x;
     q[1] = w.y;
     q[2] = w.z;
@@ -127,9 +141,11 @@ struct LoadGeo {
     const float g = floorf(__fdiv_rn(logf(fmaxf(ui, 1e-12f)), log1pf(-p)));
     return (uint32_t)((int)fminf(g, 2000000000.0f) + 1);
   }
-  __device__ uint32_t operator()(long long i) const { return step(u[i]); }
+  __device__ uint32_t operator()(long long i) const {
+    return step(BC_LD(u + i));
+  }
   __device__ void load4(long long i, uint32_t q[4]) const {
-    const float4 w = *reinterpret_cast<const float4*>(u + i);
+    const float4 w = BC_LD(reinterpret_cast<const float4*>(u + i));
     q[0] = step(w.x);
     q[1] = step(w.y);
     q[2] = step(w.z);
@@ -158,13 +174,17 @@ __device__ __forceinline__ unsigned long long lb_word(unsigned flag,
 __device__ __forceinline__ void lb_publish(unsigned long long* word,
                                            unsigned flag, unsigned epoch,
                                            uint32_t value) {
+  if (!BC_OK(word, 8)) return;
   const unsigned long long w = lb_word(flag, epoch, value);
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(w)
                : "memory");
 }
 
+// A word outside the operands (the checked build) reads as an empty
+// inclusive prefix of this epoch.
 __device__ __forceinline__ unsigned long long lb_read(
-    const unsigned long long* word) {
+    const unsigned long long* word, unsigned epoch) {
+  if (!BC_OK(word, 8)) return lb_word(LB_PREFIX, epoch, 0);
   unsigned long long w;
   asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
                : "=l"(w)
@@ -193,7 +213,7 @@ __device__ __forceinline__ uint32_t lb_look_back(
     unsigned long long w = lb_word(LB_PREFIX, epoch, 0);
     if (j >= 0) {
       do {
-        w = lb_read(status + j);
+        w = lb_read(status + j, epoch);
       } while (lb_flag(w, epoch) == 0);
     }
     const unsigned prefixes =
@@ -221,7 +241,8 @@ __global__ void __launch_bounds__(LB_THREADS, MINB)
   __shared__ unsigned tile_sh;
   __shared__ uint32_t excl_sh;
   const int tid = threadIdx.x;
-  if (tid == 0) tile_sh = atomicAdd(ticket, 1u) - base;
+  if (tid == 0)
+    tile_sh = (BC_OK(ticket, 4) ? atomicAdd(ticket, 1u) : base) - base;
   __syncthreads();
   const long long tile = tile_sh;
   const long long base_e = tile * TILE;
@@ -263,13 +284,13 @@ __global__ void __launch_bounds__(LB_THREADS, MINB)
       const int e = 4 * (i * LB_THREADS + tid);
       const uint4 w = make_uint4(sm[SC_PAD(e)], sm[SC_PAD(e + 1)],
                                  sm[SC_PAD(e + 2)], sm[SC_PAD(e + 3)]);
-      *reinterpret_cast<uint4*>(out + base_e + e) = w;
+      BC_ST(reinterpret_cast<uint4*>(out + base_e + e), w);
     }
   } else {
 #pragma unroll
     for (int i = 0; i < ITEMS; ++i) {
       const int e = i * LB_THREADS + tid;
-      if (base_e + e < n) out[base_e + e] = (int)sm[SC_PAD(e)];
+      if (base_e + e < n) BC_ST(out + base_e + e, (int)sm[SC_PAD(e)]);
     }
   }
 }
@@ -297,9 +318,25 @@ static long long lb_resident() {
   return cache[dev];
 }
 
+#ifdef SC_CHECK_BOUNDS
+static int lb_tile_set = 0;
+
+// The tile of the checked build's next look-back launches (LB_TILE or
+// LB_SMALL_TILE; 0: its own choice).
+extern "C" int scan_check_tile(int tile) {
+  if (tile != 0 && tile != LB_TILE && tile != LB_SMALL_TILE)
+    return (int)cudaErrorInvalidValue;
+  lb_tile_set = tile;
+  return 0;
+}
+#endif
+
 // The tile of a scan of n elements: LB_SMALL_TILE when LB_TILE gives less
 // than one wave of the resident grid, else LB_TILE.
 static int lb_tile(long long n) {
+#ifdef SC_CHECK_BOUNDS
+  if (lb_tile_set != 0) return lb_tile_set;
+#endif
   return (n + LB_TILE - 1) / LB_TILE < lb_resident() ? LB_SMALL_TILE
                                                        : LB_TILE;
 }
@@ -397,17 +434,17 @@ struct LoadVecF {
   const T* x;
   bool aligned;
   __device__ bool vec_ok() const { return aligned; }
-  __device__ T operator()(long long i) const { return x[i]; }
+  __device__ T operator()(long long i) const { return BC_LD(x + i); }
   __device__ void load4(long long i, T q[4]) const {
     if constexpr (sizeof(T) == 8) {
-      const double2 a = *reinterpret_cast<const double2*>(x + i);
-      const double2 b = *reinterpret_cast<const double2*>(x + i + 2);
+      const double2 a = BC_LD(reinterpret_cast<const double2*>(x + i));
+      const double2 b = BC_LD(reinterpret_cast<const double2*>(x + i + 2));
       q[0] = a.x;
       q[1] = a.y;
       q[2] = b.x;
       q[3] = b.y;
     } else {
-      const float4 a = *reinterpret_cast<const float4*>(x + i);
+      const float4 a = BC_LD(reinterpret_cast<const float4*>(x + i));
       q[0] = a.x;
       q[1] = a.y;
       q[2] = a.z;
@@ -468,6 +505,7 @@ __device__ __forceinline__ T sc_tile_sm(const Load& load, long long base,
 __device__ __forceinline__ void sc_store(unsigned long long* word,
                                          unsigned flag, unsigned epoch,
                                          uint32_t value) {
+  if (!BC_OK(word, 8)) return;
   const unsigned long long w = lb_word(flag, epoch, value);
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(w)
                : "memory");
@@ -493,8 +531,10 @@ __device__ __forceinline__ void sc_publish(unsigned long long* status,
 #define SC_BACKOFF_NS 100
 
 // A relaxed read: a word carries its own value, so no read needs ordering.
+// Outside the operands (the checked build): lb_read's empty prefix.
 __device__ __forceinline__ unsigned long long sc_read(
-    const unsigned long long* word) {
+    const unsigned long long* word, unsigned epoch) {
+  if (!BC_OK(word, 8)) return lb_word(LB_PREFIX, epoch, 0);
   unsigned long long w;
   asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(word));
   return w;
@@ -518,12 +558,12 @@ __device__ __forceinline__ T sc_wait(const unsigned long long* words,
   constexpr int W = sizeof(T) / 4;
   unsigned long long w[W];
 #pragma unroll
-  for (int k = 0; k < W; ++k) w[k] = sc_read(words + j * W + k);
+  for (int k = 0; k < W; ++k) w[k] = sc_read(words + j * W + k, epoch);
 #pragma unroll
   for (int k = 0; k < W; ++k)
     while (lb_flag(w[k], epoch) == 0) {
       __nanosleep(SC_BACKOFF_NS);
-      w[k] = sc_read(words + j * W + k);
+      w[k] = sc_read(words + j * W + k, epoch);
     }
   return sc_value<T>(w);
 }
@@ -607,7 +647,8 @@ __global__ void __launch_bounds__(SC_THREADS, SC_MIN_BLOCKS)
   __shared__ unsigned tile_sh;
   __shared__ T out_sh;
   const int tid = threadIdx.x;
-  if (tid == 0) tile_sh = atomicAdd(ticket, 1u) - base;
+  if (tid == 0)
+    tile_sh = (BC_OK(ticket, 4) ? atomicAdd(ticket, 1u) : base) - base;
   __syncthreads();
   const long long tile = tile_sh;
   const long long base_e = tile * SC_TILE;
@@ -630,21 +671,21 @@ __global__ void __launch_bounds__(SC_THREADS, SC_MIN_BLOCKS)
     for (int k = 0; k < SC_ITEMS / 4; ++k) {
       const int e = 4 * (k * SC_THREADS + tid);
       if constexpr (sizeof(T) == 8) {
-        *reinterpret_cast<double2*>(out + base_e + e) =
-            make_double2(sm[SC_PAD(e)], sm[SC_PAD(e + 1)]);
-        *reinterpret_cast<double2*>(out + base_e + e + 2) =
-            make_double2(sm[SC_PAD(e + 2)], sm[SC_PAD(e + 3)]);
+        BC_ST(reinterpret_cast<double2*>(out + base_e + e),
+              make_double2(sm[SC_PAD(e)], sm[SC_PAD(e + 1)]));
+        BC_ST(reinterpret_cast<double2*>(out + base_e + e + 2),
+              make_double2(sm[SC_PAD(e + 2)], sm[SC_PAD(e + 3)]));
       } else {
-        *reinterpret_cast<float4*>(out + base_e + e) =
-            make_float4(sm[SC_PAD(e)], sm[SC_PAD(e + 1)], sm[SC_PAD(e + 2)],
-                        sm[SC_PAD(e + 3)]);
+        BC_ST(reinterpret_cast<float4*>(out + base_e + e),
+              make_float4(sm[SC_PAD(e)], sm[SC_PAD(e + 1)],
+                          sm[SC_PAD(e + 2)], sm[SC_PAD(e + 3)]));
       }
     }
   } else {
 #pragma unroll
     for (int k = 0; k < SC_ITEMS; ++k) {
       const int e = k * SC_THREADS + tid;
-      if (base_e + e < n) out[base_e + e] = sm[SC_PAD(e)];
+      if (base_e + e < n) BC_ST(out + base_e + e, sm[SC_PAD(e)]);
     }
   }
 }

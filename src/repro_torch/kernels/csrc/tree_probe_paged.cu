@@ -21,9 +21,20 @@
 // Bound on the card: by the latency of the dependent loads of each lane's
 // descents (bytes are a small multiple of one read of the pages), plus a
 // write and a read of 3 int32 per lane per edge and one launch per page.
+//
+// The checked build (-DTPP_CHECK_BOUNDS; tree_probe.paged_out_of_bounds)
+// holds every load of a page (rt_descend's included), of a probe and of a
+// parent's (row, local), and every store, against the launch's operands:
+// its own page alone, not the buffer that holds it (bounds_check.cuh).
 #include <cuda_runtime.h>
 
+#ifdef TPP_CHECK_BOUNDS
+#define BC_CHECK_BOUNDS
+#endif
+#include "bounds_check.cuh"
 #include "tree_walk.cuh"
+
+BC_CHECK_ENTRIES(tree_probe_paged)
 
 struct TppEdge {
   int f[RT_EDGE_FIELDS];
@@ -68,9 +79,9 @@ __global__ void tpp_root_kernel(const int* __restrict__ page, int root_len,
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += stride) {
     int row, local;
-    tpp_root_step(page, root_len, n_root, steps, q[i], row, local);
-    out[i] = row;
-    out[n + i] = local;
+    tpp_root_step(page, root_len, n_root, steps, BC_LD(q + i), row, local);
+    BC_ST(out + i, row);
+    BC_ST(out + n + i, local);
   }
 }
 
@@ -83,10 +94,11 @@ __global__ void tpp_edge_kernel(const int* __restrict__ page,
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += stride) {
     int crow, clocal, pnew;
-    tpp_edge_step(page, E.f, prow[i], ploc[i], crow, clocal, pnew);
-    out[i] = crow;
-    out[n + i] = clocal;
-    out[2 * n + i] = pnew;
+    tpp_edge_step(page, E.f, BC_LD(prow + i), BC_LD(ploc + i), crow, clocal,
+                  pnew);
+    BC_ST(out + i, crow);
+    BC_ST(out + n + i, clocal);
+    BC_ST(out + 2 * n + i, pnew);
   }
 }
 

@@ -615,13 +615,15 @@ def out_of_bounds(arena, key, params, *, layout=None, method: str,
     """The loads of one launch that fall outside its operands, by the
     checked build of the kernel (``build.VARIANTS``, ``FD_CHECK_BOUNDS``):
     ``{"count": ..., "loads": [(source line, operand, byte offset, the
-    operand's bytes, load bytes), ...]}``, the first ``CHECK_RECORDS``
-    loads recorded. Arguments as ``phase_ms``. A measurement: it is not
-    counted in ``launches``."""
+    operand's bytes, load bytes), ...], "out": (rows, positions,
+    scalars)}``, the first ``CHECK_RECORDS`` loads recorded (rows None for
+    the draw without the walk). Arguments as ``phase_ms``. A measurement:
+    it is not counted in ``launches``."""
     check: dict = {}
-    _launch("fused_sample" if arena is None else "fused_draw", arena, key,
-            params, layout, method, cap, acap, n, keys=keys, check=check)
-    return check
+    out = _launch("fused_sample" if arena is None else "fused_draw", arena,
+                  key, params, layout, method, cap, acap, n, keys=keys,
+                  check=check)
+    return dict(check, out=out)
 
 
 def fused_draw(arena, key, params, *, layout, method: str, cap: int,

@@ -12,6 +12,10 @@ The step keeps the reference's divide (not a reciprocal multiply):
 ``floor`` turns a last-ulp difference into an off-by-one position. ``p``
 is clipped in float32 as the reference clips it, and ``log1p(-p)`` is
 taken on the device in both versions. Positions wrap as int32 sums wrap.
+
+``out_of_bounds`` launches the checked build of ``geo_gaps_launch``
+(``prefix_sum.checked_launch``): a measurement, counted in no
+``launches``.
 """
 from __future__ import annotations
 
@@ -20,9 +24,10 @@ import functools
 import numpy as np
 import torch
 
-from .prefix_sum import scan_launch, wrap_i32
+from .prefix_sum import checked_launch, scan_launch, wrap_i32
 
-__all__ = ["clip_p", "geo_steps_plain", "geo_gaps_plain", "geo_gaps_tiles"]
+__all__ = ["clip_p", "geo_steps_plain", "geo_gaps_plain", "geo_gaps_tiles",
+           "out_of_bounds"]
 
 _STEP_MAX = 2_000_000_000.0  # the gap's clamp before the int32 cast
 
@@ -73,3 +78,15 @@ def geo_gaps_tiles(u: torch.Tensor, p) -> torch.Tensor:
 
 
 geo_gaps_tiles.launches = 0
+
+
+def out_of_bounds(u: torch.Tensor, p, out=None) -> dict:
+    """The checked build of ``geo_gaps_tiles``'s launch over ``u`` (as
+    given) into ``out`` (``None``: a new int32 tensor):
+    ``prefix_sum.checked_launch``'s result."""
+    if u.dtype != torch.float32:
+        raise TypeError(f"out_of_bounds takes float32 uniforms, got {u.dtype}")
+    uc = u.contiguous()
+    if out is None:
+        out = torch.empty_like(uc, dtype=torch.int32)
+    return checked_launch("geo_gaps", uc, out, clip_p(p))

@@ -26,6 +26,12 @@ agree bit for bit on the card; the fused draw's arrival sum
 float64 instance sums the engine's mass prefixes (``core/sampling.py``): a
 library scan there (``torch.cumsum`` on the card) sums in an order that
 changes from run to run, so one key could draw two samples.
+
+``out_of_bounds`` launches the scan's checked build (``build.VARIANTS``
+``scan_checked``) as ``prefix_sum_tiles`` launches the scan, every access
+held against the input, the output and the scratch words the launch may
+use (``checked_launch``, which ``geo_gaps.out_of_bounds`` shares): a
+measurement, counted in no ``launches``.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from . import build
 
 __all__ = ["THREADS", "ITEMS", "TILE", "LOOK_BACK_TILE",
            "LOOK_BACK_SMALL_TILE", "prefix_sum_plain", "prefix_sum_tiles",
-           "scan_order", "wrap_i32", "scan_launch", "look_back_tile"]
+           "scan_order", "wrap_i32", "scan_launch", "look_back_tile",
+           "checked_launch", "out_of_bounds"]
 
 THREADS = 256           # SC_THREADS in csrc/scan.cu: the floats' order
 ITEMS = 16              # SC_ITEMS
@@ -186,6 +193,63 @@ def look_back_tile(n: int, device=None) -> int:
     with build.on_device(device):
         build.check(fn(n, ctypes.byref(tile)), "scan_look_back_tile")
     return tile.value
+
+
+def checked_launch(entry: str, x: torch.Tensor, out: torch.Tensor,
+                   *scalars) -> dict:
+    """One launch of ``entry`` from the checked build (``scan_checked``) as
+    ``scan_launch`` makes it: on the current stream's scratch, grown as
+    that launch would grow it, and, for the look-back, at the tile the
+    production build takes for ``x``'s size (``look_back_tile``). Every
+    load and store is held against ``x``, ``out``, the ticket's word and
+    the status words ``_words_needed`` reserves (not the scratch's whole
+    capacity, a power of two). Returns ``build.checked_run``'s count and
+    records, with ``out``, whether this launch grew the scratch
+    (``grown``), the ``words`` reserved and the look-back's ``tile``
+    (None for the floats). Raises off the card."""
+    lib = "scan_checked"
+    if x.device.type != "cuda" or out.device != x.device:
+        raise ValueError(f"{entry}: the checked build runs on the card, "
+                         f"not on {x.device}")
+    fn = build.entry(lib, f"{entry}_launch", _ARGTYPES[entry])
+    n = x.numel()
+    dev = x.device
+    need = _words_needed(entry, n)
+    tile = None
+    with build.on_device(dev):
+        stream = build.current_stream(dev)
+        before = _SCRATCH.get((dev.index, stream))
+        s = _look_back_scratch(dev, stream, need)
+        if entry not in _FLOAT_WORDS:
+            tile = look_back_tile(n, dev)
+            build.check(build.entry(lib, "scan_check_tile",
+                                    [ctypes.c_int])(tile), "scan_check_tile")
+
+    def launch(handle):
+        err = fn(x.data_ptr(), *scalars, out.data_ptr(), n,
+                 s.words.data_ptr(), s.capacity, s.state, handle)
+        if err:
+            del _SCRATCH[(dev.index, stream)]
+        build.check(err, f"{entry} (checked)")
+
+    found = build.bounds_check(lib, launch, (
+        ("x", x), ("out", out), ("ticket", s.words[:1]),
+        ("status", s.words[1:need])), dev)
+    return dict(found, out=out, grown=s is not before, words=need, tile=tile)
+
+
+def out_of_bounds(x: torch.Tensor, out=None) -> dict:
+    """``checked_launch`` of the entry ``prefix_sum_tiles`` takes for
+    ``x``'s type (``x`` as given: a view that starts mid-allocation keeps
+    its offset, as ``prefix_sum_tiles`` keeps it), into ``out`` (``None``:
+    a new tensor, as ``prefix_sum_tiles`` makes)."""
+    if x.dtype != torch.int32 and x.dtype not in _FLOAT_ENTRIES:
+        raise TypeError("out_of_bounds takes int32, float32 or float64, "
+                        f"got {x.dtype}")
+    xc = x.contiguous()
+    if out is None:
+        out = torch.empty_like(xc)
+    return checked_launch(_FLOAT_ENTRIES.get(x.dtype, "scan_i32"), xc, out)
 
 
 def prefix_sum_tiles(x: torch.Tensor) -> torch.Tensor:

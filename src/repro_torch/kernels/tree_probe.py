@@ -32,6 +32,10 @@ pages (``tree_probe_paged_dma``); ``dma=False`` the per-page form of
 (``tree_probe_paged_pages``). ``tree_probe_paged.launches`` counts every
 launch of the paged GET, whatever its form. Its plain versions run the
 same steps as torch ops for CPU tensors.
+
+``out_of_bounds`` and ``paged_out_of_bounds`` launch the checked builds of
+``tree_get.cu`` and of ``tree_probe_paged.cu`` (``build.VARIANTS``): a
+measurement, counted in no ``launches``.
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ __all__ = ["MAX_SLOTS", "THREADS", "SPAN", "LEVELS", "layout_table",
            "tree_probe_plain", "tree_probe", "tree_get", "tree_get_config",
            "tree_probe_paged_plain", "tree_probe_paged",
            "tree_probe_paged_dma", "tree_probe_paged_pages",
-           "out_of_bounds", "CHECK_RECORDS"]
+           "out_of_bounds", "paged_out_of_bounds", "CHECK_RECORDS"]
 
 # The kernels' constants (``tests/test_torch_tree_get.py`` holds them to
 # the sources' ``#define`` lines); THREADS, SPAN and LEVELS, the constants
@@ -314,8 +318,9 @@ def out_of_bounds(operand: torch.Tensor, q: torch.Tensor, layout,
     launch it at ``block_rows``, every load and row store held against
     the operand, the probes and the output: ``{"count": the accesses
     outside them, "loads": [(source line, operand, byte offset, the
-    operand's bytes, access bytes), ...]}``, the first ``CHECK_RECORDS``.
-    A measurement: not counted in any ``launches``."""
+    operand's bytes, access bytes), ...], "out": the rows}``, the first
+    ``CHECK_RECORDS`` recorded. A measurement: not counted in any
+    ``launches``."""
     items = items_for(layout.num_slots, block_rows)
     fn, ctable, qc, out = _get_args(operand, q, layout, bases, True)
     n = qc.numel()
@@ -331,11 +336,12 @@ def out_of_bounds(operand: torch.Tensor, q: torch.Tensor, layout,
                        out.data_ptr(), n, blocks, stream, items),
                     "tree_get (checked)")
 
-    return build.checked_run(
+    found = build.checked_run(
         build.entry(lib, "tree_get_check_set", [_VP, _VP, ctypes.c_int]),
         launch, build.entry(lib, "tree_get_check_get", [_VP, _VP]),
         (("operand", operand), ("q", qc), ("out", out)), q.device,
         CHECK_RECORDS)
+    return dict(found, out=out)
 
 
 def tree_probe(arena: torch.Tensor, q: torch.Tensor, layout,
@@ -474,6 +480,11 @@ tree_probe_paged_dma.launches = 0
 tree_probe_paged_dma.tiles = {}
 
 
+# csrc/tree_probe_paged.cu's two entries
+_ROOT_ARGS = [_VP] + [ctypes.c_int] * 3 + [_VP, _VP, _LL, _VP]
+_EDGE_ARGS = [_VP] * 5 + [_LL, _VP]
+
+
 @functools.lru_cache(maxsize=64)
 def _edge_fields(layout):
     """Each edge's ``layout_table`` fields as a ctypes array, per layout."""
@@ -490,10 +501,8 @@ def tree_probe_paged_pages(paged, q: torch.Tensor) -> torch.Tensor:
     _check_paged(paged, q)
     if q.device.type == "cpu":
         return tree_probe_paged_plain(paged, q)
-    root = build.entry("tree_probe_paged", "tpp_root_launch",
-                  [_VP] + [ctypes.c_int] * 3 + [_VP, _VP, _LL, _VP])
-    edge = build.entry("tree_probe_paged", "tpp_edge_launch",
-                  [_VP] * 5 + [_LL, _VP])
+    root = build.entry("tree_probe_paged", "tpp_root_launch", _ROOT_ARGS)
+    edge = build.entry("tree_probe_paged", "tpp_edge_launch", _EDGE_ARGS)
     layout = paged.layout
     qc = q.contiguous()
     n = qc.numel()
@@ -523,3 +532,49 @@ def tree_probe_paged_pages(paged, q: torch.Tensor) -> torch.Tensor:
 
 
 tree_probe_paged_pages.launches = 0
+
+
+def paged_out_of_bounds(paged, q: torch.Tensor) -> dict:
+    """The per-page walk (``tree_probe_paged_pages``) through its checked
+    build (``tree_probe_paged_checked``, ``-DTPP_CHECK_BOUNDS``): the same
+    launches, one a page, each one's loads and stores held against its
+    own page (not the buffer that holds every page), its probes or its
+    parent's rows and locals, and its output. Returns the count summed over
+    the launches, their first ``build.CHECK_RECORDS`` records (each
+    operand named by its page or its launch), the ``launches`` and the
+    rows ``out``. Raises off the card."""
+    _check_paged(paged, q)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_out_of_bounds: the checked build runs on "
+                         f"the card, not on {dev}")
+    lib = "tree_probe_paged_checked"
+    root = build.entry(lib, "tpp_root_launch", _ROOT_ARGS)
+    edge = build.entry(lib, "tpp_edge_launch", _EDGE_ARGS)
+    layout = paged.layout
+    qc = q.contiguous()
+    n = qc.numel()
+    pages = paged.pages
+    fields = _edge_fields(layout)
+    jl = torch.empty((2,) + tuple(q.shape), dtype=torch.int32, device=dev)
+    found = [build.bounds_check(lib, lambda stream: build.check(root(
+        pages[0].data_ptr(), layout.root_len, layout.n_root,
+        steps_for(layout.root_len), qc.data_ptr(), jl.data_ptr(), n,
+        stream), "tree_probe_paged (checked)"),
+        (("page 0", pages[0]), ("q", qc), ("root out", jl)), dev)]
+    rows, locs = {0: jl[0]}, {0: jl[1]}
+    for k, e in enumerate(layout.edges):
+        out = torch.empty((3,) + tuple(q.shape), dtype=torch.int32,
+                          device=dev)
+        prow, ploc = rows[e.parent], locs[e.parent]
+        found.append(build.bounds_check(lib, lambda stream: build.check(edge(
+            pages[k + 1].data_ptr(), fields[k], prow.data_ptr(),
+            ploc.data_ptr(), out.data_ptr(), n, stream),
+            "tree_probe_paged (checked)"),
+            ((f"page {k + 1}", pages[k + 1]), (f"edge {k} prow", prow),
+             (f"edge {k} ploc", ploc), (f"edge {k} out", out)), dev))
+        rows[e.slot], locs[e.slot], locs[e.parent] = out[0], out[1], out[2]
+    loads = [r for f in found for r in f["loads"]][:build.CHECK_RECORDS]
+    return {"count": sum(f["count"] for f in found), "loads": loads,
+            "launches": len(found),
+            "out": torch.stack([rows[s] for s in range(layout.num_slots)])}

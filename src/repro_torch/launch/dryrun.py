@@ -5,7 +5,8 @@ holds and what the step computes. Records land in
 ``experiments/dryrun/*.json``.
 
     python -m repro_torch.launch.dryrun --arch smollm_135m --shape train_4k
-    python -m repro_torch.launch.dryrun --all [--multi-pod | --single-pod]
+    python -m repro_torch.launch.dryrun --all [--multi-pod | --single-pod |
+                                             --both]
     python -m repro_torch.launch.dryrun --paper [--device cpu]
 
 (with ``PYTHONPATH=src``). A cell's record:
@@ -682,6 +683,9 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true", help="2x16x16 only")
     ap.add_argument("--single-pod", action="store_true", help="16x16 only")
+    ap.add_argument("--both", action="store_true",
+                    help="both meshes (the default), as the reference's "
+                         "flag")
     ap.add_argument("--paper", action="store_true",
                     help="run the paper's sharded Poisson sampler")
     ap.add_argument("--device", default=None,

@@ -199,3 +199,22 @@ def test_paper_cell_runs_the_sharded_sampler(tmp_path):
     assert rec["join_size"] > 0 and rec["sample_count"] >= 0
     assert rec["peak_device_bytes"] is None
     assert rec["collective_total_bytes"] > 0
+
+
+@pytest.mark.parametrize("mesh_flags", [[], ["--single-pod"], ["--multi-pod"]])
+def test_both_is_the_default_meshes(monkeypatch, capsys, mesh_flags):
+    """``--both`` (the reference's flag) is accepted and runs the cells the
+    call without it runs: both meshes by default, and a mesh flag given
+    beside it still picks its one mesh, as in the reference."""
+    cells = []
+    monkeypatch.setattr(dryrun, "count_cells",
+                        lambda cs, meshes: ({c: None for c in cs}, {}))
+    monkeypatch.setattr(dryrun, "run_cell", lambda a, s, mp, **kw:
+                        cells.append((a, s, mp)))
+    args = ["--arch", "smollm_135m", "--shape", "train_4k"] + mesh_flags
+    assert dryrun.main(args) == 0
+    without = list(cells)
+    cells.clear()
+    assert dryrun.main(["--both"] + args) == 0
+    assert cells == without and len(without) == (1 if mesh_flags else 2)
+    assert "all cells passed" in capsys.readouterr().out

@@ -1,4 +1,4 @@
-"""The port's two reference examples, on the CPU.
+"""The port's four reference examples, on the CPU.
 
   * EpiQL (``examples/epiql_contact_sim.py``, the paper's Example 1.1) at
     ``--pop 300 --days 3``: the contact join's size and expected daily
@@ -15,12 +15,20 @@
     (float64) holds E[k];
   * the quickstart: the join's size and its full join equal a numpy
     expansion of the tiny movie database, and every sampled row is a join
-    tuple.
+    tuple;
+  * serve_lm: ``--mode lm`` at the reduced config prints what
+    ``launch.serve.main`` prints for the same arguments (the served tokens
+    and the kernels' launches; the times apart), and no option defaults it
+    to the join service. Its tokens are held to the reference's by
+    ``tests/test_torch_serve_lm.py``, so this case runs no JAX;
+  * train_lm_joinsampled has tests of its own
+    (``tests/test_torch_train.py``).
 """
 import importlib.util
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 import jax
 
@@ -28,7 +36,8 @@ from repro.engine import QueryEngine as RQueryEngine
 from repro_torch.config import KernelPolicy
 from repro_torch.core import estimate
 from repro_torch.engine import QueryEngine
-from repro_torch.examples import epiql_contact_sim, quickstart
+from repro_torch.examples import epiql_contact_sim, quickstart, serve_lm
+from repro_torch.launch import serve
 from repro_torch.kernels import threefry
 
 REFERENCE = Path(__file__).resolve().parents[1] / "examples"
@@ -97,3 +106,28 @@ def test_quickstart_join_and_samples(capsys):
         assert all((int(t), int(a), int(c), float(pp)) in join
                    for t, a, c, pp in rows)
     assert "full join tuples: 11" in capsys.readouterr().out
+
+
+def _served(text: str) -> list:
+    """The lines of an LM serving run with its wall-clock figures cut: the
+    head line up to its token count, the requests' tokens, the kernels'
+    launches."""
+    lines = []
+    for line in text.splitlines():
+        if line.startswith("[serve] ") and " tokens in " in line:
+            line = line.split(" in ")[0]
+        lines.append(line)
+    return lines
+
+
+@pytest.mark.parametrize("argv", [
+    ["--mode", "lm", "--batch", "2", "--max-new", "3"],
+    ["--batch", "1", "--max-new", "2", "--arch", "gemma3_1b"]])
+def test_serve_lm_prints_what_serve_prints(capsys, argv):
+    argv = argv + ["--device", "cpu"]
+    assert serve_lm.main(argv) == 0
+    got = capsys.readouterr().out
+    assert serve.main(["--mode", "lm"] + argv) == 0
+    want = capsys.readouterr().out
+    assert _served(got) == _served(want)
+    assert "(reduced) on cpu" in got and "[serve] kernels " in got
