@@ -1,0 +1,7 @@
+"""Updates: the engine's ``apply_delta`` (synchronised in the traced run),
+the mean over the window, in ms."""
+
+
+def read(t):
+    xs = [b - a for n, a, b, _ in t.spans if n == "apply_delta"]
+    return sum(xs) / len(xs) * 1e3 if xs else None
